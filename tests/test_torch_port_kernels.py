@@ -1,0 +1,91 @@
+"""Port parity of the two mask kernels' plain versions against the Pallas
+kernels (interpret mode) and the JAX ops they stand for. The CUDA launches are
+held against these plain versions in tests/test_torch_port_cuda.py.
+
+Tolerances: the contractions sum ~HW (pool) or C (assemble) fp32 terms in
+another order than XLA: 1e-5 relative to the output's scale. The binarize
+is exact, so the tie case (a logit of exactly 0 is not pooled) is checked
+with exact zeros.
+"""
+
+import numpy as np
+import pytest
+from torch_port_common import assert_rel_close, n, t
+
+from video_knet_tpu.models.kernel_update_head import assemble_masks as jax_assemble_masks
+from video_knet_tpu.ops.mask_pool import mask_pool as jax_mask_pool
+from video_knet_tpu.ops.pallas.mask_ops import fused_assemble_sigmoid, fused_mask_pool
+from video_knet_tpu_torch.models.kernel_update_head import assemble_masks
+from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+from video_knet_tpu_torch.ops.mask_pool import mask_pool
+
+# (B, N, H, W, C): small serving-like, ragged N / HW / C (multiples of no tile)
+SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36)]
+
+
+def _logits(rng, shape):
+    x = rng.randn(*shape).astype(np.float32)
+    return np.where(x >= 0, np.maximum(x, 1e-6), np.minimum(x, -1e-6)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,nn,h,w,c", SHAPES)
+def test_mask_pool_plain_matches_pallas_and_jax(b, nn, h, w, c):
+    rng = np.random.RandomState(nn)
+    logits = _logits(rng, (b, nn, h, w))
+    feats = rng.randn(b, h, w, c).astype(np.float32)
+    got = mo.mask_pool_plain(t(logits), t(feats))
+    assert_rel_close(got, fused_mask_pool(logits, feats, hard_thr=0.5, interpret=True),
+                     1e-5, "vs Pallas")
+    assert_rel_close(got, jax_mask_pool(logits, feats, hard_thr=0.5, binary=True), 1e-5,
+                     "vs jnp mask_pool")
+    # the port's op and the wrapper on CPU tensors take the plain version
+    assert_rel_close(mask_pool(t(logits), t(feats), hard_thr=0.5), got, 0.0, "mask_pool")
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.7])
+def test_mask_pool_thresholds_and_soft_mode(thr):
+    rng = np.random.RandomState(3)
+    logits = _logits(rng, (1, 9, 6, 8))
+    feats = rng.randn(1, 6, 8, 32).astype(np.float32)
+    assert_rel_close(mask_pool(t(logits), t(feats), hard_thr=thr),
+                     jax_mask_pool(logits, feats, hard_thr=thr, binary=True), 1e-5, "binary")
+    assert_rel_close(mask_pool(t(logits), t(feats), hard_thr=thr, binary=False),
+                     jax_mask_pool(logits, feats, hard_thr=thr, binary=False), 1e-5, "soft")
+
+
+def test_mask_pool_zero_logit_is_not_pooled():
+    rng = np.random.RandomState(4)
+    logits = _logits(rng, (1, 6, 5, 7))
+    logits[:, :2] = 0.0  # sigmoid(0) = 0.5 is not > 0.5
+    logits[:, 2, 1, 3] = 0.0
+    feats = rng.randn(1, 5, 7, 16).astype(np.float32)
+    got = n(mo.mask_pool_plain(t(logits), t(feats)))
+    assert (got[:, :2] == 0).all()
+    np.testing.assert_allclose(
+        got, np.asarray(fused_mask_pool(logits, feats, hard_thr=0.5, interpret=True)),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,nn,h,w,c", SHAPES)
+def test_assemble_plain_matches_pallas_and_jax(b, nn, h, w, c):
+    rng = np.random.RandomState(nn + 1)
+    kern = (rng.randn(b, nn, c) / np.sqrt(c)).astype(np.float32)
+    feats = rng.randn(b, h, w, c).astype(np.float32)
+    probs = mo.assemble_plain(t(kern), t(feats), sigmoid=True)
+    assert_rel_close(probs, fused_assemble_sigmoid(kern, feats, interpret=True), 1e-5,
+                     "sigmoid on vs Pallas")
+    logits = mo.assemble_plain(t(kern), t(feats))
+    want = jax_assemble_masks(kern[:, :, None], feats, 1)
+    assert_rel_close(logits, want, 1e-5, "sigmoid off vs assemble_masks")
+    assert_rel_close(assemble_masks(t(kern[:, :, None]), t(feats), 1), want, 1e-5,
+                     "port assemble_masks")
+
+
+def test_cpu_wrappers_launch_nothing():
+    mo.reset_launch_counts()
+    rng = np.random.RandomState(5)
+    logits = t(_logits(rng, (1, 4, 3, 5)))
+    feats = t(rng.randn(1, 3, 5, 8).astype(np.float32))
+    mo.fused_mask_pool(logits, feats)
+    mo.fused_assemble(t(rng.randn(1, 4, 8).astype(np.float32)), feats)
+    assert mo.LAUNCHES == {"mask_pool": 0, "assemble": 0}
