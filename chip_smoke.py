@@ -7,8 +7,10 @@ Phases, each raising on failure (the process then exits non-zero):
   1. device   the card's name and power limit, torch / CUDA versions
   2. build    nvcc builds the CUDA kernels from ops/kernels/csrc
   3. kernels  each kernel against its plain PyTorch version at the serving
-              shapes and at ragged shapes; CUDA-event timings of the kernel,
-              the plain version and one PyTorch library call
+              shapes and at ragged shapes; device time (a CUDA graph of 20
+              calls, timed with CUDA events) of the kernel, the plain version
+              and one PyTorch library call, and the kernel's host-inclusive
+              call time
   4. serve    Video K-Net R-50 (default config, seeded random weights)
               serves 10 frames of 384x1248 through VPSInferencePipeline on
               the card; each kernel must launch 4 times a frame
@@ -46,22 +48,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, warmup: int = 10, iters: int = 60) -> float:
-    """Median over `iters` launches of CUDA-event time, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_build() -> float:
     from video_knet_tpu_torch.ops.kernels import build
 
@@ -83,6 +69,7 @@ def _logits(gen, shape, device):
 
 def phase_kernels(device) -> list[dict]:
     from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+    from video_knet_tpu_torch.tools.kernel_timing import call_ms, device_ms
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     h, w = SERVE_HW[0] // 8, SERVE_HW[1] // 8
@@ -139,21 +126,22 @@ def phase_kernels(device) -> list[dict]:
          2 * n * h * w * c, err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
     ):
         t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-        ms = time_ms(fn)
+        ms = device_ms(fn)
         rec = dict(
             name=name, route="cuda",
             source="video_knet_tpu_torch/ops/kernels/csrc/mask_ops.cu",
             replaces=src_line, launches=0, max_abs_err=err,
-            ms=ms, kernel_ms=ms, plain_ms=time_ms(plain),
+            ms=ms, call_ms=call_ms(fn), plain_ms=device_ms(plain),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=time_ms(lib),
+            library_ms=device_ms(lib),
         )
         if name == "assemble":
-            rec["ms_sigmoid"] = time_ms(lambda: mo.fused_assemble(kern, feats, sigmoid=True))
-        log(f"[kernels] {name}: {ms * 1e3:.1f} us, plain {rec['plain_ms'] * 1e3:.1f} us, "
-            f"library {rec['library_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us "
-            f"({rec['bound_by']}; {io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            rec["ms_sigmoid"] = device_ms(lambda: mo.fused_assemble(kern, feats, sigmoid=True))
+        log(f"[kernels] {name}: device {ms * 1e3:.2f} us (call {rec['call_ms'] * 1e3:.1f} us), "
+            f"plain {rec['plain_ms'] * 1e3:.2f} us, library {rec['library_ms'] * 1e3:.2f} us, "
+            f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}; {io_bytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
         recs.append(rec)
     return recs
 

@@ -17,8 +17,12 @@ from video_knet_tpu_torch.ops.kernels import mask_ops as mo
 
 pytestmark = pytest.mark.cuda
 
-# (B, N, H, W, C): ragged N / HW / C, and the serving shape
-SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256)]
+# (B, N, H, W, C): ragged N / HW / C; the serving stage shape, at B=1 and 2;
+# the init-head shape (N=100); HW that is a multiple of 4 but not of K1's
+# 32-wide ring slab or HW split (48x157), and an odd HW (37x61, 4-byte copies)
+SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256),
+          (2, 117, 48, 156, 256), (1, 100, 48, 156, 256), (1, 117, 48, 157, 200),
+          (1, 117, 37, 61, 256)]
 
 
 @pytest.fixture
@@ -67,6 +71,20 @@ def test_mask_pool_is_deterministic_and_skips_zero_logits(dev):
     assert bool((first[:, :3] == 0).all())
     for _ in range(3):
         assert torch.equal(mo.fused_mask_pool(logits, feats), first)
+
+
+def test_mask_pool_three_plane_split_is_exact(dev):
+    """Features over eight decades: a single bf16 (or two-plane) pass would
+    miss 1e-6 of the output's scale; the three-plane split only sums in
+    another order than the fp64 reference."""
+    rng = np.random.RandomState(11)
+    logits = _logits(rng, (1, 117, 48, 156), dev)
+    mag = 10.0 ** rng.uniform(-4, 4, size=(1, 48, 156, 256))
+    feats = torch.from_numpy(np.where(rng.rand(*mag.shape) < 0.5, -mag, mag)
+                             .astype(np.float32)).to(dev)
+    hard = (torch.sigmoid(logits) > 0.5).double()
+    want = torch.einsum("bnhw,bhwc->bnc", hard, feats.double())
+    _close(mo.fused_mask_pool(logits, feats).double(), want, rel=1e-6)
 
 
 def test_wrappers_reject_bad_inputs(dev):

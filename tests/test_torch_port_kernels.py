@@ -8,8 +8,11 @@ is exact, so the tie case (a logit of exactly 0 is not pooled) is checked
 with exact zeros.
 """
 
+import math
+
 import numpy as np
 import pytest
+import torch
 from torch_port_common import assert_rel_close, n, t
 
 from video_knet_tpu.models.kernel_update_head import assemble_masks as jax_assemble_masks
@@ -89,3 +92,37 @@ def test_cpu_wrappers_launch_nothing():
     mo.fused_mask_pool(logits, feats)
     mo.fused_assemble(t(rng.randn(1, 4, 8).astype(np.float32)), feats)
     assert mo.LAUNCHES == {"mask_pool": 0, "assemble": 0}
+
+
+@pytest.mark.parametrize("lo_exp,hi_exp", [(-30, 30), (-4, 4), (-1, 1)])
+def test_bf16x3_split_is_exact(lo_exp, hi_exp):
+    """K1's tensor-core premise: each fp32 feature is the exact sum of three
+    bf16 planes, so 0/1 x bf16 products into fp32 lose nothing."""
+    rng = np.random.RandomState(lo_exp + 100)
+    mag = 10.0 ** rng.uniform(lo_exp, hi_exp, size=100_000)
+    x = t((np.where(rng.rand(mag.size) < 0.5, -mag, mag)).astype(np.float32))
+    hi, mid, lo = mo.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    assert bool((total == x.double()).all())
+    # each plane is the bf16 rounding of what the planes before it left
+    assert bool((lo.float() == x - hi.float() - mid.float()).all())
+
+
+class _Tiles:
+    """The tile sizes K1's library reports (csrc/mask_ops.cu)."""
+
+    vk_mask_pool_block_rows = staticmethod(lambda: 128)
+    vk_mask_pool_block_cols = staticmethod(lambda: 64)
+    vk_mask_pool_block_hw = staticmethod(lambda: 32)
+
+
+@pytest.mark.parametrize("b,nn,hw,c", [(1, 117, 7488, 256), (2, 117, 7488, 256),
+                                       (1, 100, 2257, 200), (4, 300, 100, 256),
+                                       (1, 13, 63, 40)])
+def test_mask_pool_splits_cover_hw_in_one_wave(b, nn, hw, c):
+    splits, chunk = mo.mask_pool_splits(b, nn, hw, c, 132, _Tiles)
+    blocks = b * math.ceil(nn / 128) * math.ceil(c / 64)
+    assert chunk % 32 == 0
+    assert (splits - 1) * chunk < hw <= splits * chunk
+    assert splits == 1 or blocks * splits <= 132

@@ -53,10 +53,12 @@ def _library_path() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vk_mask_pool.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+    lib.vk_mask_pool.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
     lib.vk_mask_pool.restype = i
     lib.vk_assemble.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.vk_assemble.restype = i
+    lib.vk_mask_pool_max_blocks.argtypes = []
+    lib.vk_mask_pool_max_blocks.restype = i
     for name in ("vk_mask_pool_block_cols", "vk_mask_pool_block_rows",
                  "vk_mask_pool_block_hw"):
         getattr(lib, name).argtypes = []

@@ -9,7 +9,8 @@ launch counters.
 Each wrapper takes its plain PyTorch version for tensors on the CPU (the CPU
 tests) and, for CUDA tensors, launches its kernel (`csrc/mask_ops.cu`) or
 raises: there is no fallback. `LAUNCHES` counts the kernel launches, one per
-wrapper call that launched.
+wrapper call that launched (a K1 call is three chained kernels: binarize,
+partial sums on the tensor cores, ordered reduce).
 """
 
 from __future__ import annotations
@@ -69,26 +70,41 @@ def _raise_on(rc: int, fn: str) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
 
 
-_SM_COUNT: dict = {}
+_MAX_BLOCKS: dict = {}
 
 
-def _sm_count(device: torch.device) -> int:
-    if device not in _SM_COUNT:
-        _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _SM_COUNT[device]
+def _max_blocks(device: torch.device, lib) -> int:
+    """Blocks of K1's partial kernel that fit on the card at once (one wave)."""
+    if device not in _MAX_BLOCKS:
+        blocks = lib.vk_mask_pool_max_blocks()
+        if blocks <= 0:
+            raise RuntimeError(f"vk_mask_pool_max_blocks: CUDA error {-blocks}")
+        _MAX_BLOCKS[device] = blocks
+    return _MAX_BLOCKS[device]
 
 
-def mask_pool_splits(b: int, n: int, hw: int, c: int, sm_count: int, lib) -> tuple[int, int]:
-    """(splits, chunk): HW split across blocks so the grid is ~2 waves deep.
+def mask_pool_splits(b: int, n: int, hw: int, c: int, max_blocks: int, lib) -> tuple[int, int]:
+    """(splits, chunk): HW split across blocks so the grid is one wave of
+    `max_blocks`; each split writes one [B, N, C] partial.
 
     Deterministic in the shapes and the card, so the split-order reduction
     gives the same bits on every call."""
     bk = lib.vk_mask_pool_block_hw()
     base = b * math.ceil(n / lib.vk_mask_pool_block_rows()) * math.ceil(
         c / lib.vk_mask_pool_block_cols())
-    splits = max(1, min(math.ceil(2 * sm_count / base), math.ceil(hw / bk)))
+    splits = max(1, min(max_blocks // base, math.ceil(hw / bk)))
     chunk = math.ceil(math.ceil(hw / splits) / bk) * bk
     return math.ceil(hw / chunk), chunk
+
+
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 -> (hi, mid, lo) bf16 with hi + mid + lo == x exactly, as K1 splits
+    its features for the bf16 tensor cores: 3 x 8 significand bits cover
+    fp32's 24, and bf16 has fp32's exponent range."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def fused_mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *,
@@ -109,14 +125,17 @@ def fused_mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *,
     if out.numel() == 0 or h * w == 0:
         return out.zero_()
     lib = load_library()
-    splits, chunk = mask_pool_splits(b, n, h * w, c, _sm_count(feats.device), lib)
-    scratch = torch.empty((splits, b, n, c), dtype=torch.float32,
-                          device=feats.device) if splits > 1 else out
     with torch.cuda.device(feats.device):
+        splits, chunk = mask_pool_splits(b, n, h * w, c, _max_blocks(feats.device, lib), lib)
+        rows = lib.vk_mask_pool_block_rows()
+        bits = torch.empty((b, math.ceil(h * w / 32), math.ceil(n / rows) * rows),
+                           dtype=torch.int32, device=feats.device)
+        scratch = torch.empty((splits, b, n, c), dtype=torch.float32,
+                              device=feats.device) if splits > 1 else out
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vk_mask_pool(mask_logits.data_ptr(), feats.data_ptr(), scratch.data_ptr(),
-                              out.data_ptr(), b, n, h * w, c, float(hard_thr), splits,
-                              chunk, stream)
+        rc = lib.vk_mask_pool(mask_logits.data_ptr(), feats.data_ptr(), bits.data_ptr(),
+                              scratch.data_ptr(), out.data_ptr(), b, n, h * w, c,
+                              float(hard_thr), splits, chunk, stream)
     _raise_on(rc, "vk_mask_pool")
     LAUNCHES["mask_pool"] += 1
     return out

@@ -8,7 +8,9 @@ chip_smoke.py shares) and reports:
   - frame wall ms (host clock, the frame ends with its device->host copy);
   - from a torch.profiler trace: device busy ms a frame (union of kernel
     intervals), the device's idle share, kernel launches a frame, the top
-    kernels by device time, and the host<->device synchronisations;
+    kernels by device time, the device ms a frame of the port's two CUDA
+    kernels (K1 mask pool, K2 assemble), and the host<->device
+    synchronisations;
   - per layer, host ms with a synchronize at each layer boundary (a second,
     separate pass; the boundaries serialize the frame, so the layer sum is a
     little above the frame time).
@@ -107,6 +109,13 @@ def profile(frames: int) -> dict:
     for e in dev:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    # the port's own kernels: K1's three launches overlap (programmatic
+    # dependent launch), so a call's device time is the union of their spans
+    port = {}
+    for name, key in (("mask_pool", "mask_pool_"), ("assemble", "assemble_kernel")):
+        evs = [e for e in dev if key in e.name]
+        port[name] = dict(device_ms_per_frame=_busy_ms(evs) / frames,
+                          kernel_launches_per_frame=len(evs) / frames)
 
     layers = _layer_times(model, pipe, imgs[2:])
     wall_frame = statistics.median(wall)
@@ -119,6 +128,7 @@ def profile(frames: int) -> dict:
         syncs_per_frame=len(syncs) / frames,
         memcpy_calls_per_frame=len(copies) / frames,
         top_kernels_ms_per_frame=[(k[:90], v / frames) for k, v in top],
+        port_kernels=port,
         layer_ms_per_frame=layers,
     )
 
