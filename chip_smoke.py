@@ -31,7 +31,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
-FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# H100 SXM peaks for the operations bound: K1 is counted as fp32 multiply-adds
+# on the CUDA cores; K2's fp32-accurate product as three TF32 products
+# (3xTF32) on the tensor cores, the least the card needs for it at fp32
+# accuracy (a single fp32 pass on the CUDA cores is not)
+OPS_PEAK = {"fp32": (1, 67e12), "3xtf32": (3, 495e12)}  # (products, FLOP/s)
 SERVE_HW = (384, 1248)
 SERVE_FRAMES = 10
 CHECK_HW = (64, 96)
@@ -74,8 +78,10 @@ def phase_kernels(device) -> list[dict]:
     gen = torch.Generator(device=device).manual_seed(SEED)
     h, w = SERVE_HW[0] // 8, SERVE_HW[1] // 8
     # (N, H, W, C): the serving shapes (stages N=117, init head N=100) and
-    # ragged ones (HW and C multiples of no tile)
-    shapes = [(117, h, w, 256), (100, h, w, 256), (100, 37, 61, 256), (100, 37, 61, 200)]
+    # ragged ones (HW and C multiples of no tile; C=37: K1's 4-byte copies, K2's
+    # zero-padded C)
+    shapes = [(117, h, w, 256), (100, h, w, 256), (100, 37, 61, 256), (100, 37, 61, 200),
+              (100, 37, 61, 37)]
     err_pool, err_asm = 0.0, 0.0
     for n, hh, ww, c in shapes:
         logits = _logits(gen, (1, n, hh, ww), device)
@@ -117,15 +123,16 @@ def phase_kernels(device) -> list[dict]:
     nnz = int(hard.sum())
     io_bytes = 4 * (n * h * w + h * w * c + n * c)  # both kernels: same sizes
     recs = []
-    for name, fn, plain, lib, flops, err, src_line in (
+    for name, fn, plain, lib, flops, precision, err, src_line in (
         ("mask_pool", lambda: mo.fused_mask_pool(logits, feats),
          lambda: mo.mask_pool_plain(logits, feats), lambda: torch.matmul(hard, f2),
-         2 * nnz * c, err_pool, "video_knet_tpu/ops/pallas/mask_ops.py:110"),
+         2 * nnz * c, "fp32", err_pool, "video_knet_tpu/ops/pallas/mask_ops.py:110"),
         ("assemble", lambda: mo.fused_assemble(kern, feats),
          lambda: mo.assemble_plain(kern, feats), lambda: torch.matmul(kern, f2.transpose(1, 2)),
-         2 * n * h * w * c, err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
+         2 * n * h * w * c, "3xtf32", err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
     ):
-        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        products, peak = OPS_PEAK[precision]
+        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, products * flops / peak * 1e3
         ms = device_ms(fn)
         rec = dict(
             name=name, route="cuda",
@@ -134,14 +141,14 @@ def phase_kernels(device) -> list[dict]:
             ms=ms, call_ms=call_ms(fn), plain_ms=device_ms(plain),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=device_ms(lib),
+            ops_precision=precision, library_ms=device_ms(lib),
         )
         if name == "assemble":
             rec["ms_sigmoid"] = device_ms(lambda: mo.fused_assemble(kern, feats, sigmoid=True))
         log(f"[kernels] {name}: device {ms * 1e3:.2f} us (call {rec['call_ms'] * 1e3:.1f} us), "
             f"plain {rec['plain_ms'] * 1e3:.2f} us, library {rec['library_ms'] * 1e3:.2f} us, "
             f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}; {io_bytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
+            f"{flops / 1e9:.3f} GFLOP x{products} at {precision})")
         recs.append(rec)
     return recs
 

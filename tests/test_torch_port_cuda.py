@@ -6,7 +6,8 @@ neither jax nor the JAX package, so it runs where only PyTorch is installed:
     python3 -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 Tolerance: 1e-5 relative to the output's scale (the kernels sum in another
-order than cuBLAS); the binarize is exact, so zero logits give exact zeros.
+order than cuBLAS, and K2's 3xTF32 product leaves ~2^-21 of each term);
+the binarize is exact, so zero logits give exact zeros.
 """
 
 import numpy as np
@@ -19,10 +20,11 @@ pytestmark = pytest.mark.cuda
 
 # (B, N, H, W, C): ragged N / HW / C; the serving stage shape, at B=1 and 2;
 # the init-head shape (N=100); HW that is a multiple of 4 but not of K1's
-# 32-wide ring slab or HW split (48x157), and an odd HW (37x61, 4-byte copies)
+# 32-wide ring slab or HW split (48x157), an odd HW (37x61, 4-byte copies),
+# and C = 37, not a multiple of 4 (K1's 4-byte copies; K2's wrapper pads C to 40)
 SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256),
           (2, 117, 48, 156, 256), (1, 100, 48, 156, 256), (1, 117, 48, 157, 200),
-          (1, 117, 37, 61, 256)]
+          (1, 117, 37, 61, 256), (1, 100, 37, 61, 37)]
 
 
 @pytest.fixture
@@ -95,3 +97,36 @@ def test_wrappers_reject_bad_inputs(dev):
         mo.fused_assemble(torch.zeros((1, 2, 16), device=dev)[:, :, ::2], feats)
     with pytest.raises(ValueError):
         mo.fused_mask_pool(torch.zeros((1, 2, 4, 4)), feats)  # mixed devices
+
+
+def _wide(rng, shape, dev):
+    """Magnitudes over 1e-4 .. 1e4 with random signs."""
+    mag = 10.0 ** rng.uniform(-4, 4, size=shape)
+    return torch.from_numpy(np.where(rng.rand(*shape) < 0.5, -mag, mag)
+                            .astype(np.float32)).to(dev)
+
+
+def test_assemble_3xtf32_mixed_magnitude(dev):
+    """Kernels and features over eight decades: the 3xTF32 product stays
+    within 1e-5 of the output's scale against an fp64 einsum, as cuBLAS's
+    fp32 product does (both errors printed)."""
+    rng = np.random.RandomState(13)
+    kern = _wide(rng, (1, 117, 256), dev)
+    feats = _wide(rng, (1, 48, 156, 256), dev)
+    want = torch.einsum("bnc,bhwc->bnhw", kern.double(), feats.double())
+    scale = float(want.abs().max())
+    got = mo.fused_assemble(kern, feats).double()
+    cublas = mo.assemble_plain(kern, feats).double()
+    err, err_cublas = (float((x - want).abs().max()) / scale for x in (got, cublas))
+    print(f"K2 max abs err / scale vs fp64: {err:.3e}; cuBLAS fp32 {err_cublas:.3e}")
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("sigmoid", [False, True])
+def test_assemble_is_deterministic(dev, sigmoid):
+    rng = np.random.RandomState(9)
+    feats = _rand(rng, (1, 48, 156, 256), dev)
+    kern = _rand(rng, (1, 117, 256), dev, 1 / 16)
+    first = mo.fused_assemble(kern, feats, sigmoid=sigmoid)
+    for _ in range(3):
+        assert torch.equal(mo.fused_assemble(kern, feats, sigmoid=sigmoid), first)

@@ -109,6 +109,59 @@ def test_bf16x3_split_is_exact(lo_exp, hi_exp):
     assert bool((lo.float() == x - hi.float() - mid.float()).all())
 
 
+def _wide(rng, size, lo_exp, hi_exp):
+    mag = 10.0 ** rng.uniform(lo_exp, hi_exp, size=size)
+    return t((np.where(rng.rand(*np.shape(mag)) < 0.5, -mag, mag)).astype(np.float32))
+
+
+@pytest.mark.parametrize("lo_exp,hi_exp", [(-30, 30), (-4, 4), (-1, 1)])
+def test_tf32x2_split_planes_are_tf32(lo_exp, hi_exp):
+    """K2's split: big and small have TF32's 10 mantissa bits (the low 13
+    bits zero, so the tensor cores see them exactly), big is x rounded to
+    nearest with ties away from zero, and big + small is x within 2^-22."""
+    rng = np.random.RandomState(lo_exp + 200)
+    x = _wide(rng, 100_000, lo_exp, hi_exp)
+    big, small = mo.split_tf32x2(x)
+    assert big.dtype == small.dtype == torch.float32
+    for plane in (big, small):
+        assert bool(((plane.view(torch.int32) & 0x1FFF) == 0).all())
+    xd = x.double()
+    assert bool(((xd - big.double()).abs() <= 2.0 ** -11 * xd.abs()).all())
+    assert bool(((xd - big.double() - small.double()).abs() <= 2.0 ** -22 * xd.abs()).all())
+    # ties go away from zero: 1 + 2^-11 lies halfway between two TF32 values
+    tie = t(np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], dtype=np.float32))
+    assert mo.split_tf32x2(tie)[0].tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+@pytest.mark.parametrize("lo_exp,hi_exp", [(-15, 15), (-4, 4), (-1, 1)])
+def test_tf32x2_three_products_reproduce_fp64(lo_exp, hi_exp):
+    """big_a*big_b + big_a*small_b + small_a*big_b, the three products K2
+    runs on the tensor cores, is a*b within 2^-20 of |a*b|."""
+    rng = np.random.RandomState(lo_exp + 300)
+    a, b = _wide(rng, 100_000, lo_exp, hi_exp), _wide(rng, 100_000, lo_exp, hi_exp)
+    (ba, sa), (bb, sb) = mo.split_tf32x2(a), mo.split_tf32x2(b)
+    ba, sa, bb, sb = ba.double(), sa.double(), bb.double(), sb.double()
+    want = a.double() * b.double()
+    got = ba * bb + ba * sb + sa * bb
+    assert bool(((got - want).abs() <= 2.0 ** -20 * want.abs()).all())
+
+
+def test_tf32x2_product_meets_kernel_tolerance():
+    """At the serving stage's N and C over a ragged HW ([117, 256] x [256,
+    2257]), the 3xTF32 product summed in fp32 is within 1e-5 of the output's
+    scale against fp64; a single TF32 pass is not."""
+    rng = np.random.RandomState(17)
+    kern = t((rng.randn(117, 256) / 16).astype(np.float32))
+    feats = t(rng.randn(2257, 256).astype(np.float32))
+    want = kern.double() @ feats.double().T
+    (bk, sk), (bf, sf) = mo.split_tf32x2(kern), mo.split_tf32x2(feats)
+    three = bk @ bf.T + bk @ sf.T + sk @ bf.T
+    one = bk @ bf.T
+    scale = float(want.abs().max())
+    assert float((three.double() - want).abs().max()) <= 1e-5 * scale
+    assert float((one.double() - want).abs().max()) > 1e-5 * scale
+
+
 class _Tiles:
     """The tile sizes K1's library reports (csrc/mask_ops.cu)."""
 

@@ -60,20 +60,58 @@
 //   (_assemble_kernel / _fused_assemble_2d).
 //   out[b,n,hw] = kern[b,n,:] . feat[b,hw,:]   (then sigmoid if asked)
 //
-//   Bound on an H100 SXM at the serving shape: features 7.7 MB + kernels
-//   0.12 MB read, logits 3.5 MB written: ~11.3 MB, 3.4 us at 3.35 TB/s; the
-//   product is 2*N*HW*C = 0.45 GFLOP, 6.7 us at 67 TFLOP/s fp32. It is bound
-//   by fp32 operations.
+//   Bound on an H100 SXM at the serving shape (N=117, HW=7488, C=256):
+//   features 7.7 MB + kernels 0.12 MB read, logits 3.5 MB written: ~11.3 MB,
+//   3.4 us at 3.35 TB/s. The product is 2*N*HW*C = 0.45 GFLOP; fp32-accurate
+//   on the tensor cores as three TF32 products (below) it is 1.35 GFLOP,
+//   2.7 us at the 495 TFLOP/s TF32 peak. So it is bound by bytes (the fp32
+//   CUDA-core rate, 6.7 us, is not the least time the card needs for it).
 //
-//   Design: a plain tiled SGEMM, C-major operands ([N,C] x [HW,C]^T): 64x64
-//   output tiles (234 blocks at the serving shape, ~2 per SM), K-steps of 16
-//   channels staged transposed in shared memory, 4x4 outputs per thread with
-//   rows/cols strided by 16 so shared reads are conflict-free and global
-//   stores coalesce along HW. The sigmoid epilogue is a runtime flag; the
-//   serving path runs with it off (decode upsamples the logits before the
-//   sigmoid). Later work: TF32/3xTF32 wgmma with TMA-fed stages.
+//   Arithmetic (3xTF32): both operands are arbitrary fp32, so each is split
+//   as big = tf32_rna(x), small = tf32_rna(x - big) (cvt.rna.tf32.f32's
+//   rounding; the low 13 bits of both are zero, so the tensor cores see them
+//   exactly) and the product is big_a*big_b + big_a*small_b + small_a*big_b
+//   into fp32.
+//   The dropped small*small term and the rounding of small leave ~2^-21 of
+//   each |a*b|, the size of an fp32 SGEMM's own summation error at C=256. A
+//   single TF32 pass (~2^-11) would flip the sign of logits near 0, which
+//   K1 thresholds at the next stage.
+//
+//   Design: one block per [128 (N) x 64 (HW)] output tile: at the serving
+//   shape ceil(7488/64) = 117 HW tiles x 1 N tile (N padded 117 -> 128), one
+//   wave on 132 SMs. C runs inside the block in slabs of 32 channels (128
+//   bytes of fp32 a row, one 128-byte swizzle span), 8 slabs at C=256, in a
+//   fixed order: no split-K, so repeats are bit-identical with no reduce.
+//   416 threads, warp-specialized, over a 4-stage shared-memory ring:
+//     loader (warp 12): one thread starts two TMA loads a slab, the [128 x
+//       32] kernel slab and the [64 x 32] feature slab, onto the stage's
+//       mbarrier; TMA zero-fills rows past N or HW and channels past C. A
+//       stage is reloaded once the consumers mark it free.
+//     splitters (warpgroup 2): once a slab lands, split its features in
+//       place into the big plane plus a small plane beside it (4 float4 a
+//       thread, its loads in flight together), then mark the stage split.
+//     consumers (warpgroups 0, 1: rows 0-63, 64-127) read their A fragments
+//       of the kernel slab into registers, split them there, and run 4 k8
+//       steps x 3 m64n64k8 TF32 wgmmas (A from registers, B = the feature
+//       planes); big*big goes into one accumulator, the two small terms
+//       into another (summed apart, they keep their bits through the tensor
+//       cores' accumulation: half the error of one accumulator).
+//   Stage: 16 KB kernels + 8 KB big + 8 KB small plane, 128 KB for 4. All
+//   operand tiles are K-major with the 128-byte swizzle of TMA and wgmma
+//   (chunk j of row r at chunk j ^ (r & 7)): conflict-free split and
+//   fragment reads. TMA needs 16-byte rows, so C % 4 == 0 and aligned
+//   operands; the wrapper pads other shapes with zero channels.
+//   Epilogue: the optional sigmoid 1/(1+expf(-v)) (a runtime flag; the
+//   serving path runs with it off, decode upsamples the logits first), float2
+//   stores along HW.
+//   What limits it (PERF.md): a chain inside each block, not L2 or HBM (one
+//   block alone takes 92% of the time of 117). Each slab costs ~0.7 us:
+//   ~0.42 us of wgmmas at the TF32 peak, then ~0.3 us in which the consumers
+//   load and split the next A fragments; ~3.8 us more is fixed (launch,
+//   first TMA round trip, epilogue).
 // ---------------------------------------------------------------------------
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -439,79 +477,290 @@ __global__ void mask_pool_reduce_kernel(const float* __restrict__ partial,
     if (i < count && part == 0) out[i] = s;
 }
 
-constexpr int AS_BM = 64;  // N rows per block
-constexpr int AS_BN = 64;  // HW cols per block
-constexpr int AS_BK = 16;  // channels per shared-memory step
-constexpr int AS_THREADS = 256;
+constexpr int AS_BN = 128;  // N rows per block: two consumer warpgroups of 64
+constexpr int AS_BH = 64;   // HW cols per block: wgmma n
+constexpr int AS_BK = 32;   // channels per slab: 128 bytes of fp32, 4 k8 steps
+constexpr int AS_STAGES = 4;
+constexpr int AS_CONSUMERS = 256;  // warpgroups 0, 1
+constexpr int AS_SPLITTERS = 128;  // warpgroup 2; warp 12 starts the TMA loads
+constexpr int AS_THREADS = AS_CONSUMERS + AS_SPLITTERS + 32;
+constexpr int AS_KERN = AS_BN * AS_BK;  // floats: fp32 kernel slab
+constexpr int AS_FEAT = AS_BH * AS_BK;  // floats: one feature plane
+constexpr int AS_STAGE = AS_KERN + 2 * AS_FEAT;  // kernels, big plane, small plane
+constexpr int AS_TX_BYTES = (AS_KERN + AS_FEAT) * 4;  // TMA bytes a stage
+// the ring and its mbarriers, + 1 KB to align the ring to the 1024-byte
+// period of the 128-byte swizzle
+constexpr int AS_SMEM = AS_STAGES * (AS_STAGE * 4 + 8) + 1024;
+// named barriers (0 is __syncthreads): stage s split, one for each
+// consumer warpgroup (AS_BAR_FULL + 2 s + wg; splitters arrive on both, so
+// neither warpgroup waits for the other: ~1 us faster at the serving shape
+// than one barrier for both), and stage s free (consumers arrive, the loader
+// warp waits)
+constexpr int AS_BAR_FULL = 1, AS_BAR_EMPTY = AS_BAR_FULL + 2 * AS_STAGES;
+constexpr int AS_FULL_COUNT = AS_SPLITTERS + 128;
+constexpr int AS_EMPTY_COUNT = AS_CONSUMERS + 32;
+constexpr int AS_SPLIT = AS_FEAT / 4 / AS_SPLITTERS;  // float4 a splitter a slab
 
-__global__ void __launch_bounds__(AS_THREADS)
-assemble_kernel(const float* __restrict__ kern,   // [B, N, C]
-                const float* __restrict__ feats,  // [B, HW, C]
-                float* __restrict__ out,          // [B, N, HW]
+// float offset of the 16-byte chunk j of row r in a K-major tile of 32-float
+// (128-byte) rows with the 128-byte swizzle of TMA and wgmma
+__device__ __forceinline__ int sw128(int r, int j) { return r * AS_BK + ((j ^ (r & 7)) << 2); }
+
+// K-major 128-byte-swizzled tile, rows 128 bytes apart, groups of 8 rows
+// 1024 bytes apart; the descriptor of k8 step ks starts 32 ks bytes into the
+// rows. The tile must start on a 1024-byte boundary.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const float* tile, int ks) {
+    const uint64_t a = static_cast<uint64_t>(__cvta_generic_to_shared(tile)) + ks * 32;
+    return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+           (1ull << 62);
+}
+
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, low 13 bits
+// cleared) as two integer operations on the bit pattern: cvt runs on the
+// conversion unit at a quarter of the integer rate
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the stage's TMA bytes are expected; the one arrival the barrier counts
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    asm volatile(
+        "{\n.reg .pred done;\nLAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra LAB_WAIT;\n}\n" ::"r"(smem_addr(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+// box (32 channels from c, rows from row, image b) of a [B, rows, C] fp32
+// tensor into a 128-byte-swizzled tile; past the tensor's edges TMA writes 0
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map, int c, int row,
+                                         int b, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(row), "r"(b), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// d += a * b for one warpgroup: m64n64k8, A (4 tf32 a thread) from
+// registers, B (a feature plane) from shared memory, fp32 accumulate
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+        "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "{%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// keeps the compiler from reusing A registers a wgmma may still read
+__device__ __forceinline__ void fence_regs_u(uint32_t (&a)[4][4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// out tile [128 (N) x 64 (HW)] = kern x feats^T on the tensor cores in
+// 3xTF32 (see the note at the top), with warp specialization over a
+// 4-stage shared-memory ring; C in slabs of 32 channels, in order.
+// tm_kern / tm_feat: TMA maps of kern [B, N, C] and feats [B, HW, C]
+// (boxes of 32 channels x 128 / 64 rows, 128-byte swizzle).
+__global__ void __launch_bounds__(AS_THREADS, 1)
+assemble_kernel(const __grid_constant__ CUtensorMap tm_kern,
+                const __grid_constant__ CUtensorMap tm_feat,
+                float* __restrict__ out,  // [B, N, HW]
                 int N, int HW, int C, int apply_sigmoid) {
-    // transposed stages (channel-major); +1 pad breaks store bank conflicts
-    __shared__ float sm_a[AS_BK][AS_BM + 1];
-    __shared__ float sm_b[AS_BK][AS_BN + 1];
-
+    extern __shared__ __align__(128) unsigned char as_smem_raw[];
+    // align by an offset from the shared array, so that every access stays a
+    // shared-memory one (LDS/STS with 32-bit addresses)
+    float* ring = reinterpret_cast<float*>(
+        as_smem_raw + ((1024 - (smem_addr(as_smem_raw) & 1023)) & 1023));
+    uint64_t* landed = reinterpret_cast<uint64_t*>(ring + AS_STAGES * AS_STAGE);
     const int tid = threadIdx.x;
-    const int tx = tid % 16;  // cols tx + 16 * j
-    const int ty = tid / 16;  // rows ty + 16 * i
-    const int hw0 = blockIdx.x * AS_BN;
-    const int n0 = blockIdx.y * AS_BM;
+    const int hw0 = blockIdx.x * AS_BH;
+    const int n0 = blockIdx.y * AS_BN;
     const int b = blockIdx.z;
+    const int n_slabs = (C + AS_BK - 1) / AS_BK;
 
-    const float* kb = kern + (size_t)b * N * C;
-    const float* fb = feats + (size_t)b * HW * C;
-
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    // each thread stages 4 channels of one row of each operand tile
-    const int lr = tid / 4;        // tile row 0..63
-    const int lk = (tid % 4) * 4;  // first channel of the 4
-
-    for (int k0 = 0; k0 < C; k0 += AS_BK) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int c = k0 + lk + e;
-            const int n = n0 + lr;
-            const int p = hw0 + lr;
-            sm_a[lk + e][lr] = (n < N && c < C) ? kb[(size_t)n * C + c] : 0.f;
-            sm_b[lk + e][lr] = (p < HW && c < C) ? fb[(size_t)p * C + c] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < AS_BK; ++kk) {
-            float a[4], v[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = sm_a[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] = sm_b[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
-        }
-        __syncthreads();
+    if (tid == 0) {
+        for (int i = 0; i < AS_STAGES; ++i)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(landed + i))
+                         : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    __syncthreads();
 
-    float* ob = out + (size_t)b * N * HW;
+    if (tid >= AS_CONSUMERS + AS_SPLITTERS) {  // ------------------------ loader
+        // one thread keeps the ring full; a stage is refilled once its
+        // wgmmas are done
+#pragma unroll 1
+        for (int s = 0; s < n_slabs; ++s) {
+            if (s >= AS_STAGES) bar_sync(AS_BAR_EMPTY + s % AS_STAGES, AS_EMPTY_COUNT);
+            if (tid == AS_CONSUMERS + AS_SPLITTERS) {
+                float* st = ring + (s % AS_STAGES) * AS_STAGE;
+                uint64_t* bar = landed + s % AS_STAGES;
+                mbar_expect_tx(bar, AS_TX_BYTES);
+                tma_load(st, &tm_kern, s * AS_BK, n0, b, bar);
+                tma_load(st + AS_KERN, &tm_feat, s * AS_BK, hw0, b, bar);
+            }
+        }
+    } else if (tid >= AS_CONSUMERS) {  // ------------------------------ splitters
+        // slab s landed: split its features, big in place, small beside; a
+        // thread's loads are in flight together
+        const int stid = tid - AS_CONSUMERS;
+#pragma unroll 1
+        for (int s = 0; s < n_slabs; ++s) {
+            mbar_wait(landed + s % AS_STAGES, (s / AS_STAGES) & 1);
+            uint4* v = reinterpret_cast<uint4*>(ring + (s % AS_STAGES) * AS_STAGE + AS_KERN);
+            float4 x[AS_SPLIT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int n = n0 + ty + 16 * i;
-        if (n >= N) continue;
+            for (int e = 0; e < AS_SPLIT; ++e)
+                x[e] = *reinterpret_cast<const float4*>(v + e * AS_SPLITTERS + stid);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int p = hw0 + tx + 16 * j;
-            if (p >= HW) continue;
-            float v = acc[i][j];
-            if (apply_sigmoid) v = 1.f / (1.f + expf(-v));
-            ob[(size_t)n * HW + p] = v;
+            for (int e = 0; e < AS_SPLIT; ++e) {
+                uint4 hi, lo;
+                hi.x = tf32_rna(x[e].x);
+                hi.y = tf32_rna(x[e].y);
+                hi.z = tf32_rna(x[e].z);
+                hi.w = tf32_rna(x[e].w);
+                lo.x = tf32_rna(x[e].x - __uint_as_float(hi.x));
+                lo.y = tf32_rna(x[e].y - __uint_as_float(hi.y));
+                lo.z = tf32_rna(x[e].z - __uint_as_float(hi.z));
+                lo.w = tf32_rna(x[e].w - __uint_as_float(hi.w));
+                v[e * AS_SPLITTERS + stid] = hi;
+                v[AS_FEAT / 4 + e * AS_SPLITTERS + stid] = lo;
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // planes -> wgmma
+            bar_arrive(AS_BAR_FULL + 2 * (s % AS_STAGES), AS_FULL_COUNT);
+            bar_arrive(AS_BAR_FULL + 2 * (s % AS_STAGES) + 1, AS_FULL_COUNT);
+        }
+    } else {  // ------------------------------------------------------ consumers
+        const int lane = tid % 32, warp = tid / 32;
+        const int g = lane / 4, t = lane % 4;              // fragment row / column group
+        const int row0 = (warp / 4) * 64 + (warp % 4) * 16;  // this warp's 16 rows
+        // big*big into acc, the two small terms into acc2: summed apart, the
+        // small terms keep their bits through the tensor cores' accumulation
+        float acc[32], acc2[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = acc2[i] = 0.f;
+#pragma unroll 1
+        for (int s = 0; s < n_slabs; ++s) {
+            const float* st = ring + (s % AS_STAGES) * AS_STAGE;
+            // the kernels landed (TMA) and the features are split
+            mbar_wait(landed + s % AS_STAGES, (s / AS_STAGES) & 1);
+            bar_sync(AS_BAR_FULL + 2 * (s % AS_STAGES) + warp / 4, AS_FULL_COUNT);
+            // A fragment of k8 step ks: a[q] is row row0 + g + 8 (q & 1),
+            // channel 8 ks + t + 4 (q >> 1); split into big and small here
+            uint32_t ab[4][4], as[4][4];
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const int r = row0 + g + 8 * (q & 1);
+                    const float x = st[sw128(r, 2 * ks + (q >> 1)) + t];
+                    ab[ks][q] = tf32_rna(x);
+                    as[ks][q] = tf32_rna(x - __uint_as_float(ab[ks][q]));
+                }
+            const float* big = st + AS_KERN;
+            fence_regs(acc);
+            fence_regs(acc2);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+                wgmma_tf32_m64n64k8(acc, ab[ks], wgmma_desc_sw128(big, ks));
+                wgmma_tf32_m64n64k8(acc2, as[ks], wgmma_desc_sw128(big, ks));
+                wgmma_tf32_m64n64k8(acc2, ab[ks], wgmma_desc_sw128(big + AS_FEAT, ks));
+            }
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+            fence_regs(acc);
+            fence_regs(acc2);
+            fence_regs_u(ab);
+            fence_regs_u(as);
+            if (s + AS_STAGES < n_slabs) bar_arrive(AS_BAR_EMPTY + s % AS_STAGES, AS_EMPTY_COUNT);
+        }
+
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += acc2[i];
+        float* ob = out + (size_t)b * N * HW;
+        const bool pairs = HW % 2 == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int n = n0 + row0 + g + 8 * h;
+            if (n >= N) continue;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int p = hw0 + j * 8 + 2 * t;
+                float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+                if (apply_sigmoid) {
+                    v0 = 1.f / (1.f + expf(-v0));
+                    v1 = 1.f / (1.f + expf(-v1));
+                }
+                float* o = ob + (size_t)n * HW + p;
+                if (pairs && p + 1 < HW) {
+                    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+                } else {
+                    if (p < HW) o[0] = v0;
+                    if (p + 1 < HW) o[1] = v1;
+                }
+            }
         }
     }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links only the CUDA runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// TMA map of a [B, rows, C] fp32 tensor (C % 4 == 0, 16-byte aligned) with
+// boxes of 32 channels x box_rows rows, 128-byte swizzle, zero fill
+bool tensor_map(CUtensorMap* map, const float* base, int B, int rows, int C, int box_rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)rows, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {(cuuint64_t)C * 4, (cuuint64_t)rows * C * 4};
+    const cuuint32_t box[3] = {(cuuint32_t)AS_BK, (cuuint32_t)box_rows, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -591,11 +840,24 @@ int vk_mask_pool(const float* logits, const float* feats, void* bits, float* par
                                    count, splits);
 }
 
+// kern [B, N, C], feats [B, HW, C] with C % 4 == 0 and 16-byte aligned
+// pointers (TMA's row stride; the wrapper pads other shapes)
 int vk_assemble(const float* kern, const float* feats, float* out, int B, int N, int HW,
                 int C, int apply_sigmoid, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    dim3 grid((HW + AS_BN - 1) / AS_BN, (N + AS_BM - 1) / AS_BM, B);
-    assemble_kernel<<<grid, AS_THREADS, 0, st>>>(kern, feats, out, N, HW, C, apply_sigmoid);
+    if (C % 4 != 0 || reinterpret_cast<uintptr_t>(kern) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(feats) % 16 != 0)
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap tm_kern, tm_feat;
+    if (!tensor_map(&tm_kern, kern, B, N, C, AS_BN) ||
+        !tensor_map(&tm_feat, feats, B, HW, C, AS_BH))
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AS_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((HW + AS_BH - 1) / AS_BH, (N + AS_BN - 1) / AS_BN, B);
+    assemble_kernel<<<grid, AS_THREADS, AS_SMEM, st>>>(tm_kern, tm_feat, out, N, HW, C,
+                                                       apply_sigmoid);
     return (int)cudaGetLastError();
 }
 

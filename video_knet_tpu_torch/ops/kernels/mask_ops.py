@@ -10,7 +10,8 @@ Each wrapper takes its plain PyTorch version for tensors on the CPU (the CPU
 tests) and, for CUDA tensors, launches its kernel (`csrc/mask_ops.cu`) or
 raises: there is no fallback. `LAUNCHES` counts the kernel launches, one per
 wrapper call that launched (a K1 call is three chained kernels: binarize,
-partial sums on the tensor cores, ordered reduce).
+partial sums on the tensor cores, ordered reduce; a K2 call is one kernel,
+a 3xTF32 product on the tensor cores).
 """
 
 from __future__ import annotations
@@ -107,6 +108,21 @@ def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Ten
     return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, on the bit pattern: what cvt.rna.tf32.f32 does."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32x2(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 -> (big, small) fp32 with their low 13 mantissa bits zero, as K2
+    splits both operands for the TF32 tensor cores: big = tf32(x), small =
+    tf32(x - big). big_a*big_b + big_a*small_b + small_a*big_b is a*b within
+    ~2^-21 of |a*b|."""
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
 def fused_mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *,
                     hard_thr: float = 0.5) -> torch.Tensor:
     """Binarized mask pooling. mask_logits [B, N, H, W]; feats [B, H, W, C]
@@ -141,6 +157,12 @@ def fused_mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *,
     return out
 
 
+def _zero_padded(x: torch.Tensor, c: int) -> torch.Tensor:
+    out = x.new_zeros((*x.shape[:-1], c))
+    out[..., :x.shape[-1]] = x
+    return out
+
+
 def fused_assemble(kernels: torch.Tensor, feats: torch.Tensor, *,
                    sigmoid: bool = False) -> torch.Tensor:
     """K=1 dynamic conv. kernels [B, N, C]; feats [B, H, W, C] -> [B, N, H, W]
@@ -158,6 +180,12 @@ def fused_assemble(kernels: torch.Tensor, feats: torch.Tensor, *,
     out = torch.empty((b, n, h, w), dtype=torch.float32, device=feats.device)
     if out.numel() == 0:
         return out
+    if c % 4 or c == 0 or kernels.data_ptr() % 16 or feats.data_ptr() % 16:
+        # the kernel's TMA loads need 16-byte rows: zeroed copies with C
+        # rounded up to 4 (the added channels add nothing)
+        c = max(4, -(-c // 4) * 4)
+        kernels = _zero_padded(kernels, c)
+        feats = _zero_padded(feats, c)
     lib = load_library()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream

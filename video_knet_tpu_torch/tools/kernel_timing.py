@@ -9,7 +9,11 @@ wrapper call and its split by kernel (torch.profiler; K1's three kernels are
 chained by programmatic dependent launch, so each one's span includes its
 wait for the one before); then K1's device time
 at each HW split count given with --splits (the wrapper's own choice marked
-with *). With --out, the report also goes to DIR/kernel_timing.json.
+with *). Then K2's device time against C (8 slabs of 32 channels at
+C=256) and against its number of blocks (HW tiles of 64), beside
+`torch.matmul` on the same inputs: how the time splits into a fixed part
+and a part per slab, and whether it depends on how many blocks share the
+card. With --out, the report also goes to DIR/kernel_timing.json.
 """
 
 from __future__ import annotations
@@ -103,6 +107,28 @@ def stage_inputs(device, seed: int = 0):
     return logits, feats, kern
 
 
+def assemble_sweep(device, seed: int = 1) -> list:
+    """K2 and torch.matmul device us at N=117 for C in 32..512 (HW=7488)
+    and for HW of 1 to 117 blocks of 64 (C=256)."""
+    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+
+    n, h, w, c_stage = STAGE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = []
+    for hw, c in [(h * w, c) for c in (32, 64, 128, 256, 512)] + [
+            (hw, c_stage) for hw in (64, 640, 2560)]:
+        feats = torch.randn((1, 1, hw, c), generator=gen, device=device)
+        kern = torch.randn((1, n, c), generator=gen, device=device) / c ** 0.5
+        rec = dict(hw=hw, c=c, blocks=math.ceil(hw / 64),
+                   us=device_ms(lambda: mo.fused_assemble(kern, feats)) * 1e3,
+                   matmul_us=device_ms(
+                       lambda: torch.matmul(kern, feats.reshape(1, hw, c).transpose(1, 2))) * 1e3)
+        rows.append(rec)
+        print(f"  K2 HW {hw:5d} ({rec['blocks']:3d} blocks) C {c:3d}: {rec['us']:7.2f} us, "
+              f"torch.matmul {rec['matmul_us']:7.2f} us", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--splits", default="", help="comma-separated K1 HW split counts")
@@ -153,6 +179,7 @@ def main() -> int:
                   f"err {rec['max_abs_err']:.2e}  "
                   + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in rec["kernels_ms"].items()))
         report["mask_pool_splits"] = sweep
+    report["assemble_sweep"] = assemble_sweep(device)
     print(report["card"])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
