@@ -4,24 +4,45 @@
     python3 chip_smoke.py
 
 Phases, each raising on failure (the process then exits non-zero):
-  1. device   the card's name and power limit, torch / CUDA versions
-  2. build    nvcc builds the CUDA kernels from ops/kernels/csrc
-  3. kernels  each kernel against its plain PyTorch version at the serving
-              shapes and at ragged shapes; device time (a CUDA graph of 20
-              calls, timed with CUDA events) of the kernel, the plain version
-              and one PyTorch library call, and the kernel's host-inclusive
-              call time
-  4. serve    Video K-Net R-50 (default config, seeded random weights)
-              serves 10 frames of 384x1248 through VPSInferencePipeline on
-              the card; each kernel must launch 4 times a frame
-  5. check    the same weights on a 64x96 sequence, card against CPU
-Prints the kernels JSON line, the card line, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero without a result when no
-CUDA device is available.
+  1. device    the card's name and power limit, torch / CUDA versions
+  2. build     nvcc builds the CUDA kernels from ops/kernels/csrc
+  3. kernels   each kernel against its plain PyTorch version at the shapes
+               the serving paths give it (R-50 stages and init head at B=1
+               and B=2, the trained tiny config's N=20/37, 8x12, C=64) and
+               at ragged shapes; device time (a CUDA graph of 20 calls,
+               timed with CUDA events) of the kernel, the plain version and
+               one PyTorch library call, and the kernel's host-inclusive
+               call time
+  4. serve     Video K-Net R-50 (default config, seeded random weights)
+               serves 8 frames of 384x1248 through VPSInferencePipeline with
+               the tracker on the device
+  5. host      the same frames through `quasi_dense_host`: id and semantic
+               maps equal phase 4's, track maps agree on >= 0.98 of pixels
+  6. full      3 frames with fast_decode=False (decode at 384x1248, the
+               host tracker by fallback)
+  7. sequence  run_sequence(window=4) over phase 4's frames with a sequence
+               boundary, both tracker paths, bit-equal to run_frame
+  8. streams   MultiStreamVPSPipeline, B=2, 6 rounds, stream 1 restarting at
+               round 3, both tracker paths: >= 0.95 pixel agreement with
+               single-stream serving, run_batched_sequence bit-equal to
+               run_frames
+  9. mit       Video K-Net MiT-b0 (default heads, seeded random weights)
+               serves 10 frames of 384x1248
+ 10. trained   the trained tiny model (committed checkpoint) on the golden's
+               12 frames, both tracker paths, against
+               tests/golden/serving_trained_tiny_64x96.npz: >= 0.98 pixel
+               agreement a frame on all three maps
+ 11. check     the R-50 weights on a 64x96 sequence, card against CPU
+Every serving phase resets the launch counts just before it drives its path
+and requires 4 launches of each kernel a frame (a round for B=2).
+Prints the kernels JSON line (launches per path), the card line, and as the
+last line {"ok": true, "device": {...}}. Exits non-zero without a result
+when no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -37,7 +58,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 # accuracy (a single fp32 pass on the CUDA cores is not)
 OPS_PEAK = {"fp32": (1, 67e12), "3xtf32": (3, 495e12)}  # (products, FLOP/s)
 SERVE_HW = (384, 1248)
-SERVE_FRAMES = 10
+SERVE_FRAMES = 8
+FULL_FRAMES = 3
+BOUNDARY = 5  # run_sequence: a sequence restarts at this frame
+STREAM_ROUNDS = 6
+STREAM_RESET = 3  # stream 1 restarts at this round
+MIT_FRAMES = 10
 CHECK_HW = (64, 96)
 CHECK_FRAMES = 4
 SEED = 0  # kernel inputs and frames (weights: profile_serving.WEIGHT_SEED)
@@ -46,6 +72,7 @@ SEED = 0  # kernel inputs and frames (weights: profile_serving.WEIGHT_SEED)
 # in another order; K2 dots C=256 terms scaled to O(1) outputs.
 TOL_MASK_POOL = 5e-3
 TOL_ASSEMBLE = 1e-4
+KERNELS = ("mask_pool", "assemble")
 
 
 def log(msg: str) -> None:
@@ -77,23 +104,25 @@ def phase_kernels(device) -> list[dict]:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     h, w = SERVE_HW[0] // 8, SERVE_HW[1] // 8
-    # (N, H, W, C): the serving shapes (stages N=117, init head N=100) and
-    # ragged ones (HW and C multiples of no tile; C=37: K1's 4-byte copies, K2's
-    # zero-padded C)
-    shapes = [(117, h, w, 256), (100, h, w, 256), (100, 37, 61, 256), (100, 37, 61, 200),
-              (100, 37, 61, 37)]
+    # (B, N, H, W, C): the serving shapes (stages N=117, init head N=100; B=2
+    # for two streams; the trained tiny config's N=37 / 20 at 8x12, C=64) and
+    # ragged ones (HW and C multiples of no tile; C=37: K1's 4-byte copies,
+    # K2's zero-padded C)
+    shapes = [(1, 117, h, w, 256), (1, 100, h, w, 256), (2, 117, h, w, 256),
+              (2, 100, h, w, 256), (1, 37, 8, 12, 64), (1, 20, 8, 12, 64),
+              (1, 100, 37, 61, 256), (1, 100, 37, 61, 200), (1, 100, 37, 61, 37)]
     err_pool, err_asm = 0.0, 0.0
-    for n, hh, ww, c in shapes:
-        logits = _logits(gen, (1, n, hh, ww), device)
-        feats = torch.randn((1, hh, ww, c), generator=gen, device=device)
-        kern = torch.randn((1, n, c), generator=gen, device=device) / c ** 0.5
+    for b, n, hh, ww, c in shapes:
+        logits = _logits(gen, (b, n, hh, ww), device)
+        feats = torch.randn((b, hh, ww, c), generator=gen, device=device)
+        kern = torch.randn((b, n, c), generator=gen, device=device) / c ** 0.5
         e = (mo.fused_mask_pool(logits, feats) - mo.mask_pool_plain(logits, feats)).abs().max()
         err_pool = max(err_pool, float(e))
         for sig in (False, True):
             e = (mo.fused_assemble(kern, feats, sigmoid=sig)
                  - mo.assemble_plain(kern, feats, sigmoid=sig)).abs().max()
             err_asm = max(err_asm, float(e))
-        log(f"[kernels] N={n} HW={hh}x{ww} C={c}: mask_pool err {err_pool:.3e}, "
+        log(f"[kernels] B={b} N={n} HW={hh}x{ww} C={c}: mask_pool err {err_pool:.3e}, "
             f"assemble err {err_asm:.3e} (sigmoid off and on)")
     # tie case: a logit of exactly 0 has sigmoid 0.5, which is not > 0.5
     logits = _logits(gen, (1, 100, 37, 61), device)
@@ -153,51 +182,235 @@ def phase_kernels(device) -> list[dict]:
     return recs
 
 
-def _frames(hw, count):
+def _frames(hw, count, batch: int = 1):
     rng = np.random.RandomState(SEED)
-    return [rng.randn(1, *hw, 3).astype(np.float32) for _ in range(count)]
+    return [rng.randn(batch, *hw, 3).astype(np.float32) for _ in range(count)]
 
 
-def phase_serve(device) -> dict:
-    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
-    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+class Paths:
+    """Launch counts and frame times of every serving path driven."""
+
+    def __init__(self):
+        self.launches: dict = {}
+        self.frame_ms: dict = {}
+
+    def _counted(self, path: str, n_items: int, body) -> list:
+        """Run `body() -> (results, ms per item)` with the launch counts set
+        to 0 just before and read just after; requires 4 launches of each
+        kernel a frame (a round)."""
+        from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+
+        torch.cuda.synchronize()
+        mo.reset_launch_counts()
+        out, ms = body()
+        launches = dict(mo.LAUNCHES)
+        self.launches[path] = launches
+        self.frame_ms[path] = ms
+        if len(out) != n_items:
+            raise AssertionError(f"[{path}] {len(out)} results for {n_items} items")
+        for name in KERNELS:
+            if launches[name] != 4 * n_items:
+                raise AssertionError(f"[{path}] {name} launched {launches[name]} times in "
+                                     f"{n_items} frames (rounds), expected 4 each")
+        return out
+
+    def drive(self, path: str, fn, items, frames_per_item: int = 1) -> list:
+        """`fn(item)` for each item (a frame or a round), timed one by one."""
+        def body():
+            out, ms = [], []
+            for it in items:
+                t0 = time.perf_counter()
+                out.append(fn(it))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return out, ms
+
+        out = self._counted(path, len(items), body)
+        ms = self.frame_ms[path]
+        med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+        log(f"[{path}] {len(items)} x {frames_per_item} frames: median {med:.2f} ms over "
+            f"items 1..{len(items) - 1} (first {ms[0]:.1f} ms); launches {self.launches[path]}")
+        log(f"[{path}] ms {[round(t, 3) for t in ms]}")
+        return out
+
+    def drive_all(self, path: str, gen, n_items: int, frames_per_item: int = 1) -> list:
+        """A generator `gen()` that yields one result an item, timed as a
+        whole (each item is credited the mean)."""
+        def body():
+            t0 = time.perf_counter()
+            out = list(gen())
+            return out, [(time.perf_counter() - t0) * 1e3 / n_items] * n_items
+
+        out = self._counted(path, n_items, body)
+        each = self.frame_ms[path][0]
+        log(f"[{path}] {n_items} x {frames_per_item} frames in {each * n_items:.1f} ms "
+            f"({each:.2f} ms each, first included); launches {self.launches[path]}")
+        return out
+
+
+def _check_maps(path: str, results, hw) -> None:
+    for r in results:
+        for key in ("panoptic_seg", "semantic_map", "track_map"):
+            if getattr(r, key).shape != tuple(hw):
+                raise AssertionError(f"[{path}] {key} has shape {getattr(r, key).shape}")
+        if not all(np.isfinite(s.get("score", 0.0)) for s in r.segments_info):
+            raise AssertionError(f"[{path}] non-finite segment score")
+
+
+def _agreement(a, b) -> dict:
+    return {k: float(np.mean(getattr(a, k) == getattr(b, k)))
+            for k in ("panoptic_seg", "semantic_map", "track_map")}
+
+
+def _assert_bit_equal(path: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"[{path}] {len(got)} results for {len(want)} frames")
+    for i, (a, b) in enumerate(zip(got, want)):
+        for key in ("panoptic_seg", "semantic_map", "track_map"):
+            if not np.array_equal(getattr(a, key), getattr(b, key)):
+                raise AssertionError(f"[{path}] frame {i}: {key} differs")
+        if a.segments_info != b.segments_info:
+            raise AssertionError(f"[{path}] frame {i}: segments_info differs")
+
+
+def phase_serve(device, paths: Paths) -> dict:
+    """Phases 4-8 on the R-50 model: device and host trackers, the full
+    decode, windows, two streams."""
+    from video_knet_tpu_torch.models.video.inference import (
+        MultiStreamVPSPipeline,
+        VPSInferencePipeline,
+    )
     from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
 
     cfg = smoke_config()
     model = smoke_model(cfg, device)
-    pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
     frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, SERVE_FRAMES)]
-    torch.cuda.synchronize()
-    mo.reset_launch_counts()
-    results, frame_ms = [], []
-    for i, img in enumerate(frames):
-        t0 = time.perf_counter()
-        results.append(pipe.run_frame(img, is_first=(i == 0)))
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(mo.LAUNCHES)
-    for r in results:
-        if r.panoptic_seg.shape != SERVE_HW or r.track_map.shape != SERVE_HW \
-                or r.semantic_map.shape != SERVE_HW:
-            raise AssertionError("output maps have the wrong shape")
-        if not all(np.isfinite(s.get("score", 0.0)) for s in r.segments_info):
-            raise AssertionError("non-finite segment score")
+    idx = list(range(SERVE_FRAMES))
+
+    # 4. the main path: the tracker on the device
+    pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
+    dev = paths.drive("serve", lambda i: pipe.run_frame(frames[i], is_first=(i == 0)), idx)
+    _check_maps("serve", dev, SERVE_HW)
     if not torch.isfinite(pipe.prev_obj_feats).all() or \
             not torch.isfinite(pipe.track_state.embeds).all():
         raise AssertionError("non-finite carried state")
-    if not any((r.track_map > 0).any() for r in results):
+    if not any((r.track_map > 0).any() for r in dev):
         raise AssertionError("no frame has a nonzero track id")
-    for name in ("mask_pool", "assemble"):
-        if launches[name] != 4 * SERVE_FRAMES:
-            raise AssertionError(f"{name} launched {launches[name]} times in "
-                                 f"{SERVE_FRAMES} frames, expected 4 a frame")
-    med = statistics.median(frame_ms[1:])
-    n_things = [sum(s["isthing"] for s in r.segments_info) for r in results]
-    n_tracks = [len(np.unique(r.track_map[r.track_map > 0])) for r in results]
-    log(f"[serve] {SERVE_FRAMES} frames of {SERVE_HW[0]}x{SERVE_HW[1]}: median frame "
-        f"{med:.2f} ms over frames 1..{SERVE_FRAMES - 1} (first {frame_ms[0]:.1f} ms); "
-        f"things per frame {n_things}; track ids per frame {n_tracks}; launches {launches}")
-    log(f"[serve] frame ms {[round(t, 3) for t in frame_ms]}")
-    return dict(launches=launches, frame_ms_median=med)
+    n_things = [sum(s["isthing"] for s in r.segments_info) for r in dev]
+    n_tracks = [len(np.unique(r.track_map[r.track_map > 0])) for r in dev]
+    log(f"[serve] things per frame {n_things}; track ids per frame {n_tracks}")
+
+    # 5. the host tracker on the same frames
+    hpipe = VPSInferencePipeline(model, cfg, SERVE_HW, tracker_type="quasi_dense_host",
+                                 device=device)
+    host = paths.drive("host", lambda i: hpipe.run_frame(frames[i], is_first=(i == 0)), idx)
+    _check_maps("host", host, SERVE_HW)
+    for i, (a, b) in enumerate(zip(host, dev)):
+        agree = _agreement(a, b)
+        log(f"[host] frame {i}: agreement with the device tracker {agree}")
+        if agree["panoptic_seg"] != 1.0 or agree["semantic_map"] != 1.0 \
+                or agree["track_map"] < 0.98:
+            raise AssertionError(f"[host] frame {i} disagrees with the device tracker: {agree}")
+
+    # 6. fast_decode=False: decode at 384x1248, host tracker by fallback
+    full_cfg = dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, fast_decode=False))
+    fpipe = VPSInferencePipeline(model, full_cfg, SERVE_HW, device=device)
+    if fpipe.device_tracker:
+        raise AssertionError("fast_decode=False must fall back to the host tracker")
+    full = paths.drive("full", lambda i: fpipe.run_frame(frames[i], is_first=(i == 0)),
+                       idx[:FULL_FRAMES])
+    _check_maps("full", full, SERVE_HW)
+    for i, (a, b) in enumerate(zip(full, dev)):
+        log(f"[full] frame {i}: agreement with the fast decode {_agreement(a, b)}")
+
+    # 7. windows with a sequence boundary, both trackers, against run_frame
+    flags = [i in (0, BOUNDARY) for i in idx]
+    for tracker_type in ("quasi_dense", "quasi_dense_host"):
+        p = VPSInferencePipeline(model, cfg, SERVE_HW, tracker_type=tracker_type, device=device)
+        want = [p.run_frame(frames[i], flags[i]) for i in idx]
+        stats: list = []
+        path = f"sequence_{tracker_type}"
+        got = paths.drive_all(path, lambda: p.run_sequence(frames, flags, window=4, depth=2,
+                                                           stats=stats), SERVE_FRAMES)
+        _assert_bit_equal(path, got, want)
+        log(f"[{path}] bit-equal to run_frame; windows {stats}")
+
+    # 8. two streams, stream 1 restarting at round STREAM_RESET
+    a = _frames(SERVE_HW, STREAM_ROUNDS)
+    b = [f[:, ::-1].copy() for f in _frames(SERVE_HW, STREAM_ROUNDS)[::-1]]
+    rounds = [torch.from_numpy(np.concatenate([x, y])).to(device) for x, y in zip(a, b)]
+    rflags = [[r == 0, r in (0, STREAM_RESET)] for r in range(STREAM_ROUNDS)]
+    for tracker_type, tag in (("quasi_dense", ""), ("quasi_dense_host", "_host")):
+        path = f"streams{tag}"
+        ms = MultiStreamVPSPipeline(model, cfg, SERVE_HW, 2, tracker_type=tracker_type,
+                                    device=device)
+        multi = paths.drive(path, lambda r: ms.run_frames(rounds[r], rflags[r]),
+                            list(range(STREAM_ROUNDS)), frames_per_item=2)
+        for s in range(2):
+            single = VPSInferencePipeline(model, cfg, SERVE_HW, tracker_type=tracker_type,
+                                          device=device)
+            for r in range(STREAM_ROUNDS):
+                one = single.run_frame(rounds[r][s:s + 1], rflags[r][s])
+                agree = _agreement(multi[r][s], one)
+                log(f"[{path}] stream {s} round {r}: agreement with one stream {agree}")
+                if min(agree.values()) < 0.95:
+                    raise AssertionError(f"[{path}] stream {s} round {r}: {agree}")
+        ms2 = MultiStreamVPSPipeline(model, cfg, SERVE_HW, 2, tracker_type=tracker_type,
+                                     device=device)
+        stats = []
+        seq = paths.drive_all(f"{path}_sequence", lambda: ms2.run_batched_sequence(
+            rounds, rflags, depth=2, stats=stats, window=4), STREAM_ROUNDS, frames_per_item=2)
+        for s in range(2):
+            _assert_bit_equal(f"{path}_sequence stream {s}", [x[s] for x in seq],
+                              [x[s] for x in multi])
+        log(f"[{path}_sequence] bit-equal to run_frames; windows {stats}")
+    return dict(launches=paths.launches["serve"])
+
+
+def phase_mit(device, paths: Paths) -> None:
+    """MiT-b0 with the default heads, seeded random weights, 384x1248."""
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+
+    cfg = dataclasses.replace(smoke_config(), backbone="mit_b0")
+    model = smoke_model(cfg, device)
+    pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, MIT_FRAMES)]
+    res = paths.drive("mit", lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                      list(range(MIT_FRAMES)))
+    _check_maps("mit", res, SERVE_HW)
+    if not torch.isfinite(pipe.prev_obj_feats).all():
+        raise AssertionError("[mit] non-finite carried kernels")
+    log(f"[mit] segments per frame {[len(r.segments_info) for r in res]}; track ids per "
+        f"frame {[len(np.unique(r.track_map[r.track_map > 0])) for r in res]}")
+
+
+def phase_trained(device, paths: Paths) -> None:
+    """The trained tiny model on the card against the committed golden."""
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools import trained_golden as tg
+
+    model = tg.tiny_model(device)
+    frames = [torch.from_numpy(f).to(device) for f in tg.eval_frames()]
+    gold = np.load(tg.GOLDEN)
+    for tracker_type in ("quasi_dense", "quasi_dense_host"):
+        pipe = VPSInferencePipeline(model, tg.tiny_cfg(), tg.HW, tracker_type=tracker_type,
+                                    device=device)
+        path = f"trained_{tracker_type}"
+        res = paths.drive(path, lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                          list(range(tg.N_FRAMES)))
+        arrs = tg.flatten_results(res)
+        worst = 1.0
+        for i in range(tg.N_FRAMES):
+            for key in ("pan", "sem", "trk"):
+                agree = float(np.mean(arrs[f"{key}_{i}"] == gold[f"{key}_{i}"]))
+                worst = min(worst, agree)
+                if agree < 0.98:
+                    raise AssertionError(f"[{path}] frame {i} {key}: agreement {agree}")
+        exact = all(np.array_equal(arrs[k], gold[k]) for k in gold.files
+                    if not k.startswith("seg_score_"))
+        log(f"[{path}] worst per-frame agreement with the golden {worst:.6f} (limit 0.98); "
+            f"all integer fields bit-equal: {exact}; track-id spans {tg.track_id_spans(arrs)} "
+            f"(golden {tg.track_id_spans(dict(gold.items()))})")
 
 
 def phase_check(device) -> None:
@@ -226,8 +439,7 @@ def phase_check(device) -> None:
         if not rel <= 1e-3:
             raise AssertionError(f"card and CPU disagree on {key}: {rel}")
     for t, (rg, rc) in enumerate(zip(g["res"], c["res"])):
-        agree = {k: float(np.mean(getattr(rg, k) == getattr(rc, k)))
-                 for k in ("panoptic_seg", "semantic_map", "track_map")}
+        agree = _agreement(rg, rc)
         log(f"[check] frame {t}: pixel agreement card vs CPU {agree} (limit 0.98)")
         if min(agree.values()) < 0.98:
             raise AssertionError(f"frame {t}: card and CPU id maps disagree: {agree}")
@@ -240,6 +452,7 @@ def main() -> int:
     import video_knet_tpu_torch  # noqa: F401  (fails outside a checkout)
     from video_knet_tpu_torch.utils.device import card_name_and_power, set_fp32_numerics
 
+    t0 = time.perf_counter()
     set_fp32_numerics()
     device = torch.device("cuda")
     card = card_name_and_power()
@@ -247,10 +460,18 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase_build()
     kernels = phase_kernels(device)
-    serve = phase_serve(device)
+    paths = Paths()
+    serve = phase_serve(device, paths)
+    phase_mit(device, paths)
+    phase_trained(device, paths)
     for rec in kernels:
         rec["launches"] = serve["launches"][rec["name"]]
+        rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.launches.items()}
     phase_check(device)
+    medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+               for p, ms in paths.frame_ms.items()}
+    log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "
+        f"whole run {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,11 @@ pytestmark = pytest.mark.cuda
 # (B, N, H, W, C): ragged N / HW / C; the serving stage shape, at B=1 and 2;
 # the init-head shape (N=100); HW that is a multiple of 4 but not of K1's
 # 32-wide ring slab or HW split (48x157), an odd HW (37x61, 4-byte copies),
-# and C = 37, not a multiple of 4 (K1's 4-byte copies; K2's wrapper pads C to 40)
+# and C = 37, not a multiple of 4 (K1's 4-byte copies; K2's wrapper pads C to 40);
+# the trained tiny config's stage shape (N=37, 8x12, C=64), at B=1 and 2
 SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256),
           (2, 117, 48, 156, 256), (1, 100, 48, 156, 256), (1, 117, 48, 157, 200),
-          (1, 117, 37, 61, 256), (1, 100, 37, 61, 37)]
+          (1, 117, 37, 61, 256), (1, 100, 37, 61, 37), (1, 37, 8, 12, 64), (2, 37, 8, 12, 64)]
 
 
 @pytest.fixture

@@ -82,7 +82,8 @@ def test_conv_kernel_head_matches():
     feats = [rng.randn(1, 16 // 2**i, 24 // 2**i, C).astype(np.float32) for i in range(4)]
     jm = JConvKernelHead(JRpnCfg(**kw))
     v = perturb_norms(jm.init(jax.random.PRNGKey(2), feats))
-    tm = port_of(ConvKernelHead(ConvKernelHeadConfig(**kw)), v)
+    # the head's input width is the neck's (here C), passed explicitly
+    tm = port_of(ConvKernelHead(ConvKernelHeadConfig(**kw), in_channels=C), v)
     want = jm.apply(v, feats)
     with torch.no_grad():
         got = tm([t(f) for f in feats])

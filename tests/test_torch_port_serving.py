@@ -1,8 +1,9 @@
 """The port's serving slice as a whole, on the CPU.
 
 With weights converted from the JAX init of `tests/test_serving_golden.py`,
-`video_knet_tpu_torch`'s VPSInferencePipeline (quasi_dense, the on-device
-tracker) reproduces `tests/golden/serving_r50_64x96.npz` for all 4 frames:
+`video_knet_tpu_torch`'s VPSInferencePipeline, with the tracker on the
+device (`quasi_dense`) and on the host (`quasi_dense_host`), reproduces
+`tests/golden/serving_r50_64x96.npz` for all 4 frames:
 id maps, semantic maps, track maps and segments_info bit-equal, segment
 scores within 1e-4 (the golden's own tolerance). Also: the test step's
 floats against JAX (1e-4 relative: R-50 + FPN + heads in fp32, summed in
@@ -27,7 +28,10 @@ from torch_port_common import assert_rel_close, t
 from video_knet_tpu import config as jc
 from video_knet_tpu.models.video.knet_vps import VideoKNet as JVideoKNet
 from video_knet_tpu_torch import config as tc
-from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+from video_knet_tpu_torch.models.video.inference import (
+    MultiStreamVPSPipeline,
+    VPSInferencePipeline,
+)
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
 from video_knet_tpu_torch.utils.convert import flatten_variables, load_flax_variables
 
@@ -63,8 +67,9 @@ def golden_setup():
     return dict(jcfg=jcfg, jm=jm, variables=variables, frames=frames, cfg=cfg, model=model)
 
 
-def _run(setup):
-    pipe = VPSInferencePipeline(setup["model"], setup["cfg"], HW, device="cpu")
+def _run(setup, tracker_type="quasi_dense"):
+    pipe = VPSInferencePipeline(setup["model"], setup["cfg"], HW, tracker_type=tracker_type,
+                                device="cpu")
     return [pipe.run_frame(f, is_first=(i == 0)) for i, f in enumerate(setup["frames"])]
 
 
@@ -84,8 +89,7 @@ def _flatten(results) -> dict:
     return arrs
 
 
-def test_port_serving_matches_golden(golden_setup):
-    arrs = _flatten(_run(golden_setup))
+def _assert_matches_golden(arrs):
     gold = np.load(GOLDEN)
     assert set(gold.files) == set(arrs)
     for k in gold.files:
@@ -94,6 +98,14 @@ def test_port_serving_matches_golden(golden_setup):
         else:
             np.testing.assert_array_equal(arrs[k], gold[k], err_msg=k)
     assert any((arrs[f"trk_{i}"] > 0).any() for i in range(N_FRAMES))
+
+
+def test_port_serving_matches_golden(golden_setup):
+    _assert_matches_golden(_flatten(_run(golden_setup)))
+
+
+def test_port_host_tracker_serving_matches_golden(golden_setup):
+    _assert_matches_golden(_flatten(_run(golden_setup, "quasi_dense_host")))
 
 
 def test_port_serving_is_deterministic(golden_setup):
@@ -158,7 +170,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(backbone="mit_b0"), dict(previous_link="link_atten"), dict(previous_type="update"),
+    dict(backbone="swin_b"), dict(previous_link="link_atten"), dict(previous_type="update"),
     dict(track_head_type="query_fuse"),
 ])
 def test_unported_model_options_raise(change):
@@ -169,10 +181,11 @@ def test_unported_model_options_raise(change):
 def test_unported_serving_options_raise(golden_setup):
     cfg, model = golden_setup["cfg"], golden_setup["model"]
     with pytest.raises(NotImplementedError):
-        VPSInferencePipeline(model, cfg, HW, tracker_type="quasi_dense_host", device="cpu")
-    slow = dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, fast_decode=False))
+        VPSInferencePipeline(model, cfg, HW, tracker_type="tao", device="cpu")
     with pytest.raises(NotImplementedError):
-        VPSInferencePipeline(model, slow, HW, device="cpu")
+        MultiStreamVPSPipeline(model, cfg, HW, 2, tracker_type="unitrack", device="cpu")
+    with pytest.raises(NotImplementedError):
+        VideoKNet(dataclasses.replace(cfg, neck_type="msdeform_pixel_decoder"), device="cpu")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -1,24 +1,27 @@
-"""Backbone + neck factory. This slice ports ResNet-50 + FPN only."""
+"""Backbone + neck factory: ResNet-50 and MiT (b0-b5), each with the FPN."""
 
 from __future__ import annotations
 
 from torch import nn
 
+from video_knet_tpu_torch.models.mit import MixVisionTransformer
 from video_knet_tpu_torch.models.resnet import FPN, ResNet
 
 
 def build_backbone(name: str) -> nn.Module:
+    """The backbone module; its four stage widths are `out_channels`."""
     if name == "resnet50":
         return ResNet(depth=50)
+    if name.startswith("mit_"):
+        return MixVisionTransformer(preset=name.split("_", 1)[1])
     raise NotImplementedError(
-        f"backbone {name!r} is not ported yet (ROADMAP A8 for MiT-b0, slices C/E "
-        "for the others)"
+        f"backbone {name!r} is not ported yet (slices C/E of the ROADMAP)"
     )
 
 
-def build_neck(neck_type: str, backbone: str) -> nn.Module:
-    if neck_type == "fpn" and backbone == "resnet50":
-        return FPN()
-    raise NotImplementedError(
-        f"neck {neck_type!r} on backbone {backbone!r} is not ported yet (ROADMAP E2)"
-    )
+def build_neck(neck_type: str, backbone: nn.Module) -> nn.Module:
+    """The neck over `backbone`'s stage outputs (flax's FPN infers its input
+    widths; the port reads them from the backbone)."""
+    if neck_type == "fpn":
+        return FPN(in_channels=backbone.out_channels)
+    raise NotImplementedError(f"neck {neck_type!r} is not ported yet (ROADMAP E2)")

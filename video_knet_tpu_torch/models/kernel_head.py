@@ -29,14 +29,18 @@ class RPNOutputs(NamedTuple):
 
 
 class ConvKernelHead(nn.Module):
-    def __init__(self, cfg: ConvKernelHeadConfig):
+    """`in_channels` is the neck's output width: the JAX head infers its
+    localization FPN's input width from the features and never reads
+    `cfg.in_channels`."""
+
+    def __init__(self, cfg: ConvKernelHeadConfig, in_channels: int = 256):
         super().__init__()
         if cfg.fpn_type != "semantic_fpn":
             raise NotImplementedError(
                 f"fpn_type={cfg.fpn_type!r} is not ported yet (ROADMAP E2)")
         self.cfg = cfg
         self.localization_fpn = SemanticFPN(
-            in_channels=cfg.in_channels,
+            in_channels=in_channels,
             feat_channels=cfg.fpn_feat_channels,
             out_channels=cfg.out_channels,
             upsample_times=cfg.fpn_upsample_times,

@@ -2,7 +2,9 @@
 
 Counterpart of `video_knet_tpu/models/knet.py:454-540`: top-k thing
 (proposal, class) pairs plus one row per stuff class, sigmoid, optional
-rescale, joint-argmax merge.
+rescale, joint-argmax merge. `panoptic_decode_batch` decodes each image of
+a batch in turn and stacks the results (the reference vmaps the same
+function).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from video_knet_tpu_torch.config import KNetConfig
 from video_knet_tpu_torch.models.kernel_iter_head import StageOutput
 from video_knet_tpu_torch.models.layers import resize_mask_bilinear, resize_nearest
 from video_knet_tpu_torch.ops.panoptic import PanopticResult, merge_joint
+from video_knet_tpu_torch.utils.tree import tree_stack
 
 
 class PanopticPrediction(NamedTuple):
@@ -39,6 +42,18 @@ def panoptic_decode(rpn_out, stage_outs: list[StageOutput], cfg: KNetConfig,
         last.cls_score[0], last.scaled_mask_preds[0], last.object_feats[0],
         rpn_out.seg_preds[0], cfg, out_hw,
     )
+
+
+def panoptic_decode_batch(rpn_out, stage_outs: list[StageOutput], cfg: KNetConfig,
+                          out_hw: tuple[int, int] | None = None) -> PanopticPrediction:
+    """Decode of every image of a batch (multi-stream serving); each field
+    gains a leading batch axis."""
+    last = stage_outs[-1]
+    return tree_stack([
+        panoptic_decode_single(last.cls_score[i], last.scaled_mask_preds[i],
+                               last.object_feats[i], rpn_out.seg_preds[i], cfg, out_hw)
+        for i in range(last.cls_score.shape[0])
+    ])
 
 
 def panoptic_decode_single(cls_score_logits: torch.Tensor, mask_preds: torch.Tensor,

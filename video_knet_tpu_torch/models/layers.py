@@ -79,19 +79,22 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 class Conv2d(nn.Module):
     """flax `nn.Conv` on NHWC: weight OIHW, "SAME" padding as XLA pads it
-    (or explicit symmetric `padding`)."""
+    (or explicit symmetric `padding`); `groups` is flax's
+    `feature_group_count`."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: str | int = "SAME", bias: bool = True):
+                 padding: str | int = "SAME", bias: bool = True, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
         self.stride = stride
         self.padding = padding
+        self.groups = groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
-        if k == 1 and self.stride == 1:
+        if k == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, self.weight[:, :, 0, 0], self.bias)
         y = x.permute(0, 3, 1, 2)
         if self.padding == "SAME":
@@ -103,7 +106,8 @@ class Conv2d(nn.Module):
                 pad = 0
         else:
             pad = self.padding
-        y = F.conv2d(y, self.weight, self.bias, stride=self.stride, padding=pad)
+        y = F.conv2d(y, self.weight, self.bias, stride=self.stride, padding=pad,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -126,6 +130,23 @@ class GroupNorm(nn.Module):
         var = (d * d).mean(dim=(1, 3), keepdim=True)
         y = (d * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return y * self.weight + self.bias
+
+
+class FastVarianceLayerNorm(nn.Module):
+    """flax `nn.LayerNorm` as it runs by default (`use_fast_variance=True`):
+    var = max(mean(x^2) - mean(x)^2, 0), and the scale folded into the
+    rsqrt before it multiplies (x - mean)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class BatchNorm(nn.Module):
@@ -251,7 +272,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             _lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, GroupNorm, BatchNorm)):
+        elif isinstance(m, (nn.LayerNorm, FastVarianceLayerNorm, GroupNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             if isinstance(m, BatchNorm):

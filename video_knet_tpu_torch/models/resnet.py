@@ -39,15 +39,18 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Returns the four stage outputs (strides 4, 8, 16, 32), NHWC."""
+    """Returns the four stage outputs (strides 4, 8, 16, 32), NHWC; their
+    widths are `out_channels`."""
 
     def __init__(self, depth: int = 50):
         super().__init__()
+        widths = (64, 128, 256, 512)
+        self.out_channels = tuple(w * 4 for w in widths)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         self.stage_blocks = RESNET_STAGE_BLOCKS[depth]
         in_ch = 64
-        for s, (w, n_blocks) in enumerate(zip((64, 128, 256, 512), self.stage_blocks), start=1):
+        for s, (w, n_blocks) in enumerate(zip(widths, self.stage_blocks), start=1):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and s > 1) else 1
                 self.add_module(f"layer{s}_block{b}", BottleneckBlock(in_ch, w, stride))
@@ -70,6 +73,7 @@ class FPN(nn.Module):
     def __init__(self, in_channels=(256, 512, 1024, 2048), out_channels: int = 256,
                  num_outs: int = 4):
         super().__init__()
+        self.out_channels = out_channels
         self.num_outs = num_outs
         self.num_levels = len(in_channels)
         for i, c in enumerate(in_channels):

@@ -22,7 +22,11 @@ from video_knet_tpu_torch.models.backbones import build_backbone, build_neck
 from video_knet_tpu_torch.models.kernel_head import ConvKernelHead, RPNOutputs
 from video_knet_tpu_torch.models.kernel_iter_head import StageOutput, upscale_masks
 from video_knet_tpu_torch.models.kernel_update_head import KernelUpdateHead
-from video_knet_tpu_torch.models.knet import PanopticPrediction, panoptic_decode
+from video_knet_tpu_torch.models.knet import (
+    PanopticPrediction,
+    panoptic_decode,
+    panoptic_decode_batch,
+)
 from video_knet_tpu_torch.models.layers import init_parameters
 from video_knet_tpu_torch.utils.device import resolve_device
 
@@ -70,8 +74,8 @@ class VideoKNet(nn.Module):
                 f"track_head_type={cfg.track_head_type!r} is not ported yet (ROADMAP E3)")
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone)
-        self.neck = build_neck(cfg.neck_type, cfg.backbone)
-        self.rpn_head = ConvKernelHead(cfg.rpn)
+        self.neck = build_neck(cfg.neck_type, self.backbone)
+        self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
         self.num_stages = cfg.num_stages
         for s in range(cfg.num_stages):
             self.add_module(f"mask_head_{s}", KernelUpdateHead(
@@ -152,9 +156,12 @@ class VideoKNet(nn.Module):
 
 def vps_decode(rpn_out: RPNOutputs, stage_outs: list[StageOutput],
                track_obj_feats: torch.Tensor, cfg: VideoKNetConfig,
-               out_hw: tuple[int, int] | None) -> PanopticPrediction:
-    """Panoptic decode with the linked kernels as the thing-track handles."""
+               out_hw: tuple[int, int] | None, batched: bool = False) -> PanopticPrediction:
+    """Panoptic decode with the linked kernels as the thing-track handles.
+
+    batched=True decodes every image of the batch (multi-stream serving)."""
     last = stage_outs[-1]
     patched = [*stage_outs[:-1], StageOutput(
         last.cls_score, last.mask_preds, last.scaled_mask_preds, track_obj_feats)]
-    return panoptic_decode(rpn_out, patched, cfg, out_hw=out_hw)
+    fn = panoptic_decode_batch if batched else panoptic_decode
+    return fn(rpn_out, patched, cfg, out_hw=out_hw)

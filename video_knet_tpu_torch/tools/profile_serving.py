@@ -1,19 +1,27 @@
 """Where a serving frame's time goes, on one NVIDIA GPU.
 
-    python3 -m video_knet_tpu_torch.tools.profile_serving [--frames 6] [--out DIR]
+    python3 -m video_knet_tpu_torch.tools.profile_serving [--frames 6]
+        [--paths device,host,full,streams,mit] [--out DIR]
 
-Serves random 384x1248 frames through VPSInferencePipeline (Video K-Net R-50,
-`smoke_config()` and the seeded random weights of `smoke_model`, which
-chip_smoke.py shares) and reports:
-  - frame wall ms (host clock, the frame ends with its device->host copy);
+Serves random 384x1248 frames through one serving path after another (Video
+K-Net with `smoke_config()` and the seeded random weights of `smoke_model`,
+which chip_smoke.py shares):
+  device   R-50, VPSInferencePipeline, the tracker on the device (default)
+  host     R-50, `quasi_dense_host` (the numpy tracker, compact payload)
+  full     R-50, fast_decode=False (decode at 384x1248, host tracker)
+  streams  R-50, MultiStreamVPSPipeline with two streams (one step a round)
+  mit      MiT-b0 with the default heads, the tracker on the device
+and reports for each:
+  - frame wall ms (host clock, the frame ends with its device->host copy; a
+    round of two frames for `streams`);
   - from a torch.profiler trace: device busy ms a frame (union of kernel
     intervals), the device's idle share, kernel launches a frame, the top
     kernels by device time, the device ms a frame of the port's two CUDA
     kernels (K1 mask pool, K2 assemble), and the host<->device
     synchronisations;
-  - per layer, host ms with a synchronize at each layer boundary (a second,
-    separate pass; the boundaries serialize the frame, so the layer sum is a
-    little above the frame time).
+  - for `device` only, host ms per layer with a synchronize at each layer
+    boundary (a second, separate pass; the boundaries serialize the frame,
+    so the layer sum is a little above the frame time).
 With --out, also writes the full report as JSON to DIR/profile_serving.json.
 """
 
@@ -55,12 +63,28 @@ def smoke_model(cfg, device):
     return VideoKNet(cfg, generator=torch.Generator().manual_seed(WEIGHT_SEED), device=device)
 
 
-def _pipeline():
-    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+PATHS = ("device", "host", "full", "streams", "mit")
+
+
+def _serving_path(path: str):
+    """(model, pipeline or None, serve(img, is_first), frames a call)."""
+    from video_knet_tpu_torch.models.video.inference import (
+        MultiStreamVPSPipeline,
+        VPSInferencePipeline,
+    )
 
     cfg = smoke_config()
+    if path == "mit":
+        cfg = dataclasses.replace(cfg, backbone="mit_b0")
+    elif path == "full":
+        cfg = dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, fast_decode=False))
     model = smoke_model(cfg, "cuda")
-    return model, VPSInferencePipeline(model, cfg, HW, device="cuda")
+    if path == "streams":
+        ms = MultiStreamVPSPipeline(model, cfg, HW, 2, device="cuda")
+        return model, None, lambda img, first: ms.run_frames(img, [first, first]), 2
+    tracker = "quasi_dense_host" if path == "host" else "quasi_dense"
+    pipe = VPSInferencePipeline(model, cfg, HW, tracker_type=tracker, device="cuda")
+    return model, pipe, lambda img, first: pipe.run_frame(img, is_first=first), 1
 
 
 def _busy_ms(events) -> float:
@@ -79,23 +103,25 @@ def _busy_ms(events) -> float:
     return total / 1e3  # us -> ms
 
 
-def profile(frames: int) -> dict:
+def profile(frames: int, path: str = "device") -> dict:
+    """The report of one serving path over `frames` profiled calls (frames,
+    or rounds of two frames for `streams`); the numbers a frame are a call's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    model, pipe = _pipeline()
+    model, pipe, serve, per_call = _serving_path(path)
     rng = np.random.RandomState(0)
-    imgs = [torch.from_numpy(rng.randn(1, *HW, 3).astype(np.float32)).cuda()
+    imgs = [torch.from_numpy(rng.randn(per_call, *HW, 3).astype(np.float32)).cuda()
             for _ in range(frames + 2)]
     for i in range(2):  # warm-up (first frame carries one-time costs)
-        pipe.run_frame(imgs[i], is_first=(i == 0))
+        serve(imgs[i], i == 0)
     torch.cuda.synchronize()
 
     wall = []
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for img in imgs[2:]:
             t0 = time.perf_counter()
-            pipe.run_frame(img, is_first=False)
+            serve(img, False)
             wall.append((time.perf_counter() - t0) * 1e3)
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -117,10 +143,10 @@ def profile(frames: int) -> dict:
         port[name] = dict(device_ms_per_frame=_busy_ms(evs) / frames,
                           kernel_launches_per_frame=len(evs) / frames)
 
-    layers = _layer_times(model, pipe, imgs[2:])
+    layers = _layer_times(model, pipe, imgs[2:]) if path == "device" else None
     wall_frame = statistics.median(wall)
     return dict(
-        hw=list(HW), frames=frames,
+        path=path, hw=list(HW), frames=frames, frames_per_call=per_call,
         frame_ms=wall, frame_ms_median=wall_frame,
         device_busy_ms_per_frame=busy,
         device_idle_share=max(0.0, 1 - busy / (sum(wall) / frames)),
@@ -181,21 +207,30 @@ def _layer_times(model, pipe, imgs) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--paths", default="device",
+                    help=f"comma-separated serving paths, of {','.join(PATHS)}")
     ap.add_argument("--out", help="directory for profile_serving.json")
     args = ap.parse_args()
-    from video_knet_tpu_torch.utils.device import card_name_and_power
+    from video_knet_tpu_torch.utils.device import card_name_and_power, set_fp32_numerics
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device available")
+    paths = args.paths.split(",")
+    unknown = sorted(set(paths) - set(PATHS))
+    if unknown:
+        raise SystemExit(f"profile_serving: unknown paths {unknown}")
+    set_fp32_numerics()
     report = dict(card=card_name_and_power(), torch=torch.__version__, cuda=torch.version.cuda,
-                  **profile(args.frames))
+                  paths={p: profile(args.frames, p) for p in paths})
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_serving.json"), "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({k: v for k, v in report.items() if k != "top_kernels_ms_per_frame"}))
-    for name, ms in report["top_kernels_ms_per_frame"]:
-        print(f"  {ms:8.3f} ms  {name}")
+    print(report["card"])
+    for rep in report["paths"].values():
+        print(json.dumps({k: v for k, v in rep.items() if k != "top_kernels_ms_per_frame"}))
+        for name, ms in rep["top_kernels_ms_per_frame"]:
+            print(f"  {ms:8.3f} ms  {name}")
     return 0
 
 
