@@ -33,6 +33,21 @@ Phases, each raising on failure (the process then exits non-zero):
                tests/golden/serving_trained_tiny_64x96.npz: >= 0.98 pixel
                agreement a frame on all three maps
  11. check     the R-50 weights on a 64x96 sequence, card against CPU
+ 12. train     VPS training, default config (R-50, 100 + 17 kernels, 3
+               stages, max_insts 32, frozen stem + layer1, fp32, TF32 off),
+               seeded random weights, 4 steps of `train_step` on
+               `make_synthetic_batch` at 384x1248, B=1: finite losses with
+               the reference's keys, 7 launches of each mask kernel and 1 of
+               the Hungarian kernel a step, a finite nonzero gradient on
+               every trainable parameter, none on the frozen ones (which do
+               not move); step ms, peak memory, host syncs a step, and the
+               Hungarian kernel's device time at the step's costs
+ 13. train-check  R-50, max_insts 4, 64x96: one train step's assignments,
+               losses and gradients on the card against the CPU (weights
+               whose hard-threshold inputs keep a 1e-4 margin); the
+               Hungarian kernel against its numpy copy on 256 seeded
+               tie-heavy problems; K1's and K2's gradients against the plain
+               versions' autograd at the stage shape and a ragged C
 Every serving phase resets the launch counts just before it drives its path
 and requires 4 launches of each kernel a frame (a round for B=2).
 Prints the kernels JSON line (launches per path), the card line, and as the
@@ -73,6 +88,31 @@ SEED = 0  # kernel inputs and frames (weights: profile_serving.WEIGHT_SEED)
 TOL_MASK_POOL = 5e-3
 TOL_ASSEMBLE = 1e-4
 KERNELS = ("mask_pool", "assemble")
+TRAIN_HW = (384, 1248)
+TRAIN_STEPS = 4
+TRAIN_CHECK_HW = (64, 96)
+TRAIN_SEED = 0  # train weights
+# train-check: every hard-threshold mask-pool input of the CPU forward must sit
+# this far (in logits) from its threshold, far beyond the card's forward
+# error there (~1e-5); else a pixel may binarize differently on the two
+# devices, which is the threshold's nature and not a kernel's error. The
+# check takes the first weight seed whose CPU forward keeps that margin.
+TRAIN_CHECK_MARGIN = 1e-4
+TRAIN_CHECK_SEEDS = 16
+# the reference's loss keys at the default config (video_knet_tpu's
+# video_knet_loss; the stages' rank loss is off in the video head config)
+TRAIN_LOSS_KEYS = {
+    "loss_rpn_mask", "loss_rpn_dice", "loss_rpn_rank", "loss_rpn_seg",
+    "loss_rpn_mask_ref_rpn", "loss_rpn_dice_ref_rpn", "loss_rpn_rank_ref_rpn",
+    "loss_rpn_seg_ref_rpn",
+    *(f"s{s}_loss_{k}{ref}" for s in range(3) for k in ("cls", "mask", "dice")
+      for ref in ("", "_ref")),
+    "loss_track", "loss_track_aux",
+}
+# launches a train step: the joint init head over [ref; key] (B=2) and 3
+# stages a branch; every assignment problem of the step in one solve
+TRAIN_LAUNCHES = {"mask_pool": 7, "assemble": 7, "hungarian": 1}
+FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1_")
 
 
 def log(msg: str) -> None:
@@ -96,6 +136,19 @@ def _logits(gen, shape, device):
     """Random logits kept at least 1e-6 away from 0 (strict comparison)."""
     x = torch.randn(shape, generator=gen, device=device)
     return torch.where(x >= 0, x.clamp(min=1e-6), x.clamp(max=-1e-6))
+
+
+def _fwd_bwd(op, feats, kern, wrt_kern: bool):
+    """op(feats, kern) -> out, then the gradient of out . 1 with respect to
+    the features (and the kernels for K2)."""
+    f = feats.clone().requires_grad_()
+    k = kern.clone().requires_grad_()
+
+    def run():
+        out = op(f, k)
+        return torch.autograd.grad(out, (f, k) if wrt_kern else (f,), torch.ones_like(out))
+
+    return run
 
 
 def phase_kernels(device) -> list[dict]:
@@ -151,6 +204,12 @@ def phase_kernels(device) -> list[dict]:
     f2 = feats.reshape(1, h * w, c)
     nnz = int(hard.sum())
     io_bytes = 4 * (n * h * w + h * w * c + n * c)  # both kernels: same sizes
+    grad_ops = {  # (kernel, plain version) on (feats, kern), and whether d kern is taken
+        "mask_pool": ((lambda f, k: mo.fused_mask_pool(logits, f),
+                       lambda f, k: mo.mask_pool_plain(logits, f)), False),
+        "assemble": ((lambda f, k: mo.fused_assemble(k, f),
+                      lambda f, k: mo.assemble_plain(k, f)), True),
+    }
     recs = []
     for name, fn, plain, lib, flops, precision, err, src_line in (
         ("mask_pool", lambda: mo.fused_mask_pool(logits, feats),
@@ -174,6 +233,11 @@ def phase_kernels(device) -> list[dict]:
         )
         if name == "assemble":
             rec["ms_sigmoid"] = device_ms(lambda: mo.fused_assemble(kern, feats, sigmoid=True))
+        # forward + backward (the autograd Function; d feats, and d kern for
+        # K2), against the plain version's autograd on the same card
+        ops, wrt_kern = grad_ops[name]
+        rec["fwd_bwd_ms"], rec["plain_fwd_bwd_ms"] = (
+            device_ms(_fwd_bwd(op, feats, kern, wrt_kern)) for op in ops)
         log(f"[kernels] {name}: device {ms * 1e3:.2f} us (call {rec['call_ms'] * 1e3:.1f} us), "
             f"plain {rec['plain_ms'] * 1e3:.2f} us, library {rec['library_ms'] * 1e3:.2f} us, "
             f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}; {io_bytes / 1e6:.2f} MB, "
@@ -445,6 +509,237 @@ def phase_check(device) -> None:
             raise AssertionError(f"frame {t}: card and CPU id maps disagree: {agree}")
 
 
+def _reset_counts() -> None:
+    from video_knet_tpu_torch.ops.kernels import hungarian, mask_ops
+
+    mask_ops.reset_launch_counts()
+    hungarian.reset_launch_counts()
+
+
+def _counts() -> dict:
+    from video_knet_tpu_torch.ops.kernels import hungarian, mask_ops
+
+    return {**mask_ops.LAUNCHES, **hungarian.LAUNCHES}
+
+
+def _train_model(cfg, device, seed: int = TRAIN_SEED):
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+
+    model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device=device)
+    return create_train_state(model, make_optimizer(model, steps_per_epoch=1000))
+
+
+def _step_costs(model, batch):
+    """The [L, G, N] problems the step's one solve takes."""
+    from video_knet_tpu_torch.models.video.knet_vps import video_knet_costs
+    from video_knet_tpu_torch.ops.hungarian import gt_rows
+
+    with torch.no_grad():
+        key, ref, _, _ = model.forward_train(batch.img, batch.ref_img)
+        costs, valids = video_knet_costs(key, ref, batch.gt, batch.ref_gt, model.cfg)
+    return gt_rows(torch.cat(costs), torch.cat(valids))
+
+
+def phase_train(device, paths: Paths) -> dict:
+    """VPS training at the default config, 384x1248: 4 steps."""
+    import warnings
+
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.ops.kernels.hungarian import hungarian_plain, solve
+    from video_knet_tpu_torch.tools.kernel_timing import device_ms
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    cfg = VideoKNetConfig()
+    state = _train_model(cfg, device)
+    model = state.model
+    batches = [make_synthetic_batch(cfg, 1, TRAIN_HW, seed=i, device=device)
+               for i in range(TRAIN_STEPS)]
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(FROZEN)}
+    trainable = [(n, p) for n, p in model.named_parameters() if not n.startswith(FROZEN)]
+    if not frozen or any(p.requires_grad for n, p in model.named_parameters()
+                         if n.startswith(FROZEN)):
+        raise AssertionError("[train] the stem and layer1 are not frozen")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, syncs, launches = [], [], []
+    for i, batch in enumerate(batches):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, losses = train_step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        launches.append(_counts())
+        vals = {k: float(v) for k, v in losses.items()}
+        if set(vals) != TRAIN_LOSS_KEYS | {"total_loss"}:
+            raise AssertionError(f"[train] loss keys {sorted(vals)}")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"[train] step {i}: non-finite losses {vals}")
+        if launches[-1] != TRAIN_LAUNCHES:
+            raise AssertionError(f"[train] step {i}: launches {launches[-1]}, "
+                                 f"expected {TRAIN_LAUNCHES}")
+        log(f"[train] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
+            f"{syncs[-1]} host syncs, launches {launches[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    bad = [n for n, p in trainable if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or float(p.grad.norm()) == 0.0]
+    if bad:
+        raise AssertionError(f"[train] {len(bad)} trainable parameters without a finite "
+                             f"nonzero gradient: {bad[:8]}")
+    moved = [n for n, p in model.named_parameters()
+             if n in frozen and (p.grad is not None or not torch.equal(p, frozen[n]))]
+    if moved:
+        raise AssertionError(f"[train] frozen parameters moved or got gradients: {moved[:8]}")
+    paths.launches["train"] = {k: sum(c[k] for c in launches) for k in TRAIN_LAUNCHES}
+    paths.frame_ms["train"] = ms
+
+    # the Hungarian kernel on the last step's own costs (10 problems at B=1)
+    cost = _step_costs(model, batches[-1])
+    rounds = [0]
+    t0 = time.perf_counter()
+    want = hungarian_plain(cost.cpu().numpy(), rounds)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = solve(cost).cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError("[train] the Hungarian kernel disagrees with its numpy copy")
+    lanes, r, c = cost.shape
+    io_bytes = 4 * lanes * r * c + 4 * lanes * r
+    # each round: a subtract pair, a compare and a potential update per column
+    ops = 4 * (c + 1) * rounds[0]
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PEAK["fp32"][1] * 1e3
+    hms = device_ms(lambda: solve(cost))
+    rec = dict(name="hungarian", route="cuda",
+               source="video_knet_tpu_torch/ops/kernels/csrc/hungarian.cu",
+               replaces="video_knet_tpu/ops/hungarian.py:28",
+               launches=paths.launches["train"]["hungarian"],
+               max_abs_err=0.0, ms=hms, plain_ms=plain_ms, plain_on="host (numpy)",
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, problems=[lanes, r, c], rounds=rounds[0])
+    med = statistics.median(ms[1:])
+    log(f"[train] median step {med:.2f} ms over steps 1..{TRAIN_STEPS - 1} (first "
+        f"{ms[0]:.1f} ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a "
+        f"step {syncs}; Hungarian kernel {hms * 1e3:.1f} us device for {lanes} problems of "
+        f"{r}x{c} ({rounds[0]} rounds; numpy copy {plain_ms:.2f} ms on the host)")
+    return dict(record=rec, step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
+
+
+def _grads(model) -> dict:
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+            for n, p in model.named_parameters()}
+
+
+def phase_train_check(device) -> None:
+    """One train step on the card against the same step on the CPU; the
+    Hungarian kernel on 256 problems; the mask kernels' gradients."""
+    import dataclasses as dc
+
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.models.knet import solve_lanes
+    from video_knet_tpu_torch.models.video.knet_vps import (
+        mask_pool_margin,
+        video_knet_costs,
+        video_knet_loss,
+    )
+    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+    from video_knet_tpu_torch.ops.kernels.hungarian import (
+        hungarian_plain,
+        solve,
+        tie_heavy_problems,
+    )
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch
+
+    cfg = VideoKNetConfig(max_insts=4)
+    cpu_batch = make_synthetic_batch(cfg, 1, TRAIN_CHECK_HW, seed=0, device="cpu")
+    for seed in range(TRAIN_CHECK_SEEDS):
+        with torch.no_grad():
+            key, ref, _, _ = _train_model(cfg, "cpu", seed).model.forward_train(
+                cpu_batch.img, cpu_batch.ref_img)
+        margin = min(mask_pool_margin(key, cfg), mask_pool_margin(ref, cfg))
+        if margin >= TRAIN_CHECK_MARGIN:
+            break
+    else:
+        raise AssertionError(f"[train-check] no weight seed below {TRAIN_CHECK_SEEDS} keeps the "
+                             f"mask-pool inputs {TRAIN_CHECK_MARGIN} from the threshold")
+    log(f"[train-check] weight seed {seed}: mask-pool inputs at least {margin:.2e} from the "
+        f"threshold (limit {TRAIN_CHECK_MARGIN})")
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        model = _train_model(cfg, dev, seed).model
+        batch = make_synthetic_batch(cfg, 1, TRAIN_CHECK_HW, seed=0, device=dev)
+        key, ref, ke, re = model.forward_train(batch.img, batch.ref_img)
+        losses = video_knet_loss((key, ref), (ke, re), batch.gt, batch.ref_gt, cfg)
+        sum(losses.values()).backward()
+        g2p, p2g = solve_lanes(*video_knet_costs(key, ref, batch.gt, batch.ref_gt, cfg))
+        runs[dev.type] = dict(losses={k: float(v) for k, v in losses.items()},
+                              g2p=torch.cat(g2p).cpu(), p2g=torch.cat(p2g).cpu(),
+                              grads=_grads(model))
+    g, c = runs["cuda"], runs["cpu"]
+    if not (torch.equal(g["g2p"], c["g2p"]) and torch.equal(g["p2g"], c["p2g"])):
+        raise AssertionError("[train-check] card and CPU assignments differ")
+    worst = max(abs(g["losses"][k] - v) / max(abs(v), 1e-6) for k, v in c["losses"].items())
+    if set(g["losses"]) != set(c["losses"]) or not worst <= 1e-4:
+        raise AssertionError(f"[train-check] losses differ: worst relative {worst}")
+    gworst = 0.0
+    for k, want in c["grads"].items():
+        scale = float(want.abs().max())
+        if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+            scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+        err = float((g["grads"][k] - want).abs().max())
+        gworst = max(gworst, err / max(scale, 1e-12))
+        if not err <= 1e-3 * max(scale, 1e-12):
+            raise AssertionError(f"[train-check] gradient of {k}: {err} vs scale {scale}")
+    log(f"[train-check] assignments equal; losses within {worst:.2e} relative (limit 1e-4); "
+        f"gradients within {gworst:.2e} of each leaf's scale (limit 1e-3)")
+
+    problems = tie_heavy_problems(seed=1, shapes=((96, 32, 100), (96, 4, 100), (64, 7, 13)))
+    count = 0
+    for costs, _ in problems:
+        got = solve(torch.from_numpy(costs).to(device)).cpu().numpy()
+        if not np.array_equal(got, hungarian_plain(costs)):
+            raise AssertionError(f"[train-check] Hungarian kernel != numpy on {costs.shape}")
+        count += len(costs)
+    log(f"[train-check] Hungarian kernel equals its numpy copy on {count} problems")
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    h, w = SERVE_HW[0] // 8, SERVE_HW[1] // 8
+    worst = {"mask_pool": 0.0, "assemble": 0.0}
+    for b, n, hh, ww, cc in ((1, 117, h, w, 256), (1, 100, h, w, 256), (2, 37, 8, 12, 37)):
+        logits = _logits(gen, (b, n, hh, ww), device)
+        feats = torch.randn((b, hh, ww, cc), generator=gen, device=device)
+        kern = torch.randn((b, n, cc), generator=gen, device=device) / cc ** 0.5
+        d_pool = torch.randn((b, n, cc), generator=gen, device=device)
+        d_asm = torch.randn((b, n, hh, ww), generator=gen, device=device)
+        before = dict(mo.LAUNCHES)
+        f1, f2 = feats.clone().requires_grad_(), feats.clone().requires_grad_()
+        (mo.fused_mask_pool(logits, f1) * d_pool).sum().backward()
+        (mo.mask_pool_plain(logits, f2) * d_pool).sum().backward()
+        worst["mask_pool"] = max(worst["mask_pool"], float(
+            (f1.grad - f2.grad).abs().max() / f2.grad.abs().max()))
+        for sig in (False, True):
+            k1, k2 = kern.clone().requires_grad_(), kern.clone().requires_grad_()
+            f1, f2 = feats.clone().requires_grad_(), feats.clone().requires_grad_()
+            (mo.fused_assemble(k1, f1, sigmoid=sig) * d_asm).sum().backward()
+            (mo.assemble_plain(k2, f2, sigmoid=sig) * d_asm).sum().backward()
+            for a, b_ in ((k1.grad, k2.grad), (f1.grad, f2.grad)):
+                worst["assemble"] = max(worst["assemble"],
+                                        float((a - b_).abs().max() / b_.abs().max()))
+        if {k: mo.LAUNCHES[k] - before[k] for k in before} != {"mask_pool": 1, "assemble": 2}:
+            raise AssertionError("[train-check] a backward launched a forward kernel")
+    log(f"[train-check] kernel gradients vs the plain versions' autograd, max abs err / "
+        f"scale: {worst} (limit 1e-5)")
+    if not max(worst.values()) <= 1e-5:
+        raise AssertionError(f"[train-check] kernel gradients disagree: {worst}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -468,6 +763,15 @@ def main() -> int:
         rec["launches"] = serve["launches"][rec["name"]]
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.launches.items()}
     phase_check(device)
+    train = phase_train(device, paths)
+    for rec in kernels:
+        rec["launches_by_path"]["train"] = paths.launches["train"][rec["name"]]
+    hrec = train["record"]
+    hrec["launches_by_path"] = {"train": paths.launches["train"]["hungarian"]}
+    kernels.append(hrec)
+    phase_train_check(device)
+    log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
+        f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

@@ -131,3 +131,111 @@ def test_assemble_is_deterministic(dev, sigmoid):
     first = mo.fused_assemble(kern, feats, sigmoid=sigmoid)
     for _ in range(3):
         assert torch.equal(mo.fused_assemble(kern, feats, sigmoid=sigmoid), first)
+
+
+# (B, N, H, W, C) for the gradients: the serving stage shape, a ragged one
+# with C = 37 (K2's wrapper pads C to 40 inside its autograd Function), and
+# the init head's N = 100 at B = 2 (the train step's joint [ref; key] pass)
+GRAD_SHAPES = [(1, 117, 48, 156, 256), (2, 13, 7, 9, 37), (2, 100, 48, 156, 256)]
+
+
+@pytest.mark.parametrize("b,n,h,w,c", GRAD_SHAPES)
+def test_mask_pool_gradient_matches_plain_autograd(dev, b, n, h, w, c):
+    """d feats = hard^T . d out from the forward's own mask words; the
+    logits take no gradient (the hard threshold), as in the plain version."""
+    rng = np.random.RandomState(n + c)
+    logits = _logits(rng, (b, n, h, w), dev).requires_grad_()
+    feats = _rand(rng, (b, h, w, c), dev)
+    d_out = _rand(rng, (b, n, c), dev)
+    f1, f2 = feats.clone().requires_grad_(), feats.clone().requires_grad_()
+    mo.reset_launch_counts()
+    (mo.fused_mask_pool(logits, f1) * d_out).sum().backward()
+    assert mo.LAUNCHES == {"mask_pool": 1, "assemble": 0}  # forward launches only
+    (mo.mask_pool_plain(logits, f2) * d_out).sum().backward()
+    assert logits.grad is None
+    _close(f1.grad, f2.grad)
+
+
+@pytest.mark.parametrize("sigmoid", [False, True])
+@pytest.mark.parametrize("b,n,h,w,c", GRAD_SHAPES)
+def test_assemble_gradients_match_plain_autograd(dev, b, n, h, w, c, sigmoid):
+    rng = np.random.RandomState(n + c + sigmoid)
+    kern = _rand(rng, (b, n, c), dev, 1 / np.sqrt(c))
+    feats = _rand(rng, (b, h, w, c), dev)
+    d_out = _rand(rng, (b, n, h, w), dev)
+    k1, k2 = kern.clone().requires_grad_(), kern.clone().requires_grad_()
+    f1, f2 = feats.clone().requires_grad_(), feats.clone().requires_grad_()
+    mo.reset_launch_counts()
+    (mo.fused_assemble(k1, f1, sigmoid=sigmoid) * d_out).sum().backward()
+    assert mo.LAUNCHES == {"mask_pool": 0, "assemble": 1}
+    (mo.assemble_plain(k2, f2, sigmoid=sigmoid) * d_out).sum().backward()
+    assert k1.grad.shape == kern.shape and f1.grad.shape == feats.shape
+    _close(k1.grad, k2.grad)
+    _close(f1.grad, f2.grad)
+
+
+def test_hungarian_kernel_matches_numpy_copy(dev):
+    from video_knet_tpu_torch.ops import hungarian as hung
+    from video_knet_tpu_torch.ops.kernels import hungarian as hk
+
+    hk.reset_launch_counts()
+    for costs, valid in hk.tie_heavy_problems(seed=2):
+        got = hk.solve(torch.from_numpy(costs).to(dev))
+        np.testing.assert_array_equal(got.cpu().numpy(), hk.hungarian_plain(costs))
+        cost = torch.from_numpy(np.ascontiguousarray(costs.transpose(0, 2, 1)))
+        for a, b in zip(hung.pad_and_solve(cost.to(dev), torch.from_numpy(valid).to(dev)),
+                        hung.pad_and_solve(cost, torch.from_numpy(valid))):
+            assert torch.equal(a.cpu(), b)
+    assert hk.LAUNCHES["hungarian"] == 6  # one a solve: 3 shapes, direct and padded
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """A 64x96 train step: the card's gradients equal the CPU's (which the
+    CPU tests hold against JAX) leaf by leaf, so every gradient through K1
+    and K2 arrives; each mask kernel launches 7 times and the Hungarian
+    kernel once."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.ops.kernels import hungarian as hk
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    from video_knet_tpu_torch.models.video.knet_vps import mask_pool_margin
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = VideoKNetConfig(max_insts=4)
+    # weights whose hard-threshold inputs sit >= 1e-4 (in logits) from the
+    # threshold on the CPU, far beyond the card's forward error (~1e-5): a
+    # closer pixel may binarize differently on the two devices
+    cpu_batch = make_synthetic_batch(cfg, 1, (64, 96), seed=0, device="cpu")
+    for seed in range(16):
+        with torch.no_grad():
+            key, ref, _, _ = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed),
+                                       device="cpu").forward_train(cpu_batch.img, cpu_batch.ref_img)
+        if min(mask_pool_margin(key, cfg), mask_pool_margin(ref, cfg)) >= 1e-4:
+            break
+    else:
+        pytest.fail("no weight seed keeps the mask-pool inputs 1e-4 from the threshold")
+    grads, losses = {}, {}
+    for d in (dev, torch.device("cpu")):
+        model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device=d)
+        state = create_train_state(model, make_optimizer(model, 1000))
+        batch = make_synthetic_batch(cfg, 1, (64, 96), seed=0, device=d)
+        mo.reset_launch_counts()
+        hk.reset_launch_counts()
+        state, out = train_step(state, batch)
+        if d.type == "cuda":
+            assert mo.LAUNCHES == {"mask_pool": 7, "assemble": 7}
+            assert hk.LAUNCHES == {"hungarian": 1}
+        grads[d.type] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.requires_grad}
+        losses[d.type] = {k: float(v) for k, v in out.items()}
+    for k, want in losses["cpu"].items():
+        assert abs(losses["cuda"][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+    for k, want in grads["cpu"].items():
+        scale = float(want.abs().max())
+        if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+            scale = float(grads["cpu"][k[:-len("bias")] + "weight"].abs().max())
+        assert scale > 0, k
+        assert float((grads["cuda"][k] - want).abs().max()) <= 1e-3 * scale, k

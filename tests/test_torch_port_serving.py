@@ -188,6 +188,11 @@ def test_unported_serving_options_raise(golden_setup):
         VideoKNet(dataclasses.replace(cfg, neck_type="msdeform_pixel_decoder"), device="cpu")
 
 
+# the modules of the training slice, which the guard must find and import
+TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
+                       "train.optim", "train.train_state", "train.vps", "train.demo_train")
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -197,8 +202,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'video_knet_tpu')]\n"
-        "assert len(mods) >= 17 and not bad, (len(mods), bad)\n"
-    )
+        "need = {'video_knet_tpu_torch.' + m for m in TRAIN_SLICE}\n"
+        "missing = need - set(mods)\n"
+        "assert len(mods) >= 40 and not missing and not bad, (len(mods), missing, bad)\n"
+    ).replace("TRAIN_SLICE", repr(TRAIN_SLICE_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

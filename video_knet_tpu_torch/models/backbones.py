@@ -8,10 +8,11 @@ from video_knet_tpu_torch.models.mit import MixVisionTransformer
 from video_knet_tpu_torch.models.resnet import FPN, ResNet
 
 
-def build_backbone(name: str) -> nn.Module:
-    """The backbone module; its four stage widths are `out_channels`."""
+def build_backbone(name: str, frozen_stages: int = -1) -> nn.Module:
+    """The backbone module; its four stage widths are `out_channels`.
+    `frozen_stages` applies to ResNet (MiT ignores it, as in the reference)."""
     if name == "resnet50":
-        return ResNet(depth=50)
+        return ResNet(depth=50, frozen_stages=frozen_stages)
     if name.startswith("mit_"):
         return MixVisionTransformer(preset=name.split("_", 1)[1])
     raise NotImplementedError(

@@ -1,10 +1,16 @@
-"""Panoptic decode of the K-Net outputs (inference).
+"""K-Net's training losses and its panoptic decode.
 
-Counterpart of `video_knet_tpu/models/knet.py:454-540`: top-k thing
-(proposal, class) pairs plus one row per stuff class, sigmoid, optional
-rescale, joint-argmax merge. `panoptic_decode_batch` decodes each image of
-a batch in turn and stacks the results (the reference vmaps the same
-function).
+Counterpart of `video_knet_tpu/models/knet.py`:
+- the loss block (`:56-400`): the Hungarian assignment costs of a branch
+  (`branch_assignment_costs`, optionally at head resolution against pooled
+  GT), one solve for all of them (`solve_assignments`), the init-head losses
+  (`rpn_loss`), the per-stage losses on gathered rows (`stage_loss`,
+  gather-then-upscale), `iter_head_losses` and `knet_loss`. Fixed GT slots,
+  no data-dependent shapes; the assignment inputs are detached.
+- the decode (`:454-540`): top-k thing (proposal, class) pairs plus one row
+  per stuff class, sigmoid, optional rescale, joint-argmax merge.
+  `panoptic_decode_batch` decodes each image of a batch in turn and stacks
+  the results (the reference vmaps the same function).
 """
 
 from __future__ import annotations
@@ -14,10 +20,195 @@ from typing import NamedTuple
 import torch
 
 from video_knet_tpu_torch.config import KNetConfig
-from video_knet_tpu_torch.models.kernel_iter_head import StageOutput
-from video_knet_tpu_torch.models.layers import resize_mask_bilinear, resize_nearest
+from video_knet_tpu_torch.models.kernel_iter_head import StageOutput, upscale_masks
+from video_knet_tpu_torch.models.layers import (
+    resize_bilinear,
+    resize_mask_bilinear,
+    resize_nearest,
+)
+from video_knet_tpu_torch.ops import hungarian as hung
+from video_knet_tpu_torch.ops import losses as L
 from video_knet_tpu_torch.ops.panoptic import PanopticResult, merge_joint
+from video_knet_tpu_torch.ops.targets import (
+    PanopticGT,
+    build_rank_target_gathered,
+    build_semantic_map,
+    build_stage_label_targets,
+    gather_rows,
+    pred_of_gt_from,
+)
 from video_knet_tpu_torch.utils.tree import tree_stack
+
+# ------------------------------------------------------------------ losses
+
+
+def detached_cost(masks, gt_masks, gt_labels, cls, cls_weight: float,
+                  cfg: KNetConfig) -> torch.Tensor:
+    """[B, N, G] matching costs of detached predictions."""
+    return hung.hungarian_cost_matrix(
+        masks.detach(), gt_masks, None if cls is None else cls.detach(), gt_labels,
+        cls_weight=cls_weight, dice_weight=cfg.assigner.dice_weight,
+        mask_weight=cfg.assigner.mask_weight)
+
+
+def branch_assignment_costs(rpn_out, stage_outs: list[StageOutput], gt: PanopticGT,
+                            cfg: KNetConfig) -> list[torch.Tensor]:
+    """All Hungarian cost matrices of one branch, [rpn, stage 0 .. A-1], each
+    [B, N, G], to be solved together. Stage s is assigned on the previous
+    stage's outputs (the init head's for s = 0). With
+    `cfg.assigner.coarse_costs` the costs use head-resolution masks against
+    average-pooled GT instead of masks upsampled to the assign stride."""
+    n_prop = cfg.num_proposals
+    coarse = cfg.assigner.coarse_costs
+
+    def gt_masks_for(masks):
+        f = gt.masks.shape[-1] // masks.shape[-1]
+        if not coarse or f <= 1:
+            return gt.masks
+        b, g, hs, ws = gt.masks.shape
+        return gt.masks.reshape(b, g, hs // f, f, ws // f, f).mean(dim=(3, 5))
+
+    def cost(masks, cls, cls_weight):
+        return detached_cost(masks, gt_masks_for(masks), gt.labels, cls, cls_weight, cfg)
+
+    rpn_thing = (rpn_out.thing_mask_preds if coarse
+                 else upscale_masks(rpn_out.thing_mask_preds, cfg.rpn.feat_downsample_stride))
+    costs = [cost(rpn_thing, None, 0.0)]
+    prev_masks = (rpn_out.mask_preds if coarse
+                  else upscale_masks(rpn_out.mask_preds, cfg.head.mask_upsample_stride))[:, :n_prop]
+    prev_cls = None
+    for s in range(min(cfg.assign_stages, len(stage_outs))):
+        cls = None if prev_cls is None else prev_cls[:, :n_prop, :cfg.num_thing_classes]
+        costs.append(cost(prev_masks, cls, cfg.assigner.cls_weight if cls is not None else 0.0))
+        prev_masks = (stage_outs[s].mask_preds if coarse
+                      else stage_outs[s].scaled_mask_preds)[:, :n_prop]
+        prev_cls = stage_outs[s].cls_score
+    return costs
+
+
+def solve_lanes(costs: list[torch.Tensor], valids: list[torch.Tensor]):
+    """Solve L cost sets [B, N, G] (valid [B, G] each) as ONE Hungarian solve
+    over L * B problems. Returns (gt_of_pred list of [B, N], pred_of_gt list
+    of [B, G])."""
+    b = costs[0].shape[0]
+    g2p, p2g = hung.pad_and_solve(torch.cat(costs), torch.cat(valids))
+    return ([g2p[i * b:(i + 1) * b] for i in range(len(costs))],
+            [p2g[i * b:(i + 1) * b] for i in range(len(costs))])
+
+
+def solve_assignments(costs: list[torch.Tensor], valid: torch.Tensor):
+    """`solve_lanes` with one validity for every cost set."""
+    return solve_lanes(costs, [valid] * len(costs))
+
+
+def _rank_loss_batched(scaled_masks: torch.Tensor, rank_target: torch.Tensor,
+                       weight: float) -> torch.Tensor:
+    """CE over the N mask logits of each pixel, ignore 255."""
+    return L.softmax_cross_entropy(scaled_masks.movedim(1, -1), rank_target, ignore_index=255,
+                                   loss_weight=weight)
+
+
+def _mask_losses(rows_pred, rows_t, rows_w, mask_weight, dice_weight, names):
+    b, r = rows_w.shape
+    hw = rows_pred.shape[-2:]
+    pred, tgt, w = rows_pred.reshape(b * r, *hw), rows_t.reshape(b * r, *hw), rows_w.reshape(b * r)
+    return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight),
+            names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight)}
+
+
+def rpn_loss(rpn_out, gt: PanopticGT, cfg: KNetConfig,
+             gt_of_pred: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Init-head losses given its assignment [B, N]: mask BCE and dice on the
+    gathered matched rows, the rank CE, and the semantic loss on the
+    linearly upsampled seg logits (softmax CE in the video config, sigmoid
+    focal otherwise)."""
+    c = cfg.num_classes
+    r = cfg.rpn
+    scaled = upscale_masks(rpn_out.thing_mask_preds, r.feat_downsample_stride)
+    p2g = pred_of_gt_from(gt_of_pred, gt.masks.shape[1])
+    rows_w = (p2g >= 0).float()
+    safe = torch.clamp(p2g, min=0)
+    losses = _mask_losses(gather_rows(scaled, safe), gt.masks, rows_w, r.loss_mask_weight,
+                          r.loss_dice_weight, ("loss_rpn_mask", "loss_rpn_dice"))
+    if r.loss_rank_weight > 0:
+        rank_t = build_rank_target_gathered(gt.masks, rows_w, safe, ignore_label=255)
+        losses["loss_rpn_rank"] = _rank_loss_batched(scaled, rank_t, r.loss_rank_weight)
+    seg_targets = build_semantic_map(gt, num_thing_classes=cfg.num_thing_classes, num_classes=c)
+    h, w = rpn_out.seg_preds.shape[1:3]
+    seg_scaled = resize_bilinear(rpn_out.seg_preds,
+                                 (h * r.feat_downsample_stride, w * r.feat_downsample_stride))
+    if r.seg_use_sigmoid:
+        flat_t = seg_targets.reshape(-1)
+        num_dense_pos = torch.clamp((flat_t < c).float().sum(), min=1.0)
+        losses["loss_rpn_seg"] = L.sigmoid_focal_loss(
+            seg_scaled.reshape(-1, c), flat_t, num_classes=c, loss_weight=r.loss_seg_weight,
+            avg_factor=num_dense_pos)
+    else:
+        losses["loss_rpn_seg"] = L.softmax_cross_entropy(
+            seg_scaled, seg_targets, ignore_index=c, loss_weight=r.loss_seg_weight)
+    return losses
+
+
+def stage_loss(out: StageOutput, gt_of_pred: torch.Tensor, gt: PanopticGT, cfg: KNetConfig,
+               prefix: str) -> dict[str, torch.Tensor]:
+    """One KernelUpdateHead stage: focal cls over all rows; mask BCE and dice
+    on the G matched thing rows plus the S stuff rows, gathered at head
+    resolution and only then upscaled; the rank CE over all rows."""
+    h = cfg.head
+    c = cfg.num_classes
+    s = cfg.num_stuff_classes
+    labels, label_weights, num_pos = build_stage_label_targets(
+        gt_of_pred, gt, num_thing_classes=cfg.num_thing_classes, num_stuff_classes=s)
+    b, n_tot = labels.shape
+    n_prop = n_tot - s
+    losses = {f"{prefix}_loss_cls": L.sigmoid_focal_loss(
+        out.cls_score.reshape(b * n_tot, c), labels.reshape(b * n_tot),
+        label_weights.reshape(b * n_tot, c), num_classes=c, gamma=h.focal_gamma,
+        alpha=h.focal_alpha, loss_weight=h.loss_cls_weight,
+        avg_factor=torch.clamp(num_pos, min=1.0))}
+    p2g = pred_of_gt_from(gt_of_pred[:, :n_prop], gt.masks.shape[1])
+    safe = torch.clamp(p2g, min=0)
+    mp = out.mask_preds
+    rows_small = torch.cat([gather_rows(mp[:, :n_prop], safe), mp[:, n_prop:]], dim=1)
+    rows_pred = upscale_masks(rows_small, h.mask_upsample_stride)
+    rows_t = torch.cat([gt.masks, gt.sem_masks], dim=1)
+    rows_w = torch.cat([(p2g >= 0).float(), gt.sem_valid.float()], dim=1)
+    losses.update(_mask_losses(rows_pred, rows_t, rows_w, h.loss_mask_weight,
+                               h.loss_dice_weight, (f"{prefix}_loss_mask", f"{prefix}_loss_dice")))
+    if h.loss_rank_weight > 0:
+        stuff_rows = n_prop + torch.arange(s, dtype=safe.dtype, device=safe.device)
+        orig_idx = torch.cat([safe, stuff_rows[None].expand(b, s)], dim=1)
+        rank_t = build_rank_target_gathered(rows_t, rows_w, orig_idx, ignore_label=255)
+        losses[f"{prefix}_loss_rank"] = _rank_loss_batched(out.scaled_mask_preds, rank_t,
+                                                           h.loss_rank_weight)
+    return losses
+
+
+def iter_head_losses(stage_outs: list[StageOutput], gt: PanopticGT, cfg: KNetConfig,
+                     assignments: list[torch.Tensor]):
+    """Per-stage losses given one [B, N] assignment per assign stage (stage s
+    assigned on the previous stage's detached outputs, `solve_assignments`).
+    Returns (losses, last stage's gt_of_pred)."""
+    losses: dict[str, torch.Tensor] = {}
+    gt_of_pred = None
+    for s, out in enumerate(stage_outs):
+        if s < cfg.assign_stages:
+            gt_of_pred = assignments[s]
+        for k, v in stage_loss(out, gt_of_pred, gt, cfg, f"s{s}").items():
+            losses[k] = v * cfg.stage_loss_weights[s]
+    return losses, gt_of_pred
+
+
+def knet_loss(rpn_out, stage_outs: list[StageOutput], gt: PanopticGT,
+              cfg: KNetConfig) -> dict[str, torch.Tensor]:
+    costs = branch_assignment_costs(rpn_out, stage_outs, gt, cfg)
+    assigns, _ = solve_assignments(costs, gt.valid)
+    losses = rpn_loss(rpn_out, gt, cfg, gt_of_pred=assigns[0])
+    losses.update(iter_head_losses(stage_outs, gt, cfg, assignments=assigns[1:])[0])
+    return losses
+
+
+# ------------------------------------------------------------------ decode
 
 
 class PanopticPrediction(NamedTuple):

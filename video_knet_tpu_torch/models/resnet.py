@@ -1,8 +1,11 @@
 """ResNet backbone (torch-style bottleneck) and mmdet-style FPN, NHWC.
 
-Counterpart of `video_knet_tpu/models/resnet.py`, inference only: every
-BatchNorm uses its running averages (the serving path; `norm_eval` and
-frozen stages only matter to training).
+Counterpart of `video_knet_tpu/models/resnet.py`. Every BatchNorm uses its
+running averages: the serving path, and training with `norm_eval=True` (the
+release configs; its affine parameters still train). `frozen_stages=k`
+freezes the stem and stages 1..k as the reference does: their parameters
+take no gradient, and the activations leaving them are detached (the
+reference's `stop_gradient`).
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ class ResNet(nn.Module):
     """Returns the four stage outputs (strides 4, 8, 16, 32), NHWC; their
     widths are `out_channels`."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, frozen_stages: int = -1):
         super().__init__()
+        self.frozen_stages = frozen_stages
         widths = (64, 128, 256, 512)
         self.out_channels = tuple(w * 4 for w in widths)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -55,14 +59,23 @@ class ResNet(nn.Module):
                 stride = 2 if (b == 0 and s > 1) else 1
                 self.add_module(f"layer{s}_block{b}", BottleneckBlock(in_ch, w, stride))
                 in_ch = w * 4
+        frozen = ([self.conv1, self.bn1] if frozen_stages >= 0 else []) + [
+            getattr(self, f"layer{s}_block{b}") for s in range(1, frozen_stages + 1)
+            for b in range(self.stage_blocks[s - 1])]
+        for m in frozen:
+            m.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+        if self.frozen_stages >= 0:
+            y = y.detach()
         outs = []
         for s, n_blocks in enumerate(self.stage_blocks, start=1):
             for b in range(n_blocks):
                 y = getattr(self, f"layer{s}_block{b}")(y)
+            if self.frozen_stages >= s:
+                y = y.detach()
             outs.append(y)
         return outs
 

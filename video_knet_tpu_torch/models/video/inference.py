@@ -17,6 +17,9 @@ Counterpart of `video_knet_tpu/models/video/inference.py` for the
 - `run_sequence`: windows of W frames enqueued back to back, one
   device->host copy of the stacked payloads a window, drained on worker
   threads while the next window is enqueued.
+- Every payload crosses to the host as one packed buffer in one copy
+  (`utils/tree.py`: `pack`, `HostCopy`), as the reference's one
+  `jax.device_get` a frame.
 - `MultiStreamVPSPipeline`: B streams through one batched step a round.
 
 The serving path runs in full float32 (TF32 off for cuBLAS and cuDNN).
@@ -39,7 +42,7 @@ from video_knet_tpu_torch.models.video.knet_vps import VideoKNet, vps_decode
 from video_knet_tpu_torch.models.video.tracker import QuasiDenseEmbedTracker, masks_to_boxes
 from video_knet_tpu_torch.ops.panoptic import PanopticResult, segments_to_host
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
-from video_knet_tpu_torch.utils.tree import to_host, tree_index, tree_stack
+from video_knet_tpu_torch.utils.tree import HostCopy, to_host, tree_index, tree_stack
 
 # KITTI-STEP: the 2 thing classes sit at indices 11 (person) and 13 (car) of
 # the 19-class cityscapes label space.
@@ -198,15 +201,17 @@ def _pipelined(steps, finish, *, window: int, depth: int, workers: int,
 
     `steps` yields (barrier, run) pairs: `run()` enqueues one device step and
     returns (payload, meta); a barrier first drains everything in flight.
-    Every `window` items the payloads are stacked on the device and handed,
-    as one item, to a worker thread that copies them to the host in one
-    transfer and finishes them; at most `depth` windows stay in flight."""
+    Every `window` items the payloads are stacked on the device and packed
+    into one buffer whose copy to pinned host memory is enqueued, from this
+    thread, behind the window's steps; a worker thread waits on that copy's
+    event only, then finishes the items. At most `depth` windows stay in
+    flight."""
     pending: collections.deque = collections.deque()  # of Futures
     buf: list = []
 
-    def drain(stacked, metas):
+    def drain(copy, metas):
         t0 = time.perf_counter()
-        host = to_host(stacked)
+        host = copy.result()
         t1 = time.perf_counter()
         out = [finish(tree_index(host, i), m) for i, m in enumerate(metas)]
         if stats is not None:
@@ -215,8 +220,8 @@ def _pipelined(steps, finish, *, window: int, depth: int, workers: int,
         return out
 
     def flush():
-        pending.append(pool.submit(drain, tree_stack([p for p, _ in buf]),
-                                   [m for _, m in buf]))
+        copy = HostCopy(tree_stack([p for p, _ in buf]))
+        pending.append(pool.submit(drain, copy, [m for _, m in buf]))
         buf.clear()
 
     pool = ThreadPoolExecutor(max_workers=workers)

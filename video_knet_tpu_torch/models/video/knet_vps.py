@@ -1,16 +1,25 @@
-"""Video K-Net for VPS: the online test step and its decode.
+"""Video K-Net for VPS: the joint train forward and its losses, the online
+test step and its decode.
 
 Counterpart of `video_knet_tpu/models/video/knet_vps.py` (`TrackEmbed`,
-`VideoKNet.extract_feat` / `run_branch` / `test_step`, `vps_decode`).
-Inference only: the joint training forward is not part of this slice.
+`VideoKNet.__call__` as `forward_train`, `extract_feat` / `run_branch` /
+`test_step`, `_track_loss_one`, `video_knet_loss`, `vps_decode`), for
+`track_head_type='kernel_embed'`.
 
-Per frame the carried state is the previous frame's final kernels. Linking
-is always computed (against zeros on a first frame) and `is_first` selects
-the unlinked kernels for tracking, as the reference does.
+Train: the key frame and one reference frame share one backbone, neck and
+init-head pass over [ref; key]; the ref stages run plain, the key stages
+link their last stage to the ref branch's final kernels (not detached). The
+final kernels of both branches are embedded and supervised with MultiPosCE
+and the L2 auxiliary loss on instance-id matches.
+
+Test: per frame the carried state is the previous frame's final kernels.
+Linking is always computed (against zeros on a first frame) and `is_first`
+selects the unlinked kernels for tracking, as the reference does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -24,10 +33,17 @@ from video_knet_tpu_torch.models.kernel_iter_head import StageOutput, upscale_ma
 from video_knet_tpu_torch.models.kernel_update_head import KernelUpdateHead
 from video_knet_tpu_torch.models.knet import (
     PanopticPrediction,
+    branch_assignment_costs,
+    detached_cost,
+    iter_head_losses,
     panoptic_decode,
     panoptic_decode_batch,
+    rpn_loss,
+    solve_lanes,
 )
-from video_knet_tpu_torch.models.layers import init_parameters
+from video_knet_tpu_torch.models.layers import init_parameters, resize_mask_bilinear
+from video_knet_tpu_torch.ops import losses as L
+from video_knet_tpu_torch.ops.targets import PanopticGT, gather_rows
 from video_knet_tpu_torch.utils.device import resolve_device
 
 
@@ -73,7 +89,7 @@ class VideoKNet(nn.Module):
             raise NotImplementedError(
                 f"track_head_type={cfg.track_head_type!r} is not ported yet (ROADMAP E3)")
         self.cfg = cfg
-        self.backbone = build_backbone(cfg.backbone)
+        self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages)
         self.neck = build_neck(cfg.neck_type, self.backbone)
         self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
         self.num_stages = cfg.num_stages
@@ -121,6 +137,29 @@ class VideoKNet(nn.Module):
         outs, obj_track = self._stages(rpn_out, previous_obj_feats)
         return BranchOutput(rpn_out, outs, obj_track)
 
+    def forward_train(self, img: torch.Tensor, ref_img: torch.Tensor):
+        """Joint train forward: one backbone / neck / init-head pass over
+        [ref; key], the ref stages plain, the key stages linked to the ref
+        branch's final kernels (gradients flow through both).
+
+        Returns (key, ref, key_embeds, ref_embeds); the embeddings cover all
+        N proposals ([B, N, D]; the loss gathers the assigned ones)."""
+        b = img.shape[0]
+        both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img])))
+
+        def half(sl: slice) -> RPNOutputs:
+            return RPNOutputs(*(x[sl] for x in both[:-1]), init_kernels=both.init_kernels)
+
+        rpn_ref, rpn_key = half(slice(0, b)), half(slice(b, None))
+        ref_outs, ref_track = self._stages(rpn_ref, None)
+        ref = BranchOutput(rpn_ref, ref_outs, ref_track)
+        prev_obj = ref_outs[-1].object_feats
+        key_outs, key_track = self._stages(rpn_key, prev_obj if self.cfg.link_previous else None)
+        key = BranchOutput(rpn_key, key_outs, key_track)
+        n = self.cfg.num_proposals
+        key_src = key_track if key_track is not None else key_outs[-1].object_feats
+        return key, ref, self.embed(key_src[:, :n]), self.embed(ref_outs[-1].object_feats[:, :n])
+
     def embed(self, kernels: torch.Tensor) -> torch.Tensor:
         """Track embeddings from kernel vectors [..., K*K, C] (tap 0)."""
         return self.track_embed(kernels[..., 0, :])
@@ -165,3 +204,97 @@ def vps_decode(rpn_out: RPNOutputs, stage_outs: list[StageOutput],
         last.cls_score, last.mask_preds, last.scaled_mask_preds, track_obj_feats)]
     fn = panoptic_decode_batch if batched else panoptic_decode
     return fn(rpn_out, patched, cfg, out_hw=out_hw)
+
+
+def mask_pool_margin(branch: BranchOutput, cfg: VideoKNetConfig) -> float:
+    """The smallest distance, in logits, between an input of the branch's
+    hard-threshold mask pools (the init head's, threshold 0.5, and each
+    stage's) and its threshold. Inputs closer than two devices' forward
+    error may binarize differently on each, so comparisons of two devices'
+    training steps need a margin wider than that error."""
+    def dist(x, thr):
+        return float((x - math.log(thr / (1 - thr))).abs().min())
+
+    margin = dist(branch.rpn_out.thing_mask_preds, 0.5)
+    prev = branch.rpn_out.mask_preds
+    for out in branch.stage_outs:
+        margin = min(margin, dist(resize_mask_bilinear(prev, out.mask_preds.shape[-2:]),
+                                  cfg.head.hard_mask_thr))
+        prev = out.mask_preds
+    return margin
+
+
+def _track_loss_one(key_emb, ref_emb, key_valid, ref_valid, key_ids, ref_ids, *,
+                    loss_track_weight: float, aux_weight: float, aux_neg_pos_ub: int,
+                    aux_neg_margin: float):
+    """One image's MultiPosCE + L2 aux on GT-slot-aligned embeddings [G, D]:
+    rows and columns are GT slots, invalid pairs have target -1."""
+    pair_valid = key_valid[:, None] & ref_valid[None, :]
+    same = (key_ids[:, None] == ref_ids[None, :]) & pair_valid
+    targets = torch.where(pair_valid, same.to(torch.int32),
+                          torch.full_like(same, -1, dtype=torch.int32))
+    weights = (same.sum(1) > 0).float()
+    zero = torch.zeros((), device=key_emb.device)
+    loss_track = L.multi_pos_cross_entropy(key_emb @ ref_emb.T, targets, weights,
+                                           loss_weight=loss_track_weight, avg_factor=weights.sum())
+    loss_track = torch.where(weights.sum() > 0, loss_track, zero)
+    key_n = key_emb / torch.clamp(torch.linalg.norm(key_emb, dim=-1, keepdim=True), min=1e-12)
+    ref_n = ref_emb / torch.clamp(torch.linalg.norm(ref_emb, dim=-1, keepdim=True), min=1e-12)
+    loss_aux = L.l2_track_aux_loss(key_n @ ref_n.T, targets, neg_pos_ub=aux_neg_pos_ub,
+                                   neg_margin=aux_neg_margin, loss_weight=aux_weight)
+    return loss_track, torch.where(pair_valid.any(), loss_aux, zero)
+
+
+def video_knet_costs(key: BranchOutput, ref: BranchOutput, gt: PanopticGT,
+                     ref_gt: PanopticGT, cfg: VideoKNetConfig):
+    """Every assignment problem of a step, in solve order: key init head +
+    stages, the key tracking assign on the final outputs, then the same for
+    the ref branch. Returns (costs list of [B, N, G], valids list of [B, G])."""
+    n_prop = cfg.num_proposals
+    nt = cfg.num_thing_classes
+
+    def track_cost(last, branch_gt):
+        return detached_cost(last.scaled_mask_preds[:, :n_prop], branch_gt.masks, branch_gt.labels,
+                     last.cls_score[:, :n_prop, :nt], cfg.assigner.cls_weight, cfg)
+
+    key_costs = branch_assignment_costs(key.rpn_out, key.stage_outs, gt, cfg)
+    ref_costs = branch_assignment_costs(ref.rpn_out, ref.stage_outs, ref_gt, cfg)
+    nk = len(key_costs)
+    costs = (key_costs + [track_cost(key.stage_outs[-1], gt)]
+             + ref_costs + [track_cost(ref.stage_outs[-1], ref_gt)])
+    return costs, [gt.valid] * (nk + 1) + [ref_gt.valid] * (nk + 1)
+
+
+def video_knet_loss(model_out: tuple[BranchOutput, BranchOutput],
+                    embeds: tuple[torch.Tensor, torch.Tensor], gt: PanopticGT,
+                    ref_gt: PanopticGT, cfg: VideoKNetConfig) -> dict[str, torch.Tensor]:
+    """All VPS losses: key init head and stages, the same for the ref branch
+    (suffixes `_ref_rpn`, `_ref`), and the tracking losses."""
+    key, ref = model_out
+    # all problems of the step in ONE solve (one kernel launch on the card)
+    g2p, p2g = solve_lanes(*video_knet_costs(key, ref, gt, ref_gt, cfg))
+    nk = len(g2p) // 2 - 1
+    key_assigns, key_p2g = g2p[:nk], p2g[nk]
+    ref_assigns, ref_p2g = g2p[nk + 1:2 * nk + 1], p2g[2 * nk + 1]
+
+    losses = rpn_loss(key.rpn_out, gt, cfg, gt_of_pred=key_assigns[0])
+    losses.update(iter_head_losses(key.stage_outs, gt, cfg, assignments=key_assigns[1:])[0])
+    ref_losses = rpn_loss(ref.rpn_out, ref_gt, cfg, gt_of_pred=ref_assigns[0])
+    losses.update({f"{k}_ref_rpn": v for k, v in ref_losses.items()})
+    ref_iter = iter_head_losses(ref.stage_outs, ref_gt, cfg, assignments=ref_assigns[1:])[0]
+    losses.update({f"{k}_ref": v for k, v in ref_iter.items()})
+
+    key_emb, ref_emb = embeds
+    key_emb_g = gather_rows(key_emb, torch.clamp(key_p2g, min=0))
+    ref_emb_g = gather_rows(ref_emb, torch.clamp(ref_p2g, min=0))
+    key_valid = (key_p2g >= 0) & gt.valid
+    ref_valid = (ref_p2g >= 0) & ref_gt.valid
+    t = cfg.track
+    per_image = [_track_loss_one(
+        key_emb_g[i], ref_emb_g[i], key_valid[i], ref_valid[i], gt.instance_ids[i],
+        ref_gt.instance_ids[i], loss_track_weight=t.loss_track_weight,
+        aux_weight=t.loss_track_aux_weight, aux_neg_pos_ub=t.aux_neg_pos_ub,
+        aux_neg_margin=t.aux_neg_margin) for i in range(key_emb.shape[0])]
+    losses["loss_track"] = torch.stack([lt for lt, _ in per_image]).mean()
+    losses["loss_track_aux"] = torch.stack([la for _, la in per_image]).mean()
+    return losses

@@ -8,8 +8,11 @@ launch counters.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU (the CPU
 tests) and, for CUDA tensors, launches its kernel (`csrc/mask_ops.cu`) or
-raises: there is no fallback. `LAUNCHES` counts the kernel launches, one per
-wrapper call that launched (a K1 call is three chained kernels: binarize,
+raises: there is no fallback. On CUDA each wrapper is an
+`autograd.Function` whose backward is plain fp32 matmuls (the reference
+trains through the einsum route; its Pallas kernels have no VJP).
+`LAUNCHES` counts the forward kernel launches, one per wrapper call that
+launched (a K1 call is three chained kernels: binarize,
 partial sums on the tensor cores, ordered reduce; a K2 call is one kernel,
 a 3xTF32 product on the tensor cores).
 """
@@ -126,35 +129,71 @@ def split_tf32x2(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def fused_mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *,
                     hard_thr: float = 0.5) -> torch.Tensor:
     """Binarized mask pooling. mask_logits [B, N, H, W]; feats [B, H, W, C]
-    -> [B, N, C] float32."""
+    -> [B, N, C] float32. Differentiable in `feats` (the hard threshold
+    passes no gradient to the logits)."""
     if _on_cpu(mask_logits, feats):
         return mask_pool_plain(mask_logits, feats, hard_thr)
-    from video_knet_tpu_torch.ops.kernels.build import load_library
-
     _check("mask_logits", mask_logits, 4)
     _check("feats", feats, 4)
     b, n, h, w = mask_logits.shape
-    c = feats.shape[-1]
     if tuple(feats.shape[:3]) != (b, h, w):
         raise ValueError(f"shape mismatch: {tuple(mask_logits.shape)} vs {tuple(feats.shape)}")
-    out = torch.empty((b, n, c), dtype=torch.float32, device=feats.device)
-    if out.numel() == 0 or h * w == 0:
-        return out.zero_()
-    lib = load_library()
-    with torch.cuda.device(feats.device):
-        splits, chunk = mask_pool_splits(b, n, h * w, c, _max_blocks(feats.device, lib), lib)
-        rows = lib.vk_mask_pool_block_rows()
-        bits = torch.empty((b, math.ceil(h * w / 32), math.ceil(n / rows) * rows),
-                           dtype=torch.int32, device=feats.device)
-        scratch = torch.empty((splits, b, n, c), dtype=torch.float32,
-                              device=feats.device) if splits > 1 else out
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vk_mask_pool(mask_logits.data_ptr(), feats.data_ptr(), bits.data_ptr(),
-                              scratch.data_ptr(), out.data_ptr(), b, n, h * w, c,
-                              float(hard_thr), splits, chunk, stream)
-    _raise_on(rc, "vk_mask_pool")
-    LAUNCHES["mask_pool"] += 1
-    return out
+    return _MaskPool.apply(mask_logits, feats, float(hard_thr))
+
+
+def unpack_mask_words(bits: torch.Tensor, n: int, hw: int) -> torch.Tensor:
+    """K1's mask words [B, ceil(HW/32), n_pad] -> the 0/1 mask [B, N, HW]
+    float32: bit l of word (b, w, n) is the mask at position 32 w + l."""
+    b, words = bits.shape[:2]
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    m = (bits[:, :, :n, None] >> shifts) & 1  # [B, words, N, 32]
+    return m.permute(0, 2, 1, 3).reshape(b, n, words * 32)[:, :, :hw].float()
+
+
+class _MaskPool(torch.autograd.Function):
+    """K1 forward; backward d feats[b, hw, c] = sum_n hard[b, n, hw] * d out[b, n, c],
+    one fp32 matmul on the forward's own mask words (saved, then expanded),
+    so the backward's mask is exactly the forward's."""
+
+    @staticmethod
+    def forward(ctx, mask_logits, feats, hard_thr):
+        from video_knet_tpu_torch.ops.kernels.build import load_library
+
+        b, n, h, w = mask_logits.shape
+        c = feats.shape[-1]
+        ctx.shape = (b, n, h, w, c)
+        out = torch.empty((b, n, c), dtype=torch.float32, device=feats.device)
+        if out.numel() == 0 or h * w == 0:
+            ctx.save_for_backward(None)
+            return out.zero_()
+        lib = load_library()
+        with torch.cuda.device(feats.device):
+            splits, chunk = mask_pool_splits(b, n, h * w, c, _max_blocks(feats.device, lib), lib)
+            rows = lib.vk_mask_pool_block_rows()
+            bits = torch.empty((b, math.ceil(h * w / 32), math.ceil(n / rows) * rows),
+                               dtype=torch.int32, device=feats.device)
+            scratch = torch.empty((splits, b, n, c), dtype=torch.float32,
+                                  device=feats.device) if splits > 1 else out
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.vk_mask_pool(mask_logits.data_ptr(), feats.data_ptr(), bits.data_ptr(),
+                                  scratch.data_ptr(), out.data_ptr(), b, n, h * w, c,
+                                  float(hard_thr), splits, chunk, stream)
+        _raise_on(rc, "vk_mask_pool")
+        LAUNCHES["mask_pool"] += 1
+        ctx.save_for_backward(bits)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        b, n, h, w, c = ctx.shape
+        (bits,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[1]:
+            return None, None, None
+        if bits is None:
+            return None, d_out.new_zeros((b, h, w, c)), None
+        hard = unpack_mask_words(bits, n, h * w)
+        d_feats = torch.matmul(hard.transpose(1, 2), d_out.float())
+        return None, d_feats.reshape(b, h, w, c), None
 
 
 def _zero_padded(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -166,31 +205,58 @@ def _zero_padded(x: torch.Tensor, c: int) -> torch.Tensor:
 def fused_assemble(kernels: torch.Tensor, feats: torch.Tensor, *,
                    sigmoid: bool = False) -> torch.Tensor:
     """K=1 dynamic conv. kernels [B, N, C]; feats [B, H, W, C] -> [B, N, H, W]
-    float32 logits, or probabilities with `sigmoid`."""
+    float32 logits, or probabilities with `sigmoid`. Differentiable in both
+    inputs."""
     if _on_cpu(kernels, feats):
         return assemble_plain(kernels, feats, sigmoid)
-    from video_knet_tpu_torch.ops.kernels.build import load_library
-
     _check("kernels", kernels, 3)
     _check("feats", feats, 4)
-    b, n, c = kernels.shape
-    h, w = feats.shape[1:3]
-    if feats.shape[0] != b or feats.shape[-1] != c:
+    if feats.shape[0] != kernels.shape[0] or feats.shape[-1] != kernels.shape[-1]:
         raise ValueError(f"shape mismatch: {tuple(kernels.shape)} vs {tuple(feats.shape)}")
-    out = torch.empty((b, n, h, w), dtype=torch.float32, device=feats.device)
-    if out.numel() == 0:
+    return _Assemble.apply(kernels, feats, bool(sigmoid))
+
+
+class _Assemble(torch.autograd.Function):
+    """K2 forward; backward d kern = g . feat and d feat = g^T . kern, with
+    g = d out, times p (1 - p) under the sigmoid: two fp32 matmuls. The zero
+    padding of C happens inside, so the gradients have the inputs' shapes."""
+
+    @staticmethod
+    def forward(ctx, kernels, feats, sigmoid):
+        from video_knet_tpu_torch.ops.kernels.build import load_library
+
+        b, n, c = kernels.shape
+        h, w = feats.shape[1:3]
+        out = torch.empty((b, n, h, w), dtype=torch.float32, device=feats.device)
+        ctx.sigmoid = sigmoid
+        ctx.save_for_backward(kernels, feats, out if sigmoid else None)
+        if out.numel() == 0:
+            return out
+        if c % 4 or c == 0 or kernels.data_ptr() % 16 or feats.data_ptr() % 16:
+            # the kernel's TMA loads need 16-byte rows: zeroed copies with C
+            # rounded up to 4 (the added channels add nothing)
+            c = max(4, -(-c // 4) * 4)
+            kernels = _zero_padded(kernels, c)
+            feats = _zero_padded(feats, c)
+        lib = load_library()
+        with torch.cuda.device(feats.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.vk_assemble(kernels.data_ptr(), feats.data_ptr(), out.data_ptr(), b, n,
+                                 h * w, c, int(sigmoid), stream)
+        _raise_on(rc, "vk_assemble")
+        LAUNCHES["assemble"] += 1
         return out
-    if c % 4 or c == 0 or kernels.data_ptr() % 16 or feats.data_ptr() % 16:
-        # the kernel's TMA loads need 16-byte rows: zeroed copies with C
-        # rounded up to 4 (the added channels add nothing)
-        c = max(4, -(-c // 4) * 4)
-        kernels = _zero_padded(kernels, c)
-        feats = _zero_padded(feats, c)
-    lib = load_library()
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vk_assemble(kernels.data_ptr(), feats.data_ptr(), out.data_ptr(), b, n,
-                             h * w, c, int(sigmoid), stream)
-    _raise_on(rc, "vk_assemble")
-    LAUNCHES["assemble"] += 1
-    return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        kernels, feats, probs = ctx.saved_tensors
+        b, n, c = kernels.shape
+        g = d_out.float()
+        if ctx.sigmoid:
+            g = g * probs * (1.0 - probs)
+        g = g.reshape(b, n, -1)
+        f = feats.reshape(b, -1, c)
+        d_kern = torch.matmul(g, f) if ctx.needs_input_grad[0] else None
+        d_feat = (torch.matmul(g.transpose(1, 2), kernels).reshape(feats.shape)
+                  if ctx.needs_input_grad[1] else None)
+        return d_kern, d_feat, None

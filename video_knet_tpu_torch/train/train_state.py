@@ -1,0 +1,45 @@
+"""Train state and the train step on one device.
+
+Counterpart of `video_knet_tpu/train/train_state.py`: one step holds the
+forward, the losses, the backward, the per-group clip and the AdamW update.
+Nothing in it waits on the host: the loss dict comes back as device
+tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from video_knet_tpu_torch.train.optim import Optimizer
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: Optimizer
+
+
+def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
+    return TrainState(step=0, model=model, optimizer=optimizer)
+
+
+def make_train_step(loss_fn: Callable[[Any], tuple[torch.Tensor, dict]]):
+    """loss_fn(batch) -> (total, loss_dict). Returns train_step(state, batch)
+    -> (state, loss_dict with `total_loss`), detached."""
+
+    def train_step(state: TrainState, batch):
+        state.optimizer.zero_grad()
+        total, losses = loss_fn(batch)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        out = {k: v.detach() for k, v in losses.items()}
+        out["total_loss"] = total.detach()
+        return state, out
+
+    return train_step

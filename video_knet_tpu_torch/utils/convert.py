@@ -1,4 +1,4 @@
-"""Carry weights from the flax variables tree to the port's `state_dict`.
+"""Carry weights between the flax variables tree and the port's `state_dict`.
 
 Accepts the nested `variables` pytree (as numpy or anything `np.asarray`
 takes) or the flat `{"params/a/b/kernel": array}` layout of
@@ -17,6 +17,10 @@ mirror the flax names, so each flax path maps onto one torch key:
 The stuff kernels need no entry: the port reads them from `conv_seg.weight`
 as the JAX head does. Loading is strict: every flax leaf is consumed and
 every port parameter and buffer is filled, or it raises.
+
+`state_dict_to_flax` is the inverse, for parameters, buffers or parameter
+gradients, so the port's gradients and updates can be held against JAX's
+leaf by leaf.
 """
 
 from __future__ import annotations
@@ -26,6 +30,16 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from video_knet_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    FastVarianceLayerNorm,
+    GroupNorm,
+    MultiHeadAttention,
+)
+
+_NORMS = (nn.LayerNorm, FastVarianceLayerNorm, GroupNorm, BatchNorm)
 
 
 def flatten_variables(variables) -> dict[str, np.ndarray]:
@@ -101,3 +115,38 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
         sd[k] = sd[k].to(dtype=t.dtype, device=t.device)
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def state_dict_to_flax(module: nn.Module,
+                       tensors: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Port {name: tensor} (parameters, buffers, or parameter gradients) ->
+    flat {"collection/path/leaf": numpy array} in flax's layouts, the keys of
+    `flatten_variables`: OIHW -> HWIO, Dense [out, in] -> [in, out], the MHA
+    projections back to [D, H, hd] / [H, hd, D] and their biases to [H, hd]."""
+    out: dict[str, np.ndarray] = {}
+    for name, t in tensors.items():
+        v = t.detach().cpu().numpy()
+        owner_path, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_path)
+        parent = module.get_submodule(owner_path.rpartition(".")[0])
+        path = owner_path.replace(".", "/")
+        if isinstance(owner, BatchNorm) and leaf in ("running_mean", "running_var"):
+            out[f"batch_stats/{path}/{leaf[len('running_'):]}"] = v
+            continue
+        mha = isinstance(parent, MultiHeadAttention) and isinstance(owner, nn.Linear)
+        if leaf == "weight" and isinstance(owner, _NORMS):
+            leaf = "scale"
+        elif leaf == "weight" and isinstance(owner, Conv2d):
+            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and mha:
+            h = parent.num_heads
+            d = v.shape[1] if owner_path.endswith("out") else v.shape[0]
+            leaf = "kernel"
+            v = (v.T.reshape(h, d // h, -1) if owner_path.endswith("out")
+                 else v.T.reshape(v.shape[1], h, -1))
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf, v = "kernel", v.T
+        elif leaf == "bias" and mha and not owner_path.endswith("out"):
+            v = v.reshape(parent.num_heads, -1)
+        out[f"params/{path}/{leaf}"] = np.ascontiguousarray(v)
+    return out
