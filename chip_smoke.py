@@ -91,14 +91,7 @@ KERNELS = ("mask_pool", "assemble")
 TRAIN_HW = (384, 1248)
 TRAIN_STEPS = 4
 TRAIN_CHECK_HW = (64, 96)
-TRAIN_SEED = 0  # train weights
-# train-check: every hard-threshold mask-pool input of the CPU forward must sit
-# this far (in logits) from its threshold, far beyond the card's forward
-# error there (~1e-5); else a pixel may binarize differently on the two
-# devices, which is the threshold's nature and not a kernel's error. The
-# check takes the first weight seed whose CPU forward keeps that margin.
-TRAIN_CHECK_MARGIN = 1e-4
-TRAIN_CHECK_SEEDS = 16
+TRAIN_SEED = 0  # train weights; train-check takes tools/train_check.py:margin_seed
 # the reference's loss keys at the default config (video_knet_tpu's
 # video_knet_loss; the stages' rank loss is off in the video head config)
 TRAIN_LOSS_KEYS = {
@@ -644,33 +637,20 @@ def phase_train_check(device) -> None:
 
     from video_knet_tpu_torch.config import VideoKNetConfig
     from video_knet_tpu_torch.models.knet import solve_lanes
-    from video_knet_tpu_torch.models.video.knet_vps import (
-        mask_pool_margin,
-        video_knet_costs,
-        video_knet_loss,
-    )
+    from video_knet_tpu_torch.models.video.knet_vps import video_knet_costs, video_knet_loss
     from video_knet_tpu_torch.ops.kernels import mask_ops as mo
     from video_knet_tpu_torch.ops.kernels.hungarian import (
         hungarian_plain,
         solve,
         tie_heavy_problems,
     )
+    from video_knet_tpu_torch.tools import train_check
     from video_knet_tpu_torch.train.vps import make_synthetic_batch
 
     cfg = VideoKNetConfig(max_insts=4)
-    cpu_batch = make_synthetic_batch(cfg, 1, TRAIN_CHECK_HW, seed=0, device="cpu")
-    for seed in range(TRAIN_CHECK_SEEDS):
-        with torch.no_grad():
-            key, ref, _, _ = _train_model(cfg, "cpu", seed).model.forward_train(
-                cpu_batch.img, cpu_batch.ref_img)
-        margin = min(mask_pool_margin(key, cfg), mask_pool_margin(ref, cfg))
-        if margin >= TRAIN_CHECK_MARGIN:
-            break
-    else:
-        raise AssertionError(f"[train-check] no weight seed below {TRAIN_CHECK_SEEDS} keeps the "
-                             f"mask-pool inputs {TRAIN_CHECK_MARGIN} from the threshold")
+    seed, margin = train_check.margin_seed(cfg, TRAIN_CHECK_HW)
     log(f"[train-check] weight seed {seed}: mask-pool inputs at least {margin:.2e} from the "
-        f"threshold (limit {TRAIN_CHECK_MARGIN})")
+        f"threshold (limit {train_check.MARGIN})")
     runs = {}
     for dev in (device, torch.device("cpu")):
         model = _train_model(cfg, dev, seed).model

@@ -190,7 +190,8 @@ def test_unported_serving_options_raise(golden_setup):
 
 # the modules of the training slice, which the guard must find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
-                       "train.optim", "train.train_state", "train.vps", "train.demo_train")
+                       "train.optim", "train.train_state", "train.vps", "train.demo_train",
+                       "tools.train_check")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -202,8 +202,7 @@ def test_one_adamw_step_matches_optax(fine):
     want = flatten_variables({"params": step(fine["grads"], params)})
 
     model = load_flax_variables(VideoKNet(tcfg, device="cpu"), variables)
-    opt = toptim.make_optimizer(model, 1000, base_lr=BASE_LR, warmup_iters=0,
-                                frozen_stages=tcfg.frozen_stages)
+    opt = toptim.make_optimizer(model, 1000, base_lr=BASE_LR, warmup_iters=0)
     jgrads = flax_to_state_dict({"params": fine["grads"]})
     for name, p in model.named_parameters():
         if p.requires_grad:
@@ -234,11 +233,30 @@ def test_unported_train_options_raise():
             tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, **change))
 
 
+def test_loss_fn_turns_tf32_off():
+    """The train entry point holds cuBLAS and cuDNN to fp32, as serving
+    does, whatever the caller had set."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        tvps.make_vps_loss_fn(VideoKNet(tc.VideoKNetConfig(max_insts=4), device="cpu"),
+                              tc.VideoKNetConfig(max_insts=4))
+        assert [f.allow_tf32 for f in flags] == [False, False]
+    finally:
+        for f, b in zip(flags, before):
+            f.allow_tf32 = b
+
+
 def test_frozen_mask_matches_jax(fine):
-    j = traverse_util.flatten_dict(joptim.frozen_mask(fine["variables"]["params"], 1), sep="/")
+    """The parameters the port's ResNet freezes (`cfg.frozen_stages`) are
+    the ones JAX's optimizer masks."""
+    j = traverse_util.flatten_dict(
+        joptim.frozen_mask(fine["variables"]["params"], fine["jcfg"].frozen_stages), sep="/")
     model = fine["model"]
     t = state_dict_to_flax(model, {n: p for n, p in model.named_parameters()})
-    mask = toptim.frozen_mask(model, 1)
+    mask = toptim.frozen_mask(model)
     names = dict(zip(t, (mask[n] for n, _ in model.named_parameters())))
     assert {f"params/{k}": v for k, v in j.items()} == names
 

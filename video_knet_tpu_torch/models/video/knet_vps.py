@@ -19,7 +19,6 @@ selects the unlinked kernels for tracking, as the reference does.
 
 from __future__ import annotations
 
-import math
 from typing import Any, NamedTuple
 
 import torch
@@ -41,7 +40,7 @@ from video_knet_tpu_torch.models.knet import (
     rpn_loss,
     solve_lanes,
 )
-from video_knet_tpu_torch.models.layers import init_parameters, resize_mask_bilinear
+from video_knet_tpu_torch.models.layers import init_parameters
 from video_knet_tpu_torch.ops import losses as L
 from video_knet_tpu_torch.ops.targets import PanopticGT, gather_rows
 from video_knet_tpu_torch.utils.device import resolve_device
@@ -204,24 +203,6 @@ def vps_decode(rpn_out: RPNOutputs, stage_outs: list[StageOutput],
         last.cls_score, last.mask_preds, last.scaled_mask_preds, track_obj_feats)]
     fn = panoptic_decode_batch if batched else panoptic_decode
     return fn(rpn_out, patched, cfg, out_hw=out_hw)
-
-
-def mask_pool_margin(branch: BranchOutput, cfg: VideoKNetConfig) -> float:
-    """The smallest distance, in logits, between an input of the branch's
-    hard-threshold mask pools (the init head's, threshold 0.5, and each
-    stage's) and its threshold. Inputs closer than two devices' forward
-    error may binarize differently on each, so comparisons of two devices'
-    training steps need a margin wider than that error."""
-    def dist(x, thr):
-        return float((x - math.log(thr / (1 - thr))).abs().min())
-
-    margin = dist(branch.rpn_out.thing_mask_preds, 0.5)
-    prev = branch.rpn_out.mask_preds
-    for out in branch.stage_outs:
-        margin = min(margin, dist(resize_mask_bilinear(prev, out.mask_preds.shape[-2:]),
-                                  cfg.head.hard_mask_thr))
-        prev = out.mask_preds
-    return margin
 
 
 def _track_loss_one(key_emb, ref_emb, key_valid, ref_valid, key_ids, ref_ids, *,

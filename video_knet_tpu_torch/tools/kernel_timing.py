@@ -1,6 +1,7 @@
 """Device time of the port's CUDA kernels, on one NVIDIA GPU.
 
     python3 -m video_knet_tpu_torch.tools.kernel_timing [--splits 15,30,60] [--out DIR]
+    python3 -m video_knet_tpu_torch.tools.kernel_timing --build
 
 `device_ms` and `call_ms` are the timers chip_smoke.py uses. As a script,
 this takes the serving stage shape (N=117 kernels, 48x156 features, C=256)
@@ -14,6 +15,10 @@ C=256) and against its number of blocks (HW tiles of 64), beside
 `torch.matmul` on the same inputs: how the time splits into a fixed part
 and a part per slab, and whether it depends on how many blocks share the
 card. With --out, the report also goes to DIR/kernel_timing.json.
+
+--build times only the kernel library's build from scratch, in turns: one
+nvcc over all sources (serial) and `build.py`'s way (one nvcc a source, all
+started together, then a link), each into a fresh directory.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import json
 import math
 import os
 import statistics
+import subprocess
+import tempfile
+import time
 
 import torch
 
@@ -129,13 +137,44 @@ def assemble_sweep(device, seed: int = 1) -> list:
     return rows
 
 
+def build_seconds() -> dict:
+    """Seconds to build the library from scratch: serial, parallel, parallel,
+    serial."""
+    from video_knet_tpu_torch.ops.kernels import build
+
+    out: dict = {"serial": [], "parallel": []}
+    own = build.BUILD_DIR
+    try:
+        for way in ("serial", "parallel", "parallel", "serial"):
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                if way == "serial":
+                    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                                    os.path.join(tmp, "lib.so"), *build.SOURCES],
+                                   check=True, capture_output=True)
+                else:
+                    build.BUILD_DIR, build._lib = tmp, None
+                    build.load_library()
+                out[way].append(time.perf_counter() - t0)
+    finally:
+        build.BUILD_DIR, build._lib = own, None
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--splits", default="", help="comma-separated K1 HW split counts")
     ap.add_argument("--out", help="directory for kernel_timing.json")
+    ap.add_argument("--build", action="store_true", help="time the library's build only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: no CUDA device available")
+    if args.build:
+        from video_knet_tpu_torch.utils.device import card_name_and_power
+
+        print(json.dumps({"build_seconds": build_seconds(), "card": card_name_and_power(),
+                          "cpus": os.cpu_count()}))
+        return 0
     from video_knet_tpu_torch.ops.kernels import mask_ops as mo
     from video_knet_tpu_torch.ops.kernels.build import load_library
     from video_knet_tpu_torch.utils.device import card_name_and_power, set_fp32_numerics

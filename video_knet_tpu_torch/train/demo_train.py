@@ -33,10 +33,9 @@ def main() -> int:
     from video_knet_tpu_torch.train.optim import make_optimizer
     from video_knet_tpu_torch.train.train_state import create_train_state
     from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
-    from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
+    from video_knet_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    set_fp32_numerics()
     cfg = VideoKNetConfig(max_insts=args.max_insts)
     model = VideoKNet(cfg, generator=torch.Generator().manual_seed(args.seed), device=device)
     state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000))

@@ -5,9 +5,9 @@ schedule_1x.py): AdamW lr 1e-4, weight decay 0.05 on every trainable
 parameter, backbone lr x 0.25, gradient clipping to global L2 norm 1 within
 each of the two groups (optax's `multi_transform` clips each group on its
 own), linear warmup over 1000 iterations from 1e-3, step decay x 0.1 at the
-given epochs. Frozen backbone stages (`frozen_stages=1`: the stem and
-layer1) take no gradient and stay out of the optimizer, as `optax.masked`
-leaves them.
+given epochs. The model owns freezing: ResNet's `frozen_stages` (1: the
+stem and layer1) turns `requires_grad` off, and those parameters stay out of
+the optimizer, as `optax.masked` leaves them.
 
 optax.adamw's order (adam, + wd * p, * lr) is torch.optim.AdamW's
 (p *= 1 - lr * wd, then the adam step) with the same numbers. The schedule
@@ -21,10 +21,6 @@ from typing import Sequence
 
 import torch
 from torch import nn
-
-# the flax-path prefixes that frozen_stages freezes, and the tracking pieces
-# that train when the detector is frozen (the two-phase mode of the reference)
-_TRACK_KEYS = ("track_embed", "attention_previous", "link_ffn", "link_update", "track_update")
 
 
 def make_lr_schedule(base_lr: float, steps_per_epoch: int, *,
@@ -41,20 +37,9 @@ def make_lr_schedule(base_lr: float, steps_per_epoch: int, *,
     return schedule
 
 
-def frozen_mask(model: nn.Module, frozen_stages: int = 1,
-                freeze_detector: bool = False) -> dict[str, bool]:
-    """{parameter name: trainable}. Freezes the backbone stem and layers
-    1..frozen_stages; with freeze_detector only the tracking pieces train."""
-    frozen_names = ["conv1", "bn1"] + [f"layer{s}_" for s in range(1, frozen_stages + 1)]
-
-    def trainable(name: str) -> bool:
-        if freeze_detector:
-            return any(k in name for k in _TRACK_KEYS)
-        if name.startswith("backbone."):
-            return not any(name[len("backbone."):].startswith(f) for f in frozen_names)
-        return True
-
-    return {name: trainable(name) for name, _ in model.named_parameters()}
+def frozen_mask(model: nn.Module) -> dict[str, bool]:
+    """{parameter name: trainable}, as the model set `requires_grad`."""
+    return {name: p.requires_grad for name, p in model.named_parameters()}
 
 
 def backbone_label(model: nn.Module) -> dict[str, str]:
@@ -103,19 +88,15 @@ class Optimizer:
 def make_optimizer(model: nn.Module, steps_per_epoch: int, *, base_lr: float = 1e-4,
                    weight_decay: float = 0.05, backbone_lr_mult: float = 0.25,
                    grad_clip: float = 1.0, decay_epochs: Sequence[int] = (9, 11),
-                   warmup_iters: int = 1000, frozen_stages: int = 1,
-                   freeze_detector: bool = False) -> Optimizer:
-    """The optimizer of `model`'s trainable parameters; the frozen ones get
-    `requires_grad_(False)`."""
+                   warmup_iters: int = 1000) -> Optimizer:
+    """The optimizer of `model`'s trainable parameters."""
     sched = make_lr_schedule(base_lr, steps_per_epoch, decay_epochs=decay_epochs,
                              warmup_iters=warmup_iters)
-    trainable = frozen_mask(model, frozen_stages, freeze_detector)
+    trainable = frozen_mask(model)
     label = backbone_label(model)
     groups: dict[str, list[nn.Parameter]] = {"backbone": [], "rest": []}
     for name, p in model.named_parameters():
         if trainable[name]:
             groups[label[name]].append(p)
-        else:
-            p.requires_grad_(False)
     return Optimizer(groups, {"backbone": backbone_lr_mult, "rest": 1.0}, sched,
                      weight_decay=weight_decay, grad_clip=grad_clip)

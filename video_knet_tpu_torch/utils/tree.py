@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 ALIGN = 16  # bytes; every leaf starts at a multiple
+_ZEROS: dict[torch.device, torch.Tensor] = {}  # one ALIGN-byte block a device, for pads
 
 _NUMPY_DTYPES = {
     torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
@@ -100,11 +101,18 @@ def pack(tree: Any) -> tuple[torch.Tensor, Layout]:
         pieces.append(raw)
         pad = -raw.numel() % ALIGN
         if pad:
-            pieces.append(raw.new_zeros(pad))
+            pieces.append(_zeros(raw.device)[:pad])
         offset += raw.numel() + pad
     device = tensors[0][1].device if tensors else torch.device("cpu")
     buf = torch.cat(pieces) if pieces else torch.empty(0, dtype=torch.uint8, device=device)
     return buf, Layout(skel, tuple(specs), offset)
+
+
+def _zeros(device: torch.device) -> torch.Tensor:
+    """ALIGN zero bytes on `device`, made once: a pad costs no launch."""
+    if device not in _ZEROS:
+        _ZEROS[device] = torch.zeros(ALIGN, dtype=torch.uint8, device=device)
+    return _ZEROS[device]
 
 
 def unpack(buf: np.ndarray, layout: Layout, copy: bool = False) -> Any:
