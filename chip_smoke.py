@@ -8,11 +8,13 @@ Phases, each raising on failure (the process then exits non-zero):
   2. build     nvcc builds the CUDA kernels from ops/kernels/csrc
   3. kernels   each kernel against its plain PyTorch version at the shapes
                the serving paths give it (R-50 stages and init head at B=1
-               and B=2, the trained tiny config's N=20/37, 8x12, C=64) and
-               at ragged shapes; device time (a CUDA graph of 20 calls,
-               timed with CUDA events) of the kernel, the plain version and
-               one PyTorch library call, and the kernel's host-inclusive
-               call time
+               and B=2, the trained tiny config's N=20/37, 8x12, C=64,
+               Swin-B VIP-Seg's N=166 and N=100 at 92x160) and at ragged
+               shapes; at the R-50 and the VIP-Seg stage shapes, device time
+               (a CUDA graph of 20 calls, timed with CUDA events) of the
+               kernel, the plain version and one PyTorch library call, the
+               kernel's host-inclusive call time, and forward + backward
+               beside the plain autograd, the library calls and the bound
   4. serve     Video K-Net R-50 (default config, seeded random weights)
                serves 8 frames of 384x1248 through VPSInferencePipeline with
                the tracker on the device
@@ -27,7 +29,7 @@ Phases, each raising on failure (the process then exits non-zero):
                single-stream serving, run_batched_sequence bit-equal to
                run_frames
   9. mit       Video K-Net MiT-b0 (default heads, seeded random weights)
-               serves 10 frames of 384x1248
+               serves 6 frames of 384x1248
  10. trained   the trained tiny model (committed checkpoint) on the golden's
                12 frames, both tracker paths, against
                tests/golden/serving_trained_tiny_64x96.npz: >= 0.98 pixel
@@ -35,7 +37,7 @@ Phases, each raising on failure (the process then exits non-zero):
  11. check     the R-50 weights on a 64x96 sequence, card against CPU
  12. train     VPS training, default config (R-50, 100 + 17 kernels, 3
                stages, max_insts 32, frozen stem + layer1, fp32, TF32 off),
-               seeded random weights, 4 steps of `train_step` on
+               seeded random weights, 3 steps of `train_step` on
                `make_synthetic_batch` at 384x1248, B=1: finite losses with
                the reference's keys, 7 launches of each mask kernel and 1 of
                the Hungarian kernel a step, a finite nonzero gradient on
@@ -48,6 +50,27 @@ Phases, each raising on failure (the process then exits non-zero):
                Hungarian kernel against its numpy copy on 256 seeded
                tie-heavy problems; K1's and K2's gradients against the plain
                versions' autograd at the stage shape and a ragged C
+ 14. swin-vipseg  Swin-B VPS on VIP-Seg (`get_config("video_knet_vipseg_
+               swin_b")`: 100 + 66 kernels, C=256, 3 stages), seeded random
+               weights, score gates at zero: 8 frames of 736x1280 with the
+               device tracker, then with `quasi_dense_host` (id and semantic
+               maps equal); finite carried state
+ 15. swin-kitti   Swin-B KITTI-STEP (`previous_link='update_dynamic_cov'`,
+               `previous_type='update'`): 6 frames of 384x1248 with a
+               sequence boundary, device tracker; run_sequence(window=4)
+               bit-equal to run_frame
+ 16. swin-check   Swin-tiny under the trained tiny 64-channel heads, VIP-Seg's
+               class split and the link variant, card against CPU at 64x96
+               (margin seed): last-stage cls and masks within 1e-3 relative,
+               >= 0.98 pixel agreement a frame
+ 17. train-swin   3 train steps of phase 14's model at 736x1280, B=1 key +
+               ref, max_insts 32, drop path 0.3 from a seeded generator:
+               finite losses with the reference's keys, 7 launches of each
+               mask kernel and 1 Hungarian launch a step, a finite nonzero
+               gradient on every parameter but the patch embed and stage 0's
+               patch merging, which take none (the reference's
+               stop_gradient) and are moved by AdamW's weight decay; step
+               ms, peak memory, host syncs a step
 Every serving phase resets the launch counts just before it drives its path
 and requires 4 launches of each kernel a frame (a round for B=2).
 Prints the kernels JSON line (launches per path), the card line, and as the
@@ -67,18 +90,21 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
-# H100 SXM peaks for the operations bound: K1 is counted as fp32 multiply-adds
-# on the CUDA cores; K2's fp32-accurate product as three TF32 products
-# (3xTF32) on the tensor cores, the least the card needs for it at fp32
-# accuracy (a single fp32 pass on the CUDA cores is not)
-OPS_PEAK = {"fp32": (1, 67e12), "3xtf32": (3, 495e12)}  # (products, FLOP/s)
+# H100 SXM peaks for the operations bound, each product counted at the
+# arithmetic that computes it exactly or at fp32 accuracy: K1's 0/1 mask
+# times fp32 features (forward and backward) as three bf16 tensor-core
+# products (each fp32 value splits exactly into three bf16 planes, as
+# mask_ops.cu does); K2's fp32-accurate product as three TF32 products
+# (3xTF32); the Hungarian solve's scalar work as fp32 on the CUDA cores
+OPS_PEAK = {"fp32": (1, 67e12), "3xbf16": (3, 989e12),
+            "3xtf32": (3, 495e12)}  # (products, FLOP/s)
 SERVE_HW = (384, 1248)
 SERVE_FRAMES = 8
 FULL_FRAMES = 3
 BOUNDARY = 5  # run_sequence: a sequence restarts at this frame
 STREAM_ROUNDS = 6
 STREAM_RESET = 3  # stream 1 restarts at this round
-MIT_FRAMES = 10
+MIT_FRAMES = 6
 CHECK_HW = (64, 96)
 CHECK_FRAMES = 4
 SEED = 0  # kernel inputs and frames (weights: profile_serving.WEIGHT_SEED)
@@ -88,8 +114,17 @@ SEED = 0  # kernel inputs and frames (weights: profile_serving.WEIGHT_SEED)
 TOL_MASK_POOL = 5e-3
 TOL_ASSEMBLE = 1e-4
 KERNELS = ("mask_pool", "assemble")
+# Swin-B VPS on VIP-Seg at its frame size (`video_knet_tpu/models/swin.py:68`)
+SWIN_VIPSEG_HW = (736, 1280)
+SWIN_VIPSEG_KERNELS = 166  # 100 proposals + 66 stuff classes
+SWIN_VIPSEG_FRAMES = 8
+SWIN_KITTI_FRAMES = 6
+SWIN_TRAIN_STEPS = 3
+SWIN_DROP_PATH_SEED = 0
+# zero gradient at frozen_stages=1, where the reference's stop_gradient cuts
+SWIN_CUT = ("backbone.patch_embed.", "backbone.patch_norm.", "backbone.downsample0.")
 TRAIN_HW = (384, 1248)
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 TRAIN_CHECK_HW = (64, 96)
 TRAIN_SEED = 0  # train weights; train-check takes tools/train_check.py:margin_seed
 # the reference's loss keys at the default config (video_knet_tpu's
@@ -151,11 +186,16 @@ def phase_kernels(device) -> list[dict]:
     gen = torch.Generator(device=device).manual_seed(SEED)
     h, w = SERVE_HW[0] // 8, SERVE_HW[1] // 8
     # (B, N, H, W, C): the serving shapes (stages N=117, init head N=100; B=2
-    # for two streams; the trained tiny config's N=37 / 20 at 8x12, C=64) and
-    # ragged ones (HW and C multiples of no tile; C=37: K1's 4-byte copies,
-    # K2's zero-padded C)
+    # for two streams; the trained tiny config's N=37 / 20 at 8x12, C=64),
+    # Swin-B VIP-Seg's, and ragged ones (HW and C multiples of no tile;
+    # C=37: K1's 4-byte copies, K2's zero-padded C)
+    # Swin-B VIP-Seg: stages N=166, init head N=100 at B=1 (serving) and B=2
+    # (the train step's joint pass), 92x160
+    vh, vw = SWIN_VIPSEG_HW[0] // 8, SWIN_VIPSEG_HW[1] // 8
     shapes = [(1, 117, h, w, 256), (1, 100, h, w, 256), (2, 117, h, w, 256),
               (2, 100, h, w, 256), (1, 37, 8, 12, 64), (1, 20, 8, 12, 64),
+              (1, SWIN_VIPSEG_KERNELS, vh, vw, 256), (1, 100, vh, vw, 256),
+              (2, 100, vh, vw, 256),
               (1, 100, 37, 61, 256), (1, 100, 37, 61, 200), (1, 100, 37, 61, 37)]
     err_pool, err_asm = 0.0, 0.0
     for b, n, hh, ww, c in shapes:
@@ -188,42 +228,83 @@ def phase_kernels(device) -> list[dict]:
     if not err_asm <= TOL_ASSEMBLE:
         raise AssertionError(f"assemble disagrees with its plain version: {err_asm}")
 
-    # timings at the stage shape (3 of the 4 launches a frame)
-    n, c = 117, 256
+    recs = _time_kernels(gen, device, 117, h, w, 256, err_pool, err_asm)
+    # the Swin-B VIP-Seg stage shape: 100 + 66 kernels over a 92x160 map
+    # (736x1280 frames at stride 8)
+    for rec, vip in zip(recs, _time_kernels(gen, device, SWIN_VIPSEG_KERNELS, vh, vw, 256,
+                                            err_pool, err_asm)):
+        rec["vipseg"] = {k: vip[k] for k in TIMED_KEYS}
+    return recs
+
+
+TIMED_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "fwd_bwd_ms", "plain_fwd_bwd_ms", "fwd_bwd_library_ms", "fwd_bwd_bound_ms",
+              "bwd_bound_ms", "bwd_library_ms")
+
+
+def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm) -> list[dict]:
+    """Device time of each kernel at one stage shape (B=1), beside its plain
+    version, one library call and its bound; forward + backward beside the
+    plain autograd, the library calls of both directions, and both bounds."""
+    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+    from video_knet_tpu_torch.tools.kernel_timing import call_ms, device_ms
+
+    hw = h * w
     logits = _logits(gen, (1, n, h, w), device)
     feats = torch.randn((1, h, w, c), generator=gen, device=device)
     kern = torch.randn((1, n, c), generator=gen, device=device) / c ** 0.5
-    hard = (torch.sigmoid(logits) > 0.5).float().reshape(1, n, h * w)
-    f2 = feats.reshape(1, h * w, c)
+    hard = (torch.sigmoid(logits) > 0.5).float().reshape(1, n, hw)
+    f2 = feats.reshape(1, hw, c)
+    d_pool = torch.randn((1, n, c), generator=gen, device=device)
+    d_asm = torch.randn((1, n, hw), generator=gen, device=device)
     nnz = int(hard.sum())
-    io_bytes = 4 * (n * h * w + h * w * c + n * c)  # both kernels: same sizes
+    io_bytes = 4 * (n * hw + hw * c + n * c)  # both kernels: same sizes
+    # backward bytes: K1 reads its saved mask words (one bit a pixel) and
+    # d out, writes d feats; K2 reads d out, kern and feats, writes d kern
+    # and d feats
+    bwd_bytes = {"mask_pool": n * -(-hw // 32) * 4 + 4 * (n * c + hw * c),
+                 "assemble": 4 * (n * hw + 2 * n * c + 2 * hw * c)}
     grad_ops = {  # (kernel, plain version) on (feats, kern), and whether d kern is taken
         "mask_pool": ((lambda f, k: mo.fused_mask_pool(logits, f),
                        lambda f, k: mo.mask_pool_plain(logits, f)), False),
         "assemble": ((lambda f, k: mo.fused_assemble(k, f),
                       lambda f, k: mo.assemble_plain(k, f)), True),
     }
+    # the backward's products as torch calls (what each autograd Function runs)
+    bwd_lib = {"mask_pool": lambda: torch.matmul(hard.transpose(1, 2), d_pool),
+               "assemble": lambda: (torch.matmul(d_asm, f2),
+                                    torch.matmul(d_asm.transpose(1, 2), kern))}
+    bwd_flops = {"mask_pool": 2 * nnz * c, "assemble": 4 * n * hw * c}
+
+    def bound(nbytes, flops, precision):
+        products, peak = OPS_PEAK[precision]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, products * flops / peak * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
     recs = []
     for name, fn, plain, lib, flops, precision, err, src_line in (
         ("mask_pool", lambda: mo.fused_mask_pool(logits, feats),
          lambda: mo.mask_pool_plain(logits, feats), lambda: torch.matmul(hard, f2),
-         2 * nnz * c, "fp32", err_pool, "video_knet_tpu/ops/pallas/mask_ops.py:110"),
+         2 * nnz * c, "3xbf16", err_pool, "video_knet_tpu/ops/pallas/mask_ops.py:110"),
         ("assemble", lambda: mo.fused_assemble(kern, feats),
          lambda: mo.assemble_plain(kern, feats), lambda: torch.matmul(kern, f2.transpose(1, 2)),
-         2 * n * h * w * c, "3xtf32", err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
+         2 * n * hw * c, "3xtf32", err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
     ):
-        products, peak = OPS_PEAK[precision]
-        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, products * flops / peak * 1e3
         ms = device_ms(fn)
+        bound_ms, bound_by = bound(io_bytes, flops, precision)
+        # the backward's least time at fp32 accuracy, counted as the forward's
+        bwd_bound_ms, _ = bound(bwd_bytes[name], bwd_flops[name], precision)
         rec = dict(
             name=name, route="cuda",
             source="video_knet_tpu_torch/ops/kernels/csrc/mask_ops.cu",
             replaces=src_line, launches=0, max_abs_err=err,
             ms=ms, call_ms=call_ms(fn), plain_ms=device_ms(plain),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            ops_precision=precision, library_ms=device_ms(lib),
+            bound_ms=bound_ms, bound_by=bound_by,
+            ops_precision=precision, library_ms=device_ms(lib), shape=[1, n, h, w, c],
+            bwd_bound_ms=bwd_bound_ms, bwd_library_ms=device_ms(bwd_lib[name]),
         )
+        rec["fwd_bwd_bound_ms"] = bound_ms + bwd_bound_ms
+        rec["fwd_bwd_library_ms"] = rec["library_ms"] + rec["bwd_library_ms"]
         if name == "assemble":
             rec["ms_sigmoid"] = device_ms(lambda: mo.fused_assemble(kern, feats, sigmoid=True))
         # forward + backward (the autograd Function; d feats, and d kern for
@@ -231,10 +312,14 @@ def phase_kernels(device) -> list[dict]:
         ops, wrt_kern = grad_ops[name]
         rec["fwd_bwd_ms"], rec["plain_fwd_bwd_ms"] = (
             device_ms(_fwd_bwd(op, feats, kern, wrt_kern)) for op in ops)
-        log(f"[kernels] {name}: device {ms * 1e3:.2f} us (call {rec['call_ms'] * 1e3:.1f} us), "
-            f"plain {rec['plain_ms'] * 1e3:.2f} us, library {rec['library_ms'] * 1e3:.2f} us, "
-            f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}; {io_bytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP x{products} at {precision})")
+        log(f"[kernels] {name} at N={n} HW={h}x{w} C={c}: device {ms * 1e3:.2f} us (call "
+            f"{rec['call_ms'] * 1e3:.1f} us), plain {rec['plain_ms'] * 1e3:.2f} us, library "
+            f"{rec['library_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+            f"{io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at {precision}); forward + "
+            f"backward {rec['fwd_bwd_ms'] * 1e3:.2f} us, plain autograd "
+            f"{rec['plain_fwd_bwd_ms'] * 1e3:.2f} us, library "
+            f"{rec['fwd_bwd_library_ms'] * 1e3:.2f} us, bound "
+            f"{rec['fwd_bwd_bound_ms'] * 1e3:.2f} us")
         recs.append(rec)
     return recs
 
@@ -720,6 +805,205 @@ def phase_train_check(device) -> None:
         raise AssertionError(f"[train-check] kernel gradients disagree: {worst}")
 
 
+def phase_swin_vipseg(device, paths: Paths):
+    """Swin-B VPS on VIP-Seg (`get_config("video_knet_vipseg_swin_b")`: 100 +
+    66 kernels, 3 stages, C=256), seeded random weights, score gates at
+    zero, 736x1280: the device tracker, then the host tracker on the same
+    frames. Returns (model, cfg) for the train phase."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+
+    cfg = smoke_config(get_config("video_knet_vipseg_swin_b"))
+    if cfg.num_proposals + cfg.num_stuff_classes != SWIN_VIPSEG_KERNELS:
+        raise AssertionError("[swin-vipseg] the preset lost its class split")
+    t0 = time.perf_counter()
+    model = smoke_model(cfg, device)
+    log(f"[swin-vipseg] Swin-B model built in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters())} parameters)")
+    frames = [torch.from_numpy(f).to(device)
+              for f in _frames(SWIN_VIPSEG_HW, SWIN_VIPSEG_FRAMES)]
+    idx = list(range(SWIN_VIPSEG_FRAMES))
+    results = {}
+    for tracker_type, path in (("quasi_dense", "swin-vipseg"),
+                               ("quasi_dense_host", "swin-vipseg-host")):
+        # VIP-Seg's labels are things-first: no KITTI-STEP thing-id table
+        pipe = VPSInferencePipeline(model, cfg, SWIN_VIPSEG_HW, thing_ids_in_orig=None,
+                                    tracker_type=tracker_type, device=device)
+        res = paths.drive(path, lambda i: pipe.run_frame(frames[i], is_first=(i == 0)), idx)
+        _check_maps(path, res, SWIN_VIPSEG_HW)
+        if not torch.isfinite(pipe.prev_obj_feats).all() or (
+                pipe.device_tracker and not torch.isfinite(pipe.track_state.embeds).all()):
+            raise AssertionError(f"[{path}] non-finite carried state")
+        log(f"[{path}] segments per frame {[len(r.segments_info) for r in res]}; track ids "
+            f"per frame {[len(np.unique(r.track_map[r.track_map > 0])) for r in res]}")
+        results[path] = res
+    for i, (a, b) in enumerate(zip(results["swin-vipseg-host"], results["swin-vipseg"])):
+        agree = _agreement(a, b)
+        if agree["panoptic_seg"] != 1.0 or agree["semantic_map"] != 1.0:
+            raise AssertionError(f"[swin-vipseg-host] frame {i} disagrees with the device "
+                                 f"tracker: {agree}")
+    log("[swin-vipseg-host] id and semantic maps equal the device tracker's on every frame")
+    return model, cfg
+
+
+def phase_swin_kitti(device, paths: Paths) -> None:
+    """Swin-B on KITTI-STEP (`get_config("video_knet_kitti_step_swin_b")`:
+    previous_link='update_dynamic_cov', previous_type='update'), 384x1248:
+    the device tracker with a sequence boundary, and run_sequence(window=4)
+    bit-equal to it."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+
+    cfg = smoke_config(get_config("video_knet_kitti_step_swin_b"))
+    if (cfg.previous_link, cfg.previous_type) != ("update_dynamic_cov", "update"):
+        raise AssertionError("[swin-kitti] the preset lost its link variant")
+    model = smoke_model(cfg, device)
+    if not hasattr(model.heads[-1], "link_update_conv"):
+        raise AssertionError("[swin-kitti] the last stage has no link update")
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, SWIN_KITTI_FRAMES)]
+    idx = list(range(SWIN_KITTI_FRAMES))
+    flags = [i in (0, BOUNDARY) for i in idx]
+    pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
+    dev = paths.drive("swin-kitti", lambda i: pipe.run_frame(frames[i], flags[i]), idx)
+    _check_maps("swin-kitti", dev, SERVE_HW)
+    if not torch.isfinite(pipe.prev_obj_feats).all():
+        raise AssertionError("[swin-kitti] non-finite carried kernels")
+    log(f"[swin-kitti] segments per frame {[len(r.segments_info) for r in dev]}; track ids "
+        f"per frame {[len(np.unique(r.track_map[r.track_map > 0])) for r in dev]}")
+    seq_pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
+    stats: list = []
+    got = paths.drive_all("swin-kitti-sequence", lambda: seq_pipe.run_sequence(
+        frames, flags, window=4, depth=2, stats=stats), SWIN_KITTI_FRAMES)
+    _assert_bit_equal("swin-kitti-sequence", got, dev)
+    log(f"[swin-kitti-sequence] bit-equal to run_frame; windows {stats}")
+
+
+def phase_swin_check(device) -> None:
+    """Swin-tiny under the trained tiny config's 64-channel heads, VIP-Seg's
+    class split and the Swin KITTI-STEP link (`train_check.swin_check_cfg`),
+    card against CPU at 64x96: the joint forward on the margin seed's train
+    batch (last-stage cls and masks of both branches within 1e-3 relative),
+    then 4 served frames (pixel agreement >= 0.98 a frame)."""
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch
+
+    cfg = train_check.swin_check_cfg(tg.tiny_cfg())
+    seed, margin = train_check.margin_seed(cfg, CHECK_HW)
+    log(f"[swin-check] weight seed {seed}: mask-pool inputs at least {margin:.2e} from the "
+        f"threshold (limit {train_check.MARGIN})")
+    frames = _frames(CHECK_HW, CHECK_FRAMES)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+        batch = make_synthetic_batch(cfg, 1, CHECK_HW, seed=0, device=dev)
+        with torch.no_grad():
+            key, ref, _, _ = model.forward_train(batch.img, batch.ref_img)
+        pipe = VPSInferencePipeline(model, cfg, CHECK_HW, thing_ids_in_orig=None, device=dev)
+        runs[dev.type] = dict(
+            cls=torch.cat([b.stage_outs[-1].cls_score for b in (key, ref)]).cpu(),
+            masks=torch.cat([b.stage_outs[-1].mask_preds for b in (key, ref)]).cpu(),
+            res=[pipe.run_frame(f, is_first=(i == 0)) for i, f in enumerate(frames)])
+    g, c = runs["cuda"], runs["cpu"]
+    for key in ("cls", "masks"):
+        rel = float((g[key] - c[key]).abs().max() / c[key].abs().max())
+        log(f"[swin-check] last-stage {key}: max abs diff / max abs = {rel:.3e} (limit 1e-3)")
+        if not rel <= 1e-3:
+            raise AssertionError(f"[swin-check] card and CPU disagree on {key}: {rel}")
+    for i, (rg, rc) in enumerate(zip(g["res"], c["res"])):
+        agree = _agreement(rg, rc)
+        log(f"[swin-check] frame {i}: pixel agreement card vs CPU {agree} (limit 0.98)")
+        if min(agree.values()) < 0.98:
+            raise AssertionError(f"[swin-check] frame {i}: card and CPU maps disagree: {agree}")
+
+
+def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
+    """VPS training of Swin-B on VIP-Seg at 736x1280 (phase swin-vipseg's
+    model), B=1 key + ref, max_insts 32, drop path 0.3 drawn from a seeded
+    generator on the card: 3 steps. The patch embed and stage 0's patch
+    merging take no gradient (the reference's stop_gradient at
+    frozen_stages=1) but stay in AdamW, whose weight decay moves them (warmup
+    off, so that the first steps' decay shows in fp32)."""
+    import warnings
+
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    if cfg.backbone_drop_path_rate != 0.3 or cfg.max_insts != 32:
+        raise AssertionError("[train-swin] not the preset's drop path and GT slots")
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000,
+                                                     warmup_iters=0))
+    batches = [make_synthetic_batch(cfg, 1, SWIN_VIPSEG_HW, seed=i, device=device)
+               for i in range(SWIN_TRAIN_STEPS)]
+    cut = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith(SWIN_CUT)}
+    if not cut or not all(p.requires_grad for p in model.parameters()):
+        raise AssertionError("[train-swin] every Swin parameter must stay trainable")
+    gen = torch.Generator(device=device).manual_seed(SWIN_DROP_PATH_SEED)
+    params = dict(model.named_parameters())
+    # a block whose branch drop path removes from both samples takes no
+    # gradient in that step: every parameter must be reached in some step
+    reached, non_finite, cut_grads = set(), set(), set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, syncs, launches = [], [], []
+    for i, batch in enumerate(batches):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, losses = train_step(state, batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        launches.append(_counts())
+        vals = {k: float(v) for k, v in losses.items()}
+        if set(vals) != TRAIN_LOSS_KEYS | {"total_loss"}:
+            raise AssertionError(f"[train-swin] loss keys {sorted(vals)}")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"[train-swin] step {i}: non-finite losses {vals}")
+        if launches[-1] != TRAIN_LAUNCHES:
+            raise AssertionError(f"[train-swin] step {i}: launches {launches[-1]}, "
+                                 f"expected {TRAIN_LAUNCHES}")
+        log(f"[train-swin] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
+            f"{syncs[-1]} host syncs, launches {launches[-1]}")
+        for n, p in params.items():
+            if p.grad is None:
+                continue
+            if not bool(torch.isfinite(p.grad).all()):
+                non_finite.add(n)
+            elif bool(p.grad.any()):
+                (cut_grads if n in cut else reached).add(n)
+    peak = torch.cuda.max_memory_allocated()
+    bad = sorted(non_finite | (set(params) - set(cut) - reached))
+    if bad:
+        raise AssertionError(f"[train-swin] {len(bad)} parameters outside the cut without a "
+                             f"finite gradient in every step and a nonzero one in some step: "
+                             f"{bad[:8]}")
+    # weight decay moves every cut parameter but the zero-initialized biases
+    stuck = sorted(cut_grads | {n for n, before in cut.items()
+                                if bool(before.any()) and torch.equal(params[n], before)})
+    if stuck:
+        raise AssertionError(f"[train-swin] cut parameters with a gradient, or not moved by "
+                             f"weight decay: {stuck[:8]}")
+    paths.launches["train-swin"] = {k: sum(c[k] for c in launches) for k in TRAIN_LAUNCHES}
+    paths.frame_ms["train-swin"] = ms
+    med = statistics.median(ms[1:])
+    log(f"[train-swin] {len(cut)} cut parameters: zero gradient, the nonzero ones moved by "
+        f"weight decay; median "
+        f"step {med:.2f} ms over steps 1..{SWIN_TRAIN_STEPS - 1} (first {ms[0]:.1f} ms); peak "
+        f"memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a step {syncs}")
+    return dict(step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -750,8 +1034,20 @@ def main() -> int:
     hrec["launches_by_path"] = {"train": paths.launches["train"]["hungarian"]}
     kernels.append(hrec)
     phase_train_check(device)
+    swin_model, swin_cfg = phase_swin_vipseg(device, paths)
+    phase_swin_kitti(device, paths)
+    phase_swin_check(device)
+    train_swin = phase_train_swin(device, paths, swin_model, swin_cfg)
+    del swin_model
+    for rec in kernels:
+        if rec["name"] in KERNELS:
+            rec["launches_by_path"].update(
+                {p: c[rec["name"]] for p, c in paths.launches.items() if p.startswith("swin")})
+        rec["launches_by_path"]["train-swin"] = paths.launches["train-swin"][rec["name"]]
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
+    log(f"[train-swin] median step {train_swin['median_ms']:.2f} ms, peak memory "
+        f"{train_swin['peak_bytes']} bytes, host syncs a step {train_swin['syncs']} ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

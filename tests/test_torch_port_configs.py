@@ -1,0 +1,79 @@
+"""The port's config presets (`config.py`, `configs.py`) against the JAX package.
+
+Every preset name of `video_knet_tpu/configs.py` is in the port's registry.
+Each VPS and image preset equals JAX's field by field (dataclasses only: no
+Swin-B/L model is built here); the VIS presets raise in `get_config`; the
+presets whose modules are not ported yet raise `NotImplementedError` when
+the model is built. Also the dataset configs and `build_backbone`'s names.
+"""
+
+import dataclasses
+
+import pytest
+
+from video_knet_tpu import config as jc
+from video_knet_tpu import configs as jconfigs
+from video_knet_tpu.config_vis import VISConfig
+from video_knet_tpu_torch import config as tc
+from video_knet_tpu_torch import configs as tconfigs
+from video_knet_tpu_torch.models.backbones import build_backbone
+from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+
+VIS = sorted(k for k, f in jconfigs.CONFIGS.items() if isinstance(f(), VISConfig))
+NON_VIS = sorted(set(jconfigs.CONFIGS) - set(VIS))
+# unported modules a preset needs: E5 the image K-Net (its RFP / DetectoRS
+# and deformable presets included), E3 the other track heads
+UNPORTED = sorted({k for k in NON_VIS if not isinstance(jconfigs.get_config(k),
+                                                        jc.VideoKNetConfig)}
+                  | {"video_knet_kitti_step_fuse_track", "video_knet_kitti_step_roi_gt_box"})
+
+
+def test_registry_has_every_name():
+    assert set(tconfigs.CONFIGS) == set(jconfigs.CONFIGS)
+    assert set(tconfigs.VIS_CONFIGS) == set(VIS)
+
+
+@pytest.mark.parametrize("name", NON_VIS)
+def test_preset_equals_jax(name):
+    got, want = tconfigs.get_config(name), jconfigs.get_config(name)
+    assert type(got).__name__ == type(want).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("factory", ["kitti_step_image_config", "kitti_step_video_config",
+                                     "semkitti_video_config", "vipseg_video_config"])
+def test_dataset_config_equals_jax(factory):
+    assert dataclasses.asdict(getattr(tc, factory)()) == dataclasses.asdict(
+        getattr(jc, factory)())
+
+
+def test_vipseg_class_split():
+    cfg = tconfigs.get_config("video_knet_vipseg_swin_b")
+    assert (cfg.num_thing_classes, cfg.num_stuff_classes, cfg.num_classes) == (58, 66, 124)
+    assert cfg.num_proposals + cfg.num_stuff_classes == 166
+    assert (cfg.backbone, cfg.backbone_drop_path_rate, cfg.previous_type) == (
+        "swin_base", 0.3, "ffn")
+
+
+def test_vis_presets_raise_in_get_config():
+    for name in VIS:
+        with pytest.raises(NotImplementedError):
+            tconfigs.get_config(name)
+    with pytest.raises(KeyError):
+        tconfigs.get_config("no_such_config")
+
+
+@pytest.mark.parametrize("name", UNPORTED)
+def test_unported_preset_raises_at_model_construction(name):
+    with pytest.raises(NotImplementedError):
+        VideoKNet(tconfigs.get_config(name), device="cpu")
+
+
+def test_build_backbone_names():
+    r101 = build_backbone("resnet101")
+    assert r101.out_channels == (256, 512, 1024, 2048)
+    assert sum(1 for n, _ in r101.named_children() if n.startswith("layer3_")) == 23
+    assert build_backbone("swin_tiny").out_channels == (96, 192, 384, 768)
+    for name in ("resnet18", "swin_b_rfp", "detectors_r50", "swin_huge"):
+        with pytest.raises(NotImplementedError):
+            build_backbone(name)

@@ -22,10 +22,13 @@ pytestmark = pytest.mark.cuda
 # the init-head shape (N=100); HW that is a multiple of 4 but not of K1's
 # 32-wide ring slab or HW split (48x157), an odd HW (37x61, 4-byte copies),
 # and C = 37, not a multiple of 4 (K1's 4-byte copies; K2's wrapper pads C to 40);
-# the trained tiny config's stage shape (N=37, 8x12, C=64), at B=1 and 2
+# the trained tiny config's stage shape (N=37, 8x12, C=64), at B=1 and 2;
+# Swin-B VIP-Seg's stage shape (N=166 = 100 + 66, 92x160 at 736x1280) and
+# its init head's at B=2 (the train step's joint pass)
 SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256),
           (2, 117, 48, 156, 256), (1, 100, 48, 156, 256), (1, 117, 48, 157, 200),
-          (1, 117, 37, 61, 256), (1, 100, 37, 61, 37), (1, 37, 8, 12, 64), (2, 37, 8, 12, 64)]
+          (1, 117, 37, 61, 256), (1, 100, 37, 61, 37), (1, 37, 8, 12, 64), (2, 37, 8, 12, 64),
+          (1, 166, 92, 160, 256), (2, 100, 92, 160, 256)]
 
 
 @pytest.fixture
@@ -134,9 +137,11 @@ def test_assemble_is_deterministic(dev, sigmoid):
 
 
 # (B, N, H, W, C) for the gradients: the serving stage shape, a ragged one
-# with C = 37 (K2's wrapper pads C to 40 inside its autograd Function), and
-# the init head's N = 100 at B = 2 (the train step's joint [ref; key] pass)
-GRAD_SHAPES = [(1, 117, 48, 156, 256), (2, 13, 7, 9, 37), (2, 100, 48, 156, 256)]
+# with C = 37 (K2's wrapper pads C to 40 inside its autograd Function), the
+# init head's N = 100 at B = 2 (the train step's joint [ref; key] pass), and
+# Swin-B VIP-Seg's stage shape
+GRAD_SHAPES = [(1, 117, 48, 156, 256), (2, 13, 7, 9, 37), (2, 100, 48, 156, 256),
+               (1, 166, 92, 160, 256)]
 
 
 @pytest.mark.parametrize("b,n,h,w,c", GRAD_SHAPES)
@@ -230,3 +235,25 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
             scale = float(grads["cpu"][k[:-len("bias")] + "weight"].abs().max())
         assert scale > 0, k
         assert float((grads["cuda"][k] - want).abs().max()) <= 1e-3 * scale, k
+
+
+def test_swin_on_the_card_matches_the_cpu(dev):
+    """Swin-tiny at 64x96 (shifted windows and their mask in stages 0 and 1,
+    odd patch merging below): the card's four outputs within 1e-5 of the
+    CPU's scale (fp32, TF32 off), and its stochastic depth draws from a
+    generator on the card."""
+    from video_knet_tpu_torch.models.layers import init_parameters
+    from video_knet_tpu_torch.models.swin import SwinTransformer
+
+    model = SwinTransformer("tiny", drop_path_rate=0.3)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    img = torch.randn(1, 64, 96, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(img)
+        got = model.to(dev)(img.to(dev))
+        dropped = model(img.to(dev).expand(4, -1, -1, -1),
+                        torch.Generator(device=dev).manual_seed(0))
+    for a, b in zip(got, want):
+        _close(a.cpu(), b)
+    assert all(bool(torch.isfinite(d).all()) for d in dropped)
+

@@ -170,8 +170,9 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(backbone="swin_b"), dict(previous_link="link_atten"), dict(previous_type="update"),
-    dict(track_head_type="query_fuse"),
+    dict(backbone="swin_b_rfp"),
+    dict(head=tc.KernelUpdateHeadConfig(mask_upsample_stride=4, conv_kernel_size=3)),
+    dict(track_head_type="roi_gt_box"), dict(track_head_type="query_fuse"),
 ])
 def test_unported_model_options_raise(change):
     with pytest.raises(NotImplementedError):
@@ -188,10 +189,10 @@ def test_unported_serving_options_raise(golden_setup):
         VideoKNet(dataclasses.replace(cfg, neck_type="msdeform_pixel_decoder"), device="cpu")
 
 
-# the modules of the training slice, which the guard must find and import
+# the modules of the training and Swin slices, which the guard must find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
-                       "tools.train_check")
+                       "tools.train_check", "models.swin", "configs", "utils.torch_import")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -24,17 +24,14 @@ import dataclasses
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 from flax import traverse_util
-from torch_port_common import assert_rel_close, perturb_norms
+from torch_port_common import assert_rel_close, jax_step_costs, perturb_norms
 
-import video_knet_tpu.ops.hungarian as jhung
 from video_knet_tpu import config as jc
-from video_knet_tpu.models.knet import branch_assignment_costs
 from video_knet_tpu.models.video.knet_vps import VideoKNet as JVideoKNet
 from video_knet_tpu.models.video.knet_vps import video_knet_loss as jvideo_knet_loss
 from video_knet_tpu.train import optim as joptim
@@ -67,26 +64,6 @@ def _cfgs(coarse: bool):
     return pair
 
 
-def _jax_costs(key, ref, gt, ref_gt, cfg):
-    """The stacking of `video_knet_loss` (`knet_vps.py:374-405`)."""
-    n = cfg.num_proposals
-
-    def track_cost(last, bgt):
-        return jax.vmap(lambda m, c, gm, gl: jhung.hungarian_cost_matrix(
-            m, gm, c, gl, cls_weight=cfg.assigner.cls_weight,
-            dice_weight=cfg.assigner.dice_weight, mask_weight=cfg.assigner.mask_weight))(
-            last.scaled_mask_preds[:, :n], last.cls_score[:, :n, :cfg.num_thing_classes],
-            bgt.masks, bgt.labels)
-
-    kc = branch_assignment_costs(key.rpn_out, key.stage_outs, gt, cfg)
-    rc = branch_assignment_costs(ref.rpn_out, ref.stage_outs, ref_gt, cfg)
-    costs = jnp.concatenate(kc + [track_cost(key.stage_outs[-1], gt)] + rc
-                            + [track_cost(ref.stage_outs[-1], ref_gt)])
-    valids = jnp.concatenate([gt.valid] * (len(kc) + 1) + [ref_gt.valid] * (len(kc) + 1))
-    g2p, p2g = jax.vmap(jhung.pad_and_solve)(costs, valids)
-    return costs, valids, g2p, p2g
-
-
 @functools.lru_cache(maxsize=None)
 def _setup(coarse: bool) -> dict:
     jcfg, tcfg = _cfgs(coarse)
@@ -103,7 +80,7 @@ def _setup(coarse: bool) -> dict:
 
     (total, (losses, key, ref)), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         variables["params"], variables["batch_stats"], jb)
-    costs, valids, g2p, p2g = jax.jit(lambda k, r, b: _jax_costs(k, r, b.gt, b.ref_gt, jcfg))(
+    costs, valids, g2p, p2g = jax.jit(lambda k, r, b: jax_step_costs(k, r, b.gt, b.ref_gt, jcfg))(
         key, ref, jb)
 
     model = load_flax_variables(VideoKNet(tcfg, device="cpu"), variables)

@@ -7,11 +7,17 @@ and its port; weights go from the flax variables to the port through
 
 from __future__ import annotations
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 from flax import traverse_util
 
+import video_knet_tpu.ops.hungarian as jhung
+from video_knet_tpu.models.knet import branch_assignment_costs
+from video_knet_tpu.models.swin import SwinTransformer as JSwin
 from video_knet_tpu_torch.utils.convert import load_flax_variables
 
 
@@ -52,3 +58,32 @@ def assert_rel_close(got, want, rel: float, what: str = "") -> None:
     scale = max(float(np.abs(want).max()), 1e-6)
     err = float(np.abs(got - want).max())
     assert err <= rel * scale, f"{what}: max abs err {err:.3e} > {rel} * {scale:.3e}"
+
+
+def jax_step_costs(key, ref, gt, ref_gt, cfg):
+    """JAX's cost matrices and assignments of a VPS train step, stacked as
+    `video_knet_loss` stacks them (`knet_vps.py:374-405`): (costs, valids,
+    g2p, p2g)."""
+    n = cfg.num_proposals
+
+    def track_cost(last, bgt):
+        return jax.vmap(lambda m, c, gm, gl: jhung.hungarian_cost_matrix(
+            m, gm, c, gl, cls_weight=cfg.assigner.cls_weight,
+            dice_weight=cfg.assigner.dice_weight, mask_weight=cfg.assigner.mask_weight))(
+            last.scaled_mask_preds[:, :n], last.cls_score[:, :n, :cfg.num_thing_classes],
+            bgt.masks, bgt.labels)
+
+    kc = branch_assignment_costs(key.rpn_out, key.stage_outs, gt, cfg)
+    rc = branch_assignment_costs(ref.rpn_out, ref.stage_outs, ref_gt, cfg)
+    costs = jnp.concatenate(kc + [track_cost(key.stage_outs[-1], gt)] + rc
+                            + [track_cost(ref.stage_outs[-1], ref_gt)])
+    valids = jnp.concatenate([gt.valid] * (len(kc) + 1) + [ref_gt.valid] * (len(kc) + 1))
+    g2p, p2g = jax.vmap(jhung.pad_and_solve)(costs, valids)
+    return costs, valids, g2p, p2g
+
+
+@functools.lru_cache(maxsize=None)
+def jax_swin_tiny_apply(ape: bool = False):
+    """JAX's Swin-tiny forward, jitted once a process for the files that
+    share it (the port's Swin and its checkpoint import)."""
+    return jax.jit(JSwin("tiny", ape=ape).apply)

@@ -1,13 +1,14 @@
-"""Config dataclasses of the VPS serving path.
+"""Config dataclasses of Video K-Net VPS, and the dataset configs.
 
-Own copy of `video_knet_tpu/config.py:16-221` (same field names and
-defaults), so the port imports nothing of the JAX package. Fields the
-serving path does not read (losses, assignment) stay so that a config built
-for one package reads the same in the other.
+Own copy of `video_knet_tpu/config.py` (same field names, defaults and
+dataset configs), so the port imports nothing of the JAX package. Fields
+the port does not read stay, so that a config built for one package reads
+the same in the other. The named release presets are in `configs.py`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -178,3 +179,43 @@ class VideoKNetConfig(KNetConfig):
         default_factory=lambda: KernelUpdateHeadConfig(mask_upsample_stride=4)
     )
 
+
+
+def kitti_step_image_config() -> KNetConfig:
+    return KNetConfig()
+
+
+def kitti_step_video_config() -> VideoKNetConfig:
+    return VideoKNetConfig()
+
+
+def semkitti_video_config() -> VideoKNetConfig:
+    """SemKITTI-DVPS: 19 classes, 8 things."""
+    return dataclasses.replace(
+        VideoKNetConfig(),
+        num_thing_classes=8,
+        num_stuff_classes=11,
+        rpn=ConvKernelHeadConfig(
+            num_classes=19, num_thing_classes=8, num_stuff_classes=11,
+            feat_downsample_stride=4, seg_use_sigmoid=False, loss_rank_weight=0.1,
+        ),
+        head=KernelUpdateHeadConfig(
+            num_classes=19, num_thing_classes=8, num_stuff_classes=11, mask_upsample_stride=4,
+        ),
+    )
+
+
+def vipseg_video_config() -> VideoKNetConfig:
+    """VIP-Seg: 124 classes, 58 things and 66 stuff (166 kernels)."""
+    return dataclasses.replace(
+        VideoKNetConfig(),
+        num_thing_classes=58,
+        num_stuff_classes=66,
+        rpn=ConvKernelHeadConfig(
+            num_classes=124, num_thing_classes=58, num_stuff_classes=66,
+            feat_downsample_stride=4, seg_use_sigmoid=False,
+        ),
+        head=KernelUpdateHeadConfig(
+            num_classes=124, num_thing_classes=58, num_stuff_classes=66, mask_upsample_stride=4,
+        ),
+    )

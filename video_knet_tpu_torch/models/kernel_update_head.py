@@ -9,8 +9,16 @@ Counterpart of `video_knet_tpu/models/kernel_update_head.py`:
  6. new masks = dynamic conv of the kernels against the features
     (K=1: the contraction of CUDA kernel K2, no sigmoid)
 
-The video variant (`with_previous`, `previous_type='ffn'`) adds the
-cross-frame link that feeds the tracking embedding.
+The video variant (`with_previous`) links the stage to the previous
+frame's kernels, two ways:
+- `previous_link` rewrites the INPUT proposal kernels before step 2, so it
+  changes the stage's masks: 'link_atten' (cross-attn(query=cur, kv=prev) +
+  LN + link FFN + LN), 'update_dynamic_cov' (a KernelUpdator seeded with the
+  pooled features updates prev first), or None;
+- `previous_type` makes the TRACKING kernels from the updated ones:
+  'ffn' (the same cross-link against prev), 'update' (prev updated by a
+  KernelUpdator seeded with the pooled features first), 'update_obj' (seeded
+  with the updated kernels' tap 0).
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from video_knet_tpu_torch.ops.kernels.mask_ops import fused_assemble
 from video_knet_tpu_torch.ops.mask_pool import mask_pool
 
 FOCAL_PRIOR_BIAS = -4.59511985013459  # fc_cls bias init: prior 0.01
+PREVIOUS_TYPES = ("ffn", "update", "update_obj")
+PREVIOUS_LINKS = (None, "link_atten", "update_dynamic_cov")
 
 
 def assemble_masks(kernels: torch.Tensor, x: torch.Tensor, kernel_size: int) -> torch.Tensor:
@@ -47,17 +57,17 @@ class KernelUpdateHead(nn.Module):
     def __init__(self, cfg: KernelUpdateHeadConfig, with_previous: bool = False,
                  previous_type: str = "ffn", previous_link: str | None = None):
         super().__init__()
-        if previous_link is not None:
-            raise NotImplementedError(
-                f"previous_link={previous_link!r} is not ported yet (ROADMAP E4)")
-        if with_previous and previous_type != "ffn":
-            raise NotImplementedError(
-                f"previous_type={previous_type!r} is not ported yet (ROADMAP E4)")
+        if previous_type not in PREVIOUS_TYPES:
+            raise ValueError(f"previous_type={previous_type!r}")
+        if previous_link not in PREVIOUS_LINKS:
+            raise ValueError(f"previous_link={previous_link!r}")
         if cfg.conv_kernel_size != 1:
             raise NotImplementedError(
                 "conv_kernel_size > 1 (grouped dynamic conv) is not ported yet (ROADMAP E4)")
         self.cfg = cfg
         self.with_previous = with_previous
+        self.previous_type = previous_type
+        self.previous_link = previous_link if with_previous else None
         c = cfg.in_channels
         if cfg.feat_transform:
             self.feat_transform = Conv2d(c, c, 1)
@@ -68,15 +78,35 @@ class KernelUpdateHead(nn.Module):
         if cfg.with_ffn:
             self.ffn = FFN(c, cfg.feedforward_channels, c)
             self.ffn_norm = nn.LayerNorm(c, eps=1e-5)
+        if self.previous_link is not None:
+            self._add_cross_link("link")
+            if previous_link == "update_dynamic_cov":
+                self.link_update_conv = KernelUpdator(u.in_channels, u.feat_channels,
+                                                      u.out_channels)
         if with_previous:
-            self.attention_previous = MultiHeadAttention(c, cfg.num_heads)
-            self.attention_previous_norm = nn.LayerNorm(c, eps=1e-5)
-            self.link_ffn_previous = FFN(c, cfg.feedforward_channels, c)
-            self.link_ffn_previous_norm = nn.LayerNorm(c, eps=1e-5)
+            if previous_type != "ffn":
+                self.track_update_conv = KernelUpdator(u.in_channels, u.feat_channels,
+                                                       u.out_channels)
+            self._add_cross_link("previous")
         self.cls_fcs = MLP(cfg.num_cls_fcs, c, c)
         self.mask_fcs = MLP(cfg.num_mask_fcs, c, c)
         self.fc_cls = nn.Linear(c, cfg.num_classes)
         self.fc_mask = nn.Linear(c, cfg.out_channels)
+
+    def _add_cross_link(self, name: str) -> None:
+        c = self.cfg.in_channels
+        self.add_module(f"attention_{name}", MultiHeadAttention(c, self.cfg.num_heads))
+        self.add_module(f"attention_{name}_norm", nn.LayerNorm(c, eps=1e-5))
+        self.add_module(f"link_ffn_{name}", FFN(c, self.cfg.feedforward_channels, c))
+        self.add_module(f"link_ffn_{name}_norm", nn.LayerNorm(c, eps=1e-5))
+
+    def _cross_link(self, cur: torch.Tensor, prev: torch.Tensor, name: str) -> torch.Tensor:
+        """cross-attn(query=cur, kv=prev) + LN + link FFN + LN on [B, N, G, C] kernels."""
+        b, n, g, c = cur.shape
+        cur_f, prev_f = cur.reshape(b, n, g * c), prev.reshape(b, n, g * c)
+        att = getattr(self, f"attention_{name}")(cur_f, prev_f)
+        y = getattr(self, f"attention_{name}_norm")(cur_f + att).reshape(b, n, g, c)
+        return getattr(self, f"link_ffn_{name}_norm")(getattr(self, f"link_ffn_{name}")(y))
 
     @torch.no_grad()
     def init_extra(self, generator: torch.Generator) -> None:
@@ -95,6 +125,13 @@ class KernelUpdateHead(nn.Module):
         h, w, c = x.shape[1:]
         gather_mask = resize_mask_bilinear(mask_preds, (h, w))
         x_feat = mask_pool(gather_mask, x, hard_thr=cfg.hard_mask_thr, binary=True)
+        linked = self.with_previous and previous_obj_feats is not None
+
+        if linked and self.previous_link is not None:
+            prev_in = previous_obj_feats
+            if self.previous_link == "update_dynamic_cov":
+                prev_in = self.link_update_conv(x_feat, prev_in)
+            proposal_feat = self._cross_link(proposal_feat, prev_in, "link")
 
         obj_feat = self.kernel_update_conv(x_feat, proposal_feat)
         g = obj_feat.shape[2]
@@ -105,13 +142,12 @@ class KernelUpdateHead(nn.Module):
             obj_feat = self.ffn_norm(self.ffn(obj_feat))
 
         obj_feat_track = None
-        if self.with_previous and previous_obj_feats is not None:
-            # cross-attn(query=cur, kv=prev) + LN + link FFN + LN
-            prev = previous_obj_feats.reshape(b, n, g * c)
-            cur = obj_feat.reshape(b, n, g * c)
-            y = self.attention_previous_norm(cur + self.attention_previous(cur, prev))
-            obj_feat_track = self.link_ffn_previous_norm(
-                self.link_ffn_previous(y.reshape(b, n, g, c)))
+        if linked:
+            prev_track = previous_obj_feats
+            if self.previous_type != "ffn":
+                seed = x_feat if self.previous_type == "update" else obj_feat[:, :, 0]
+                prev_track = self.track_update_conv(seed, previous_obj_feats)
+            obj_feat_track = self._cross_link(obj_feat, prev_track, "previous")
 
         cls_feat = self.cls_fcs(obj_feat.sum(dim=-2))
         mask_feat = self.mask_fcs(obj_feat)

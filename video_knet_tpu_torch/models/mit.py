@@ -112,7 +112,9 @@ class MixVisionTransformer(nn.Module):
             self.add_module(f"out_norm{s}", FastVarianceLayerNorm(dims[s], eps=1e-6))
             in_ch = dims[s]
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        """`generator` is ignored: MiT has no stochastic depth."""
         outs = []
         for s in range(4):
             x = getattr(self, f"patch_embed{s}")(x)

@@ -65,7 +65,9 @@ class ResNet(nn.Module):
         for m in frozen:
             m.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        """`generator` is ignored: ResNet has no stochastic depth."""
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
         if self.frozen_stages >= 0:

@@ -84,11 +84,15 @@ class VideoKNet(nn.Module):
                  device: str | torch.device | None = None):
         super().__init__()
         device = resolve_device(device)
+        if not isinstance(cfg, VideoKNetConfig):
+            raise NotImplementedError(
+                f"{type(cfg).__name__}: the image K-Net is not ported yet (ROADMAP E5)")
         if cfg.track_head_type != "kernel_embed":
             raise NotImplementedError(
                 f"track_head_type={cfg.track_head_type!r} is not ported yet (ROADMAP E3)")
         self.cfg = cfg
-        self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages)
+        self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
+                                       drop_path_rate=cfg.backbone_drop_path_rate)
         self.neck = build_neck(cfg.neck_type, self.backbone)
         self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
         self.num_stages = cfg.num_stages
@@ -111,8 +115,11 @@ class VideoKNet(nn.Module):
     def heads(self) -> list[KernelUpdateHead]:
         return [getattr(self, f"mask_head_{s}") for s in range(self.num_stages)]
 
-    def extract_feat(self, img: torch.Tensor) -> list[torch.Tensor]:
-        return self.neck(self.backbone(img))
+    def extract_feat(self, img: torch.Tensor,
+                     generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        """`generator` draws the backbone's stochastic depth (training); None
+        turns it off. Backbones without one ignore it."""
+        return self.neck(self.backbone(img, generator))
 
     def _stages(self, rpn_out: RPNOutputs, previous_obj_feats: torch.Tensor | None):
         outs = []
@@ -136,15 +143,17 @@ class VideoKNet(nn.Module):
         outs, obj_track = self._stages(rpn_out, previous_obj_feats)
         return BranchOutput(rpn_out, outs, obj_track)
 
-    def forward_train(self, img: torch.Tensor, ref_img: torch.Tensor):
+    def forward_train(self, img: torch.Tensor, ref_img: torch.Tensor,
+                      generator: torch.Generator | None = None):
         """Joint train forward: one backbone / neck / init-head pass over
         [ref; key], the ref stages plain, the key stages linked to the ref
-        branch's final kernels (gradients flow through both).
+        branch's final kernels (gradients flow through both). `generator`
+        draws the backbone's stochastic depth (`extract_feat`).
 
         Returns (key, ref, key_embeds, ref_embeds); the embeddings cover all
         N proposals ([B, N, D]; the loss gathers the assigned ones)."""
         b = img.shape[0]
-        both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img])))
+        both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img]), generator))
 
         def half(sl: slice) -> RPNOutputs:
             return RPNOutputs(*(x[sl] for x in both[:-1]), init_kernels=both.init_kernels)

@@ -1,16 +1,18 @@
 """Where a serving frame's time goes, on one NVIDIA GPU.
 
     python3 -m video_knet_tpu_torch.tools.profile_serving [--frames 6]
-        [--paths device,host,full,streams,mit] [--out DIR]
+        [--paths device,host,full,streams,mit,swin] [--out DIR]
 
-Serves random 384x1248 frames through one serving path after another (Video
-K-Net with `smoke_config()` and the seeded random weights of `smoke_model`,
-which chip_smoke.py shares):
+Serves random frames through one serving path after another (Video K-Net
+with `smoke_config()` and the seeded random weights of `smoke_model`, which
+chip_smoke.py shares), at 384x1248 but for `swin`:
   device   R-50, VPSInferencePipeline, the tracker on the device (default)
   host     R-50, `quasi_dense_host` (the numpy tracker, compact payload)
   full     R-50, fast_decode=False (decode at 384x1248, host tracker)
   streams  R-50, MultiStreamVPSPipeline with two streams (one step a round)
   mit      MiT-b0 with the default heads, the tracker on the device
+  swin     Swin-B VPS on VIP-Seg (`video_knet_vipseg_swin_b`) at 736x1280,
+           the tracker on the device
 and reports for each:
   - frame wall ms (host clock, the frame ends with its device->host copy; a
     round of two frames for `streams`);
@@ -19,7 +21,7 @@ and reports for each:
     kernels by device time, the device ms a frame of the port's two CUDA
     kernels (K1 mask pool, K2 assemble), and the host<->device
     synchronisations;
-  - for `device` only, host ms per layer with a synchronize at each layer
+  - for `device` and `swin`, host ms per layer with a synchronize at each layer
     boundary (a second, separate pass; the boundaries serialize the frame,
     so the layer sum is a little above the frame time).
 With --out, also writes the full report as JSON to DIR/profile_serving.json.
@@ -38,18 +40,19 @@ import numpy as np
 import torch
 
 HW = (384, 1248)
+SWIN_HW = (736, 1280)  # VIP-Seg frames
 # most seeds' random weights put one stuff segment over the whole 384x1248
 # frame; seed 6 keeps and tracks a few things there
 WEIGHT_SEED = 6
 
 
-def smoke_config():
-    """Default VideoKNetConfig with the score gates at zero (as
-    tests/test_serving_golden.py sets them), so random weights keep and
-    track things."""
+def smoke_config(base=None):
+    """`base` (default: the default VideoKNetConfig) with the score gates at
+    zero (as tests/test_serving_golden.py sets them), so random weights keep
+    and track things."""
     from video_knet_tpu_torch.config import VideoKNetConfig
 
-    base = VideoKNetConfig()
+    base = VideoKNetConfig() if base is None else base
     return dataclasses.replace(
         base, test=dataclasses.replace(base.test, instance_score_thr=0.0),
         tracker=dataclasses.replace(base.tracker, init_score_thr=0.0, obj_score_thr=0.0,
@@ -63,16 +66,24 @@ def smoke_model(cfg, device):
     return VideoKNet(cfg, generator=torch.Generator().manual_seed(WEIGHT_SEED), device=device)
 
 
-PATHS = ("device", "host", "full", "streams", "mit")
+PATHS = ("device", "host", "full", "streams", "mit", "swin")
+LAYER_PATHS = ("device", "swin")
 
 
 def _serving_path(path: str):
-    """(model, pipeline or None, serve(img, is_first), frames a call)."""
+    """(model, pipeline or None, serve(img, is_first), frames a call, frame size)."""
+    from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.models.video.inference import (
         MultiStreamVPSPipeline,
         VPSInferencePipeline,
     )
 
+    if path == "swin":
+        cfg = smoke_config(get_config("video_knet_vipseg_swin_b"))
+        model = smoke_model(cfg, "cuda")
+        pipe = VPSInferencePipeline(model, cfg, SWIN_HW, thing_ids_in_orig=None,
+                                    device="cuda")
+        return model, pipe, lambda img, first: pipe.run_frame(img, is_first=first), 1, SWIN_HW
     cfg = smoke_config()
     if path == "mit":
         cfg = dataclasses.replace(cfg, backbone="mit_b0")
@@ -81,10 +92,10 @@ def _serving_path(path: str):
     model = smoke_model(cfg, "cuda")
     if path == "streams":
         ms = MultiStreamVPSPipeline(model, cfg, HW, 2, device="cuda")
-        return model, None, lambda img, first: ms.run_frames(img, [first, first]), 2
+        return model, None, lambda img, first: ms.run_frames(img, [first, first]), 2, HW
     tracker = "quasi_dense_host" if path == "host" else "quasi_dense"
     pipe = VPSInferencePipeline(model, cfg, HW, tracker_type=tracker, device="cuda")
-    return model, pipe, lambda img, first: pipe.run_frame(img, is_first=first), 1
+    return model, pipe, lambda img, first: pipe.run_frame(img, is_first=first), 1, HW
 
 
 def _busy_ms(events) -> float:
@@ -109,9 +120,9 @@ def profile(frames: int, path: str = "device") -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    model, pipe, serve, per_call = _serving_path(path)
+    model, pipe, serve, per_call, hw = _serving_path(path)
     rng = np.random.RandomState(0)
-    imgs = [torch.from_numpy(rng.randn(per_call, *HW, 3).astype(np.float32)).cuda()
+    imgs = [torch.from_numpy(rng.randn(per_call, *hw, 3).astype(np.float32)).cuda()
             for _ in range(frames + 2)]
     for i in range(2):  # warm-up (first frame carries one-time costs)
         serve(imgs[i], i == 0)
@@ -143,10 +154,10 @@ def profile(frames: int, path: str = "device") -> dict:
         port[name] = dict(device_ms_per_frame=_busy_ms(evs) / frames,
                           kernel_launches_per_frame=len(evs) / frames)
 
-    layers = _layer_times(model, pipe, imgs[2:]) if path == "device" else None
+    layers = _layer_times(model, pipe, imgs[2:]) if path in LAYER_PATHS else None
     wall_frame = statistics.median(wall)
     return dict(
-        path=path, hw=list(HW), frames=frames, frames_per_call=per_call,
+        path=path, hw=list(hw), frames=frames, frames_per_call=per_call,
         frame_ms=wall, frame_ms_median=wall_frame,
         device_busy_ms_per_frame=busy,
         device_idle_share=max(0.0, 1 - busy / (sum(wall) / frames)),

@@ -6,11 +6,13 @@ card) may binarize differently on each, which is the threshold's nature and
 not a kernel's error. A comparison of the card's train step with the CPU's
 therefore takes the first weight seed whose CPU forward keeps every such
 input `MARGIN` from its threshold (`margin_seed`); `chip_smoke.py`
-(train-check) and the card tests share it.
+(train-check, swin-check) and the card tests share it, and
+`swin_check_cfg`, the Swin slice's small configuration.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -55,3 +57,22 @@ def margin_seed(cfg: VideoKNetConfig, hw: tuple[int, int]) -> tuple[int, float]:
             return seed, margin
     raise AssertionError(f"no weight seed below {SEEDS} keeps the mask-pool inputs "
                          f"{MARGIN} from the threshold")
+
+
+def swin_check_cfg(tiny):
+    """The Swin slice's check configuration: Swin-tiny under `tiny`'s
+    64-channel heads and 20 proposals (the trained tiny config,
+    `trained_golden.tiny_cfg()`), VIP-Seg's class split (58 thing, 66 stuff:
+    86 kernels), the Swin KITTI-STEP link (`previous_link=
+    'update_dynamic_cov'`, `previous_type='update'`), and the score gates at
+    zero so that random weights keep and track things. Only field names are
+    read, so the JAX package's config of the same fields maps the same way."""
+    split = dict(num_classes=124, num_thing_classes=58, num_stuff_classes=66)
+    return dataclasses.replace(
+        tiny, backbone="swin_tiny", num_thing_classes=58, num_stuff_classes=66,
+        previous_link="update_dynamic_cov", previous_type="update",
+        rpn=dataclasses.replace(tiny.rpn, **split),
+        head=dataclasses.replace(tiny.head, **split),
+        test=dataclasses.replace(tiny.test, instance_score_thr=0.0),
+        tracker=dataclasses.replace(tiny.tracker, init_score_thr=0.0, obj_score_thr=0.0,
+                                    match_score_thr=0.05))

@@ -9,7 +9,7 @@ tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 from torch import nn
@@ -28,13 +28,14 @@ def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
-def make_train_step(loss_fn: Callable[[Any], tuple[torch.Tensor, dict]]):
-    """loss_fn(batch) -> (total, loss_dict). Returns train_step(state, batch)
-    -> (state, loss_dict with `total_loss`), detached."""
+def make_train_step(loss_fn: Callable[..., tuple[torch.Tensor, dict]]):
+    """loss_fn(batch, *args) -> (total, loss_dict). Returns
+    train_step(state, batch, *args) -> (state, loss_dict with `total_loss`),
+    detached."""
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, *args):
         state.optimizer.zero_grad()
-        total, losses = loss_fn(batch)
+        total, losses = loss_fn(batch, *args)
         total.backward()
         state.optimizer.step()
         state.step += 1

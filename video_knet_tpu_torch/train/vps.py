@@ -72,7 +72,8 @@ def make_synthetic_batch(cfg: VideoKNetConfig, b: int, hw: tuple[int, int], seed
 
 
 def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
-    """loss_fn(batch) -> (total, loss_dict). Turns TF32 off for cuBLAS and
+    """loss_fn(batch, generator=None) -> (total, loss_dict); `generator`
+    draws the backbone's stochastic depth. Turns TF32 off for cuBLAS and
     cuDNN (the reference trains in fp32), as the serving pipeline does."""
     if cfg.bf16_train:
         raise NotImplementedError("bf16_train is not ported yet (ROADMAP B5)")
@@ -81,15 +82,23 @@ def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
             "norm_eval=False (BatchNorm batch statistics) is not ported yet (ROADMAP B5)")
     set_fp32_numerics()
 
-    def loss_fn(batch: VPSBatch):
-        key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img)
+    def loss_fn(batch: VPSBatch, generator: torch.Generator | None = None):
+        key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img, generator)
         losses = video_knet_loss((key, ref), (key_emb, ref_emb), batch.gt, batch.ref_gt, cfg)
         return sum(losses.values()), losses
 
     return loss_fn
 
 
-def train_step(state: TrainState, batch: VPSBatch):
+def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | None = None):
     """One VPS train step on the model's device -> (state, loss dict with
-    `total_loss`, as device tensors)."""
-    return make_train_step(make_vps_loss_fn(state.model, state.model.cfg))(state, batch)
+    `total_loss`, as device tensors).
+
+    With `backbone_drop_path_rate` > 0 (the Swin configs) the stochastic
+    depth draws from `generator`, by default one on the batch's device
+    seeded with the step count (the reference folds the step into its
+    key)."""
+    cfg = state.model.cfg
+    if generator is None and cfg.backbone_drop_path_rate > 0:
+        generator = torch.Generator(device=batch.img.device).manual_seed(state.step)
+    return make_train_step(make_vps_loss_fn(state.model, cfg))(state, batch, generator)

@@ -15,8 +15,12 @@ mirror the flax names, so each flax path maps onto one torch key:
   batch_stats/<path>/mean, var                   -> <path>.running_mean, running_var
 
 The stuff kernels need no entry: the port reads them from `conv_seg.weight`
-as the JAX head does. Loading is strict: every flax leaf is consumed and
-every port parameter and buffer is filled, or it raises.
+as the JAX head does. Swin's stages are scanned in flax, so every leaf under
+a `stage{s}_pairs` path carries a leading pair axis; it is unstacked into
+`stage{s}_pairs.{k}.` before any layout rule sees the leaf (a stacked Dense
+kernel would look like an MHA projection). Loading is strict: every flax
+leaf is consumed and every port parameter and persistent buffer is filled,
+or it raises.
 
 `state_dict_to_flax` is the inverse, for parameters, buffers or parameter
 gradients, so the port's gradients and updates can be held against JAX's
@@ -25,6 +29,7 @@ leaf by leaf.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -40,6 +45,8 @@ from video_knet_tpu_torch.models.layers import (
 )
 
 _NORMS = (nn.LayerNorm, FastVarianceLayerNorm, GroupNorm, BatchNorm)
+_SCANNED = re.compile(r"stage\d+_pairs")  # flax nn.scan over Swin block pairs
+_UNSTACKED = re.compile(r"^(.*/stage\d+_pairs)/(\d+)/(.*)$")
 
 
 def flatten_variables(variables) -> dict[str, np.ndarray]:
@@ -89,14 +96,23 @@ def _convert_leaf(collection: str, path: list[str], leaf: str, v: np.ndarray):
     return key(leaf), v
 
 
+def _unstack(path: list[str], v: np.ndarray):
+    """(path, leaf) pairs: one per scanned pair if the path has a scan axis."""
+    for i, part in enumerate(path):
+        if _SCANNED.fullmatch(part):
+            return [(path[:i + 1] + [str(k)] + path[i + 1:], v[k]) for k in range(v.shape[0])]
+    return [(path, v)]
+
+
 def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
-    for name, v in flatten_variables(variables).items():
-        collection, *path, leaf = name.split("/")
-        key, arr = _convert_leaf(collection, path, leaf, v)
-        if key in out:
-            raise KeyError(f"two flax leaves map onto {key}")
-        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))  # owned copy
+    for name, stacked in flatten_variables(variables).items():
+        collection, *stacked_path, leaf = name.split("/")
+        for path, v in _unstack(stacked_path, stacked):
+            key, arr = _convert_leaf(collection, path, leaf, v)
+            if key in out:
+                raise KeyError(f"two flax leaves map onto {key}")
+            out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))  # owned copy
     return out
 
 
@@ -122,10 +138,11 @@ def state_dict_to_flax(module: nn.Module,
     """Port {name: tensor} (parameters, buffers, or parameter gradients) ->
     flat {"collection/path/leaf": numpy array} in flax's layouts, the keys of
     `flatten_variables`: OIHW -> HWIO, Dense [out, in] -> [in, out], the MHA
-    projections back to [D, H, hd] / [H, hd, D] and their biases to [H, hd]."""
+    projections back to [D, H, hd] / [H, hd, D] and their biases to [H, hd],
+    Swin's block pairs restacked on the scan axis."""
     out: dict[str, np.ndarray] = {}
     for name, t in tensors.items():
-        v = t.detach().cpu().numpy()
+        v = t.detach().cpu().numpy().copy()  # owned: no view of the module's storage
         owner_path, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_path)
         parent = module.get_submodule(owner_path.rpartition(".")[0])
@@ -149,4 +166,22 @@ def state_dict_to_flax(module: nn.Module,
         elif leaf == "bias" and mha and not owner_path.endswith("out"):
             v = v.reshape(parent.num_heads, -1)
         out[f"params/{path}/{leaf}"] = np.ascontiguousarray(v)
+    return _restack(out)
+
+
+def _restack(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """`.../stage{s}_pairs/{k}/rest` leaves -> one `.../stage{s}_pairs/rest`
+    leaf stacked over k."""
+    out: dict[str, np.ndarray] = {}
+    pairs: dict[str, dict[int, np.ndarray]] = {}
+    for name, v in flat.items():
+        m = _UNSTACKED.match(name)
+        if m:
+            pairs.setdefault(f"{m.group(1)}/{m.group(3)}", {})[int(m.group(2))] = v
+        else:
+            out[name] = v
+    for name, by_pair in pairs.items():
+        if sorted(by_pair) != list(range(len(by_pair))):
+            raise KeyError(f"{name}: pairs {sorted(by_pair)} do not run 0..n-1")
+        out[name] = np.stack([by_pair[k] for k in range(len(by_pair))])
     return out
