@@ -14,7 +14,8 @@ Phases, each raising on failure (the process then exits non-zero):
                (a CUDA graph of 20 calls, timed with CUDA events) of the
                kernel, the plain version and one PyTorch library call, the
                kernel's host-inclusive call time, and forward + backward
-               beside the plain autograd, the library calls and the bound
+               beside the plain autograd, the library calls and the bound;
+               at VIS's stage shape (B*T=5, N=100, 45x80, C=256) the same
   4. serve     Video K-Net R-50 (default config, seeded random weights)
                serves 8 frames of 384x1248 through VPSInferencePipeline with
                the tracker on the device
@@ -71,8 +72,32 @@ Phases, each raising on failure (the process then exits non-zero):
                patch merging, which take none (the reference's
                stop_gradient) and are moved by AdamW's weight decay; step
                ms, peak memory, host syncs a step
-Every serving phase resets the launch counts just before it drives its path
-and requires 4 launches of each kernel a frame (a round for B=2).
+ 18. vis      Video K-Net VIS R-50 on YouTube-VIS 2019
+               (`get_config("video_knet_vis_r50_ytvis2019")`: 40 classes, 100
+               proposals, 3 per-frame and 3 clip stages), seeded random
+               weights: 3 clips of 5 frames of 360x640, the clip forward and
+               `vis_decode` at 360x640: shapes, finite values, labels in
+               [0, 40), track ids 0..9, 7 launches of each mask kernel a
+               clip; clip ms, peak memory
+ 19. vis-volume  the volume preset (tube init head, clip stages only), one
+               clip: 4 launches of each mask kernel
+ 20. vis-check  the tiny VIS config (`train_check.vis_check_cfg`: MiT-b0,
+               64-channel heads, T=2, 64x96), weights from
+               `train_check.vis_margin_seed`, card against CPU: every forward
+               output within 1e-4 relative, the decode's labels, mask indices
+               and track ids equal; one train step's assignments equal,
+               losses within 1e-4, gradients within 1e-3 of each leaf's scale,
+               the CPU's step replaying the card's ReLU decisions
+               (`train_check.relu_pattern`)
+ 21. vis-train  3 train steps of phase 18's preset at B=1, T=5, 360x640,
+               max_insts 16: finite losses with the reference's keys, 7
+               launches of each mask kernel and 1 Hungarian launch a step
+               (all 22 assignment problems in one solve), a finite nonzero
+               gradient on every trainable parameter, none on the frozen
+               ones; step ms, peak memory, host syncs a step
+Every VPS serving phase resets the launch counts just before it drives its
+path and requires 4 launches of each kernel a frame (a round for B=2); the
+VIS phases require their own counts a clip.
 Prints the kernels JSON line (launches per path), the card line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
 when no CUDA device is available.
@@ -141,6 +166,17 @@ TRAIN_LOSS_KEYS = {
 # stages a branch; every assignment problem of the step in one solve
 TRAIN_LAUNCHES = {"mask_pool": 7, "assemble": 7, "hungarian": 1}
 FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1_")
+VIS_HW = (360, 640)  # the reference's VIS crop and clip length (bench.py, tools/train_vis.py)
+VIS_FRAMES = 5
+VIS_CLIPS = 3
+VIS_SEED = 0  # VIS weights; vis-check takes tools/train_check.py:vis_margin_seed
+# per clip: the init head and 3 per-frame stages over B*T, 3 clip stages;
+# the volume preset: the volume head and the 3 clip stages
+VIS_LAUNCHES = {"mask_pool": 7, "assemble": 7}
+VIS_VOLUME_LAUNCHES = {"mask_pool": 4, "assemble": 4}
+VIS_TRAIN_LAUNCHES = {**VIS_LAUNCHES, "hungarian": 1}
+VIS_TRAIN_STEPS = 3
+TOL_VIS_CHECK = 1e-4  # card vs CPU, relative to each output's scale
 
 
 def log(msg: str) -> None:
@@ -195,7 +231,7 @@ def phase_kernels(device) -> list[dict]:
     shapes = [(1, 117, h, w, 256), (1, 100, h, w, 256), (2, 117, h, w, 256),
               (2, 100, h, w, 256), (1, 37, 8, 12, 64), (1, 20, 8, 12, 64),
               (1, SWIN_VIPSEG_KERNELS, vh, vw, 256), (1, 100, vh, vw, 256),
-              (2, 100, vh, vw, 256),
+              (2, 100, vh, vw, 256), (VIS_FRAMES, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
               (1, 100, 37, 61, 256), (1, 100, 37, 61, 200), (1, 100, 37, 61, 37)]
     err_pool, err_asm = 0.0, 0.0
     for b, n, hh, ww, c in shapes:
@@ -234,6 +270,11 @@ def phase_kernels(device) -> list[dict]:
     for rec, vip in zip(recs, _time_kernels(gen, device, SWIN_VIPSEG_KERNELS, vh, vw, 256,
                                             err_pool, err_asm)):
         rec["vipseg"] = {k: vip[k] for k in TIMED_KEYS}
+    # the VIS stage shape: the 5 frames of a clip folded into the batch,
+    # 100 proposals over a 45x80 map (360x640 at stride 8)
+    for rec, vis in zip(recs, _time_kernels(gen, device, 100, VIS_HW[0] // 8, VIS_HW[1] // 8,
+                                            256, err_pool, err_asm, b=VIS_FRAMES)):
+        rec["vis"] = {k: vis[k] for k in TIMED_KEYS}
     return recs
 
 
@@ -242,28 +283,29 @@ TIMED_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "b
               "bwd_bound_ms", "bwd_library_ms")
 
 
-def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm) -> list[dict]:
-    """Device time of each kernel at one stage shape (B=1), beside its plain
-    version, one library call and its bound; forward + backward beside the
-    plain autograd, the library calls of both directions, and both bounds."""
+def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm, b: int = 1) -> list[dict]:
+    """Device time of each kernel at one stage shape (B=1 unless given),
+    beside its plain version, one library call and its bound; forward +
+    backward beside the plain autograd, the library calls of both
+    directions, and both bounds."""
     from video_knet_tpu_torch.ops.kernels import mask_ops as mo
     from video_knet_tpu_torch.tools.kernel_timing import call_ms, device_ms
 
     hw = h * w
-    logits = _logits(gen, (1, n, h, w), device)
-    feats = torch.randn((1, h, w, c), generator=gen, device=device)
-    kern = torch.randn((1, n, c), generator=gen, device=device) / c ** 0.5
-    hard = (torch.sigmoid(logits) > 0.5).float().reshape(1, n, hw)
-    f2 = feats.reshape(1, hw, c)
-    d_pool = torch.randn((1, n, c), generator=gen, device=device)
-    d_asm = torch.randn((1, n, hw), generator=gen, device=device)
+    logits = _logits(gen, (b, n, h, w), device)
+    feats = torch.randn((b, h, w, c), generator=gen, device=device)
+    kern = torch.randn((b, n, c), generator=gen, device=device) / c ** 0.5
+    hard = (torch.sigmoid(logits) > 0.5).float().reshape(b, n, hw)
+    f2 = feats.reshape(b, hw, c)
+    d_pool = torch.randn((b, n, c), generator=gen, device=device)
+    d_asm = torch.randn((b, n, hw), generator=gen, device=device)
     nnz = int(hard.sum())
-    io_bytes = 4 * (n * hw + hw * c + n * c)  # both kernels: same sizes
+    io_bytes = 4 * b * (n * hw + hw * c + n * c)  # both kernels: same sizes
     # backward bytes: K1 reads its saved mask words (one bit a pixel) and
     # d out, writes d feats; K2 reads d out, kern and feats, writes d kern
     # and d feats
-    bwd_bytes = {"mask_pool": n * -(-hw // 32) * 4 + 4 * (n * c + hw * c),
-                 "assemble": 4 * (n * hw + 2 * n * c + 2 * hw * c)}
+    bwd_bytes = {"mask_pool": b * (n * -(-hw // 32) * 4 + 4 * (n * c + hw * c)),
+                 "assemble": 4 * b * (n * hw + 2 * n * c + 2 * hw * c)}
     grad_ops = {  # (kernel, plain version) on (feats, kern), and whether d kern is taken
         "mask_pool": ((lambda f, k: mo.fused_mask_pool(logits, f),
                        lambda f, k: mo.mask_pool_plain(logits, f)), False),
@@ -274,7 +316,7 @@ def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm) -> list[dict]:
     bwd_lib = {"mask_pool": lambda: torch.matmul(hard.transpose(1, 2), d_pool),
                "assemble": lambda: (torch.matmul(d_asm, f2),
                                     torch.matmul(d_asm.transpose(1, 2), kern))}
-    bwd_flops = {"mask_pool": 2 * nnz * c, "assemble": 4 * n * hw * c}
+    bwd_flops = {"mask_pool": 2 * nnz * c, "assemble": 4 * b * n * hw * c}
 
     def bound(nbytes, flops, precision):
         products, peak = OPS_PEAK[precision]
@@ -288,7 +330,7 @@ def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm) -> list[dict]:
          2 * nnz * c, "3xbf16", err_pool, "video_knet_tpu/ops/pallas/mask_ops.py:110"),
         ("assemble", lambda: mo.fused_assemble(kern, feats),
          lambda: mo.assemble_plain(kern, feats), lambda: torch.matmul(kern, f2.transpose(1, 2)),
-         2 * n * hw * c, "3xtf32", err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
+         2 * b * n * hw * c, "3xtf32", err_asm, "video_knet_tpu/ops/pallas/mask_ops.py:168"),
     ):
         ms = device_ms(fn)
         bound_ms, bound_by = bound(io_bytes, flops, precision)
@@ -300,7 +342,7 @@ def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm) -> list[dict]:
             replaces=src_line, launches=0, max_abs_err=err,
             ms=ms, call_ms=call_ms(fn), plain_ms=device_ms(plain),
             bound_ms=bound_ms, bound_by=bound_by,
-            ops_precision=precision, library_ms=device_ms(lib), shape=[1, n, h, w, c],
+            ops_precision=precision, library_ms=device_ms(lib), shape=[b, n, h, w, c],
             bwd_bound_ms=bwd_bound_ms, bwd_library_ms=device_ms(bwd_lib[name]),
         )
         rec["fwd_bwd_bound_ms"] = bound_ms + bwd_bound_ms
@@ -312,7 +354,7 @@ def _time_kernels(gen, device, n, h, w, c, err_pool, err_asm) -> list[dict]:
         ops, wrt_kern = grad_ops[name]
         rec["fwd_bwd_ms"], rec["plain_fwd_bwd_ms"] = (
             device_ms(_fwd_bwd(op, feats, kern, wrt_kern)) for op in ops)
-        log(f"[kernels] {name} at N={n} HW={h}x{w} C={c}: device {ms * 1e3:.2f} us (call "
+        log(f"[kernels] {name} at B={b} N={n} HW={h}x{w} C={c}: device {ms * 1e3:.2f} us (call "
             f"{rec['call_ms'] * 1e3:.1f} us), plain {rec['plain_ms'] * 1e3:.2f} us, library "
             f"{rec['library_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
             f"{io_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at {precision}); forward + "
@@ -336,10 +378,10 @@ class Paths:
         self.launches: dict = {}
         self.frame_ms: dict = {}
 
-    def _counted(self, path: str, n_items: int, body) -> list:
+    def _counted(self, path: str, n_items: int, body, per_item: dict | None = None) -> list:
         """Run `body() -> (results, ms per item)` with the launch counts set
-        to 0 just before and read just after; requires 4 launches of each
-        kernel a frame (a round)."""
+        to 0 just before and read just after; requires `per_item` launches
+        of each kernel an item (default 4 each: a frame, or a round)."""
         from video_knet_tpu_torch.ops.kernels import mask_ops as mo
 
         torch.cuda.synchronize()
@@ -350,14 +392,17 @@ class Paths:
         self.frame_ms[path] = ms
         if len(out) != n_items:
             raise AssertionError(f"[{path}] {len(out)} results for {n_items} items")
+        per_item = per_item or {name: 4 for name in KERNELS}
         for name in KERNELS:
-            if launches[name] != 4 * n_items:
+            if launches[name] != per_item[name] * n_items:
                 raise AssertionError(f"[{path}] {name} launched {launches[name]} times in "
-                                     f"{n_items} frames (rounds), expected 4 each")
+                                     f"{n_items} items, expected {per_item[name]} each")
         return out
 
-    def drive(self, path: str, fn, items, frames_per_item: int = 1) -> list:
-        """`fn(item)` for each item (a frame or a round), timed one by one."""
+    def drive(self, path: str, fn, items, frames_per_item: int = 1,
+              per_item: dict | None = None) -> list:
+        """`fn(item)` for each item (a frame, a round or a clip), timed one by
+        one."""
         def body():
             out, ms = [], []
             for it in items:
@@ -366,7 +411,7 @@ class Paths:
                 ms.append((time.perf_counter() - t0) * 1e3)
             return out, ms
 
-        out = self._counted(path, len(items), body)
+        out = self._counted(path, len(items), body, per_item)
         ms = self.frame_ms[path]
         med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
         log(f"[{path}] {len(items)} x {frames_per_item} frames: median {med:.2f} ms over "
@@ -625,8 +670,6 @@ def phase_train(device, paths: Paths) -> dict:
     import warnings
 
     from video_knet_tpu_torch.config import VideoKNetConfig
-    from video_knet_tpu_torch.ops.kernels.hungarian import hungarian_plain, solve
-    from video_knet_tpu_torch.tools.kernel_timing import device_ms
     from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
 
     cfg = VideoKNetConfig()
@@ -681,33 +724,42 @@ def phase_train(device, paths: Paths) -> dict:
     paths.frame_ms["train"] = ms
 
     # the Hungarian kernel on the last step's own costs (10 problems at B=1)
-    cost = _step_costs(model, batches[-1])
+    rec = _hungarian_record("train", _step_costs(model, batches[-1]))
+    rec.update(name="hungarian", route="cuda",
+               source="video_knet_tpu_torch/ops/kernels/csrc/hungarian.cu",
+               replaces="video_knet_tpu/ops/hungarian.py:28",
+               launches=paths.launches["train"]["hungarian"], library_ms=None)
+    med = statistics.median(ms[1:])
+    log(f"[train] median step {med:.2f} ms over steps 1..{TRAIN_STEPS - 1} (first "
+        f"{ms[0]:.1f} ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a "
+        f"step {syncs}")
+    return dict(record=rec, step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
+
+
+def _hungarian_record(path: str, cost) -> dict:
+    """The Hungarian kernel on one step's [L, G, N] problems: equal to its
+    numpy copy; device time beside the copy's host time and the bound."""
+    from video_knet_tpu_torch.ops.kernels.hungarian import hungarian_plain, solve
+    from video_knet_tpu_torch.tools.kernel_timing import device_ms
+
     rounds = [0]
     t0 = time.perf_counter()
     want = hungarian_plain(cost.cpu().numpy(), rounds)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    got = solve(cost).cpu().numpy()
-    if not np.array_equal(got, want):
-        raise AssertionError("[train] the Hungarian kernel disagrees with its numpy copy")
+    if not np.array_equal(solve(cost).cpu().numpy(), want):
+        raise AssertionError(f"[{path}] the Hungarian kernel disagrees with its numpy copy")
     lanes, r, c = cost.shape
     io_bytes = 4 * lanes * r * c + 4 * lanes * r
     # each round: a subtract pair, a compare and a potential update per column
     ops = 4 * (c + 1) * rounds[0]
     t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PEAK["fp32"][1] * 1e3
     hms = device_ms(lambda: solve(cost))
-    rec = dict(name="hungarian", route="cuda",
-               source="video_knet_tpu_torch/ops/kernels/csrc/hungarian.cu",
-               replaces="video_knet_tpu/ops/hungarian.py:28",
-               launches=paths.launches["train"]["hungarian"],
-               max_abs_err=0.0, ms=hms, plain_ms=plain_ms, plain_on="host (numpy)",
-               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=None, problems=[lanes, r, c], rounds=rounds[0])
-    med = statistics.median(ms[1:])
-    log(f"[train] median step {med:.2f} ms over steps 1..{TRAIN_STEPS - 1} (first "
-        f"{ms[0]:.1f} ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a "
-        f"step {syncs}; Hungarian kernel {hms * 1e3:.1f} us device for {lanes} problems of "
+    log(f"[{path}] Hungarian kernel {hms * 1e3:.1f} us device for {lanes} problems of "
         f"{r}x{c} ({rounds[0]} rounds; numpy copy {plain_ms:.2f} ms on the host)")
-    return dict(record=rec, step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
+    return dict(max_abs_err=0.0, ms=hms, plain_ms=plain_ms, plain_on="host (numpy)",
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                problems=[lanes, r, c], rounds=rounds[0])
 
 
 def _grads(model) -> dict:
@@ -1004,6 +1056,262 @@ def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
     return dict(step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
 
 
+def _vis_clips(count: int):
+    rng = np.random.RandomState(SEED)
+    return [rng.randn(1, VIS_FRAMES, *VIS_HW, 3).astype(np.float32) for _ in range(count)]
+
+
+def _check_vis_prediction(path: str, pred, cfg) -> None:
+    k = cfg.test.max_per_img
+    if tuple(pred.masks.shape) != (VIS_FRAMES, k, *VIS_HW):
+        raise AssertionError(f"[{path}] decoded masks of shape {tuple(pred.masks.shape)}")
+    if not (bool(torch.isfinite(pred.masks).all()) and bool(torch.isfinite(pred.scores).all())):
+        raise AssertionError(f"[{path}] non-finite decode")
+    labels = pred.labels.cpu()
+    if not bool(((labels >= 0) & (labels < cfg.num_classes)).all()):
+        raise AssertionError(f"[{path}] labels {labels.tolist()} outside [0, {cfg.num_classes})")
+    if pred.track_ids.cpu().tolist() != list(range(k)):
+        raise AssertionError(f"[{path}] track ids {pred.track_ids.tolist()}")
+
+
+def _serve_vis(path: str, cfg, device, paths: Paths, clips: int, per_clip: dict) -> dict:
+    """`clips` clips of 5 frames through KNetVIS and `vis_decode` at 360x640,
+    each timed on the host clock with a synchronize; launches a clip,
+    finite outputs, the decode's fields, peak memory."""
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, vis_decode
+
+    model = KNetVIS(cfg, generator=torch.Generator().manual_seed(VIS_SEED), device=device)
+    clip_t = [torch.from_numpy(c).to(device) for c in _vis_clips(clips)]
+    outs = {}
+
+    def run(i):
+        with torch.no_grad():
+            o = model(clip_t[i])
+            pred = vis_decode(o, cfg, out_hw=VIS_HW)
+        torch.cuda.synchronize()
+        outs[i] = o
+        return pred
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    preds = paths.drive(path, run, list(range(clips)), frames_per_item=VIS_FRAMES,
+                        per_item=per_clip)
+    peak = torch.cuda.max_memory_allocated()
+    for i, pred in enumerate(preds):
+        _check_vis_prediction(path, pred, cfg)
+        bad = [j for j, s in enumerate(outs[i].clip_stage_outs)
+               if not bool(torch.isfinite(s.mask_preds).all())]
+        if bad:
+            raise AssertionError(f"[{path}] clip {i}: non-finite masks at clip stages {bad}")
+    ms = paths.frame_ms[path]
+    med = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    log(f"[{path}] labels {preds[0].labels.tolist()}, scores "
+        f"{[round(float(x), 4) for x in preds[0].scores]}; median clip {med:.2f} ms over "
+        f"clips 1..{clips - 1}; peak memory {peak / 2**30:.3f} GiB ({peak} bytes)")
+    del model
+    return dict(median_ms=med, clip_ms=ms, peak_bytes=peak)
+
+
+def phase_vis(device, paths: Paths) -> dict:
+    """Video K-Net VIS R-50, YouTube-VIS 2019 preset, 3 clips of 1x5x360x640."""
+    from video_knet_tpu_torch.configs import get_config
+
+    cfg = get_config("video_knet_vis_r50_ytvis2019")
+    if (cfg.num_classes, cfg.num_proposals, cfg.test.max_per_img, cfg.num_frames) != (
+            40, 100, 10, VIS_FRAMES):
+        raise AssertionError("[vis] not the YouTube-VIS 2019 release config")
+    return _serve_vis("vis", cfg, device, paths, VIS_CLIPS, VIS_LAUNCHES)
+
+
+def phase_vis_volume(device, paths: Paths) -> dict:
+    """The volume preset: the tube init head and the clip stages, one clip."""
+    from video_knet_tpu_torch.configs import get_config
+
+    cfg = get_config("video_knet_vis_volume_r50_ytvis2019")
+    return _serve_vis("vis-volume", cfg, device, paths, 1, VIS_VOLUME_LAUNCHES)
+
+
+def _leaf_tensors(outs) -> dict:
+    """Every tensor of a VISOutputs, by path."""
+    flat = {}
+
+    def walk(prefix, x):
+        if isinstance(x, (tuple, list)):
+            names = getattr(x, "_fields", None) or range(len(x))
+            for name, v in zip(names, x):
+                walk(f"{prefix}/{name}", v)
+        elif x is not None:
+            flat[prefix] = x.detach().cpu()
+
+    walk("", outs)
+    return flat
+
+
+def phase_vis_check(device, paths: Paths) -> None:
+    """The tiny VIS config, card against CPU (whose agreement with the JAX
+    package the CPU tests hold), weights from the margin seed: the forward
+    and decode, then one train step."""
+    from video_knet_tpu_torch.config_vis import VISConfig
+    from video_knet_tpu_torch.models.knet import solve_lanes
+    from video_knet_tpu_torch.models.vis.knet_vis import (
+        KNetVIS,
+        knet_vis_costs,
+        knet_vis_loss,
+        vis_decode,
+    )
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.train.vis import make_synthetic_batch
+
+    cfg = train_check.vis_check_cfg(VISConfig())
+    seed, margin = train_check.vis_margin_seed(cfg, CHECK_HW)
+    log(f"[vis-check] weight seed {seed}: mask-pool inputs and the decode's top-k logits at "
+        f"least {margin:.2e} of their tensors' scale from their boundaries (limit "
+        f"{train_check.VIS_MARGIN})")
+    runs, pattern = {}, []
+    for dev in (device, torch.device("cpu")):
+        model = KNetVIS(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+        batch = make_synthetic_batch(cfg, 1, CHECK_HW, seed=0, device=dev)
+        _reset_counts()
+        with torch.no_grad():
+            outs = model(batch.clip)
+            pred = vis_decode(outs, cfg, out_hw=CHECK_HW)
+        fwd_launches = _counts()
+        _reset_counts()
+        # the CPU's step follows the card's ReLU decisions (train_check.relu_pattern)
+        with train_check.relu_pattern(pattern, replay=dev.type == "cpu") as relus:
+            outs_t = model(batch.clip)
+        losses = knet_vis_loss(outs_t, batch.gt, cfg)
+        sum(losses.values()).backward()
+        train_launches = _counts()
+        g2p, _ = solve_lanes(*knet_vis_costs(outs_t, batch.gt, cfg))
+        runs[dev.type] = dict(outs=_leaf_tensors(outs), pred=pred._replace(
+            masks=pred.masks.cpu(), labels=pred.labels.cpu(), scores=pred.scores.cpu(),
+            track_ids=pred.track_ids.cpu()),
+            losses={k: float(v.detach()) for k, v in losses.items()},
+            g2p=[a.cpu() for a in g2p], grads=_grads(model), fwd=fwd_launches,
+            train=train_launches)
+    g, c = runs["cuda"], runs["cpu"]
+    if {k: g["fwd"][k] for k in KERNELS} != VIS_LAUNCHES or g["train"] != VIS_TRAIN_LAUNCHES:
+        raise AssertionError(f"[vis-check] card launches: forward {g['fwd']}, train step "
+                             f"{g['train']}")
+    paths.launches["vis-check"] = {k: g["fwd"][k] + g["train"][k] for k in g["train"]}
+    worst = max(float((g["outs"][k] - w).abs().max() / max(float(w.abs().max()), 1e-6))
+                for k, w in c["outs"].items())
+    log(f"[vis-check] {len(c['outs'])} forward outputs: worst max abs diff / scale "
+        f"{worst:.3e} (limit {TOL_VIS_CHECK})")
+    if set(g["outs"]) != set(c["outs"]) or not worst <= TOL_VIS_CHECK:
+        raise AssertionError(f"[vis-check] card and CPU forward outputs differ: {worst}")
+    for f in ("labels", "track_ids"):
+        if not torch.equal(getattr(g["pred"], f), getattr(c["pred"], f)):
+            raise AssertionError(f"[vis-check] decoded {f} differ: {getattr(g['pred'], f)} vs "
+                                 f"{getattr(c['pred'], f)}")
+    mrel = float((g["pred"].masks - c["pred"].masks).abs().max() / c["pred"].masks.abs().max())
+    srel = float((g["pred"].scores - c["pred"].scores).abs().max() / c["pred"].scores.max())
+    if not (mrel <= TOL_VIS_CHECK and srel <= TOL_VIS_CHECK):
+        raise AssertionError(f"[vis-check] decoded masks / scores differ: {mrel}, {srel}")
+    if not all(torch.equal(a, b) for a, b in zip(g["g2p"], c["g2p"])):
+        raise AssertionError("[vis-check] card and CPU assignments differ")
+    lworst = max(abs(g["losses"][k] - v) / max(abs(v), 1e-6) for k, v in c["losses"].items())
+    if set(g["losses"]) != set(c["losses"]) or not lworst <= 1e-4:
+        raise AssertionError(f"[vis-check] losses differ: worst relative {lworst}")
+    gworst = 0.0
+    for k, want in c["grads"].items():
+        scale = float(want.abs().max())
+        if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+            scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+        err = float((g["grads"][k] - want).abs().max())
+        gworst = max(gworst, err / max(scale, 1e-12))
+        if not err <= 1e-3 * max(scale, 1e-12):
+            raise AssertionError(f"[vis-check] gradient of {k}: {err} vs scale {scale}")
+    log(f"[vis-check] decode: labels {c['pred'].labels.tolist()} and track ids equal, masks "
+        f"within {mrel:.2e}, scores within {srel:.2e}; {len(c['g2p'])} assignment sets equal; "
+        f"losses within {lworst:.2e} relative (limit 1e-4); gradients within {gworst:.2e} of "
+        f"each leaf's scale (limit 1e-3), the CPU step on the card's decisions at "
+        f"{relus['calls']} ReLUs ({relus['differ']} elements decided otherwise by the CPU); "
+        f"card launches forward {g['fwd']}, step {g['train']}")
+
+
+def phase_vis_train(device, paths: Paths) -> dict:
+    """VIS training of the R-50 YouTube-VIS 2019 preset at B=1, T=5,
+    360x640, 16 tube slots: 3 steps."""
+    import warnings
+
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, knet_vis_costs
+    from video_knet_tpu_torch.ops.hungarian import gt_rows
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vis import make_synthetic_batch, train_step
+
+    cfg = get_config("video_knet_vis_r50_ytvis2019")
+    if cfg.max_insts != 16 or cfg.num_frames != VIS_FRAMES:
+        raise AssertionError("[vis-train] not the preset's tube slots and clip length")
+    model = KNetVIS(cfg, generator=torch.Generator().manual_seed(VIS_SEED), device=device)
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000))
+    batches = [make_synthetic_batch(cfg, 1, VIS_HW, seed=i, device=device)
+               for i in range(VIS_TRAIN_STEPS)]
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(FROZEN)}
+    trainable = [(n, p) for n, p in model.named_parameters() if not n.startswith(FROZEN)]
+    if not frozen or any(p.requires_grad for n, p in model.named_parameters()
+                         if n.startswith(FROZEN)):
+        raise AssertionError("[vis-train] the stem and layer1 are not frozen")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, syncs, launches, keys = [], [], [], None
+    for i, batch in enumerate(batches):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, losses = train_step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        launches.append(_counts())
+        vals = {k: float(v) for k, v in losses.items()}
+        keys = keys or set(vals)
+        if set(vals) != keys or not {"loss_rpn_seg", "s2_loss_dice", "tracker_s1_loss_cls",
+                                     "tracker_s2_loss_dice", "total_loss"} <= keys:
+            raise AssertionError(f"[vis-train] loss keys {sorted(vals)}")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"[vis-train] step {i}: non-finite losses {vals}")
+        if launches[-1] != VIS_TRAIN_LAUNCHES:
+            raise AssertionError(f"[vis-train] step {i}: launches {launches[-1]}, "
+                                 f"expected {VIS_TRAIN_LAUNCHES}")
+        log(f"[vis-train] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
+            f"{syncs[-1]} host syncs, launches {launches[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    if any(syncs[1:]):
+        raise AssertionError(f"[vis-train] host syncs after the first step: {syncs}")
+    bad = [n for n, p in trainable if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or float(p.grad.norm()) == 0.0]
+    if bad:
+        raise AssertionError(f"[vis-train] {len(bad)} trainable parameters without a finite "
+                             f"nonzero gradient: {bad[:8]}")
+    moved = [n for n, p in model.named_parameters()
+             if n in frozen and (p.grad is not None or not torch.equal(p, frozen[n]))]
+    if moved:
+        raise AssertionError(f"[vis-train] frozen parameters moved or got gradients: "
+                             f"{moved[:8]}")
+    paths.launches["vis-train"] = {k: sum(c[k] for c in launches) for k in VIS_TRAIN_LAUNCHES}
+    paths.frame_ms["vis-train"] = ms
+    # the step's 22 problems (4 per-frame sets of B*T = 5, 2 tube sets of B = 1)
+    with torch.no_grad():
+        costs, valids = knet_vis_costs(model(batches[-1].clip), batches[-1].gt, cfg)
+    hrec = _hungarian_record("vis-train", gt_rows(torch.cat(costs), torch.cat(valids)))
+    med = statistics.median(ms[1:])
+    log(f"[vis-train] median step {med:.2f} ms over steps 1..{VIS_TRAIN_STEPS - 1} (first "
+        f"{ms[0]:.1f} ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a "
+        f"step {syncs}")
+    del model, state
+    return dict(step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs, hungarian=hrec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1044,10 +1352,24 @@ def main() -> int:
             rec["launches_by_path"].update(
                 {p: c[rec["name"]] for p, c in paths.launches.items() if p.startswith("swin")})
         rec["launches_by_path"]["train-swin"] = paths.launches["train-swin"][rec["name"]]
+    vis = phase_vis(device, paths)
+    vis_volume = phase_vis_volume(device, paths)
+    phase_vis_check(device, paths)
+    vis_train = phase_vis_train(device, paths)
+    hrec["vis"] = vis_train["hungarian"]
+    for rec in kernels:
+        rec["launches_by_path"].update(
+            {p: c[rec["name"]] for p, c in paths.launches.items()
+             if p.startswith("vis") and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
     log(f"[train-swin] median step {train_swin['median_ms']:.2f} ms, peak memory "
         f"{train_swin['peak_bytes']} bytes, host syncs a step {train_swin['syncs']} ({card})")
+    log(f"[vis] median clip {vis['median_ms']:.2f} ms (1x5x360x640, forward + decode), peak "
+        f"memory {vis['peak_bytes']} bytes; [vis-volume] clip {vis_volume['median_ms']:.2f} "
+        f"ms ({card})")
+    log(f"[vis-train] median step {vis_train['median_ms']:.2f} ms, peak memory "
+        f"{vis_train['peak_bytes']} bytes, host syncs a step {vis_train['syncs']} ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

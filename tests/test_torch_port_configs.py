@@ -1,10 +1,11 @@
 """The port's config presets (`config.py`, `configs.py`) against the JAX package.
 
 Every preset name of `video_knet_tpu/configs.py` is in the port's registry.
-Each VPS and image preset equals JAX's field by field (dataclasses only: no
-Swin-B/L model is built here); the VIS presets raise in `get_config`; the
-presets whose modules are not ported yet raise `NotImplementedError` when
-the model is built. Also the dataset configs and `build_backbone`'s names.
+Each VPS, image and VIS preset equals JAX's field by field (dataclasses
+only: no Swin-B/L model is built here); the deformable VIS presets raise in
+`get_config`, naming ROADMAP E2; the presets whose modules are not ported
+yet raise `NotImplementedError` when the model is built. Also the dataset
+configs and `build_backbone`'s names.
 """
 
 import dataclasses
@@ -15,6 +16,7 @@ from video_knet_tpu import config as jc
 from video_knet_tpu import configs as jconfigs
 from video_knet_tpu.config_vis import VISConfig
 from video_knet_tpu_torch import config as tc
+from video_knet_tpu_torch import config_vis as tc_vis
 from video_knet_tpu_torch import configs as tconfigs
 from video_knet_tpu_torch.models.backbones import build_backbone
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
@@ -55,10 +57,23 @@ def test_vipseg_class_split():
         "swin_base", 0.3, "ffn")
 
 
-def test_vis_presets_raise_in_get_config():
-    for name in VIS:
-        with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("name", VIS)
+def test_vis_preset_equals_jax_or_raises_naming_e2(name):
+    """The three ported VIS presets equal JAX's field by field; the four
+    deformable ones raise, naming the ms-deform neck's ROADMAP item."""
+    want = jconfigs.get_config(name)
+    if want.neck_type == "msdeform_pixel_decoder":
+        assert name in tconfigs.DEFORMABLE_VIS_CONFIGS
+        with pytest.raises(NotImplementedError, match="ROADMAP E2"):
             tconfigs.get_config(name)
+        return
+    got = tconfigs.get_config(name)
+    assert isinstance(got, tc_vis.VISConfig)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.num_thing_classes, got.num_stuff_classes) == (40, 0)
+
+
+def test_unknown_config_raises():
     with pytest.raises(KeyError):
         tconfigs.get_config("no_such_config")
 

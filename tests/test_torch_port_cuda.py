@@ -24,11 +24,12 @@ pytestmark = pytest.mark.cuda
 # and C = 37, not a multiple of 4 (K1's 4-byte copies; K2's wrapper pads C to 40);
 # the trained tiny config's stage shape (N=37, 8x12, C=64), at B=1 and 2;
 # Swin-B VIP-Seg's stage shape (N=166 = 100 + 66, 92x160 at 736x1280) and
-# its init head's at B=2 (the train step's joint pass)
+# its init head's at B=2 (the train step's joint pass); VIS's stage shape
+# (a clip's 5 frames folded into the batch, N=100, 45x80 at 360x640)
 SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256),
           (2, 117, 48, 156, 256), (1, 100, 48, 156, 256), (1, 117, 48, 157, 200),
           (1, 117, 37, 61, 256), (1, 100, 37, 61, 37), (1, 37, 8, 12, 64), (2, 37, 8, 12, 64),
-          (1, 166, 92, 160, 256), (2, 100, 92, 160, 256)]
+          (1, 166, 92, 160, 256), (2, 100, 92, 160, 256), (5, 100, 45, 80, 256)]
 
 
 @pytest.fixture
@@ -141,6 +142,7 @@ def test_assemble_is_deterministic(dev, sigmoid):
 # init head's N = 100 at B = 2 (the train step's joint [ref; key] pass), and
 # Swin-B VIP-Seg's stage shape
 GRAD_SHAPES = [(1, 117, 48, 156, 256), (2, 13, 7, 9, 37), (2, 100, 48, 156, 256),
+               (5, 100, 45, 80, 256),
                (1, 166, 92, 160, 256)]
 
 
@@ -257,3 +259,62 @@ def test_swin_on_the_card_matches_the_cpu(dev):
         _close(a.cpu(), b)
     assert all(bool(torch.isfinite(d).all()) for d in dropped)
 
+
+def test_vis_clip_on_the_card_matches_the_cpu(dev):
+    """The tiny VIS config (`train_check.vis_check_cfg`, T=2, 64x96; weights
+    from `vis_margin_seed`): the card's forward outputs within 1e-4 of the
+    CPU's scale and the decode's integer fields equal, with 7 launches of
+    each mask kernel; then one train step: losses within 1e-4, gradients
+    within 1e-3 of each leaf's scale (the CPU's step replaying the card's
+    ReLU decisions), 7 / 7 mask-kernel launches and one Hungarian launch."""
+    from video_knet_tpu_torch.config_vis import VISConfig
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, vis_decode
+    from video_knet_tpu_torch.ops.kernels import hungarian as hk
+    from video_knet_tpu_torch.tools.train_check import (
+        relu_pattern,
+        vis_check_cfg,
+        vis_margin_seed,
+    )
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vis import make_synthetic_batch, train_step
+
+    cfg = vis_check_cfg(VISConfig())
+    seed, _ = vis_margin_seed(cfg, (64, 96))
+    runs, pattern = {}, []
+    for d in (dev, torch.device("cpu")):
+        model = KNetVIS(cfg, generator=torch.Generator().manual_seed(seed), device=d)
+        batch = make_synthetic_batch(cfg, 1, (64, 96), seed=0, device=d)
+        mo.reset_launch_counts()
+        with torch.no_grad():
+            outs = model(batch.clip)
+            pred = vis_decode(outs, cfg, out_hw=(64, 96))
+        if d.type == "cuda":
+            assert mo.LAUNCHES == {"mask_pool": 7, "assemble": 7}
+        mo.reset_launch_counts()
+        hk.reset_launch_counts()
+        # the CPU's step follows the card's ReLU decisions (train_check.relu_pattern)
+        with relu_pattern(pattern, replay=d.type == "cpu"):
+            state, losses = train_step(create_train_state(model, make_optimizer(model, 1000)),
+                                       batch)
+        if d.type == "cuda":
+            assert mo.LAUNCHES == {"mask_pool": 7, "assemble": 7}
+            assert hk.LAUNCHES == {"hungarian": 1}
+        stages = outs.frame_stage_outs + outs.clip_stage_outs
+        runs[d.type] = dict(
+            masks=[s.mask_preds.cpu() for s in stages], pred=[x.cpu() for x in pred],
+            losses={k: float(v) for k, v in losses.items()},
+            grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+    g, c = runs["cuda"], runs["cpu"]
+    for a, b in zip(g["masks"], c["masks"]):
+        _close(a, b, 1e-4)
+    for f in (1, 3):  # labels, track ids
+        assert torch.equal(g["pred"][f], c["pred"][f])
+    _close(g["pred"][0], c["pred"][0], 1e-4)
+    for k, want in c["losses"].items():
+        assert abs(g["losses"][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+    for k, want in c["grads"].items():
+        scale = float(want.abs().max())
+        if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+            scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+        assert float((g["grads"][k] - want).abs().max()) <= 1e-3 * max(scale, 1e-12), k

@@ -192,7 +192,9 @@ def test_unported_serving_options_raise(golden_setup):
 # the modules of the training and Swin slices, which the guard must find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
-                       "tools.train_check", "models.swin", "configs", "utils.torch_import")
+                       "tools.train_check", "models.swin", "configs", "utils.torch_import",
+                       "config_vis", "models.vis.clip_head", "models.vis.volume_head",
+                       "models.vis.knet_vis", "train.vis")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -82,6 +82,44 @@ def jax_step_costs(key, ref, gt, ref_gt, cfg):
     return costs, valids, g2p, p2g
 
 
+# the input of every ReLU of the heads and necks, by its owner: a
+# ConvNormAct's GroupNorm, an MLP layer's LayerNorm, a KernelUpdator's
+# fc_norm, an FFN's Dense_0 (the same names in both packages)
+def _pre_relu(owner: str, name: str) -> bool:
+    return ((owner == "ConvNormAct" and name == "GroupNorm_0")
+            or (owner == "MLP" and name.startswith("LayerNorm_"))
+            or (owner == "KernelUpdator" and name == "fc_norm")
+            or (owner == "FFN" and name == "Dense_0"))
+
+
+def jax_pre_relu(mdl, method: str) -> bool:
+    """`capture_intermediates` filter of flax's `apply`: the ReLU inputs,
+    whose signs are JAX's ReLU decisions."""
+    owner = type(mdl.parent).__name__ if mdl.parent is not None else ""
+    return method == "__call__" and _pre_relu(owner, mdl.name)
+
+
+def jax_relu_decisions(intermediates, model: torch.nn.Module, run) -> list:
+    """JAX's ReLU decisions, from the ReLU inputs captured with
+    `jax_pre_relu`, in the order the port calls its ReLUs during `run()`
+    (forward hooks on the port's ReLU inputs), for
+    `train_check.relu_pattern(..., replay=True)`; each replayed call checks
+    its shape."""
+    order, hooks = [], []
+    for name, m in model.named_modules():
+        owner = type(model.get_submodule(name.rpartition(".")[0])).__name__ if name else ""
+        if _pre_relu(owner, name.rpartition(".")[2]):
+            hooks.append(m.register_forward_hook(lambda *_, name=name: order.append(name)))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    flat = traverse_util.flatten_dict(intermediates, sep="/")
+    return [torch.from_numpy(np.asarray(flat[name.replace(".", "/") + "/__call__"][0]) > 0)
+            for name in order]
+
+
 @functools.lru_cache(maxsize=None)
 def jax_swin_tiny_apply(ape: bool = False):
     """JAX's Swin-tiny forward, jitted once a process for the files that

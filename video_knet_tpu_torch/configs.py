@@ -5,8 +5,8 @@ the reference's config file stems) and the same configs. `get_config(name)`
 returns the config; what the port cannot build yet raises
 `NotImplementedError`, naming its ROADMAP item, where the model is built:
 the image K-Net presets (E5, which the RFP / DetectoRS and deformable ones
-also are), `query_fuse` and `roi_gt_box` (E3). The VIS presets raise in
-`get_config` (slice D: the port has no VIS config yet).
+also are), `query_fuse` and `roi_gt_box` (E3). The four deformable VIS
+presets raise in `get_config` (E2: the ms-deform neck).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from video_knet_tpu_torch.config import (
     kitti_step_video_config,
     vipseg_video_config,
 )
+from video_knet_tpu_torch.config_vis import VISConfig, youtube_vis_2019_config
 
 
 def knet_s3_r50_fpn_cityscapes_step() -> KNetConfig:
@@ -128,9 +129,25 @@ def video_knet_s3_swin_b_vipseg() -> VideoKNetConfig:
                                backbone_drop_path_rate=0.3)
 
 
-def _vis(name: str) -> Callable:
+def video_knet_vis_r50_ytvis2019() -> VISConfig:
+    """YouTube-VIS 2019 (40 classes), R-50."""
+    return youtube_vis_2019_config()
+
+
+def video_knet_vis_swin_b_ytvis2019() -> VISConfig:
+    return dataclasses.replace(youtube_vis_2019_config(), backbone="swin_base",
+                               backbone_drop_path_rate=0.3)
+
+
+def video_knet_vis_volume_r50_ytvis2019() -> VISConfig:
+    """The volume (tube-kernel) ablation: volume init head, clip stages only."""
+    return dataclasses.replace(youtube_vis_2019_config(), kernel_head_mode="volume")
+
+
+def _deformable_vis(name: str) -> Callable:
     def unported():
-        raise NotImplementedError(f"{name}: VIS is not ported yet (ROADMAP slice D)")
+        raise NotImplementedError(
+            f"{name}: the ms-deform pixel-decoder neck is not ported yet (ROADMAP E2)")
     return unported
 
 
@@ -142,12 +159,12 @@ def knet_s3_swin_b_rfp_cityscapes_step() -> KNetConfig:
     return dataclasses.replace(kitti_step_image_config(), backbone="swin_b_rfp")
 
 
-VIS_CONFIGS = (
-    "video_knet_vis_r50_ytvis2019", "video_knet_vis_swin_b_ytvis2019",
-    "video_knet_vis_volume_r50_ytvis2019", "video_knet_vis_r50_deformable_ytvis2019",
-    "video_knet_vis_swin_b_deformable_ytvis2019", "knet_track_r50_deformable_fpn_1x_youtubevis",
-    "knet_track_swinb_deformable_1x_youtubevis",
+DEFORMABLE_VIS_CONFIGS = (
+    "video_knet_vis_r50_deformable_ytvis2019", "video_knet_vis_swin_b_deformable_ytvis2019",
+    "knet_track_r50_deformable_fpn_1x_youtubevis", "knet_track_swinb_deformable_1x_youtubevis",
 )
+VIS_CONFIGS = ("video_knet_vis_r50_ytvis2019", "video_knet_vis_swin_b_ytvis2019",
+               "video_knet_vis_volume_r50_ytvis2019", *DEFORMABLE_VIS_CONFIGS)
 
 CONFIGS: dict[str, Callable] = {
     "knet_s3_r50_fpn_cityscapes_step": knet_s3_r50_fpn_cityscapes_step,
@@ -184,7 +201,10 @@ CONFIGS: dict[str, Callable] = {
     "video_knet_s3_swin_b_rpn_vipseg_mask_embed_link_ffn_joint_train_8e": (
         video_knet_s3_swin_b_vipseg
     ),
-    **{name: _vis(name) for name in VIS_CONFIGS},
+    "video_knet_vis_r50_ytvis2019": video_knet_vis_r50_ytvis2019,
+    "video_knet_vis_swin_b_ytvis2019": video_knet_vis_swin_b_ytvis2019,
+    "video_knet_vis_volume_r50_ytvis2019": video_knet_vis_volume_r50_ytvis2019,
+    **{name: _deformable_vis(name) for name in DEFORMABLE_VIS_CONFIGS},
     "knet_s3_detectors_r50_cityscapes_step": knet_s3_detectors_r50_cityscapes_step,
     "knet_s3_swin_b_rfp_cityscapes_step": knet_s3_swin_b_rfp_cityscapes_step,
 }

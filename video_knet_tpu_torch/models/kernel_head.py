@@ -58,9 +58,11 @@ class ConvKernelHead(nn.Module):
     def init_extra(self, generator: torch.Generator) -> None:
         self.init_kernels.normal_(0.0, self.cfg.kernel_init_std, generator=generator)
 
-    def forward(self, feats: list[torch.Tensor]) -> RPNOutputs:
+    def forward(self, feats: list[torch.Tensor], num_frames: int | None = None) -> RPNOutputs:
+        """`num_frames` set: clip inputs [B*T, ...], and the localization FPN
+        takes the temporal positional encoding."""
         cfg = self.cfg
-        loc_feats, semantic_feats = self.localization_fpn(feats)[:2]
+        loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
         for i in range(cfg.num_loc_convs):
             loc_feats = getattr(self, f"loc_conv{i}")(loc_feats)
         for i in range(cfg.num_seg_convs):

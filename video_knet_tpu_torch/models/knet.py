@@ -87,13 +87,12 @@ def branch_assignment_costs(rpn_out, stage_outs: list[StageOutput], gt: Panoptic
 
 
 def solve_lanes(costs: list[torch.Tensor], valids: list[torch.Tensor]):
-    """Solve L cost sets [B, N, G] (valid [B, G] each) as ONE Hungarian solve
-    over L * B problems. Returns (gt_of_pred list of [B, N], pred_of_gt list
-    of [B, G])."""
-    b = costs[0].shape[0]
+    """Solve L cost sets [B_l, N, G] (valid [B_l, G] each; the leading sizes
+    may differ) as ONE Hungarian solve over sum B_l problems. Returns
+    (gt_of_pred list of [B_l, N], pred_of_gt list of [B_l, G])."""
+    sizes = [c.shape[0] for c in costs]
     g2p, p2g = hung.pad_and_solve(torch.cat(costs), torch.cat(valids))
-    return ([g2p[i * b:(i + 1) * b] for i in range(len(costs))],
-            [p2g[i * b:(i + 1) * b] for i in range(len(costs))])
+    return list(g2p.split(sizes)), list(p2g.split(sizes))
 
 
 def solve_assignments(costs: list[torch.Tensor], valid: torch.Tensor):

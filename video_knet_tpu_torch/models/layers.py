@@ -253,6 +253,21 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 128,
     return torch.cat([pos_y, pos_x], dim=-1)
 
 
+def sine_positional_encoding_3d(t: int, h: int, w: int, num_feats: int = 128,
+                                device=None) -> torch.Tensor:
+    """Clip encoding -> [T, H, W, 2*num_feats]: the 2-D code plus a temporal
+    sine over the full channel width, added per frame."""
+    eps, scale, temperature = 1e-6, 2 * math.pi, 10000
+    spatial = sine_positional_encoding(h, w, num_feats, device=device)
+    z = torch.arange(1, t + 1, dtype=torch.float32, device=device)
+    z = z / (z[-1] + eps) * scale
+    dim_z = torch.arange(2 * num_feats, dtype=torch.float32, device=device)
+    dim_z = temperature ** (2 * torch.div(dim_z, 2, rounding_mode="floor") / (2 * num_feats))
+    pos_z = z[:, None] / dim_z
+    pos_z = torch.stack([pos_z[:, 0::2].sin(), pos_z[:, 1::2].cos()], dim=2).reshape(t, -1)
+    return spatial[None] + pos_z[:, None, None, :]
+
+
 # ------------------------------------------------------------ random init
 
 

@@ -1,8 +1,11 @@
-"""Semantic-FPN localization neck (2-D only), NHWC.
+"""Semantic-FPN localization neck, NHWC.
 
 Counterpart of `video_knet_tpu/models/semantic_fpn.py`: all four FPN levels
 are convolved (+ upsampled) to the level-0/2 resolution and summed; two 1x1
-heads give the 'thing' and 'stuff' branch features.
+heads give the 'thing' and 'stuff' branch features. Called with
+`num_frames` (clip inputs [B*T, H, W, C], frames contiguous per video), the
+last level's positional encoding gains the temporal term
+(`sine_positional_encoding_3d`); the weights are the same either way.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from video_knet_tpu_torch.models.layers import (
     ConvNormAct,
     resize_bilinear,
     sine_positional_encoding,
+    sine_positional_encoding_3d,
     upsample2x,
 )
 
@@ -21,14 +25,8 @@ from video_knet_tpu_torch.models.layers import (
 class SemanticFPN(nn.Module):
     def __init__(self, in_channels: int = 256, feat_channels: int = 256,
                  out_channels: int = 256, upsample_times: int = 2, end_level: int = 3,
-                 with_positional_encoding: bool = True, num_aux_convs: int = 1,
-                 num_frames: int | None = None):
+                 with_positional_encoding: bool = True, num_aux_convs: int = 1):
         super().__init__()
-        if num_frames is not None:
-            raise NotImplementedError(
-                "SemanticFPN num_frames (the 3-D clip variant) is not ported yet "
-                "(ROADMAP D1)"
-            )
         self.upsample_times = upsample_times
         self.end_level = end_level
         self.with_positional_encoding = with_positional_encoding
@@ -44,13 +42,18 @@ class SemanticFPN(nn.Module):
         for k in range(num_aux_convs):
             self.add_module(f"aux_conv{k}", ConvNormAct(feat_channels, out_channels, 1))
 
-    def forward(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
+    def forward(self, feats: list[torch.Tensor],
+                num_frames: int | None = None) -> list[torch.Tensor]:
         mlvl = []
         for i in range(self.end_level + 1):
             x = feats[i]
             if i == self.end_level and self.with_positional_encoding:
                 h, w, c = x.shape[1:]
-                x = x + sine_positional_encoding(h, w, c // 2, device=x.device)[None]
+                if num_frames is None:
+                    x = x + sine_positional_encoding(h, w, c // 2, device=x.device)[None]
+                else:
+                    pe = sine_positional_encoding_3d(num_frames, h, w, c // 2, device=x.device)
+                    x = x + pe.repeat(x.shape[0] // num_frames, 1, 1, 1)
             if i == 0:
                 for j in range(self.end_level - self.upsample_times):
                     x = getattr(self, f"l0_conv{j}")(x)

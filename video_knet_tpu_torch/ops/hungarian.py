@@ -77,10 +77,11 @@ def dice_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *, weight: floa
 
 
 def mask_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *,
-              weight: float = 1.0) -> torch.Tensor:
+              weight: float = 1.0, area: int | None = None) -> torch.Tensor:
     """MaskCost(pred_act=True), sigmoid clamped to [0.01, 1]:
-    -(positive agreement + negative agreement) / HW."""
-    hw = mask_logits.shape[-1] * mask_logits.shape[-2]
+    -(positive agreement + negative agreement) / area, the area HW unless
+    given."""
+    hw = mask_logits.shape[-1] * mask_logits.shape[-2] if area is None else area
     p = _flat(torch.clamp(torch.sigmoid(mask_logits.float()), 0.01, 1.0))
     t = _flat(gt_masks)
     pos = p @ t.transpose(-1, -2)

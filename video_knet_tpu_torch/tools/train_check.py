@@ -1,45 +1,119 @@
-"""Weights for comparing two devices' VPS train steps.
+"""Weights and ReLU patterns for comparing two devices' train steps.
 
 The mask pools binarize their inputs at a hard threshold. An input closer to
 the threshold than the two devices' forward error (~1e-5 in logits on the
-card) may binarize differently on each, which is the threshold's nature and
-not a kernel's error. A comparison of the card's train step with the CPU's
-therefore takes the first weight seed whose CPU forward keeps every such
-input `MARGIN` from its threshold (`margin_seed`); `chip_smoke.py`
-(train-check, swin-check) and the card tests share it, and
-`swin_check_cfg`, the Swin slice's small configuration.
+card for R-50 VPS; ~5e-6 of a tensor's largest magnitude for the VIS check
+model, whose logits are tens) may binarize differently on each, which is
+the threshold's nature and not a kernel's error. A comparison of the card's
+train step with the CPU's therefore takes the first weight seed whose CPU
+forward keeps every such input `MARGIN` from its threshold (`margin_seed`
+for VPS), or `VIS_MARGIN` of its tensor's largest magnitude
+(`vis_margin_seed` for VIS clips, which also keeps the decode's top-k
+logits that far apart). `chip_smoke.py` (train-check, swin-check,
+vis-check) and the card tests share them, and the small configurations of
+the Swin slice (`swin_check_cfg`) and of the VIS slice (`vis_check_cfg`).
+
+A ReLU is a kink of the same kind for gradients: an input within the
+devices' forward error of zero may pass on one device and not the other,
+which changes the gradient behind it by the whole gradient arriving at that
+element (in the VIS check model one such element can move the backbone's
+gradients by several times the check's tolerance). No weight seed keeps
+every ReLU input of a step clear of zero, so `relu_pattern` records the
+card's ReLU decisions and replays them on the CPU: the CPU step then
+follows the card at exactly the elements the devices cannot decide alike,
+and is the CPU's step everywhere else (a replayed element's value differs
+from the CPU's own ReLU by less than the forward error).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from video_knet_tpu_torch.config import VideoKNetConfig
+from video_knet_tpu_torch.config_vis import VISConfig
 from video_knet_tpu_torch.models.layers import resize_mask_bilinear
 from video_knet_tpu_torch.models.video.knet_vps import BranchOutput, VideoKNet
+from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, VISOutputs
+from video_knet_tpu_torch.train import vis as train_vis
 from video_knet_tpu_torch.train.vps import make_synthetic_batch
 
 MARGIN = 1e-4  # logits; ~10x the card's forward error at the threshold
+VIS_MARGIN = 2e-5  # of a tensor's largest magnitude; ~4x the card's relative forward error
 SEEDS = 16
+
+
+def _dist(x: torch.Tensor, thr: float, relative: bool = False) -> float:
+    """The smallest distance of x from logit(thr); relative: as a share of
+    max |x|, and 0 when no element passes (a pool that pools nothing checks
+    nothing)."""
+    t0 = math.log(thr / (1 - thr))
+    d = float((x - t0).abs().min())
+    if not relative:
+        return d
+    return d / max(float(x.abs().max()), 1e-30) if bool((x > t0).any()) else 0.0
+
+
+def _stage_margin(prev: torch.Tensor, outs, thr: float, relative: bool = False) -> float:
+    """The stages' mask-pool inputs: each stage pools the previous masks
+    resized to its own mask size."""
+    margin = math.inf
+    for out in outs:
+        margin = min(margin, _dist(resize_mask_bilinear(prev, out.mask_preds.shape[-2:]), thr,
+                                   relative))
+        prev = out.mask_preds
+    return margin
 
 
 def mask_pool_margin(branch: BranchOutput, cfg: VideoKNetConfig) -> float:
     """The smallest distance, in logits, between an input of the branch's
     hard-threshold mask pools (the init head's, threshold 0.5, and each
     stage's) and its threshold."""
-    def dist(x, thr):
-        return float((x - math.log(thr / (1 - thr))).abs().min())
+    return min(_dist(branch.rpn_out.thing_mask_preds, 0.5),
+               _stage_margin(branch.rpn_out.mask_preds, branch.stage_outs,
+                             cfg.head.hard_mask_thr))
 
-    margin = dist(branch.rpn_out.thing_mask_preds, 0.5)
-    prev = branch.rpn_out.mask_preds
-    for out in branch.stage_outs:
-        margin = min(margin, dist(resize_mask_bilinear(prev, out.mask_preds.shape[-2:]),
-                                  cfg.head.hard_mask_thr))
-        prev = out.mask_preds
-    return margin
+
+def vis_margin(outs: VISOutputs, cfg: VISConfig) -> float:
+    """The smallest distance, as a share of its tensor's largest magnitude,
+    between a hard decision's input and its boundary in a VIS clip: the
+    mask pools (the init head's, or the volume head's tube pool; the
+    per-frame stages'; the clip stages', which start from the per-frame
+    head's last masks, or the init tubes) and the decode's top-k order (the
+    gaps between adjacent logits of the k + 1 best (proposal, class) pairs
+    of the first batch entry); 0 if a pool has no input above its
+    threshold. Without `with_mask_init`, whose re-initialized masks are not
+    among the outputs."""
+    if cfg.with_mask_init:
+        raise NotImplementedError("the fc_mask_init masks are not among the outputs")
+    thr = cfg.head.hard_mask_thr
+    cls = outs.clip_stage_outs[cfg.tracker_assign_stages - 1].cls_score[0].reshape(-1)
+    best = torch.sort(cls, descending=True).values[:cfg.test.max_per_img + 1]
+    gap = float((best[:-1] - best[1:]).min()) / max(float(cls.abs().max()), 1e-30)
+    if cfg.kernel_head_mode == "volume":
+        tubes = outs.rpn_out.tube_mask_preds
+        return min(gap, _dist(tubes, 0.5, True),
+                   _stage_margin(tubes, outs.clip_stage_outs, thr, True))
+    n = cfg.num_proposals
+    b, t = outs.clip_stage_outs[0].mask_preds.shape[:2]
+    last = outs.frame_stage_outs[-1].mask_preds[:, :n]
+    return min(gap, _dist(outs.rpn_out.thing_mask_preds, 0.5, True),
+               _stage_margin(outs.rpn_out.mask_preds, outs.frame_stage_outs, thr, True),
+               _stage_margin(last.reshape(b, t, *last.shape[1:]), outs.clip_stage_outs, thr,
+                             True))
+
+
+def _first_seed(margin_of, limit: float = MARGIN) -> tuple[int, float]:
+    for seed in range(SEEDS):
+        margin = margin_of(seed)
+        if margin >= limit:
+            return seed, margin
+    raise AssertionError(f"no weight seed below {SEEDS} keeps the hard decisions' inputs "
+                         f"{limit} from their boundaries")
 
 
 def margin_seed(cfg: VideoKNetConfig, hw: tuple[int, int]) -> tuple[int, float]:
@@ -48,15 +122,58 @@ def margin_seed(cfg: VideoKNetConfig, hw: tuple[int, int]) -> tuple[int, float]:
     `VideoKNet(cfg, generator=torch.Generator().manual_seed(seed))` builds
     those weights."""
     batch = make_synthetic_batch(cfg, 1, hw, seed=0, device="cpu")
-    for seed in range(SEEDS):
+
+    def margin_of(seed: int) -> float:
         model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
         with torch.no_grad():
             key, ref, _, _ = model.forward_train(batch.img, batch.ref_img)
-        margin = min(mask_pool_margin(key, cfg), mask_pool_margin(ref, cfg))
-        if margin >= MARGIN:
-            return seed, margin
-    raise AssertionError(f"no weight seed below {SEEDS} keeps the mask-pool inputs "
-                         f"{MARGIN} from the threshold")
+        return min(mask_pool_margin(key, cfg), mask_pool_margin(ref, cfg))
+
+    return _first_seed(margin_of)
+
+
+def vis_margin_seed(cfg: VISConfig, hw: tuple[int, int]) -> tuple[int, float]:
+    """`margin_seed` for KNetVIS on `train/vis.py:make_synthetic_batch(cfg,
+    1, hw, seed=0)`, by `vis_margin` against `VIS_MARGIN`."""
+    batch = train_vis.make_synthetic_batch(cfg, 1, hw, seed=0, device="cpu")
+
+    def margin_of(seed: int) -> float:
+        model = KNetVIS(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+        with torch.no_grad():
+            return vis_margin(model(batch.clip), cfg)
+
+    return _first_seed(margin_of, VIS_MARGIN)
+
+
+@contextlib.contextmanager
+def relu_pattern(pattern: list, replay: bool = False):
+    """Within the block, every `torch.nn.functional.relu` call appends its
+    decision (input > 0, on the host) to `pattern`, in call order; with
+    `replay`, each call instead applies the next recorded decision, x *
+    decision, so that its gradient follows the recorded device's. Yields
+    {"calls", "differ"}: the replayed calls and the elements whose own
+    decision differs from the recorded one."""
+    relu = F.relu
+    recorded = iter(pattern)
+    stats = {"calls": 0, "differ": 0}
+
+    def patched(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+        if not replay:
+            pattern.append((x > 0).detach().cpu())
+            return relu(x)
+        decision = next(recorded).to(x.device)
+        if decision.shape != x.shape:
+            raise ValueError(f"ReLU call {stats['calls']}: recorded {tuple(decision.shape)}, "
+                             f"got {tuple(x.shape)}")
+        stats["calls"] += 1
+        stats["differ"] += int(((x > 0) != decision).sum())
+        return x * decision.to(x.dtype)
+
+    F.relu = patched
+    try:
+        yield stats
+    finally:
+        F.relu = relu
 
 
 def swin_check_cfg(tiny):
@@ -76,3 +193,20 @@ def swin_check_cfg(tiny):
         test=dataclasses.replace(tiny.test, instance_score_thr=0.0),
         tracker=dataclasses.replace(tiny.tracker, init_score_thr=0.0, obj_score_thr=0.0,
                                     match_score_thr=0.05))
+
+
+def vis_check_cfg(base):
+    """The VIS slice's check configuration, from `base` (`VISConfig()` of
+    either package: only field names are read): MiT-b0 under 64-channel
+    heads (the trained tiny config's widths), 5 classes, 8 proposals, 4 tube
+    slots, clips of 2 frames, the top 4 at decode."""
+    split = dict(num_classes=5, num_thing_classes=5, num_stuff_classes=0)
+    upd = dataclasses.replace(base.head.updator, in_channels=64, feat_channels=64,
+                              out_channels=64)
+    return dataclasses.replace(
+        base, backbone="mit_b0", num_classes=5, num_proposals=8, num_frames=2, max_insts=4,
+        rpn=dataclasses.replace(base.rpn, num_proposals=8, in_channels=64, out_channels=64,
+                                fpn_feat_channels=64, **split),
+        head=dataclasses.replace(base.head, in_channels=64, out_channels=64,
+                                 feedforward_channels=256, updator=upd, **split),
+        test=dataclasses.replace(base.test, max_per_img=4))

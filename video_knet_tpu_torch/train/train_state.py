@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from video_knet_tpu_torch.train.optim import Optimizer
+from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
 
 @dataclass
@@ -26,6 +27,18 @@ class TrainState:
 
 def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
     return TrainState(step=0, model=model, optimizer=optimizer)
+
+
+def check_train_config(cfg) -> None:
+    """The training the port runs: fp32 (`bf16_train` raises) with BatchNorm
+    on its running statistics (`norm_eval=False` raises). Turns TF32 off
+    for cuBLAS and cuDNN (the reference trains in fp32), as serving does."""
+    if cfg.bf16_train:
+        raise NotImplementedError("bf16_train is not ported yet (ROADMAP B5)")
+    if not cfg.norm_eval:
+        raise NotImplementedError(
+            "norm_eval=False (BatchNorm batch statistics) is not ported yet (ROADMAP B5)")
+    set_fp32_numerics()
 
 
 def make_train_step(loss_fn: Callable[..., tuple[torch.Tensor, dict]]):

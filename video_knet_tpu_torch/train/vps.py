@@ -19,8 +19,12 @@ import torch
 from video_knet_tpu_torch.config import KNetConfig, VideoKNetConfig
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet, video_knet_loss
 from video_knet_tpu_torch.ops.targets import PanopticGT
-from video_knet_tpu_torch.train.train_state import TrainState, make_train_step
-from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
+from video_knet_tpu_torch.train.train_state import (
+    TrainState,
+    check_train_config,
+    make_train_step,
+)
+from video_knet_tpu_torch.utils.device import resolve_device
 
 
 class VPSBatch(NamedTuple):
@@ -73,14 +77,9 @@ def make_synthetic_batch(cfg: VideoKNetConfig, b: int, hw: tuple[int, int], seed
 
 def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
     """loss_fn(batch, generator=None) -> (total, loss_dict); `generator`
-    draws the backbone's stochastic depth. Turns TF32 off for cuBLAS and
-    cuDNN (the reference trains in fp32), as the serving pipeline does."""
-    if cfg.bf16_train:
-        raise NotImplementedError("bf16_train is not ported yet (ROADMAP B5)")
-    if not cfg.norm_eval:
-        raise NotImplementedError(
-            "norm_eval=False (BatchNorm batch statistics) is not ported yet (ROADMAP B5)")
-    set_fp32_numerics()
+    draws the backbone's stochastic depth. `check_train_config` first (TF32
+    off)."""
+    check_train_config(cfg)
 
     def loss_fn(batch: VPSBatch, generator: torch.Generator | None = None):
         key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img, generator)

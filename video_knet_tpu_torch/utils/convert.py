@@ -165,7 +165,9 @@ def state_dict_to_flax(module: nn.Module,
             leaf, v = "kernel", v.T
         elif leaf == "bias" and mha and not owner_path.endswith("out"):
             v = v.reshape(parent.num_heads, -1)
-        out[f"params/{path}/{leaf}"] = np.ascontiguousarray(v)
+        # a parameter of the root module itself (e.g. a head's init_query) has no path
+        out["/".join(("params", path, leaf) if path else ("params", leaf))] = \
+            np.ascontiguousarray(v)
     return _restack(out)
 
 
