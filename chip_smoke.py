@@ -15,7 +15,9 @@ Phases, each raising on failure (the process then exits non-zero):
                kernel, the plain version and one PyTorch library call, the
                kernel's host-inclusive call time, and forward + backward
                beside the plain autograd, the library calls and the bound;
-               at VIS's stage shape (B*T=5, N=100, 45x80, C=256) the same
+               at VIS's stage shape (B*T=5, N=100, 45x80, C=256), at COCO
+               panoptic's (N=153, 100x168) and at the image train step's (B=8,
+               N=117, 64x128) the same
   4. serve     Video K-Net R-50 (default config, seeded random weights)
                serves 8 frames of 384x1248 through VPSInferencePipeline with
                the tracker on the device
@@ -95,9 +97,36 @@ Phases, each raising on failure (the process then exits non-zero):
                (all 22 assignment problems in one solve), a finite nonzero
                gradient on every trainable parameter, none on the frozen
                ones; step ms, peak memory, host syncs a step
+ 22. image-pan  image K-Net R-50, COCO panoptic preset (`get_config("knet_s3_r50_
+               fpn_ms-3x_coco-panoptic")`: 80 thing + 53 stuff classes, 153
+               kernels), seeded random weights, score gate at zero: 5 images of
+               800x1344 through the forward, `panoptic_decode` and
+               `segments_to_host`: 4 launches of each mask kernel an image;
+               image ms, peak memory
+ 23. image-inst-deform  the deformable COCO instance preset (R-50, the 6-layer
+               MSDeformAttn pixel decoder, 80 classes, no stuff rows): 5 images
+               of 800x1344, forward and `instance_decode` (100 slots): 4 / 4
+               launches an image; the encoder layers' share of the forward and
+               `ms_deform_attn_core` alone at this shape (device time beside
+               `F.grid_sample` and the bound)
+ 24. image-train  3 steps of `train/image.py:train_step` on the Cityscapes-STEP
+               R-50 preset, B=8 crops of 512x1024, 32 GT slots: finite losses
+               with the reference's keys, 4 / 4 / 1 launches a step, 0 host
+               syncs after the first, a finite nonzero gradient on every
+               trainable parameter, none on the frozen ones
+ 25. image-check  the tiny image config (`train_check.image_check_cfg`: MiT-b0,
+               64-channel heads, the MSDeformAttn neck at one encoder layer),
+               panoptic and instance, card against CPU: forward outputs within
+               1e-4 relative, decode integers equal; one panoptic train step's
+               assignments, losses (1e-4) and gradients (1e-3 a leaf), the CPU
+               replaying the card's ReLU decisions; `ms_deform_attn_core` at the
+               COCO shape, card fp32 against CPU fp32 (1e-6) and fp64 (1e-4)
+ 26. vis-deform  the deformable R-50 YouTube-VIS 2019 preset: 3 clips of
+               1x5x360x640 served as in `vis`, then 3 train steps as in
+               `vis-train` (`vis-deform-train`)
 Every VPS serving phase resets the launch counts just before it drives its
 path and requires 4 launches of each kernel a frame (a round for B=2); the
-VIS phases require their own counts a clip.
+VIS phases require their own counts a clip, the image phases 4 an image.
 Prints the kernels JSON line (launches per path), the card line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
 when no CUDA device is available.
@@ -177,6 +206,27 @@ VIS_VOLUME_LAUNCHES = {"mask_pool": 4, "assemble": 4}
 VIS_TRAIN_LAUNCHES = {**VIS_LAUNCHES, "hungarian": 1}
 VIS_TRAIN_STEPS = 3
 TOL_VIS_CHECK = 1e-4  # card vs CPU, relative to each output's scale
+# the image slice: the JAX tools' COCO test size (tools/test_coco_instance.py:30)
+IMAGE_HW = (800, 1344)
+IMAGE_COUNT = 5
+IMAGE_SEED = 0
+IMAGE_LAUNCHES = {"mask_pool": 4, "assemble": 4}  # the init head and 3 stages
+COCO_PAN_KERNELS = 153  # 100 proposals + 53 stuff classes
+# image training: tools/train_image.py's defaults (Cityscapes-STEP, B=8 crops
+# of 512x1024, 32 GT slots)
+IMAGE_TRAIN_HW = (512, 1024)
+IMAGE_TRAIN_B = 8
+IMAGE_TRAIN_STEPS = 3
+IMAGE_TRAIN_LAUNCHES = {**IMAGE_LAUNCHES, "hungarian": 1}
+IMAGE_LOSS_KEYS = {"loss_rpn_mask", "loss_rpn_dice", "loss_rpn_rank", "loss_rpn_seg",
+                   *(f"s{s}_loss_{k}" for s in range(3)
+                     for k in ("cls", "mask", "dice", "rank"))}
+TOL_IMAGE_CHECK = 1e-4  # card vs CPU, relative to each output's scale
+# ms_deform_attn_core at the COCO shape, relative to the output's scale: card
+# fp32 against CPU fp32 (the same arithmetic; the sums over points in
+# another order), and against CPU fp64, where the fp32 rounding of the pixel
+# coordinates (x * 168 - 0.5 carries ~1.5e-5 px) moves the bilinear weights
+TOL_SAMPLING = {"fp32": 1e-6, "fp64": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -232,6 +282,9 @@ def phase_kernels(device) -> list[dict]:
               (2, 100, h, w, 256), (1, 37, 8, 12, 64), (1, 20, 8, 12, 64),
               (1, SWIN_VIPSEG_KERNELS, vh, vw, 256), (1, 100, vh, vw, 256),
               (2, 100, vh, vw, 256), (VIS_FRAMES, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
+              (1, COCO_PAN_KERNELS, IMAGE_HW[0] // 8, IMAGE_HW[1] // 8, 256),
+              (1, 100, IMAGE_HW[0] // 8, IMAGE_HW[1] // 8, 256),
+              (IMAGE_TRAIN_B, 117, IMAGE_TRAIN_HW[0] // 8, IMAGE_TRAIN_HW[1] // 8, 256),
               (1, 100, 37, 61, 256), (1, 100, 37, 61, 200), (1, 100, 37, 61, 37)]
     err_pool, err_asm = 0.0, 0.0
     for b, n, hh, ww, c in shapes:
@@ -275,6 +328,16 @@ def phase_kernels(device) -> list[dict]:
     for rec, vis in zip(recs, _time_kernels(gen, device, 100, VIS_HW[0] // 8, VIS_HW[1] // 8,
                                             256, err_pool, err_asm, b=VIS_FRAMES)):
         rec["vis"] = {k: vis[k] for k in TIMED_KEYS}
+    # the image slice's stage shapes: COCO panoptic (100 + 53 kernels over
+    # 800x1344 at stride 8) and the image train step's (B=8, 100 + 17 over
+    # 512x1024 at stride 8)
+    for rec, coco in zip(recs, _time_kernels(gen, device, COCO_PAN_KERNELS, IMAGE_HW[0] // 8,
+                                             IMAGE_HW[1] // 8, 256, err_pool, err_asm)):
+        rec["coco_pan"] = {k: coco[k] for k in TIMED_KEYS}
+    for rec, tr in zip(recs, _time_kernels(gen, device, 117, IMAGE_TRAIN_HW[0] // 8,
+                                           IMAGE_TRAIN_HW[1] // 8, 256, err_pool, err_asm,
+                                           b=IMAGE_TRAIN_B)):
+        rec["image_train"] = {k: tr[k] for k in TIMED_KEYS}
     return recs
 
 
@@ -665,24 +728,14 @@ def _step_costs(model, batch):
     return gt_rows(torch.cat(costs), torch.cat(valids))
 
 
-def phase_train(device, paths: Paths) -> dict:
-    """VPS training at the default config, 384x1248: 4 steps."""
+def _timed_steps(path: str, step, batches, expected: dict, check_keys, after=None) -> dict:
+    """`step(batch) -> loss dict` for each batch, each timed on the host clock
+    with a synchronize: the launch counts reset before each step and held
+    to `expected`, host syncs counted (`set_sync_debug_mode("warn")`),
+    finite losses whose keys pass `check_keys`; `after()` (if given) runs
+    after each step, outside the timing; peak memory over the steps."""
     import warnings
 
-    from video_knet_tpu_torch.config import VideoKNetConfig
-    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
-
-    cfg = VideoKNetConfig()
-    state = _train_model(cfg, device)
-    model = state.model
-    batches = [make_synthetic_batch(cfg, 1, TRAIN_HW, seed=i, device=device)
-               for i in range(TRAIN_STEPS)]
-    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
-              if n.startswith(FROZEN)}
-    trainable = [(n, p) for n, p in model.named_parameters() if not n.startswith(FROZEN)]
-    if not frozen or any(p.requires_grad for n, p in model.named_parameters()
-                         if n.startswith(FROZEN)):
-        raise AssertionError("[train] the stem and layer1 are not frozen")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, syncs, launches = [], [], []
@@ -693,7 +746,7 @@ def phase_train(device, paths: Paths) -> dict:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                state, losses = train_step(state, batch)
+                losses = step(batch)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -701,27 +754,79 @@ def phase_train(device, paths: Paths) -> dict:
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
         launches.append(_counts())
         vals = {k: float(v) for k, v in losses.items()}
-        if set(vals) != TRAIN_LOSS_KEYS | {"total_loss"}:
-            raise AssertionError(f"[train] loss keys {sorted(vals)}")
+        if not check_keys(set(vals)):
+            raise AssertionError(f"[{path}] loss keys {sorted(vals)}")
         if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"[train] step {i}: non-finite losses {vals}")
-        if launches[-1] != TRAIN_LAUNCHES:
-            raise AssertionError(f"[train] step {i}: launches {launches[-1]}, "
-                                 f"expected {TRAIN_LAUNCHES}")
-        log(f"[train] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
+            raise AssertionError(f"[{path}] step {i}: non-finite losses {vals}")
+        if launches[-1] != expected:
+            raise AssertionError(f"[{path}] step {i}: launches {launches[-1]}, expected "
+                                 f"{expected}")
+        log(f"[{path}] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
             f"{syncs[-1]} host syncs, launches {launches[-1]}")
+        if after is not None:
+            after()
     peak = torch.cuda.max_memory_allocated()
+    if any(syncs[1:]):
+        raise AssertionError(f"[{path}] host syncs after the first step: {syncs}")
+    med = statistics.median(ms[1:])
+    log(f"[{path}] median step {med:.2f} ms over steps 1..{len(ms) - 1} (first {ms[0]:.1f} "
+        f"ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a step {syncs}")
+    return dict(step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs,
+                launches={k: sum(c[k] for c in launches) for k in expected})
+
+
+def _check_trained(path: str, model, frozen: dict, trainable: list,
+                   need_nonzero: str = "") -> None:
+    """A finite gradient on every trainable parameter, nonzero on those whose
+    name starts with `need_nonzero` (all by default; the others' zero
+    gradients are logged); none on the frozen ones, which did not move."""
     bad = [n for n, p in trainable if p.grad is None or not bool(torch.isfinite(p.grad).all())
-           or float(p.grad.norm()) == 0.0]
+           or (float(p.grad.norm()) == 0.0 and n.startswith(need_nonzero))]
     if bad:
-        raise AssertionError(f"[train] {len(bad)} trainable parameters without a finite "
+        raise AssertionError(f"[{path}] {len(bad)} trainable parameters without a finite "
                              f"nonzero gradient: {bad[:8]}")
+    zero = [n for n, p in trainable if float(p.grad.norm()) == 0.0]
+    if zero:
+        log(f"[{path}] zero gradient (allowed outside {need_nonzero!r}): {zero}")
     moved = [n for n, p in model.named_parameters()
              if n in frozen and (p.grad is not None or not torch.equal(p, frozen[n]))]
     if moved:
-        raise AssertionError(f"[train] frozen parameters moved or got gradients: {moved[:8]}")
-    paths.launches["train"] = {k: sum(c[k] for c in launches) for k in TRAIN_LAUNCHES}
-    paths.frame_ms["train"] = ms
+        raise AssertionError(f"[{path}] frozen parameters moved or got gradients: {moved[:8]}")
+
+
+def _frozen_split(path: str, model) -> tuple[dict, list]:
+    """(copies of R-50's frozen stem and layer1, the other parameters)."""
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(FROZEN)}
+    trainable = [(n, p) for n, p in model.named_parameters() if not n.startswith(FROZEN)]
+    if not frozen or any(p.requires_grad for n, p in model.named_parameters()
+                         if n.startswith(FROZEN)):
+        raise AssertionError(f"[{path}] the stem and layer1 are not frozen")
+    return frozen, trainable
+
+
+def phase_train(device, paths: Paths) -> dict:
+    """VPS training at the default config, 384x1248: 3 steps."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    cfg = VideoKNetConfig()
+    state = _train_model(cfg, device)
+    model = state.model
+    batches = [make_synthetic_batch(cfg, 1, TRAIN_HW, seed=i, device=device)
+               for i in range(TRAIN_STEPS)]
+    frozen, trainable = _frozen_split("train", model)
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    out = _timed_steps("train", step, batches, TRAIN_LAUNCHES,
+                       lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"})
+    _check_trained("train", model, frozen, trainable)
+    paths.launches["train"] = out["launches"]
+    paths.frame_ms["train"] = out["step_ms"]
 
     # the Hungarian kernel on the last step's own costs (10 problems at B=1)
     rec = _hungarian_record("train", _step_costs(model, batches[-1]))
@@ -729,11 +834,8 @@ def phase_train(device, paths: Paths) -> dict:
                source="video_knet_tpu_torch/ops/kernels/csrc/hungarian.cu",
                replaces="video_knet_tpu/ops/hungarian.py:28",
                launches=paths.launches["train"]["hungarian"], library_ms=None)
-    med = statistics.median(ms[1:])
-    log(f"[train] median step {med:.2f} ms over steps 1..{TRAIN_STEPS - 1} (first "
-        f"{ms[0]:.1f} ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a "
-        f"step {syncs}")
-    return dict(record=rec, step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
+    out["record"] = rec
+    return out
 
 
 def _hungarian_record(path: str, cost) -> dict:
@@ -980,8 +1082,6 @@ def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
     merging take no gradient (the reference's stop_gradient at
     frozen_stages=1) but stay in AdamW, whose weight decay moves them (warmup
     off, so that the first steps' decay shows in fp32)."""
-    import warnings
-
     from video_knet_tpu_torch.train.optim import make_optimizer
     from video_knet_tpu_torch.train.train_state import create_train_state
     from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
@@ -1000,33 +1100,13 @@ def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
     # a block whose branch drop path removes from both samples takes no
     # gradient in that step: every parameter must be reached in some step
     reached, non_finite, cut_grads = set(), set(), set()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ms, syncs, launches = [], [], []
-    for i, batch in enumerate(batches):
-        _reset_counts()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                state, losses = train_step(state, batch, gen)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
-        launches.append(_counts())
-        vals = {k: float(v) for k, v in losses.items()}
-        if set(vals) != TRAIN_LOSS_KEYS | {"total_loss"}:
-            raise AssertionError(f"[train-swin] loss keys {sorted(vals)}")
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"[train-swin] step {i}: non-finite losses {vals}")
-        if launches[-1] != TRAIN_LAUNCHES:
-            raise AssertionError(f"[train-swin] step {i}: launches {launches[-1]}, "
-                                 f"expected {TRAIN_LAUNCHES}")
-        log(f"[train-swin] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
-            f"{syncs[-1]} host syncs, launches {launches[-1]}")
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch, gen)
+        return losses
+
+    def record_grads():
         for n, p in params.items():
             if p.grad is None:
                 continue
@@ -1034,7 +1114,9 @@ def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
                 non_finite.add(n)
             elif bool(p.grad.any()):
                 (cut_grads if n in cut else reached).add(n)
-    peak = torch.cuda.max_memory_allocated()
+
+    out = _timed_steps("train-swin", step, batches, TRAIN_LAUNCHES,
+                       lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"}, record_grads)
     bad = sorted(non_finite | (set(params) - set(cut) - reached))
     if bad:
         raise AssertionError(f"[train-swin] {len(bad)} parameters outside the cut without a "
@@ -1046,14 +1128,11 @@ def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
     if stuck:
         raise AssertionError(f"[train-swin] cut parameters with a gradient, or not moved by "
                              f"weight decay: {stuck[:8]}")
-    paths.launches["train-swin"] = {k: sum(c[k] for c in launches) for k in TRAIN_LAUNCHES}
-    paths.frame_ms["train-swin"] = ms
-    med = statistics.median(ms[1:])
+    paths.launches["train-swin"] = out["launches"]
+    paths.frame_ms["train-swin"] = out["step_ms"]
     log(f"[train-swin] {len(cut)} cut parameters: zero gradient, the nonzero ones moved by "
-        f"weight decay; median "
-        f"step {med:.2f} ms over steps 1..{SWIN_TRAIN_STEPS - 1} (first {ms[0]:.1f} ms); peak "
-        f"memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a step {syncs}")
-    return dict(step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs)
+        f"weight decay")
+    return out
 
 
 def _vis_clips(count: int):
@@ -1231,11 +1310,10 @@ def phase_vis_check(device, paths: Paths) -> None:
         f"card launches forward {g['fwd']}, step {g['train']}")
 
 
-def phase_vis_train(device, paths: Paths) -> dict:
-    """VIS training of the R-50 YouTube-VIS 2019 preset at B=1, T=5,
-    360x640, 16 tube slots: 3 steps."""
-    import warnings
-
+def phase_vis_train(device, paths: Paths, name: str = "video_knet_vis_r50_ytvis2019",
+                    path: str = "vis-train", need_nonzero: str = "") -> dict:
+    """VIS training of an R-50 YouTube-VIS 2019 preset at B=1, T=5, 360x640,
+    16 tube slots: 3 steps. `need_nonzero`: see `_check_trained`."""
     from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, knet_vis_costs
     from video_knet_tpu_torch.ops.hungarian import gt_rows
@@ -1243,73 +1321,402 @@ def phase_vis_train(device, paths: Paths) -> dict:
     from video_knet_tpu_torch.train.train_state import create_train_state
     from video_knet_tpu_torch.train.vis import make_synthetic_batch, train_step
 
-    cfg = get_config("video_knet_vis_r50_ytvis2019")
+    cfg = get_config(name)
     if cfg.max_insts != 16 or cfg.num_frames != VIS_FRAMES:
-        raise AssertionError("[vis-train] not the preset's tube slots and clip length")
+        raise AssertionError(f"[{path}] not the preset's tube slots and clip length")
     model = KNetVIS(cfg, generator=torch.Generator().manual_seed(VIS_SEED), device=device)
     state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000))
     batches = [make_synthetic_batch(cfg, 1, VIS_HW, seed=i, device=device)
                for i in range(VIS_TRAIN_STEPS)]
-    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
-              if n.startswith(FROZEN)}
-    trainable = [(n, p) for n, p in model.named_parameters() if not n.startswith(FROZEN)]
-    if not frozen or any(p.requires_grad for n, p in model.named_parameters()
-                         if n.startswith(FROZEN)):
-        raise AssertionError("[vis-train] the stem and layer1 are not frozen")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ms, syncs, launches, keys = [], [], [], None
-    for i, batch in enumerate(batches):
-        _reset_counts()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                state, losses = train_step(state, batch)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
-        launches.append(_counts())
-        vals = {k: float(v) for k, v in losses.items()}
-        keys = keys or set(vals)
-        if set(vals) != keys or not {"loss_rpn_seg", "s2_loss_dice", "tracker_s1_loss_cls",
-                                     "tracker_s2_loss_dice", "total_loss"} <= keys:
-            raise AssertionError(f"[vis-train] loss keys {sorted(vals)}")
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"[vis-train] step {i}: non-finite losses {vals}")
-        if launches[-1] != VIS_TRAIN_LAUNCHES:
-            raise AssertionError(f"[vis-train] step {i}: launches {launches[-1]}, "
-                                 f"expected {VIS_TRAIN_LAUNCHES}")
-        log(f"[vis-train] step {i}: total_loss {vals['total_loss']:.4f}, {ms[-1]:.1f} ms, "
-            f"{syncs[-1]} host syncs, launches {launches[-1]}")
-    peak = torch.cuda.max_memory_allocated()
-    if any(syncs[1:]):
-        raise AssertionError(f"[vis-train] host syncs after the first step: {syncs}")
-    bad = [n for n, p in trainable if p.grad is None or not bool(torch.isfinite(p.grad).all())
-           or float(p.grad.norm()) == 0.0]
-    if bad:
-        raise AssertionError(f"[vis-train] {len(bad)} trainable parameters without a finite "
-                             f"nonzero gradient: {bad[:8]}")
-    moved = [n for n, p in model.named_parameters()
-             if n in frozen and (p.grad is not None or not torch.equal(p, frozen[n]))]
-    if moved:
-        raise AssertionError(f"[vis-train] frozen parameters moved or got gradients: "
-                             f"{moved[:8]}")
-    paths.launches["vis-train"] = {k: sum(c[k] for c in launches) for k in VIS_TRAIN_LAUNCHES}
-    paths.frame_ms["vis-train"] = ms
+    frozen, trainable = _frozen_split(path, model)
+    keys = []
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    def check_keys(got: set) -> bool:
+        keys.append(got)
+        return got == keys[0] and {"loss_rpn_seg", "s2_loss_dice", "tracker_s1_loss_cls",
+                                   "tracker_s2_loss_dice", "total_loss"} <= got
+
+    out = _timed_steps(path, step, batches, VIS_TRAIN_LAUNCHES, check_keys)
+    _check_trained(path, model, frozen, trainable, need_nonzero)
+    paths.launches[path] = out["launches"]
+    paths.frame_ms[path] = out["step_ms"]
     # the step's 22 problems (4 per-frame sets of B*T = 5, 2 tube sets of B = 1)
     with torch.no_grad():
         costs, valids = knet_vis_costs(model(batches[-1].clip), batches[-1].gt, cfg)
-    hrec = _hungarian_record("vis-train", gt_rows(torch.cat(costs), torch.cat(valids)))
-    med = statistics.median(ms[1:])
-    log(f"[vis-train] median step {med:.2f} ms over steps 1..{VIS_TRAIN_STEPS - 1} (first "
-        f"{ms[0]:.1f} ms); peak memory {peak / 2**30:.3f} GiB ({peak} bytes); host syncs a "
-        f"step {syncs}")
+    out["hungarian"] = _hungarian_record(path, gt_rows(torch.cat(costs), torch.cat(valids)))
     del model, state
-    return dict(step_ms=ms, median_ms=med, peak_bytes=peak, syncs=syncs, hungarian=hrec)
+    return out
+
+
+def _segments(pred, cfg) -> tuple:
+    """(panoptic_seg, segments_info) of a panoptic prediction on the host."""
+    from video_knet_tpu_torch.ops.panoptic import segments_to_host
+
+    return segments_to_host(type(pred.result)(*(x.cpu() for x in pred.result)),
+                            cfg.num_thing_classes)
+
+
+def _serve_images(path: str, model, cfg, decode, paths: Paths) -> tuple[list, dict]:
+    """IMAGE_COUNT seeded images of IMAGE_HW through `model` and `decode(rpn_out,
+    stage_outs) -> host result`, each timed with a synchronize: 4 launches
+    of each mask kernel an image; median ms, peak memory."""
+    images = [torch.from_numpy(f).to(model.rpn_head.init_kernels.device)
+              for f in _frames(IMAGE_HW, IMAGE_COUNT)]
+
+    def run(i):
+        with torch.no_grad():
+            out = decode(*model(images[i]))
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results = paths.drive(path, run, list(range(IMAGE_COUNT)), per_item=IMAGE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ms = paths.frame_ms[path]
+    med = statistics.median(ms[1:])
+    log(f"[{path}] median {med:.2f} ms an image over images 1..{IMAGE_COUNT - 1}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({peak} bytes)")
+    return results, dict(median_ms=med, image_ms=ms, peak_bytes=peak, images=images)
+
+
+def phase_image_pan(device, paths: Paths) -> dict:
+    """Image K-Net R-50, COCO panoptic preset (100 + 53 kernels), seeded
+    random weights, score gate at zero: forward, `panoptic_decode` and
+    `segments_to_host` on 5 images of 800x1344."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.knet import KNet, panoptic_decode
+
+    cfg = get_config("knet_s3_r50_fpn_ms-3x_coco-panoptic")
+    cfg = dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, instance_score_thr=0.0))
+    if (cfg.num_proposals + cfg.num_stuff_classes, cfg.num_classes) != (COCO_PAN_KERNELS, 133):
+        raise AssertionError("[image-pan] not the COCO panoptic class split")
+    model = KNet(cfg, generator=torch.Generator().manual_seed(IMAGE_SEED), device=device)
+    results, out = _serve_images(
+        "image-pan", model, cfg,
+        lambda rpn, stages: _segments(panoptic_decode(rpn, stages, cfg, out_hw=IMAGE_HW), cfg),
+        paths)
+    for i, (pan, infos) in enumerate(results):
+        if pan.shape != IMAGE_HW:
+            raise AssertionError(f"[image-pan] image {i}: id map of shape {pan.shape}")
+        ids = {s["id"] for s in infos}
+        if set(np.unique(pan).tolist()) - {0} != ids:
+            raise AssertionError(f"[image-pan] image {i}: segments {infos} vs ids in the map")
+        if not all(np.isfinite(s.get("score", 0.0)) for s in infos):
+            raise AssertionError(f"[image-pan] image {i}: non-finite scores")
+    log(f"[image-pan] image 0: {len(results[0][1])} segments "
+        f"({sum(s['isthing'] for s in results[0][1])} things)")
+    del model
+    return out
+
+
+def phase_image_inst_deform(device, paths: Paths) -> dict:
+    """Image K-Net R-50 with the 6-layer MSDeformAttn decoder, COCO instance
+    preset (80 classes, no stuff rows): forward and `instance_decode` on 5
+    images of 800x1344; then the encoder's share of the forward and the
+    sampling alone at this shape."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.knet import KNet, instance_decode
+
+    cfg = get_config("knet_s3_r50_deformable_fpn_ms-3x_coco")
+    model = KNet(cfg, generator=torch.Generator().manual_seed(IMAGE_SEED), device=device)
+    if model.neck.num_layers != 6 or cfg.num_stuff_classes != 0:
+        raise AssertionError("[image-inst-deform] not the deformable COCO instance preset")
+    raw = {}
+
+    def decode(rpn, stages):
+        raw["cls"] = stages[-1].cls_score
+        return instance_decode(rpn, stages, cfg, out_hw=IMAGE_HW)
+
+    preds, out = _serve_images("image-inst-deform", model, cfg, decode, paths)
+    k = cfg.test.max_per_img
+    if tuple(raw["cls"].shape) != (1, cfg.num_proposals, 80):
+        raise AssertionError(f"[image-inst-deform] cls of shape {tuple(raw['cls'].shape)}")
+    for i, p in enumerate(preds):
+        if tuple(p.masks.shape) != (k, *IMAGE_HW) or p.labels.shape[0] != k:
+            raise AssertionError(f"[image-inst-deform] image {i}: {k} slots expected")
+        if not (bool(torch.isfinite(p.masks).all()) and bool(torch.isfinite(p.scores).all())):
+            raise AssertionError(f"[image-inst-deform] image {i}: non-finite decode")
+        if not bool(((p.labels >= 0) & (p.labels < 80)).all()):
+            raise AssertionError(f"[image-inst-deform] image {i}: labels outside [0, 80)")
+    out.update(_encoder_share(model, out.pop("images")[0]))
+    del model
+    return out
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event ms of eager calls (host dispatch included)."""
+    times = []
+    for _ in range(reps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def _encoder_share(model, img) -> dict:
+    """The deformable forward, the neck and its encoder layers alone (their
+    inputs captured from the forward), each in CUDA-event ms of eager calls;
+    then `ms_deform_attn_core` alone at the first layer's shape."""
+    neck = model.neck
+    layers = [getattr(neck, f"layer{i}") for i in range(neck.num_layers)]
+    captured = {}
+
+    def grab(key):
+        def hook(module, args):
+            captured.setdefault(key, args)
+        return hook
+
+    hooks = [layers[0].register_forward_pre_hook(grab("layer")),
+             layers[0].self_attn.register_forward_pre_hook(grab("attn"))]
+    with torch.no_grad():
+        feats = model.backbone(img)
+        model(img)
+    for h in hooks:
+        h.remove()
+    query, ref, shapes = captured["layer"]
+
+    def encoder():
+        q = query
+        for layer in layers:
+            q = layer(q, ref, shapes)
+
+    with torch.no_grad():
+        fwd = _event_ms(lambda: model(img))
+        neck_ms = _event_ms(lambda: neck(feats))
+        enc = _event_ms(encoder)
+        values, locs, attn = layers[0].self_attn.sampling_inputs(*captured["attn"])
+        rec = _sampling_record(values, locs, attn)
+    log(f"[image-inst-deform] forward {fwd:.3f} ms, neck {neck_ms:.3f} ms, its {len(layers)} "
+        f"encoder layers {enc:.3f} ms ({enc / fwd:.1%} of the forward; CUDA events around "
+        f"eager calls)")
+    return dict(forward_ms=fwd, neck_ms=neck_ms, encoder_ms=enc, encoder_share=enc / fwd,
+                sampling=rec)
+
+
+def _sampling_record(values, locs, attn) -> dict:
+    """`ms_deform_attn_core` (plain PyTorch gathers) on the given inputs: device
+    time, the same sampling by `F.grid_sample` (one call a level, the same
+    zero padding and half-pixel convention) and the bound."""
+    import torch.nn.functional as F
+
+    from video_knet_tpu_torch.ops.sampling import ms_deform_attn_core
+    from video_knet_tpu_torch.tools.kernel_timing import device_ms
+
+    b, q, m, l, p, _ = locs.shape
+    d = values[0].shape[-1]
+
+    def library():
+        out = 0
+        for li, v in enumerate(values):
+            vm = v.permute(0, 3, 4, 1, 2).reshape(b * m, d, *v.shape[1:3])
+            grid = locs[:, :, :, li].permute(0, 2, 1, 3, 4).reshape(b * m, q, p, 2) * 2 - 1
+            s = F.grid_sample(vm, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=False)  # [B*M, D, Q, P]
+            w = attn[:, :, :, li].permute(0, 2, 1, 3).reshape(b * m, 1, q, p)
+            out = out + (s * w).sum(-1)
+        return out.reshape(b, m, d, q).permute(0, 3, 1, 2).reshape(b, q, m * d)
+
+    got = ms_deform_attn_core(values, locs, attn)
+    lib_err = float((library() - got).abs().max() / got.abs().max())
+    ms = device_ms(lambda: ms_deform_attn_core(values, locs, attn))
+    lib_ms = device_ms(library)
+    samples = b * q * m * l * p
+    io_bytes = 4 * (sum(v.numel() for v in values) + locs.numel() + attn.numel() + got.numel())
+    # per sample and channel: three lerps (2 mul + 1 add each) and the
+    # attention's multiply-add, fp32 on the CUDA cores
+    flops = 11 * samples * d
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / OPS_PEAK["fp32"][1] * 1e3
+    rec = dict(name="ms_deform_attn_core", route="plain torch (index gathers)",
+               source="video_knet_tpu_torch/ops/sampling.py",
+               replaces="video_knet_tpu/ops/sampling.py:88 ms_deform_attn_core (no Pallas)",
+               shape=[b, q, m, l, p, d], levels=[list(v.shape[1:3]) for v in values], ms=ms,
+               library_ms=lib_ms, library="F.grid_sample a level", library_rel_err=lib_err,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+               else "operations")
+    log(f"[sampling] ms_deform_attn_core at B={b} Q={q} M={m} L={l} P={p} D={d}: device "
+        f"{ms * 1e3:.2f} us, grid_sample {lib_ms * 1e3:.2f} us (agrees within {lib_err:.1e}), "
+        f"bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}; {io_bytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    return rec
+
+
+def phase_image_train(device, paths: Paths) -> dict:
+    """Image K-Net training, Cityscapes-STEP R-50 preset, B=8 crops of
+    512x1024, 32 GT slots: 3 steps of `train/image.py:train_step`."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.knet import KNet
+    from video_knet_tpu_torch.train.image import make_synthetic_batch, train_step
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+
+    cfg = get_config("knet_s3_r50_fpn_cityscapes_step")
+    if (cfg.max_insts, cfg.num_proposals + cfg.num_stuff_classes) != (32, 117):
+        raise AssertionError("[image-train] not the Cityscapes-STEP preset")
+    model = KNet(cfg, generator=torch.Generator().manual_seed(IMAGE_SEED), device=device)
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000))
+    batches = [make_synthetic_batch(cfg, IMAGE_TRAIN_B, IMAGE_TRAIN_HW, seed=i, device=device)
+               for i in range(IMAGE_TRAIN_STEPS)]
+    frozen, trainable = _frozen_split("image-train", model)
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    out = _timed_steps("image-train", step, batches, IMAGE_TRAIN_LAUNCHES,
+                       lambda keys: keys == IMAGE_LOSS_KEYS | {"total_loss"})
+    _check_trained("image-train", model, frozen, trainable)
+    paths.launches["image-train"] = out["launches"]
+    paths.frame_ms["image-train"] = out["step_ms"]
+    del model, state
+    return out
+
+
+def phase_image_check(device, paths: Paths) -> dict:
+    """The tiny image config (`train_check.image_check_cfg`: MiT-b0,
+    64-channel heads, the MSDeformAttn neck with one encoder layer; panoptic
+    and instance), card against CPU (whose agreement with the JAX package
+    the CPU tests hold), weights from `train_check.image_margin_seed`: the
+    forward and both decodes, then one panoptic train step; then
+    `ms_deform_attn_core` alone at the COCO deformable shape, card fp32
+    against CPU fp32 and fp64."""
+    from video_knet_tpu_torch.config import KNetConfig
+    from video_knet_tpu_torch.models import knet as tk
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.train.image import make_synthetic_batch
+
+    worst = {"outputs": 0.0, "losses": 0.0, "grads": 0.0}
+    for instance in (False, True):
+        cfg = train_check.image_check_cfg(KNetConfig(), instance=instance)
+        seed, margin = train_check.image_margin_seed(cfg, CHECK_HW)
+        tag = "instance" if instance else "panoptic"
+        runs, pattern = [], []
+        for dev in (device, torch.device("cpu")):
+            model = train_check.image_check_model(cfg, seed, dev)
+            batch = make_synthetic_batch(cfg, 1, CHECK_HW, seed=0, device=dev)
+            _reset_counts()
+            with torch.no_grad():
+                outs = model(batch.img)
+                if instance:
+                    pred = tk.instance_decode(*outs, cfg, out_hw=CHECK_HW)
+                    dec = dict(labels=pred.labels.cpu(), scores=pred.scores.cpu(),
+                               masks=pred.masks.cpu())
+                else:
+                    pred = tk.panoptic_decode(*outs, cfg, out_hw=CHECK_HW)
+                    dec = {f: getattr(pred.result, f).cpu() for f in pred.result._fields}
+            fwd = _counts()
+            run = dict(outs=_leaf_tensors(outs), dec=dec, fwd=fwd)
+            if not instance:
+                _reset_counts()
+                # the CPU's step (the second run) follows the card's ReLU decisions
+                with train_check.relu_pattern(pattern, replay=bool(runs)) as relus:
+                    rpn_out, stage_outs = model(batch.img)
+                losses = tk.knet_loss(rpn_out, stage_outs, batch.gt, cfg)
+                sum(losses.values()).backward()
+                run["train"] = _counts()
+                costs = tk.branch_assignment_costs(rpn_out, stage_outs, batch.gt, cfg)
+                run.update(g2p=[a.cpu() for a in tk.solve_assignments(costs, batch.gt.valid)[0]],
+                           losses={k: float(v.detach()) for k, v in losses.items()},
+                           grads=_grads(model))
+            runs.append(run)
+        g, c = runs  # the card's run, the CPU's
+        if {k: g["fwd"][k] for k in KERNELS} != IMAGE_LAUNCHES:
+            raise AssertionError(f"[image-check] {tag} forward launches {g['fwd']}")
+        err = max(float((g["outs"][k] - w).abs().max() / max(float(w.abs().max()), 1e-6))
+                  for k, w in c["outs"].items())
+        worst["outputs"] = max(worst["outputs"], err)
+        if set(g["outs"]) != set(c["outs"]) or not err <= TOL_IMAGE_CHECK:
+            raise AssertionError(f"[image-check] {tag} forward outputs differ: {err}")
+        for f, want in c["dec"].items():
+            got = g["dec"][f]
+            if want.is_floating_point():
+                rel = float((got - want).abs().max() / max(float(want.abs().max()), 1e-6))
+                if not rel <= TOL_IMAGE_CHECK:
+                    raise AssertionError(f"[image-check] {tag} decoded {f}: {rel}")
+            elif not torch.equal(got, want):
+                raise AssertionError(f"[image-check] {tag} decoded {f} differ")
+        log(f"[image-check] {tag} (weight seed {seed}, margin {margin:.2e}): {len(c['outs'])} "
+            f"forward outputs within {err:.2e} relative; decode integers equal")
+        if instance:
+            continue
+        if g["train"] != IMAGE_TRAIN_LAUNCHES:
+            raise AssertionError(f"[image-check] train launches {g['train']}")
+        paths.launches["image-check"] = {k: g["fwd"][k] + g["train"][k] for k in g["train"]}
+        if not all(torch.equal(a, b) for a, b in zip(g["g2p"], c["g2p"])):
+            raise AssertionError("[image-check] card and CPU assignments differ")
+        worst["losses"] = max(abs(g["losses"][k] - v) / max(abs(v), 1e-6)
+                              for k, v in c["losses"].items())
+        if set(g["losses"]) != set(c["losses"]) or not worst["losses"] <= 1e-4:
+            raise AssertionError(f"[image-check] losses differ: {worst['losses']}")
+        for k, want in c["grads"].items():
+            scale = float(want.abs().max())
+            if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+                scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+            err = float((g["grads"][k] - want).abs().max())
+            worst["grads"] = max(worst["grads"], err / max(scale, 1e-12))
+            if not err <= 1e-3 * max(scale, 1e-12):
+                raise AssertionError(f"[image-check] gradient of {k}: {err} vs scale {scale}")
+        log(f"[image-check] train step: {len(c['g2p'])} assignment sets equal, losses within "
+            f"{worst['losses']:.2e} relative (limit 1e-4), gradients within {worst['grads']:.2e} "
+            f"of each leaf's scale (limit 1e-3), the CPU on the card's decisions at "
+            f"{relus['calls']} ReLUs ({relus['differ']} elements decided otherwise)")
+    worst["sampling"] = _sampling_vs_cpu(device)
+    return worst
+
+
+def _sampling_vs_cpu(device) -> dict:
+    """`ms_deform_attn_core` at the COCO deformable shape (800x1344: the
+    encoder's levels 100x168, 50x84, 25x42; Q = 22050; 8 heads of 32, 4
+    points), seeded inputs with ~1/6 of the points off the map, on the card
+    in fp32 against the CPU in fp32 and in fp64."""
+    from video_knet_tpu_torch.ops.sampling import ms_deform_attn_core
+
+    gen = torch.Generator().manual_seed(SEED)
+    shapes = [(IMAGE_HW[0] // s, IMAGE_HW[1] // s) for s in (8, 16, 32)]
+    q, m, l, p, d = sum(h * w for h, w in shapes), 8, 3, 4, 32
+    values = [torch.randn(1, h, w, m, d, generator=gen) for h, w in shapes]
+    locs = torch.rand(1, q, m, l, p, 2, generator=gen) * 1.2 - 0.1
+    attn = torch.softmax(torch.randn(1, q, m, l * p, generator=gen), -1).reshape(1, q, m, l, p)
+    got = ms_deform_attn_core([v.to(device) for v in values], locs.to(device),
+                              attn.to(device)).cpu().double()
+    errs = {}
+    for prec, dtype in (("fp32", torch.float32), ("fp64", torch.float64)):
+        want = ms_deform_attn_core([v.to(dtype) for v in values], locs.to(dtype),
+                                   attn.to(dtype)).double()
+        errs[prec] = float((got - want).abs().max() / want.abs().max())
+    log(f"[image-check] ms_deform_attn_core at Q={q}, levels {shapes}: card fp32 vs CPU, max "
+        f"abs err / scale {errs} (limits {TOL_SAMPLING})")
+    if not all(errs[k] <= TOL_SAMPLING[k] for k in errs):
+        raise AssertionError(f"[image-check] sampling on the card disagrees with the CPU: {errs}")
+    return errs
+
+
+def phase_vis_deform(device, paths: Paths) -> dict:
+    """The deformable R-50 YouTube-VIS 2019 preset: 3 clips of 1x5x360x640
+    served as `vis` serves them (the neck over the B*T frames), then 3 train
+    steps as `vis-train` takes them (the deformable neck's backward)."""
+    from video_knet_tpu_torch.configs import get_config
+
+    name = "video_knet_vis_r50_deformable_ytvis2019"
+    cfg = get_config(name)
+    if cfg.neck_type != "msdeform_pixel_decoder":
+        raise AssertionError("[vis-deform] not the deformable preset")
+    serve = _serve_vis("vis-deform", cfg, device, paths, VIS_CLIPS, VIS_LAUNCHES)
+    # the neck's gradients must all be nonzero; elsewhere a clip stage whose
+    # random-weight masks pass no pixel over its hard threshold leaves the
+    # next stage's dynamic layer a zero gradient, as the reference would
+    train = phase_vis_train(device, paths, name, "vis-deform-train", need_nonzero="neck.")
+    return dict(serve=serve, train=train)
 
 
 def main() -> int:
@@ -1357,10 +1764,15 @@ def main() -> int:
     phase_vis_check(device, paths)
     vis_train = phase_vis_train(device, paths)
     hrec["vis"] = vis_train["hungarian"]
+    image_pan = phase_image_pan(device, paths)
+    image_inst = phase_image_inst_deform(device, paths)
+    image_train = phase_image_train(device, paths)
+    image_check = phase_image_check(device, paths)
+    vis_deform = phase_vis_deform(device, paths)
     for rec in kernels:
         rec["launches_by_path"].update(
             {p: c[rec["name"]] for p, c in paths.launches.items()
-             if p.startswith("vis") and rec["name"] in c})
+             if p.startswith(("vis", "image")) and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
     log(f"[train-swin] median step {train_swin['median_ms']:.2f} ms, peak memory "
@@ -1370,6 +1782,21 @@ def main() -> int:
         f"ms ({card})")
     log(f"[vis-train] median step {vis_train['median_ms']:.2f} ms, peak memory "
         f"{vis_train['peak_bytes']} bytes, host syncs a step {vis_train['syncs']} ({card})")
+    log(f"[image-pan] median {image_pan['median_ms']:.2f} ms an 800x1344 image (forward + "
+        f"panoptic_decode + segments_to_host), peak memory {image_pan['peak_bytes']} bytes; "
+        f"[image-inst-deform] median {image_inst['median_ms']:.2f} ms (forward + "
+        f"instance_decode), peak memory {image_inst['peak_bytes']} bytes, encoder "
+        f"{image_inst['encoder_ms']:.3f} of {image_inst['forward_ms']:.3f} ms forward ({card})")
+    log(f"[sampling] {json.dumps(image_inst['sampling'])} ({card})")
+    log(f"[image-train] median step {image_train['median_ms']:.2f} ms (B=8, 512x1024), peak "
+        f"memory {image_train['peak_bytes']} bytes, host syncs a step {image_train['syncs']} "
+        f"({card})")
+    log(f"[image-check] worst card-vs-CPU: {json.dumps(image_check)}")
+    log(f"[vis-deform] median clip {vis_deform['serve']['median_ms']:.2f} ms, peak memory "
+        f"{vis_deform['serve']['peak_bytes']} bytes; median step "
+        f"{vis_deform['train']['median_ms']:.2f} ms, peak memory "
+        f"{vis_deform['train']['peak_bytes']} bytes, host syncs a step "
+        f"{vis_deform['train']['syncs']} ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

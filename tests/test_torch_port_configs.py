@@ -2,15 +2,18 @@
 
 Every preset name of `video_knet_tpu/configs.py` is in the port's registry.
 Each VPS, image and VIS preset equals JAX's field by field (dataclasses
-only: no Swin-B/L model is built here); the deformable VIS presets raise in
-`get_config`, naming ROADMAP E2; the presets whose modules are not ported
-yet raise `NotImplementedError` when the model is built. Also the dataset
-configs and `build_backbone`'s names.
+only: no Swin-B/L VPS model is built here); the deformable VIS presets
+build KNetVIS with the MSDeformAttn neck on the CPU. Each image preset builds
+`models/knet.py:KNet` on the CPU (Swin-B/L included), where `VideoKNet`
+raises and names it; the RFP / DetectoRS image presets raise, naming
+ROADMAP E1, and the two other track heads raise, naming E3. Also the
+dataset configs and `build_backbone`'s names.
 """
 
 import dataclasses
 
 import pytest
+import torch
 
 from video_knet_tpu import config as jc
 from video_knet_tpu import configs as jconfigs
@@ -19,12 +22,17 @@ from video_knet_tpu_torch import config as tc
 from video_knet_tpu_torch import config_vis as tc_vis
 from video_knet_tpu_torch import configs as tconfigs
 from video_knet_tpu_torch.models.backbones import build_backbone
+from video_knet_tpu_torch.models.knet import KNet
+from video_knet_tpu_torch.models.msdeform_decoder import MSDeformAttnPixelDecoder
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
+
+torch.set_num_threads(1)  # one intra-op thread a worker, as tests/torch_port_common.py
 
 VIS = sorted(k for k, f in jconfigs.CONFIGS.items() if isinstance(f(), VISConfig))
 NON_VIS = sorted(set(jconfigs.CONFIGS) - set(VIS))
-# unported modules a preset needs: E5 the image K-Net (its RFP / DetectoRS
-# and deformable presets included), E3 the other track heads
+# the presets VideoKNet does not build: the image ones (KNet builds them,
+# but for RFP / DetectoRS, E1) and the other track heads (E3)
 UNPORTED = sorted({k for k in NON_VIS if not isinstance(jconfigs.get_config(k),
                                                         jc.VideoKNetConfig)}
                   | {"video_knet_kitti_step_fuse_track", "video_knet_kitti_step_roi_gt_box"})
@@ -59,18 +67,27 @@ def test_vipseg_class_split():
 
 @pytest.mark.parametrize("name", VIS)
 def test_vis_preset_equals_jax_or_raises_naming_e2(name):
-    """The three ported VIS presets equal JAX's field by field; the four
-    deformable ones raise, naming the ms-deform neck's ROADMAP item."""
+    """Every VIS preset equals JAX's field by field, the four deformable
+    ones (once ROADMAP E2's raise) included."""
     want = jconfigs.get_config(name)
-    if want.neck_type == "msdeform_pixel_decoder":
-        assert name in tconfigs.DEFORMABLE_VIS_CONFIGS
-        with pytest.raises(NotImplementedError, match="ROADMAP E2"):
-            tconfigs.get_config(name)
-        return
     got = tconfigs.get_config(name)
     assert isinstance(got, tc_vis.VISConfig)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.num_thing_classes, got.num_stuff_classes) == (40, 0)
+    assert (name in tconfigs.DEFORMABLE_VIS_CONFIGS) == (
+        got.neck_type == "msdeform_pixel_decoder")
+
+
+@pytest.mark.parametrize("name", ["video_knet_vis_r50_deformable_ytvis2019",
+                                  "video_knet_vis_swin_b_deformable_ytvis2019"])
+def test_deformable_vis_preset_builds_the_msdeform_neck(name):
+    """The two deformable VIS configs (the other two names are aliases of
+    them) build KNetVIS on the CPU with the 6-layer MSDeformAttn decoder
+    over the backbone's four levels."""
+    model = KNetVIS(tconfigs.get_config(name), device="cpu")
+    assert isinstance(model.neck, MSDeformAttnPixelDecoder)
+    assert model.neck.num_layers == 6
+    assert model.neck.input_proj0.weight.shape[1] == model.backbone.out_channels[1]
 
 
 def test_unknown_config_raises():
@@ -80,8 +97,25 @@ def test_unknown_config_raises():
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_preset_raises_at_model_construction(name):
-    with pytest.raises(NotImplementedError):
-        VideoKNet(tconfigs.get_config(name), device="cpu")
+    """VideoKNet raises for each; an image preset builds KNet on the CPU
+    instead (with the neck its config names), but for the RFP / DetectoRS
+    backbones, which raise naming E1."""
+    cfg = tconfigs.get_config(name)
+    if isinstance(cfg, tc.VideoKNetConfig):
+        with pytest.raises(NotImplementedError, match="ROADMAP E3"):
+            VideoKNet(cfg, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="models.knet.KNet"):
+        VideoKNet(cfg, device="cpu")
+    if cfg.backbone in ("detectors_r50", "swin_b_rfp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP E1"):
+            KNet(cfg, device="cpu")
+        return
+    model = KNet(cfg, device="cpu")
+    deformable = cfg.neck_type == "msdeform_pixel_decoder"
+    assert isinstance(model.neck, MSDeformAttnPixelDecoder) == deformable
+    assert model.rpn_head.conv_seg.weight.shape[0] == cfg.num_classes
+    assert model.roi_head.num_stages == cfg.num_stages == 3
 
 
 def test_build_backbone_names():

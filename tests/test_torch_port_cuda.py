@@ -25,11 +25,14 @@ pytestmark = pytest.mark.cuda
 # the trained tiny config's stage shape (N=37, 8x12, C=64), at B=1 and 2;
 # Swin-B VIP-Seg's stage shape (N=166 = 100 + 66, 92x160 at 736x1280) and
 # its init head's at B=2 (the train step's joint pass); VIS's stage shape
-# (a clip's 5 frames folded into the batch, N=100, 45x80 at 360x640)
+# (a clip's 5 frames folded into the batch, N=100, 45x80 at 360x640);
+# COCO panoptic's (N=153 = 100 + 53, 100x168 at 800x1344) and the image
+# train step's (B=8, N=117, 64x128 at 512x1024)
 SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 48, 156, 256),
           (2, 117, 48, 156, 256), (1, 100, 48, 156, 256), (1, 117, 48, 157, 200),
           (1, 117, 37, 61, 256), (1, 100, 37, 61, 37), (1, 37, 8, 12, 64), (2, 37, 8, 12, 64),
-          (1, 166, 92, 160, 256), (2, 100, 92, 160, 256), (5, 100, 45, 80, 256)]
+          (1, 166, 92, 160, 256), (2, 100, 92, 160, 256), (5, 100, 45, 80, 256),
+          (1, 153, 100, 168, 256), (8, 117, 64, 128, 256)]
 
 
 @pytest.fixture
@@ -318,3 +321,89 @@ def test_vis_clip_on_the_card_matches_the_cpu(dev):
         if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
             scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
         assert float((g["grads"][k] - want).abs().max()) <= 1e-3 * max(scale, 1e-12), k
+
+
+def test_image_knet_on_the_card_matches_the_cpu(dev):
+    """The tiny image config (`train_check.image_check_cfg`: MiT-b0,
+    64-channel heads, the MSDeformAttn neck at one encoder layer; weights
+    from `image_margin_seed`), panoptic and instance: the card's forward
+    within 1e-4 of the CPU's scale with 4 launches of each mask kernel, the
+    decodes' integer fields equal; one panoptic train step: losses within
+    1e-4, gradients within 1e-3 of each leaf's scale (the CPU's step
+    replaying the card's ReLU decisions), 4 / 4 / 1 launches."""
+    from video_knet_tpu_torch.config import KNetConfig
+    from video_knet_tpu_torch.models import knet as tk
+    from video_knet_tpu_torch.ops.kernels import hungarian as hk
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.train.image import make_synthetic_batch, train_step
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+
+    for instance in (False, True):
+        cfg = train_check.image_check_cfg(KNetConfig(), instance=instance)
+        seed, _ = train_check.image_margin_seed(cfg, (64, 96))
+        runs, pattern = [], []
+        for d in (dev, torch.device("cpu")):
+            model = train_check.image_check_model(cfg, seed, d)
+            batch = make_synthetic_batch(cfg, 1, (64, 96), seed=0, device=d)
+            mo.reset_launch_counts()
+            with torch.no_grad():
+                rpn_out, stages = model(batch.img)
+                pred = (tk.instance_decode(rpn_out, stages, cfg, out_hw=(64, 96)).labels
+                        if instance else tk.panoptic_decode(rpn_out, stages, cfg,
+                                                            out_hw=(64, 96)).result.panoptic_seg)
+            if d.type == "cuda":
+                assert mo.LAUNCHES == {"mask_pool": 4, "assemble": 4}
+            run = dict(masks=[s.mask_preds.cpu() for s in stages], pred=pred.cpu())
+            if not instance:
+                mo.reset_launch_counts()
+                hk.reset_launch_counts()
+                with train_check.relu_pattern(pattern, replay=bool(runs)):
+                    _, losses = train_step(create_train_state(model, make_optimizer(model, 1000)),
+                                           batch)
+                if d.type == "cuda":
+                    assert mo.LAUNCHES == {"mask_pool": 4, "assemble": 4}
+                    assert hk.LAUNCHES == {"hungarian": 1}
+                run.update(losses={k: float(v) for k, v in losses.items()},
+                           grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+            runs.append(run)
+        g, c = runs
+        for a, b in zip(g["masks"], c["masks"]):
+            _close(a, b, 1e-4)
+        assert torch.equal(g["pred"], c["pred"])
+        if instance:
+            continue
+        for k, want in c["losses"].items():
+            assert abs(g["losses"][k] - want) <= 1e-4 * max(abs(want), 1e-6), k
+        for k, want in c["grads"].items():
+            scale = float(want.abs().max())
+            if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+                scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+            assert float((g["grads"][k] - want).abs().max()) <= 1e-3 * max(scale, 1e-12), k
+
+
+def test_ms_deform_attn_core_on_the_card_matches_the_cpu(dev):
+    """The MSDeformAttn sampling (plain PyTorch gathers) at VIS's deformable
+    shape (5 frames' levels 45x80, 23x40, 12x20; 8 heads of 32, 4 points),
+    a sixth of the points off the map: the card's forward within 1e-6 of
+    the CPU's in fp32 (the same arithmetic), its gradients within 1e-5 (the
+    card's gather backward accumulates with atomics, in another order)."""
+    from video_knet_tpu_torch.ops.sampling import ms_deform_attn_core
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(45, 80), (23, 40), (12, 20)]
+    q = sum(h * w for h, w in shapes)
+    values = [torch.randn(5, h, w, 8, 32, generator=gen) for h, w in shapes]
+    locs = torch.rand(5, q, 8, 3, 4, 2, generator=gen) * 1.2 - 0.1
+    attn = torch.softmax(torch.randn(5, q, 8, 12, generator=gen), -1).reshape(5, q, 8, 3, 4)
+    cot = torch.randn(5, q, 256, generator=gen)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        vs = [v.to(d).requires_grad_() for v in values]
+        lc, at = locs.to(d).requires_grad_(), attn.to(d).requires_grad_()
+        out = ms_deform_attn_core(vs, lc, at)
+        (out * cot.to(d)).sum().backward()
+        runs.append([out.detach().cpu(), lc.grad.cpu(), at.grad.cpu()]
+                    + [v.grad.cpu() for v in vs])
+    for i, (a, b) in enumerate(zip(*runs)):
+        _close(a, b, 1e-6 if i == 0 else 1e-5)

@@ -26,6 +26,8 @@ from video_knet_tpu_torch.utils.tree import (
     unpack,
 )
 
+torch.set_num_threads(1)  # one intra-op thread a worker, as tests/torch_port_common.py
+
 
 def _per_leaf(tree):
     def leaf(x):

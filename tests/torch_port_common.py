@@ -8,6 +8,7 @@ and its port; weights go from the flax variables to the port through
 from __future__ import annotations
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -16,9 +17,17 @@ import torch
 from flax import traverse_util
 
 import video_knet_tpu.ops.hungarian as jhung
+from video_knet_tpu.models import msdeform_decoder as jdec
 from video_knet_tpu.models.knet import branch_assignment_costs
 from video_knet_tpu.models.swin import SwinTransformer as JSwin
+from video_knet_tpu_torch.tools.train_check import NECK_LAYERS
 from video_knet_tpu_torch.utils.convert import load_flax_variables
+
+# One intra-op thread per process: the suite runs in several pytest-xdist
+# workers at once, and torch's default (one thread a core in every worker)
+# oversubscribes the cores many times over. Every port test file imports
+# this module or makes the same call.
+torch.set_num_threads(1)
 
 
 def t(x) -> torch.Tensor:
@@ -84,12 +93,14 @@ def jax_step_costs(key, ref, gt, ref_gt, cfg):
 
 # the input of every ReLU of the heads and necks, by its owner: a
 # ConvNormAct's GroupNorm, an MLP layer's LayerNorm, a KernelUpdator's
-# fc_norm, an FFN's Dense_0 (the same names in both packages)
+# fc_norm, an FFN's Dense_0, a deformable encoder layer's ffn1 (the same
+# names in both packages)
 def _pre_relu(owner: str, name: str) -> bool:
     return ((owner == "ConvNormAct" and name == "GroupNorm_0")
             or (owner == "MLP" and name.startswith("LayerNorm_"))
             or (owner == "KernelUpdator" and name == "fc_norm")
-            or (owner == "FFN" and name == "Dense_0"))
+            or (owner == "FFN" and name == "Dense_0")
+            or (owner == "DeformAttnEncoderLayer" and name == "ffn1"))
 
 
 def jax_pre_relu(mdl, method: str) -> bool:
@@ -125,3 +136,16 @@ def jax_swin_tiny_apply(ape: bool = False):
     """JAX's Swin-tiny forward, jitted once a process for the files that
     share it (the port's Swin and its checkpoint import)."""
     return jax.jit(JSwin("tiny", ape=ape).apply)
+
+
+class _ShallowDecoder(jdec.MSDeformAttnPixelDecoder):
+    """JAX's MSDeformAttn decoder at the check models' encoder depth
+    (`train_check.shallow_neck`)."""
+
+    num_layers: int = NECK_LAYERS
+
+
+def jax_shallow_neck():
+    """While active, JAX's `build_neck` builds `_ShallowDecoder` (it imports
+    the decoder class when called); trace the JAX function inside it."""
+    return mock.patch.object(jdec, "MSDeformAttnPixelDecoder", _ShallowDecoder)

@@ -23,7 +23,7 @@ from video_knet_tpu_torch.config import (
 class VISConfig:
     backbone: str = "resnet50"
     backbone_drop_path_rate: float = 0.0  # 0.3 in the Swin-B VIS config
-    neck_type: str = "fpn"  # 'fpn' | 'msdeform_pixel_decoder' (ROADMAP E2)
+    neck_type: str = "fpn"  # 'fpn' | 'msdeform_pixel_decoder'
     frozen_stages: int = 1
     norm_eval: bool = True
     bf16_train: bool = False

@@ -2,11 +2,13 @@
 
 Own copy of `video_knet_tpu/configs.py`: the same names (the short ones and
 the reference's config file stems) and the same configs. `get_config(name)`
-returns the config; what the port cannot build yet raises
-`NotImplementedError`, naming its ROADMAP item, where the model is built:
-the image K-Net presets (E5, which the RFP / DetectoRS and deformable ones
-also are), `query_fuse` and `roi_gt_box` (E3). The four deformable VIS
-presets raise in `get_config` (E2: the ms-deform neck).
+returns the config. The image presets (`KNetConfig`) build
+`models/knet.py:KNet`, the VPS presets `models/video/knet_vps.py:VideoKNet`
+and the VIS presets `models/vis/knet_vis.py:KNetVIS`, the deformable ones
+with the MSDeformAttn pixel decoder as their neck. What the port cannot
+build yet raises `NotImplementedError` where the model is built, naming its
+ROADMAP item: the RFP / DetectoRS backbones (E1), `query_fuse` and
+`roi_gt_box` (E3).
 """
 
 from __future__ import annotations
@@ -144,11 +146,14 @@ def video_knet_vis_volume_r50_ytvis2019() -> VISConfig:
     return dataclasses.replace(youtube_vis_2019_config(), kernel_head_mode="volume")
 
 
-def _deformable_vis(name: str) -> Callable:
-    def unported():
-        raise NotImplementedError(
-            f"{name}: the ms-deform pixel-decoder neck is not ported yet (ROADMAP E2)")
-    return unported
+def video_knet_vis_r50_deformable_ytvis2019() -> VISConfig:
+    """The MSDeformAttn pixel decoder as the neck instead of the FPN."""
+    return dataclasses.replace(youtube_vis_2019_config(), neck_type="msdeform_pixel_decoder")
+
+
+def video_knet_vis_swin_b_deformable_ytvis2019() -> VISConfig:
+    return dataclasses.replace(video_knet_vis_swin_b_ytvis2019(),
+                               neck_type="msdeform_pixel_decoder")
 
 
 def knet_s3_detectors_r50_cityscapes_step() -> KNetConfig:
@@ -204,7 +209,10 @@ CONFIGS: dict[str, Callable] = {
     "video_knet_vis_r50_ytvis2019": video_knet_vis_r50_ytvis2019,
     "video_knet_vis_swin_b_ytvis2019": video_knet_vis_swin_b_ytvis2019,
     "video_knet_vis_volume_r50_ytvis2019": video_knet_vis_volume_r50_ytvis2019,
-    **{name: _deformable_vis(name) for name in DEFORMABLE_VIS_CONFIGS},
+    "video_knet_vis_r50_deformable_ytvis2019": video_knet_vis_r50_deformable_ytvis2019,
+    "video_knet_vis_swin_b_deformable_ytvis2019": video_knet_vis_swin_b_deformable_ytvis2019,
+    "knet_track_r50_deformable_fpn_1x_youtubevis": video_knet_vis_r50_deformable_ytvis2019,
+    "knet_track_swinb_deformable_1x_youtubevis": video_knet_vis_swin_b_deformable_ytvis2019,
     "knet_s3_detectors_r50_cityscapes_step": knet_s3_detectors_r50_cityscapes_step,
     "knet_s3_swin_b_rfp_cityscapes_step": knet_s3_swin_b_rfp_cityscapes_step,
 }

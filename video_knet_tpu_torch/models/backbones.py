@@ -1,11 +1,13 @@
 """Backbone + neck factory: ResNet-50/101, MiT (b0-b5) and Swin
-(tiny/small/base/large), each with the FPN."""
+(tiny/small/base/large), each with the FPN or the MSDeformAttn pixel
+decoder."""
 
 from __future__ import annotations
 
 from torch import nn
 
 from video_knet_tpu_torch.models.mit import MixVisionTransformer
+from video_knet_tpu_torch.models.msdeform_decoder import MSDeformAttnPixelDecoder
 from video_knet_tpu_torch.models.resnet import FPN, RESNET_STAGE_BLOCKS, ResNet
 from video_knet_tpu_torch.models.swin import SWIN_PRESETS, SwinTransformer
 
@@ -31,4 +33,6 @@ def build_neck(neck_type: str, backbone: nn.Module) -> nn.Module:
     widths; the port reads them from the backbone)."""
     if neck_type == "fpn":
         return FPN(in_channels=backbone.out_channels)
-    raise NotImplementedError(f"neck {neck_type!r} is not ported yet (ROADMAP E2)")
+    if neck_type == "msdeform_pixel_decoder":
+        return MSDeformAttnPixelDecoder(in_channels=backbone.out_channels)
+    raise ValueError(f"unknown neck_type {neck_type!r}")

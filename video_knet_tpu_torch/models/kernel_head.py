@@ -37,7 +37,7 @@ class ConvKernelHead(nn.Module):
         super().__init__()
         if cfg.fpn_type != "semantic_fpn":
             raise NotImplementedError(
-                f"fpn_type={cfg.fpn_type!r} is not ported yet (ROADMAP E2)")
+                f"fpn_type={cfg.fpn_type!r} is not ported yet (ROADMAP E2b)")
         self.cfg = cfg
         self.localization_fpn = SemanticFPN(
             in_channels=in_channels,

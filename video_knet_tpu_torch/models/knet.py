@@ -1,14 +1,21 @@
-"""K-Net's training losses and its panoptic decode.
+"""Image K-Net: the model, its training losses and its decodes.
 
 Counterpart of `video_knet_tpu/models/knet.py`:
+- `KNet` (`:29-53`): backbone, neck (the FPN or the MSDeformAttn pixel
+  decoder), the init head `rpn_head` and the stage loop `roi_head`, with
+  flax's module names; the image model every release Video K-Net is
+  pretrained as (Cityscapes-STEP) and K-Net's own COCO panoptic and
+  instance models.
 - the loss block (`:56-400`): the Hungarian assignment costs of a branch
   (`branch_assignment_costs`, optionally at head resolution against pooled
   GT), one solve for all of them (`solve_assignments`), the init-head losses
   (`rpn_loss`), the per-stage losses on gathered rows (`stage_loss`,
   gather-then-upscale), `iter_head_losses` and `knet_loss`. Fixed GT slots,
   no data-dependent shapes; the assignment inputs are detached.
-- the decode (`:454-540`): top-k thing (proposal, class) pairs plus one row
-  per stuff class, sigmoid, optional rescale, joint-argmax merge.
+- the instance decode (`:404-451`): the top `max_per_img` (proposal, class)
+  pairs of the thing scores, their masks upsampled, then the sigmoid.
+- the panoptic decode (`:454-540`): top-k thing (proposal, class) pairs plus
+  one row per stuff class, sigmoid, optional rescale, joint-argmax merge.
   `panoptic_decode_batch` decodes each image of a batch in turn and stacks
   the results (the reference vmaps the same function).
 """
@@ -18,10 +25,18 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
 from video_knet_tpu_torch.config import KNetConfig
-from video_knet_tpu_torch.models.kernel_iter_head import StageOutput, upscale_masks
+from video_knet_tpu_torch.models.backbones import build_backbone, build_neck
+from video_knet_tpu_torch.models.kernel_head import ConvKernelHead, RPNOutputs
+from video_knet_tpu_torch.models.kernel_iter_head import (
+    KernelIterHead,
+    StageOutput,
+    upscale_masks,
+)
 from video_knet_tpu_torch.models.layers import (
+    init_parameters,
     resize_bilinear,
     resize_mask_bilinear,
     resize_nearest,
@@ -37,7 +52,42 @@ from video_knet_tpu_torch.ops.targets import (
     gather_rows,
     pred_of_gt_from,
 )
+from video_knet_tpu_torch.utils.device import resolve_device
 from video_knet_tpu_torch.utils.tree import tree_stack
+
+# ------------------------------------------------------------------- model
+
+
+class KNet(nn.Module):
+    """The image model. Weights come from a seeded `generator` (flax's
+    default initializers) or, after construction, from `utils/convert.py`.
+
+    `device` defaults to CUDA and raises when there is none; tests pass
+    `device="cpu"`."""
+
+    def __init__(self, cfg: KNetConfig, *, generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
+                                       drop_path_rate=cfg.backbone_drop_path_rate)
+        self.neck = build_neck(cfg.neck_type, self.backbone)
+        self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
+        self.roi_head = KernelIterHead(cfg.head, num_stages=cfg.num_stages)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_parameters(self, generator)
+        self.eval()
+        self.to(device)
+
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None
+                ) -> tuple[RPNOutputs, list[StageOutput]]:
+        """img [B, H, W, 3] normalized. `generator` draws the backbone's
+        stochastic depth (training); None turns it off."""
+        rpn_out = self.rpn_head(self.neck(self.backbone(img, generator)))
+        return rpn_out, self.roi_head(rpn_out.x_feats, rpn_out.proposal_feats,
+                                      rpn_out.mask_preds)
 
 # ------------------------------------------------------------------ losses
 
@@ -208,6 +258,39 @@ def knet_loss(rpn_out, stage_outs: list[StageOutput], gt: PanopticGT,
 
 
 # ------------------------------------------------------------------ decode
+
+
+class InstancePrediction(NamedTuple):
+    """COCO instance-segmentation decode (fixed `max_per_img` slots)."""
+
+    masks: torch.Tensor  # [max_per_img, H, W] mask probabilities
+    labels: torch.Tensor  # [max_per_img] int32 class labels
+    scores: torch.Tensor  # [max_per_img]
+
+
+def instance_decode(rpn_out, stage_outs: list[StageOutput], cfg: KNetConfig,
+                    out_hw: tuple[int, int] | None = None) -> InstancePrediction:
+    """Decode of a batch-of-1 forward."""
+    last = stage_outs[-1]
+    return instance_decode_single(last.cls_score[0], last.scaled_mask_preds[0], cfg, out_hw)
+
+
+def instance_decode_single(cls_score_logits: torch.Tensor, mask_preds: torch.Tensor,
+                           cfg: KNetConfig,
+                           out_hw: tuple[int, int] | None = None) -> InstancePrediction:
+    """cls_score_logits [N_tot, C]; mask_preds [N_tot, Hs, Ws]: the sigmoid
+    over the (proposal, class) pairs of the things, the top `max_per_img`,
+    their masks bilinearly resized to `out_hw`, then the sigmoid. Masks stay
+    probabilities (`cfg.test.mask_thr` thresholds them at dump time)."""
+    c = cfg.num_thing_classes
+    n_prop = cfg.num_proposals
+    scores = torch.sigmoid(cls_score_logits[:n_prop, :c].float()).reshape(-1)
+    top_scores, top_idx = top_k(scores, cfg.test.max_per_img)
+    labels = (top_idx % c).int()
+    masks = mask_preds[:n_prop][torch.div(top_idx, c, rounding_mode="floor")]
+    if out_hw is not None and tuple(masks.shape[-2:]) != tuple(out_hw):
+        masks = resize_mask_bilinear(masks, tuple(out_hw))
+    return InstancePrediction(torch.sigmoid(masks.float()), labels, top_scores)
 
 
 class PanopticPrediction(NamedTuple):

@@ -86,7 +86,8 @@ class VideoKNet(nn.Module):
         device = resolve_device(device)
         if not isinstance(cfg, VideoKNetConfig):
             raise NotImplementedError(
-                f"{type(cfg).__name__}: the image K-Net is not ported yet (ROADMAP E5)")
+                f"{type(cfg).__name__} is an image K-Net config: build it with "
+                f"video_knet_tpu_torch.models.knet.KNet")
         if cfg.track_head_type != "kernel_embed":
             raise NotImplementedError(
                 f"track_head_type={cfg.track_head_type!r} is not ported yet (ROADMAP E3)")

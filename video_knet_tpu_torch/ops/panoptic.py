@@ -1,9 +1,14 @@
-"""Joint-argmax panoptic merge and its host-side formatting.
+"""Panoptic merges and their host-side formatting.
 
-Counterpart of `video_knet_tpu/ops/panoptic.py` (`merge_joint`,
-`segments_to_host`): every pixel goes to the highest score*prob candidate,
-and a candidate is kept if it retains >= overlap_thr of its prob>=0.5 area.
-Static shapes: per-candidate arrays plus a keep mask.
+Counterpart of `video_knet_tpu/ops/panoptic.py`:
+- `merge_joint`, `segments_to_host`: every pixel goes to the highest
+  score*prob candidate, and a candidate is kept if it retains >=
+  overlap_thr of its prob>=0.5 area. Static shapes: per-candidate arrays
+  plus a keep mask.
+- `merge_sequential_host`, `merge_sequential_host_stuff_first` (`:142-267`):
+  own numpy copies of the reference's sequential thing-paste and stuff-fill
+  merges on thresholded masks, in either order. Their descending-score
+  orders are numpy's default (unstable) argsort, as the reference's are.
 """
 
 from __future__ import annotations
@@ -98,3 +103,81 @@ def segments_to_host(res: PanopticResult, num_thing_classes: int) -> tuple[np.nd
                 "area": int(areas[k]),
             })
     return np.asarray(res.panoptic_seg), infos
+
+
+def _paste_things(pan, seg_id, infos, masks, labels, scores, instance_score_thr, iou_thr):
+    """Things in descending score order until one scores below the gate: a
+    thing whose overlap with what is painted exceeds `iou_thr` of its area
+    is dropped, else its free pixels get the next segment id."""
+    for i in np.argsort(-scores):
+        score = float(scores[i])
+        if score < instance_score_thr:
+            break
+        mask = masks[i].astype(bool)
+        area = mask.sum()
+        if area == 0:
+            continue
+        inter = (mask & (pan > 0)).sum()
+        if inter / area > iou_thr:
+            continue
+        if inter > 0:
+            mask = mask & (pan == 0)
+        if mask.sum() == 0:
+            continue
+        seg_id += 1
+        pan[mask] = seg_id
+        infos.append({"id": seg_id, "isthing": True, "score": score,
+                      "category_id": int(labels[i]), "instance_id": int(i)})
+    return seg_id
+
+
+def _fill_stuff(pan, seg_id, infos, masks, labels, scores, stuff_max_area):
+    """One segment a stuff label, in descending score order: the union of
+    its masks' free pixels, kept when at least `stuff_max_area`."""
+    processed = set()
+    for j in np.argsort(-scores):
+        lab = int(labels[j])
+        if lab in processed:
+            continue
+        processed.add(lab)
+        mask = masks[labels == lab].sum(0).astype(bool) & (pan == 0)
+        area = mask.sum()
+        if area < stuff_max_area:
+            continue
+        seg_id += 1
+        pan[mask] = seg_id
+        infos.append({"id": seg_id, "isthing": False, "category_id": lab, "area": int(area)})
+    return seg_id
+
+
+def merge_sequential_host(thing_masks: np.ndarray, thing_labels: np.ndarray,
+                          thing_scores: np.ndarray, stuff_masks: np.ndarray,
+                          stuff_labels: np.ndarray, stuff_scores: np.ndarray, *,
+                          instance_score_thr: float = 0.25, iou_thr: float = 0.5,
+                          stuff_max_area: int = 4096) -> tuple[np.ndarray, list[dict]]:
+    """Things pasted first, then stuff fills the free pixels. Boolean
+    (thresholded) masks [K, H, W] -> (panoptic_seg [H, W] int32,
+    segments_info)."""
+    pan = np.zeros(thing_masks.shape[-2:], np.int32)
+    infos: list[dict] = []
+    seg_id = _paste_things(pan, 0, infos, thing_masks, thing_labels, thing_scores,
+                           instance_score_thr, iou_thr)
+    _fill_stuff(pan, seg_id, infos, stuff_masks, stuff_labels, stuff_scores, stuff_max_area)
+    return pan, infos
+
+
+def merge_sequential_host_stuff_first(thing_masks: np.ndarray, thing_labels: np.ndarray,
+                                      thing_scores: np.ndarray, stuff_masks: np.ndarray,
+                                      stuff_labels: np.ndarray, stuff_scores: np.ndarray, *,
+                                      instance_score_thr: float = 0.25, iou_thr: float = 0.5,
+                                      stuff_max_area: int = 4096
+                                      ) -> tuple[np.ndarray, list[dict]]:
+    """The ordering ablation: stuff painted first (segment ids 1..S), then
+    the things, whose overlap now counts stuff too."""
+    pan = np.zeros(thing_masks.shape[-2:], np.int32)
+    infos: list[dict] = []
+    seg_id = _fill_stuff(pan, 0, infos, stuff_masks, stuff_labels, stuff_scores,
+                         stuff_max_area)
+    _paste_things(pan, seg_id, infos, thing_masks, thing_labels, thing_scores,
+                  instance_score_thr, iou_thr)
+    return pan, infos

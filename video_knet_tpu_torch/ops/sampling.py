@@ -1,0 +1,79 @@
+"""Gather-based bilinear sampling and the multi-scale deformable attention
+core.
+
+Counterpart of `video_knet_tpu/ops/sampling.py` (`bilinear_sample`,
+`ms_deform_attn_core`): the four corner gathers with zero padding outside
+the map, in the reference's arithmetic order (`x * w - 0.5` in fp32, the
+top and bottom lerps, then the vertical one). The reference clips the
+indices and multiplies by the validity mask; torch indexing raises on an
+index out of range, so the indices are clamped explicitly before the
+gather. Plain PyTorch on every device: the reference computes this outside
+any Pallas kernel.
+
+`ms_deform_attn_core` reduces level by level: one level's samples
+[B, Q, M, P, D] are weighted and summed before the next level is gathered,
+so the [B, Q, M, L, P, D] stack the reference builds never exists (one
+corner of it is ~270 MB at COCO's 800x1344). The sum over (level, point)
+therefore runs in another order than the reference's einsum: equal within
+fp32 rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def bilinear_sample(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Sample feat [H, W, C] at float pixel coordinates ys / xs [...], zero
+    outside the map -> [..., C]."""
+    h, w, c = feat.shape
+    return _bilinear_flat(feat.reshape(h * w, c), h, w, ys, xs, None)
+
+
+def _bilinear_flat(flat: torch.Tensor, h: int, w: int, ys: torch.Tensor, xs: torch.Tensor,
+                   base: torch.Tensor | None) -> torch.Tensor:
+    """`flat` [..., H*W rows, C] as rows; `base` (broadcast with ys) is the
+    row offset of each sample's own map in `flat`, None for one map."""
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = (ys - y0)[..., None]
+    wx = (xs - x0)[..., None]
+
+    def gather(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        yc = yi.clamp(0, h - 1).long()
+        xc = xi.clamp(0, w - 1).long()
+        idx = yc * w + xc
+        if base is not None:
+            idx = idx + base
+        return flat[idx] * valid[..., None]
+
+    v00 = gather(y0, x0)
+    v01 = gather(y0, x0 + 1)
+    v10 = gather(y0 + 1, x0)
+    v11 = gather(y0 + 1, x0 + 1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return top * (1 - wy) + bot * wy
+
+
+def ms_deform_attn_core(value_levels: list[torch.Tensor], sampling_locations: torch.Tensor,
+                        attention_weights: torch.Tensor) -> torch.Tensor:
+    """value_levels: L tensors [B, H_l, W_l, M, D] (the values split by head);
+    sampling_locations [B, Q, M, L, P, 2] normalized (x, y); attention_weights
+    [B, Q, M, L, P] (softmaxed over L*P) -> [B, Q, M*D]."""
+    b, q, m, _, p, _ = sampling_locations.shape
+    out = None
+    for li, v in enumerate(value_levels):
+        h, w, d = v.shape[1], v.shape[2], v.shape[-1]
+        loc = sampling_locations[:, :, :, li]  # [B, Q, M, P, 2]
+        xs = loc[..., 0] * w - 0.5
+        ys = loc[..., 1] * h - 0.5
+        # rows of (batch, head) planes: plane (b, m) starts at row (b*M + m)*H*W
+        flat = v.permute(0, 3, 1, 2, 4).reshape(b * m * h * w, d)
+        base = (torch.arange(b, device=v.device)[:, None, None, None] * m
+                + torch.arange(m, device=v.device)[None, None, :, None]) * (h * w)
+        sampled = _bilinear_flat(flat, h, w, ys, xs, base)  # [B, Q, M, P, D]
+        part = (sampled * attention_weights[:, :, :, li, :, None]).sum(dim=3)
+        out = part if out is None else out + part
+    return out.reshape(b, q, -1)

@@ -8,10 +8,12 @@ the threshold's nature and not a kernel's error. A comparison of the card's
 train step with the CPU's therefore takes the first weight seed whose CPU
 forward keeps every such input `MARGIN` from its threshold (`margin_seed`
 for VPS), or `VIS_MARGIN` of its tensor's largest magnitude
-(`vis_margin_seed` for VIS clips, which also keeps the decode's top-k
-logits that far apart). `chip_smoke.py` (train-check, swin-check,
-vis-check) and the card tests share them, and the small configurations of
-the Swin slice (`swin_check_cfg`) and of the VIS slice (`vis_check_cfg`).
+(`vis_margin_seed` for VIS clips and `image_margin_seed` for the image
+K-Net, which also keep the decode's top-k logits that far apart).
+`chip_smoke.py` (train-check, swin-check, vis-check, image-check) and the
+card tests share them, and the small configurations of the Swin slice
+(`swin_check_cfg`), of the VIS slice (`vis_check_cfg`) and of the image
+slice (`image_check_cfg`, built by `image_check_model`).
 
 A ReLU is a kink of the same kind for gradients: an input within the
 devices' forward error of zero may pass on one device and not the other,
@@ -34,11 +36,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from video_knet_tpu_torch.config import VideoKNetConfig
+from video_knet_tpu_torch.config import KNetConfig, VideoKNetConfig
 from video_knet_tpu_torch.config_vis import VISConfig
+from video_knet_tpu_torch.models.kernel_head import RPNOutputs
+from video_knet_tpu_torch.models.knet import KNet
 from video_knet_tpu_torch.models.layers import resize_mask_bilinear
 from video_knet_tpu_torch.models.video.knet_vps import BranchOutput, VideoKNet
 from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, VISOutputs
+from video_knet_tpu_torch.train import image as train_image
 from video_knet_tpu_torch.train import vis as train_vis
 from video_knet_tpu_torch.train.vps import make_synthetic_batch
 
@@ -91,9 +96,8 @@ def vis_margin(outs: VISOutputs, cfg: VISConfig) -> float:
     if cfg.with_mask_init:
         raise NotImplementedError("the fc_mask_init masks are not among the outputs")
     thr = cfg.head.hard_mask_thr
-    cls = outs.clip_stage_outs[cfg.tracker_assign_stages - 1].cls_score[0].reshape(-1)
-    best = torch.sort(cls, descending=True).values[:cfg.test.max_per_img + 1]
-    gap = float((best[:-1] - best[1:]).min()) / max(float(cls.abs().max()), 1e-30)
+    gap = _top_k_gap(outs.clip_stage_outs[cfg.tracker_assign_stages - 1].cls_score[0],
+                     cfg.test.max_per_img)
     if cfg.kernel_head_mode == "volume":
         tubes = outs.rpn_out.tube_mask_preds
         return min(gap, _dist(tubes, 0.5, True),
@@ -105,6 +109,24 @@ def vis_margin(outs: VISOutputs, cfg: VISConfig) -> float:
                _stage_margin(outs.rpn_out.mask_preds, outs.frame_stage_outs, thr, True),
                _stage_margin(last.reshape(b, t, *last.shape[1:]), outs.clip_stage_outs, thr,
                              True))
+
+
+def _top_k_gap(cls: torch.Tensor, k: int) -> float:
+    """The smallest gap between adjacent logits of the k + 1 best, as a
+    share of max |cls|."""
+    cls = cls.reshape(-1)
+    best = torch.sort(cls, descending=True).values[:k + 1]
+    return float((best[:-1] - best[1:]).min()) / max(float(cls.abs().max()), 1e-30)
+
+
+def image_margin(rpn_out: RPNOutputs, stage_outs, cfg: KNetConfig) -> float:
+    """`vis_margin` for one image K-Net forward: the init head's and the
+    stages' mask pools, and the decode's top-k order over the last stage's
+    (proposal, thing class) logits of the first image."""
+    cls = stage_outs[-1].cls_score[0, :cfg.num_proposals, :cfg.num_thing_classes]
+    return min(_top_k_gap(cls, cfg.test.max_per_img),
+               _dist(rpn_out.thing_mask_preds, 0.5, True),
+               _stage_margin(rpn_out.mask_preds, stage_outs, cfg.head.hard_mask_thr, True))
 
 
 def _first_seed(margin_of, limit: float = MARGIN) -> tuple[int, float]:
@@ -141,6 +163,20 @@ def vis_margin_seed(cfg: VISConfig, hw: tuple[int, int]) -> tuple[int, float]:
         model = KNetVIS(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
         with torch.no_grad():
             return vis_margin(model(batch.clip), cfg)
+
+    return _first_seed(margin_of, VIS_MARGIN)
+
+
+def image_margin_seed(cfg: KNetConfig, hw: tuple[int, int]) -> tuple[int, float]:
+    """`margin_seed` for `image_check_model` on `train/image.py:
+    make_synthetic_batch(cfg, 1, hw, seed=0)`, by `image_margin` against
+    `VIS_MARGIN`."""
+    batch = train_image.make_synthetic_batch(cfg, 1, hw, seed=0, device="cpu")
+
+    def margin_of(seed: int) -> float:
+        model = image_check_model(cfg, seed, "cpu")
+        with torch.no_grad():
+            return image_margin(*model(batch.img), cfg)
 
     return _first_seed(margin_of, VIS_MARGIN)
 
@@ -210,3 +246,49 @@ def vis_check_cfg(base):
         head=dataclasses.replace(base.head, in_channels=64, out_channels=64,
                                  feedforward_channels=256, updator=upd, **split),
         test=dataclasses.replace(base.test, max_per_img=4))
+
+
+NECK_LAYERS = 1  # the check models' deformable encoder depth (the presets' is 6)
+
+
+def shallow_neck(model: torch.nn.Module, num_layers: int = NECK_LAYERS) -> torch.nn.Module:
+    """Keep the first `num_layers` encoder layers of a model's MSDeformAttn
+    pixel decoder (the reference's decoder takes `num_layers`; no config
+    field sets it). A model with another neck is returned as it is."""
+    neck = model.neck
+    if hasattr(neck, "num_encoder_levels"):
+        for i in range(num_layers, neck.num_layers):
+            delattr(neck, f"layer{i}")
+        neck.num_layers = min(num_layers, neck.num_layers)
+    return model
+
+
+def image_check_cfg(base, *, instance: bool = False, deformable: bool = True):
+    """The image slice's check configuration, from `base` (`KNetConfig()` of
+    either package: only field names are read): MiT-b0 under 64-channel
+    heads, 8 proposals, 4 GT slots, the top 4 at decode with the score gate
+    at zero (random weights keep few things otherwise); 3 thing and 2 stuff
+    classes, or with `instance` the COCO instance form (5 thing
+    classes, no stuff rows, the seg branch's sigmoid loss); the
+    MSDeformAttn neck unless `deformable` is off (`image_check_model` cuts
+    its encoder to `NECK_LAYERS`)."""
+    things, stuff = (5, 0) if instance else (3, 2)
+    split = dict(num_classes=things + stuff, num_thing_classes=things, num_stuff_classes=stuff)
+    upd = dataclasses.replace(base.head.updator, in_channels=64, feat_channels=64,
+                              out_channels=64)
+    return dataclasses.replace(
+        base, backbone="mit_b0", num_proposals=8, max_insts=4,
+        num_thing_classes=things, num_stuff_classes=stuff,
+        neck_type="msdeform_pixel_decoder" if deformable else "fpn",
+        rpn=dataclasses.replace(base.rpn, num_proposals=8, in_channels=64, out_channels=64,
+                                fpn_feat_channels=64, cat_stuff_mask=not instance,
+                                seg_use_sigmoid=True, **split),
+        head=dataclasses.replace(base.head, in_channels=64, out_channels=64,
+                                 feedforward_channels=256, updator=upd, **split),
+        test=dataclasses.replace(base.test, max_per_img=4, instance_score_thr=0.0))
+
+
+def image_check_model(cfg: KNetConfig, seed: int, device) -> KNet:
+    """`KNet(cfg)` with weights from `seed`, its deformable encoder (if any)
+    cut to `NECK_LAYERS`."""
+    return shallow_neck(KNet(cfg, generator=torch.Generator().manual_seed(seed), device=device))

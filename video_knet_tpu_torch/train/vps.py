@@ -40,7 +40,8 @@ class VPSBatch(NamedTuple):
 def make_synthetic_gt(cfg: KNetConfig, b: int, hw: tuple[int, int], seed: int = 0,
                       ids_offset: int = 0, device=None) -> PanopticGT:
     """Deterministic synthetic GT, the same numpy draws as the reference's:
-    4 thing rectangles, one stuff class over the rest."""
+    4 thing rectangles, one stuff class over the rest (none when the config
+    has no stuff classes)."""
     device = resolve_device(device)
     h, w = hw
     g, s = cfg.max_insts, cfg.num_stuff_classes
@@ -55,9 +56,10 @@ def make_synthetic_gt(cfg: KNetConfig, b: int, hw: tuple[int, int], seed: int = 
     valid[:, :n_real] = True
     ids = np.where(valid, np.arange(g)[None] + ids_offset, -1).astype(np.int32)
     sem = np.zeros((b, s, h, w), np.float32)
-    sem[:, 0] = 1.0 - masks.max(axis=1)
     sem_valid = np.zeros((b, s), bool)
-    sem_valid[:, 0] = True
+    if s:
+        sem[:, 0] = 1.0 - masks.max(axis=1)
+        sem_valid[:, 0] = True
     return PanopticGT(*(torch.from_numpy(x).to(device)
                         for x in (masks, labels, valid, ids, sem, sem_valid)))
 
