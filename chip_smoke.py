@@ -124,6 +124,30 @@ Phases, each raising on failure (the process then exits non-zero):
  26. vis-deform  the deformable R-50 YouTube-VIS 2019 preset: 3 clips of
                1x5x360x640 served as in `vis`, then 3 train steps as in
                `vis-train` (`vis-deform-train`)
+ 27. trackers  the R-50 preset (score gates at zero, seeded random weights) on
+               the TAO, simple and overlap host trackers, 8 frames of 384x1248
+               each; then the trained tiny model's 12 frames on the four host
+               trackers (unitrack fed the same numpy features on both
+               devices), card against CPU: integer maps and segments equal
+ 28. unitrack  `video_knet_kitti_step_unitrack` on the unitrack tracker, 6
+               frames of 384x1248 with each appearance encoder (ResNet-18,
+               ResNet-50, HRNet-w18 at return stage 2, random): frame ms, the
+               encoder's ms, the `app_feat` bytes a frame and its copy alone
+ 29. fuse-track  `video_knet_kitti_step_fuse_track` served 6 frames on the
+               device tracker (1024-wide state) and on the host tracker (id
+               and semantic maps equal); 3 train steps at 384x1248 (7 / 7 / 1
+               launches, step ms, peak memory, 0 syncs after the first)
+ 30. roi-gt-box  `video_knet_kitti_step_roi_gt_box`, as phase 29, plus
+               `roi_align` at the served shape (the frame's features, its 100
+               predicted masks' boxes), card against CPU (forward and
+               gradient within 1e-5 relative) and its device time; the last
+               stage's link takes no gradient in its steps, as in the
+               reference
+ 31. track-check  the tiny check config (`train_check.track_check_cfg`) with
+               each head, card against CPU: the test step's outputs within
+               1e-4 relative; one train step's assignments equal, losses
+               within 1e-4, gradients within 1e-3 of each leaf's scale, the
+               CPU replaying the card's ReLU decisions
 Every VPS serving phase resets the launch counts just before it drives its
 path and requires 4 launches of each kernel a frame (a round for B=2); the
 VIS phases require their own counts a clip, the image phases 4 an image.
@@ -227,6 +251,17 @@ TOL_IMAGE_CHECK = 1e-4  # card vs CPU, relative to each output's scale
 # another order), and against CPU fp64, where the fp32 rounding of the pixel
 # coordinates (x * 168 - 0.5 carries ~1.5e-5 px) moves the bilinear weights
 TOL_SAMPLING = {"fp32": 1e-6, "fp64": 1e-4}
+# the trackers and track heads slice
+TRACKER_FRAMES = 8
+HOST_TRACKERS = ("tao", "simple", "overlap", "unitrack")
+UNITRACK_FRAMES = 6
+UNITRACK_ENCODERS = (("resnet18", {}), ("resnet50", {}), ("hrnet_w18", {"return_stage": 2}),
+                     ("random", {}))
+HEAD_FRAMES = 6
+HEAD_LOSS_KEYS = {"query_fuse": {"loss_match"},
+                  "roi_gt_box": {"loss_track_roi", "loss_track_roi_aux"}}
+TOL_ROI_ALIGN = 1e-5  # card vs CPU, relative (the gradient's atomics sum in another order)
+TOL_TRACK_CHECK = 1e-4  # card vs CPU, relative to each output's scale
 
 
 def log(msg: str) -> None:
@@ -1719,6 +1754,313 @@ def phase_vis_deform(device, paths: Paths) -> dict:
     return dict(serve=serve, train=train)
 
 
+class _NumpyFeatures:
+    """appearance_fn of the card-vs-CPU unitrack check: the same seeded numpy
+    features a frame on both devices (a 64x96 frame's stride-8 map)."""
+
+    def __init__(self):
+        self.rng = np.random.RandomState(SEED)
+
+    def __call__(self, img):
+        return self.rng.randn(1, 8, 12, 16).astype(np.float32)
+
+
+def _track_counts(results) -> list:
+    return [len(np.unique(r.track_map[r.track_map > 0])) for r in results]
+
+
+def phase_trackers(device, paths: Paths) -> None:
+    """The R-50 release preset (score gates at zero, seeded random weights)
+    on the TAO, simple and overlap host trackers, 8 frames of 384x1248 each;
+    then the trained tiny model on the four host trackers (unitrack fed the
+    same numpy features on both devices), card against CPU: integer maps and
+    segments equal, segment scores within 1e-4."""
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+
+    cfg = smoke_config()
+    model = smoke_model(cfg, device)
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, TRACKER_FRAMES)]
+    for tracker_type in ("tao", "simple", "overlap"):
+        path = f"trackers-{tracker_type}"
+        pipe = VPSInferencePipeline(model, cfg, SERVE_HW, tracker_type=tracker_type,
+                                    device=device)
+        res = paths.drive(path, lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                          list(range(TRACKER_FRAMES)))
+        _check_maps(path, res, SERVE_HW)
+        log(f"[{path}] things per frame {[sum(s['isthing'] for s in r.segments_info) for r in res]}"
+            f"; track ids per frame {_track_counts(res)}")
+    del model
+    cpu = torch.device("cpu")
+    models = [tg.tiny_model(device), tg.tiny_model(cpu)]
+    tframes = tg.eval_frames()
+    idx = list(range(tg.N_FRAMES))
+    for tracker_type in HOST_TRACKERS:
+        runs = []  # card, then CPU
+        for dev, tiny in zip((device, cpu), models):
+            pipe = VPSInferencePipeline(
+                tiny, tg.tiny_cfg(), tg.HW, tracker_type=tracker_type, device=dev,
+                appearance_fn=_NumpyFeatures() if tracker_type == "unitrack" else None)
+            run = lambda i: pipe.run_frame(tframes[i], is_first=(i == 0))  # noqa: E731
+            res = (paths.drive(f"trained-{tracker_type}", run, idx) if not runs
+                   else [run(i) for i in idx])
+            runs.append(tg.flatten_results(res))
+        g, c = runs
+        for k, want in c.items():
+            same = (np.allclose(g[k], want, atol=1e-4) if k.startswith("seg_score_")
+                    else np.array_equal(g[k], want))
+            if not same:
+                raise AssertionError(f"[trained-{tracker_type}] card and CPU differ at {k}")
+        log(f"[trained-{tracker_type}] card equals CPU on every integer field of "
+            f"{tg.N_FRAMES} frames; track-id spans {tg.track_id_spans(g)}")
+
+
+def phase_unitrack(device, paths: Paths) -> dict:
+    """`video_knet_kitti_step_unitrack` (R-50, no linking; score gates at
+    zero, seeded random weights) on the unitrack tracker, 6 frames of
+    384x1248 with each appearance encoder: frame ms, the encoder's ms (CUDA
+    events around eager calls), the `app_feat` bytes a frame and its copy to
+    the host alone."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.video.appearance import (
+        make_appearance_fn,
+        make_appearance_model,
+    )
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+    from video_knet_tpu_torch.utils.tree import to_host
+
+    cfg = smoke_config(get_config("video_knet_kitti_step_unitrack"))
+    if cfg.link_previous:
+        raise AssertionError("[unitrack] the preset links kernels")
+    model = smoke_model(cfg, device)
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, UNITRACK_FRAMES)]
+    out = {}
+    for name, kw in UNITRACK_ENCODERS:
+        path = f"unitrack-{name}"
+        fn = make_appearance_fn(make_appearance_model(name, device=device, **kw))
+        feat = fn(frames[0])
+        h, w = SERVE_HW[0] // 8, SERVE_HW[1] // 8
+        if feat.shape[:3] != (1, h, w) or not bool(torch.isfinite(feat).all()):
+            raise AssertionError(f"[{path}] features of shape {tuple(feat.shape)}")
+        pipe = VPSInferencePipeline(model, cfg, SERVE_HW, tracker_type="unitrack",
+                                    device=device, appearance_fn=fn)
+        res = paths.drive(path, lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                          list(range(UNITRACK_FRAMES)))
+        _check_maps(path, res, SERVE_HW)
+        enc_ms = _event_ms(lambda: fn(frames[0]))
+        fetch = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            to_host({"app_feat": feat})
+            fetch.append((time.perf_counter() - t0) * 1e3)
+        rec = dict(frame_ms=statistics.median(paths.frame_ms[path][1:]), encoder_ms=enc_ms,
+                   app_feat_shape=list(feat.shape), app_feat_bytes=feat.numel() * 4,
+                   fetch_ms=statistics.median(fetch[1:]))
+        out[name] = rec
+        log(f"[{path}] {json.dumps(rec)}; track ids per frame {_track_counts(res)}")
+    del model
+    return out
+
+
+def _roi_align_record(device, x_feats, probs) -> dict:
+    """`roi_align` at the served shape (the frame's fused features and its
+    predicted masks' boxes): card against CPU, forward and gradient; its
+    device time beside the bytes bound."""
+    from video_knet_tpu_torch.models.video.roi_track_head import masks_to_boxes
+    from video_knet_tpu_torch.ops.sampling import roi_align
+    from video_knet_tpu_torch.tools.kernel_timing import device_ms
+
+    feat = x_feats[0].detach().float()
+    boxes = masks_to_boxes(probs[0].float())
+    scale = feat.shape[1] / probs.shape[-1]
+    weight = torch.randn((boxes.shape[0], 7, 7, feat.shape[-1]),
+                         generator=torch.Generator().manual_seed(SEED))
+    got = []  # card, then CPU
+    for dev in (device, torch.device("cpu")):
+        f = feat.to(dev).clone().requires_grad_()
+        y = roi_align(f, boxes.to(dev), spatial_scale=scale)
+        (y * weight.to(dev)).sum().backward()
+        got.append((y.detach().cpu(), f.grad.cpu()))
+    errs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-12)) for a, b in zip(*got)]
+    with torch.no_grad():
+        ms = device_ms(lambda: roi_align(feat, boxes, spatial_scale=scale))
+    # the samples gathered (4 corners of 2x2 points a bin) and the output
+    io_bytes = 4 * (boxes.shape[0] * 49 * 16 * feat.shape[-1] + boxes.shape[0] * 49
+                    * feat.shape[-1] + boxes.numel())
+    rec = dict(shape=[list(feat.shape), list(boxes.shape)], max_rel_err=errs[0],
+               grad_max_rel_err=errs[1], ms=ms, bound_ms=io_bytes / HBM_BYTES_PER_S * 1e3,
+               empty_boxes=int((boxes == 0).all(dim=1).sum()))
+    log(f"[roi-align] {json.dumps(rec)} (limit {TOL_ROI_ALIGN})")
+    if not max(errs) <= TOL_ROI_ALIGN:
+        raise AssertionError(f"[roi-align] card and CPU disagree: {errs}")
+    return rec
+
+
+def phase_track_head(device, paths: Paths, name: str, tag: str) -> dict:
+    """A track-head preset (`video_knet_kitti_step_fuse_track` or
+    `_roi_gt_box`; R-50): 6 frames of 384x1248 served on the device tracker
+    (state as wide as the embeddings) and on the host tracker (id and
+    semantic maps equal), score gates at zero; then 3 train steps of the
+    preset at 384x1248 (7 / 7 / 1 launches, 0 syncs after the first; the
+    RoI head leaves the last stage's link without a gradient, as the
+    reference does)."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.video.inference import (
+        VPSInferencePipeline,
+        _track_embed_dim,
+    )
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    preset = get_config(name)
+    head = preset.track_head_type
+    cfg = smoke_config(preset)
+    model = smoke_model(cfg, device)
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, HEAD_FRAMES)]
+    width = _track_embed_dim(cfg)
+    res = {}
+    for tracker_type, path in (("quasi_dense", tag), ("quasi_dense_host", f"{tag}-host")):
+        pipe = VPSInferencePipeline(model, cfg, SERVE_HW, tracker_type=tracker_type,
+                                    device=device)
+        res[path] = paths.drive(path, lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                                list(range(HEAD_FRAMES)))
+        _check_maps(path, res[path], SERVE_HW)
+        if pipe.device_tracker and (pipe.track_state.embeds.shape[1] != width or
+                                    not bool(torch.isfinite(pipe.track_state.embeds).all())):
+            raise AssertionError(f"[{path}] tracker state {tuple(pipe.track_state.embeds.shape)}")
+        log(f"[{path}] track ids per frame {_track_counts(res[path])}")
+    for i, (a, b) in enumerate(zip(res[f"{tag}-host"], res[tag])):
+        agree = _agreement(a, b)
+        if agree["panoptic_seg"] != 1.0 or agree["semantic_map"] != 1.0:
+            raise AssertionError(f"[{tag}-host] frame {i} disagrees with the device tracker")
+    with torch.no_grad():
+        out = model.test_step(frames[0], pipe.prev_obj_feats, True)
+    emb = out["track_embeds"]
+    if tuple(emb.shape) != (1, cfg.num_proposals, width) or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"[{tag}] track embeddings {tuple(emb.shape)}")
+    rec = {"embed_width": width, "state_width": width}
+    if head == "roi_gt_box":
+        probs = torch.sigmoid(out["stage_outs"][-1].scaled_mask_preds[:, :cfg.num_proposals])
+        rec["roi_align"] = _roi_align_record(device, out["rpn_out"].x_feats, probs)
+    del model, out
+
+    state = _train_model(preset, device)
+    tmodel = state.model
+    batches = [make_synthetic_batch(preset, 1, TRAIN_HW, seed=i, device=device)
+               for i in range(TRAIN_STEPS)]
+    frozen, trainable = _frozen_split(f"{tag}-train", tmodel)
+    # the RoI head embeds GT boxes, not the linked kernels: the last stage's
+    # link takes no gradient (nor does it in the reference)
+    last = f"mask_head_{preset.num_stages - 1}."
+    unused = [(n, p) for n, p in trainable if head == "roi_gt_box" and n.startswith(last)
+              and "previous" in n]
+    trainable = [(n, p) for n, p in trainable if n not in dict(unused)]
+    keys = TRAIN_LOSS_KEYS - {"loss_track", "loss_track_aux"} | HEAD_LOSS_KEYS[head]
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    train = _timed_steps(f"{tag}-train", step, batches, TRAIN_LAUNCHES,
+                         lambda got: got == keys | {"total_loss"})
+    _check_trained(f"{tag}-train", tmodel, frozen, trainable)
+    if any(p.grad is not None and float(p.grad.abs().max()) != 0.0 for _, p in unused):
+        raise AssertionError(f"[{tag}-train] the unused link took a gradient")
+    paths.launches[f"{tag}-train"] = train["launches"]
+    paths.frame_ms[f"{tag}-train"] = train["step_ms"]
+    log(f"[{tag}-train] {len(unused)} link parameters without a gradient (as the reference)")
+    del state, tmodel
+    rec.update(frame_ms={p: statistics.median(paths.frame_ms[p][1:]) for p in res},
+               train=train)
+    return rec
+
+
+def phase_track_check(device, paths: Paths) -> dict:
+    """The tiny check config (`train_check.track_check_cfg`: MiT-b0,
+    64-channel heads) with each of the two heads, weights from
+    `margin_seed`, card against CPU: the test step's outputs within 1e-4
+    relative; one train step's assignments equal, losses within 1e-4,
+    gradients within 1e-3 of each leaf's scale, the CPU replaying the card's
+    ReLU decisions."""
+    from video_knet_tpu_torch.models.knet import solve_lanes
+    from video_knet_tpu_torch.models.video.knet_vps import (
+        VideoKNet,
+        video_knet_costs,
+        video_knet_loss,
+    )
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch
+
+    worst = {}
+    for head in ("query_fuse", "roi_gt_box"):
+        cfg = train_check.track_check_cfg(tg.tiny_cfg(), head)
+        seed, margin = train_check.margin_seed(cfg, CHECK_HW)
+        runs, pattern = [], []  # card, then CPU
+        for dev in (device, torch.device("cpu")):
+            model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+            batch = make_synthetic_batch(cfg, 1, CHECK_HW, seed=0, device=dev)
+            prev = torch.zeros((1, cfg.num_proposals + cfg.num_stuff_classes, 1,
+                                cfg.head.in_channels), device=dev)
+            _reset_counts()
+            with torch.no_grad():
+                out = model.test_step(batch.img, prev, True)
+            fwd = _counts()
+            _reset_counts()
+            with train_check.relu_pattern(pattern, replay=bool(runs)) as relus:
+                key, ref, ke, re = model.forward_train(batch.img, batch.ref_img, None,
+                                                       batch.gt.masks, batch.ref_gt.masks)
+            losses = video_knet_loss((key, ref), (ke, re), batch.gt, batch.ref_gt, cfg)
+            sum(losses.values()).backward()
+            step = _counts()
+            g2p, p2g = solve_lanes(*video_knet_costs(key, ref, batch.gt, batch.ref_gt, cfg))
+            last = out["stage_outs"][-1]
+            runs.append(dict(
+                outs={k: v.detach().cpu() for k, v in (
+                    ("cls", last.cls_score), ("masks", last.mask_preds),
+                    ("track_embeds", out["track_embeds"]), ("key_embeds", ke),
+                    ("ref_embeds", re))},
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                g2p=torch.cat(g2p).cpu(), p2g=torch.cat(p2g).cpu(), grads=_grads(model),
+                fwd=fwd, step=step))
+        g, c = runs
+        if {k: g["fwd"][k] for k in KERNELS} != {"mask_pool": 4, "assemble": 4} or \
+                g["step"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"[track-check] {head}: card launches {g['fwd']}, {g['step']}")
+        paths.launches[f"track-check-{head}"] = {k: g["fwd"][k] + g["step"][k]
+                                                 for k in g["step"]}
+        w = {"outs": max(float((g["outs"][k] - v).abs().max() / v.abs().max().clamp(min=1e-6))
+                         for k, v in c["outs"].items())}
+        if not w["outs"] <= TOL_TRACK_CHECK:
+            raise AssertionError(f"[track-check] {head}: outputs differ by {w['outs']}")
+        if not (torch.equal(g["g2p"], c["g2p"]) and torch.equal(g["p2g"], c["p2g"])):
+            raise AssertionError(f"[track-check] {head}: assignments differ")
+        w["losses"] = max(abs(g["losses"][k] - v) / max(abs(v), 1e-6)
+                          for k, v in c["losses"].items())
+        if set(g["losses"]) != set(c["losses"]) or not w["losses"] <= 1e-4:
+            raise AssertionError(f"[track-check] {head}: losses differ by {w['losses']}")
+        w["grads"] = 0.0
+        for k, want in c["grads"].items():
+            scale = float(want.abs().max())
+            if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+                scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+            err = float((g["grads"][k] - want).abs().max())
+            w["grads"] = max(w["grads"], err / max(scale, 1e-12))
+            if not err <= 1e-3 * max(scale, 1e-12):
+                raise AssertionError(f"[track-check] {head}: gradient of {k}: {err} vs {scale}")
+        log(f"[track-check] {head}: weight seed {seed} (margin {margin:.2e}); outputs within "
+            f"{w['outs']:.2e} (limit {TOL_TRACK_CHECK}), assignments equal, losses within "
+            f"{w['losses']:.2e}, gradients within {w['grads']:.2e} of each leaf's scale, the "
+            f"CPU on the card's decisions at {relus['calls']} ReLUs ({relus['differ']} elements "
+            f"decided otherwise); card launches {g['fwd']} + {g['step']}")
+        worst[head] = w
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1769,10 +2111,16 @@ def main() -> int:
     image_train = phase_image_train(device, paths)
     image_check = phase_image_check(device, paths)
     vis_deform = phase_vis_deform(device, paths)
+    phase_trackers(device, paths)
+    unitrack = phase_unitrack(device, paths)
+    fuse = phase_track_head(device, paths, "video_knet_kitti_step_fuse_track", "fuse-track")
+    roi = phase_track_head(device, paths, "video_knet_kitti_step_roi_gt_box", "roi-gt-box")
+    track_check = phase_track_check(device, paths)
     for rec in kernels:
         rec["launches_by_path"].update(
             {p: c[rec["name"]] for p, c in paths.launches.items()
-             if p.startswith(("vis", "image")) and rec["name"] in c})
+             if p.startswith(("vis", "image", "trackers", "trained-", "unitrack", "fuse-track",
+                              "roi-gt-box", "track-check")) and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
     log(f"[train-swin] median step {train_swin['median_ms']:.2f} ms, peak memory "
@@ -1797,6 +2145,14 @@ def main() -> int:
         f"{vis_deform['train']['median_ms']:.2f} ms, peak memory "
         f"{vis_deform['train']['peak_bytes']} bytes, host syncs a step "
         f"{vis_deform['train']['syncs']} ({card})")
+    log(f"[unitrack] {json.dumps(unitrack)} ({card})")
+    for tag, rec in (("fuse-track", fuse), ("roi-gt-box", roi)):
+        log(f"[{tag}] frame ms {json.dumps(rec['frame_ms'])}; state width "
+            f"{rec['state_width']}; median step {rec['train']['median_ms']:.2f} ms, peak memory "
+            f"{rec['train']['peak_bytes']} bytes, host syncs a step {rec['train']['syncs']} "
+            f"({card})")
+    log(f"[roi-align] {json.dumps(roi['roi_align'])} ({card})")
+    log(f"[track-check] worst card-vs-CPU: {json.dumps(track_check)}")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

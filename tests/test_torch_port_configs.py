@@ -12,12 +12,16 @@ dataset configs and `build_backbone`'s names.
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
 from video_knet_tpu import config as jc
 from video_knet_tpu import configs as jconfigs
 from video_knet_tpu.config_vis import VISConfig
+from video_knet_tpu.models.video.knet_vps import QueryTrackEmbed as JQueryTrackEmbed
+from video_knet_tpu.models.video.roi_track_head import ROITrackHead as JROITrackHead
 from video_knet_tpu_torch import config as tc
 from video_knet_tpu_torch import config_vis as tc_vis
 from video_knet_tpu_torch import configs as tconfigs
@@ -26,16 +30,18 @@ from video_knet_tpu_torch.models.knet import KNet
 from video_knet_tpu_torch.models.msdeform_decoder import MSDeformAttnPixelDecoder
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
 from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
+from video_knet_tpu_torch.utils.convert import state_dict_to_flax
 
 torch.set_num_threads(1)  # one intra-op thread a worker, as tests/torch_port_common.py
 
 VIS = sorted(k for k, f in jconfigs.CONFIGS.items() if isinstance(f(), VISConfig))
 NON_VIS = sorted(set(jconfigs.CONFIGS) - set(VIS))
 # the presets VideoKNet does not build: the image ones (KNet builds them,
-# but for RFP / DetectoRS, E1) and the other track heads (E3)
-UNPORTED = sorted({k for k in NON_VIS if not isinstance(jconfigs.get_config(k),
-                                                        jc.VideoKNetConfig)}
-                  | {"video_knet_kitti_step_fuse_track", "video_knet_kitti_step_roi_gt_box"})
+# but for RFP / DetectoRS, E1)
+UNPORTED = sorted(k for k in NON_VIS if not isinstance(jconfigs.get_config(k),
+                                                       jc.VideoKNetConfig))
+TRACK_HEAD_PRESETS = {"video_knet_kitti_step_fuse_track": "query_fuse",
+                      "video_knet_kitti_step_roi_gt_box": "roi_gt_box"}
 
 
 def test_registry_has_every_name():
@@ -101,10 +107,6 @@ def test_unported_preset_raises_at_model_construction(name):
     instead (with the neck its config names), but for the RFP / DetectoRS
     backbones, which raise naming E1."""
     cfg = tconfigs.get_config(name)
-    if isinstance(cfg, tc.VideoKNetConfig):
-        with pytest.raises(NotImplementedError, match="ROADMAP E3"):
-            VideoKNet(cfg, device="cpu")
-        return
     with pytest.raises(NotImplementedError, match="models.knet.KNet"):
         VideoKNet(cfg, device="cpu")
     if cfg.backbone in ("detectors_r50", "swin_b_rfp"):
@@ -116,6 +118,30 @@ def test_unported_preset_raises_at_model_construction(name):
     assert isinstance(model.neck, MSDeformAttnPixelDecoder) == deformable
     assert model.rpn_head.conv_seg.weight.shape[0] == cfg.num_classes
     assert model.roi_head.num_stages == cfg.num_stages == 3
+
+
+@pytest.mark.parametrize("name", sorted(TRACK_HEAD_PRESETS))
+def test_track_head_preset_builds_with_jax_shapes(name):
+    """The fuse-track and RoI GT-box presets build on the CPU; every leaf of
+    the track head has the shape of JAX's init of the same head."""
+    cfg = tconfigs.get_config(name)
+    assert cfg.track_head_type == TRACK_HEAD_PRESETS[name]
+    model = VideoKNet(cfg, device="cpu")
+    if cfg.track_head_type == "query_fuse":
+        prefix = "params/track_embed/"
+        jhead = JQueryTrackEmbed(cfg.track.in_channels, cfg.track.query_fc_out_channels)
+        args = (jnp.zeros((1, cfg.num_proposals, cfg.head.in_channels)),)
+    else:
+        prefix = "params/roi_track_head/"
+        jhead = JROITrackHead(cfg.track.embed_channels)
+        args = (jnp.zeros((1, 48, 156, cfg.rpn.out_channels)),
+                jnp.zeros((1, cfg.max_insts, 4)), 0.5)
+    shapes = jax.eval_shape(jhead.init, jax.random.PRNGKey(0), *args)["params"]
+    want = {f"{prefix}{'/'.join(k.key for k in path)}": tuple(v.shape)
+            for path, v in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    got = {k: tuple(v.shape) for k, v in state_dict_to_flax(model, model.state_dict()).items()
+           if k.startswith(prefix)}
+    assert got == want and len(want) == (4 if cfg.track_head_type == "query_fuse" else 20)
 
 
 def test_build_backbone_names():

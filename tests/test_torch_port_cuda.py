@@ -407,3 +407,66 @@ def test_ms_deform_attn_core_on_the_card_matches_the_cpu(dev):
                     + [v.grad.cpu() for v in vs])
     for i, (a, b) in enumerate(zip(*runs)):
         _close(a, b, 1e-6 if i == 0 else 1e-5)
+
+
+def test_roi_align_on_the_card_matches_the_cpu(dev):
+    """`roi_align` (plain PyTorch gathers) at the RoI head's serve shape: 100
+    boxes (some across the edges, some off the map, some empty) over a
+    96x312 mask grid, sampled from 48x156x256 features; and its gradient."""
+    from video_knet_tpu_torch.ops.sampling import roi_align
+
+    rng = np.random.RandomState(0)
+    feat = rng.randn(48, 156, 256).astype(np.float32)
+    xy = rng.uniform(-20, 320, (100, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(0, 80, (100, 2))], axis=1).astype(np.float32)
+    rois[:5] = 0.0
+    weight = torch.from_numpy(rng.randn(100, 7, 7, 256).astype(np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        f = torch.from_numpy(feat).to(d).requires_grad_()
+        y = roi_align(f, torch.from_numpy(rois).to(d), spatial_scale=0.5)
+        (y * weight.to(d)).sum().backward()
+        out[d.type] = (y.detach().cpu(), f.grad.cpu())
+    _close(out["cuda"][0], out["cpu"][0])
+    _close(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("head", ["query_fuse", "roi_gt_box"])
+def test_track_heads_on_the_card_match_the_cpu(dev, head):
+    """The tiny check config with the fuse-track or RoI GT-box head
+    (`train_check.track_check_cfg`, margin-seed weights): the test step's
+    track embeddings and logits on the card within 1e-4 of the CPU's scale,
+    4 launches of each mask kernel; the train forward's embeddings too, 7
+    launches of each (no ReLU replay: the train forward's embeddings sit
+    behind the heads' ReLUs, whose inputs the margin seed keeps clear here)."""
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch
+    from video_knet_tpu_torch.utils.device import set_fp32_numerics
+
+    set_fp32_numerics()  # cuDNN's convolutions in fp32, as the entry points hold them
+    cfg = train_check.track_check_cfg(tg.tiny_cfg(), head)
+    seed, _ = train_check.margin_seed(cfg, (64, 96))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device=d)
+        batch = make_synthetic_batch(cfg, 1, (64, 96), seed=0, device=d)
+        prev = torch.zeros((1, cfg.num_proposals + cfg.num_stuff_classes, 1, 64), device=d)
+        mo.reset_launch_counts()
+        with torch.no_grad():
+            out = model.test_step(batch.img, prev, True)
+        if d.type == "cuda":
+            assert mo.LAUNCHES == {"mask_pool": 4, "assemble": 4}
+        mo.reset_launch_counts()
+        with torch.no_grad():
+            _, _, ke, re = model.forward_train(batch.img, batch.ref_img, None, batch.gt.masks,
+                                               batch.ref_gt.masks)
+        if d.type == "cuda":
+            assert mo.LAUNCHES == {"mask_pool": 7, "assemble": 7}
+        runs[d.type] = [x.cpu() for x in (out["track_embeds"], out["stage_outs"][-1].cls_score,
+                                          out["stage_outs"][-1].mask_preds, ke, re)]
+    for name, g, c in zip(("track_embeds", "cls", "masks", "key_embeds", "ref_embeds"),
+                          runs["cuda"], runs["cpu"]):
+        err = float((g - c).abs().max() / c.abs().max().clamp(min=1e-6))
+        assert err <= 1e-4, (head, name, err)

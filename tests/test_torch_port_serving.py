@@ -172,7 +172,7 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("change", [
     dict(backbone="swin_b_rfp"),
     dict(head=tc.KernelUpdateHeadConfig(mask_upsample_stride=4, conv_kernel_size=3)),
-    dict(track_head_type="roi_gt_box"), dict(track_head_type="query_fuse"),
+    dict(backbone="detectors_r50"), dict(backbone="resnet18"),
 ])
 def test_unported_model_options_raise(change):
     with pytest.raises(NotImplementedError):
@@ -180,11 +180,13 @@ def test_unported_model_options_raise(change):
 
 
 def test_unported_serving_options_raise(golden_setup):
+    """An unknown tracker_type raises ValueError, as the reference's
+    `_make_tracker` does (every tracker of the reference is ported)."""
     cfg, model = golden_setup["cfg"], golden_setup["model"]
-    with pytest.raises(NotImplementedError):
-        VPSInferencePipeline(model, cfg, HW, tracker_type="tao", device="cpu")
-    with pytest.raises(NotImplementedError):
-        MultiStreamVPSPipeline(model, cfg, HW, 2, tracker_type="unitrack", device="cpu")
+    with pytest.raises(ValueError, match="tracker_type"):
+        VPSInferencePipeline(model, cfg, HW, tracker_type="deep_sort", device="cpu")
+    with pytest.raises(ValueError, match="tracker_type"):
+        MultiStreamVPSPipeline(model, cfg, HW, 2, tracker_type="bytetrack", device="cpu")
     # the aligned SFNet head is not ported (ROADMAP E2b); the MSDeformAttn
     # neck, once the unported neck here, is (tests/test_torch_port_image.py)
     with pytest.raises(NotImplementedError, match="ROADMAP E2b"):
@@ -192,13 +194,17 @@ def test_unported_serving_options_raise(golden_setup):
             cfg.rpn, fpn_type="upernet_align")), device="cpu")
 
 
-# the modules of the training and Swin slices, which the guard must find and import
+# the modules of the later slices (training, Swin, VIS, image, the trackers
+# and track heads), which the guard must find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
                        "tools.train_check", "models.swin", "configs", "utils.torch_import",
                        "config_vis", "models.vis.clip_head", "models.vis.volume_head",
                        "models.vis.knet_vis", "train.vis", "ops.sampling",
-                       "models.msdeform_decoder", "train.image")
+                       "models.msdeform_decoder", "train.image",
+                       "models.video.roi_track_head", "models.video.tracker_variants",
+                       "models.video.tao_tracker", "models.video.unitrack",
+                       "models.video.appearance", "models.video.hrnet")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

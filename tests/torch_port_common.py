@@ -8,6 +8,7 @@ and its port; weights go from the flax variables to the port through
 from __future__ import annotations
 
 import functools
+import re
 from unittest import mock
 
 import jax
@@ -93,14 +94,18 @@ def jax_step_costs(key, ref, gt, ref_gt, cfg):
 
 # the input of every ReLU of the heads and necks, by its owner: a
 # ConvNormAct's GroupNorm, an MLP layer's LayerNorm, a KernelUpdator's
-# fc_norm, an FFN's Dense_0, a deformable encoder layer's ffn1 (the same
-# names in both packages)
+# fc_norm, an FFN's Dense_0, a deformable encoder layer's ffn1, the RoI
+# track head's GroupNorms and hidden fc, the query track head's fc0 (the
+# same names in both packages)
 def _pre_relu(owner: str, name: str) -> bool:
     return ((owner == "ConvNormAct" and name == "GroupNorm_0")
             or (owner == "MLP" and name.startswith("LayerNorm_"))
             or (owner == "KernelUpdator" and name == "fc_norm")
             or (owner == "FFN" and name == "Dense_0")
-            or (owner == "DeformAttnEncoderLayer" and name == "ffn1"))
+            or (owner == "DeformAttnEncoderLayer" and name == "ffn1")
+            or (owner == "ROITrackHead" and (name.startswith("gn")
+                                             or re.fullmatch(r"fc\d+", name) is not None))
+            or (owner == "QueryTrackEmbed" and name == "fc0"))
 
 
 def jax_pre_relu(mdl, method: str) -> bool:
@@ -115,7 +120,8 @@ def jax_relu_decisions(intermediates, model: torch.nn.Module, run) -> list:
     `jax_pre_relu`, in the order the port calls its ReLUs during `run()`
     (forward hooks on the port's ReLU inputs), for
     `train_check.relu_pattern(..., replay=True)`; each replayed call checks
-    its shape."""
+    its shape. A module called several times (the VPS stages on the ref and
+    the key branch) takes JAX's calls in their order."""
     order, hooks = [], []
     for name, m in model.named_modules():
         owner = type(model.get_submodule(name.rpartition(".")[0])).__name__ if name else ""
@@ -127,8 +133,12 @@ def jax_relu_decisions(intermediates, model: torch.nn.Module, run) -> list:
         for h in hooks:
             h.remove()
     flat = traverse_util.flatten_dict(intermediates, sep="/")
-    return [torch.from_numpy(np.asarray(flat[name.replace(".", "/") + "/__call__"][0]) > 0)
-            for name in order]
+    seen: dict[str, int] = {}
+    out = []
+    for name in order:
+        i = seen[name] = seen.get(name, -1) + 1
+        out.append(torch.from_numpy(np.asarray(flat[name.replace(".", "/") + "/__call__"][i]) > 0))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,11 +4,13 @@ Own copy of `video_knet_tpu/configs.py`: the same names (the short ones and
 the reference's config file stems) and the same configs. `get_config(name)`
 returns the config. The image presets (`KNetConfig`) build
 `models/knet.py:KNet`, the VPS presets `models/video/knet_vps.py:VideoKNet`
-and the VIS presets `models/vis/knet_vis.py:KNetVIS`, the deformable ones
-with the MSDeformAttn pixel decoder as their neck. What the port cannot
-build yet raises `NotImplementedError` where the model is built, naming its
-ROADMAP item: the RFP / DetectoRS backbones (E1), `query_fuse` and
-`roi_gt_box` (E3).
+(every track head: `kernel_embed`, the fuse-track preset's `query_fuse`, the
+RoI GT-box preset's `roi_gt_box`) and the VIS presets
+`models/vis/knet_vis.py:KNetVIS`, the deformable ones with the MSDeformAttn
+pixel decoder as their neck. The UniTrack preset serves with
+`tracker_type='unitrack'` (`models/video/inference.py`). What the port
+cannot build yet raises `NotImplementedError` where the model is built,
+naming its ROADMAP item: the RFP / DetectoRS backbones (E1).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""Online VPS serving with the quasi-dense tracker, on the device or the host.
+"""Online VPS serving: the quasi-dense tracker on the device, or any of the
+host trackers.
 
-Counterpart of `video_knet_tpu/models/video/inference.py` for the
-`quasi_dense` and `quasi_dense_host` trackers:
+Counterpart of `video_knet_tpu/models/video/inference.py` for every
+`tracker_type` the reference serves:
 
 - device tracker (`quasi_dense` with `fast_decode`): one device step a frame
   runs the forward, linking, panoptic decode, semantic filter, box
@@ -14,6 +15,11 @@ Counterpart of `video_knet_tpu/models/video/inference.py` for the
   `_finish_frame`. With `fast_decode` the payload is compact (the id map at
   merge resolution, embeddings as bf16 on the wire); without it the decode
   runs at `out_hw` with the bilinear upsample before the merge.
+- the other host trackers, on the same payload: `tao` (`tao_tracker.py`),
+  `unitrack` (`unitrack.py`: its embeddings are pooled from a frozen
+  appearance encoder's features, `appearance_fn`, which ride in the frame's
+  payload as `app_feat`; without one it pools nothing and takes the track
+  head's embeddings), `simple` and `overlap` (`tracker_variants.py`).
 - `run_sequence`: windows of W frames enqueued back to back, one
   device->host copy of the stacked payloads a window, drained on worker
   threads while the next window is enqueued.
@@ -39,7 +45,10 @@ from video_knet_tpu_torch.config import VideoKNetConfig
 from video_knet_tpu_torch.models.layers import resize_nearest
 from video_knet_tpu_torch.models.video import device_tracker as dt
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet, vps_decode
+from video_knet_tpu_torch.models.video.tao_tracker import TaoTracker
 from video_knet_tpu_torch.models.video.tracker import QuasiDenseEmbedTracker, masks_to_boxes
+from video_knet_tpu_torch.models.video.tracker_variants import OverlapTracker, SimpleMaskTracker
+from video_knet_tpu_torch.models.video.unitrack import MaskAssociationTracker, mask_pool_embeddings
 from video_knet_tpu_torch.ops.panoptic import PanopticResult, segments_to_host
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 from video_knet_tpu_torch.utils.tree import HostCopy, to_host, tree_index, tree_stack
@@ -47,7 +56,14 @@ from video_knet_tpu_torch.utils.tree import HostCopy, to_host, tree_index, tree_
 # KITTI-STEP: the 2 thing classes sit at indices 11 (person) and 13 (car) of
 # the 19-class cityscapes label space.
 KITTI_STEP_THING_IDS = (11, 13)
-PORTED_TRACKERS = ("quasi_dense", "quasi_dense_host")
+TRACKER_TYPES = ("quasi_dense", "quasi_dense_host", "tao", "unitrack", "simple", "overlap")
+
+
+def _track_embed_dim(cfg: VideoKNetConfig) -> int:
+    """Width of the test-time track embeddings (the device tracker's state)."""
+    if cfg.track_head_type == "query_fuse":
+        return cfg.track.query_fc_out_channels
+    return cfg.track.embed_channels
 
 
 def nearest_resize(arr: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
@@ -57,13 +73,6 @@ def nearest_resize(arr: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     ys = np.clip(((np.arange(oh) + 0.5) * (h / oh)).astype(np.int64), 0, h - 1)
     xs = np.clip(((np.arange(ow) + 0.5) * (w / ow)).astype(np.int64), 0, w - 1)
     return arr[ys][:, xs]
-
-
-def _check_tracker(tracker_type: str) -> None:
-    if tracker_type not in PORTED_TRACKERS:
-        raise NotImplementedError(
-            f"tracker_type={tracker_type!r} is not ported yet (ROADMAP slice F: "
-            "'tao', 'unitrack', 'simple', 'overlap')")
 
 
 def _flags_tensor(is_first, device) -> torch.Tensor:
@@ -296,16 +305,20 @@ class VPSInferencePipeline:
     `run_sequence` over a whole sequence.
 
     tracker_type: 'quasi_dense' (the tracker on the device; with
-    fast_decode=False it runs on the host, as in the reference) or
-    'quasi_dense_host' (the numpy tracker). `device` defaults to CUDA and
-    must be where `model` lives. `step_fn` lets `MultiStreamVPSPipeline`
-    share one batched step; such a pipeline only holds a stream's host state
-    for `_finish_frame`."""
+    fast_decode=False it runs on the host, as in the reference),
+    'quasi_dense_host' (the numpy tracker), 'tao', 'unitrack', 'simple' or
+    'overlap' (host trackers; anything else raises ValueError).
+    `appearance_fn` (with 'unitrack'): img [1, H, W, 3] on the device ->
+    [1, h, w, C] appearance features (`appearance.make_appearance_fn`), which
+    ride in the frame's payload. `device` defaults to CUDA and must be where
+    `model` lives. `step_fn` lets `MultiStreamVPSPipeline` share one batched
+    step; such a pipeline only holds a stream's host state for
+    `_finish_frame`."""
 
     def __init__(self, model: VideoKNet, cfg: VideoKNetConfig, out_hw,
                  thing_ids_in_orig=KITTI_STEP_THING_IDS, tracker_type: str = "quasi_dense",
-                 device: str | torch.device | None = None, step_fn=None):
-        _check_tracker(tracker_type)
+                 device: str | torch.device | None = None, step_fn=None,
+                 appearance_fn=None):
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
         if model_device.type != self.device.type:
@@ -315,6 +328,7 @@ class VPSInferencePipeline:
         self.out_hw = tuple(out_hw)
         self.thing_ids_in_orig = thing_ids_in_orig
         self.tracker_type = tracker_type
+        self.appearance_fn = appearance_fn
         # the device tracker needs the id maps at merge resolution
         # (fast_decode); without it the host tracker takes over
         self.device_tracker = tracker_type == "quasi_dense" and cfg.test.fast_decode
@@ -331,8 +345,19 @@ class VPSInferencePipeline:
         self.reset()
 
     def _make_tracker(self):
-        # with the device tracker the association state is `track_state`
-        return None if self.device_tracker else QuasiDenseEmbedTracker(self.cfg.tracker)
+        if self.device_tracker:
+            return None  # the association state is `track_state`
+        if self.tracker_type in ("quasi_dense", "quasi_dense_host"):
+            return QuasiDenseEmbedTracker(self.cfg.tracker)
+        if self.tracker_type == "tao":
+            return TaoTracker()
+        if self.tracker_type == "unitrack":
+            return MaskAssociationTracker()
+        if self.tracker_type == "overlap":
+            return OverlapTracker()
+        if self.tracker_type == "simple":
+            return SimpleMaskTracker()
+        raise ValueError(f"unknown tracker_type {self.tracker_type!r}; one of {TRACKER_TYPES}")
 
     def reset(self):
         self.tracker = self._make_tracker()
@@ -340,7 +365,7 @@ class VPSInferencePipeline:
         self.frame_id = 0
         if self.device_tracker:
             self.track_state = dt.init_tracker_state(
-                self.cfg.tracker, self.cfg.test.max_per_img, self.cfg.track.embed_channels,
+                self.cfg.tracker, self.cfg.test.max_per_img, _track_embed_dim(self.cfg),
                 device=self._zero_obj.device)
 
     def _to_device(self, img) -> torch.Tensor:
@@ -354,6 +379,10 @@ class VPSInferencePipeline:
         else:
             out = self.step(img, self.prev_obj_feats, bool(is_first))
         self.prev_obj_feats = out.pop("new_obj_feats")
+        if self.appearance_fn is not None and self.tracker_type == "unitrack":
+            # rides in the same packed copy as the rest of the payload
+            out["app_feat"] = torch.as_tensor(self.appearance_fn(img), dtype=torch.float32,
+                                              device=img.device)
         return out
 
     def run_frame(self, img, is_first: bool) -> VPSResult:
@@ -463,9 +492,21 @@ class VPSInferencePipeline:
             # boxes in out_hw coordinates (scale-consistent across frames)
             boxes = masks_to_boxes(filt) * np.array([sx, sy, sx, sy])
             bboxes5 = np.concatenate([boxes, scores[:, None]], axis=1)
-            sel, _, ids = self.tracker.match(bboxes5, labels, det_embeds, self.frame_id)
-            ids = ids + 1
-            ids[ids == -1] = 0  # suppressed (-2 + 1) -> 0
+            if self.tracker_type in ("quasi_dense", "quasi_dense_host", "tao"):
+                sel, _, ids = self.tracker.match(bboxes5, labels, det_embeds, self.frame_id)
+                ids = ids + 1
+                ids[ids == -1] = 0  # suppressed (-2 + 1) -> 0
+            elif self.tracker_type == "unitrack":
+                if "app_feat" in host:
+                    # the frozen encoder's features pooled under each
+                    # candidate's mask at merge resolution
+                    det_embeds = mask_pool_embeddings(
+                        np.asarray(host["app_feat"][0], np.float32), filt > 0.5)
+                ids = self.tracker.step(filt.astype(bool), det_embeds, scores)
+                sel = np.arange(len(ids))
+            else:  # simple / overlap
+                ids = self.tracker.step(filt.astype(bool), scores)
+                sel = np.arange(len(ids))
             for src, tid in zip(sel, ids):
                 if tid > 0:
                     track_map[masks[src].astype(bool)] = tid
@@ -498,7 +539,6 @@ class MultiStreamVPSPipeline:
     def __init__(self, model: VideoKNet, cfg: VideoKNetConfig, out_hw, n_streams: int,
                  thing_ids_in_orig=KITTI_STEP_THING_IDS, tracker_type: str = "quasi_dense",
                  host_workers: int = 0, device: str | torch.device | None = None):
-        _check_tracker(tracker_type)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n = n_streams
@@ -508,7 +548,7 @@ class MultiStreamVPSPipeline:
             self.step = make_device_tracker_frame_step(model, cfg, out_hw, thing_ids_in_orig,
                                                        batched=True)
             one = dt.init_tracker_state(cfg.tracker, cfg.test.max_per_img,
-                                        cfg.track.embed_channels, device=self.device)
+                                        _track_embed_dim(cfg), device=self.device)
             self.track_state = tree_stack([one] * n_streams)
         else:
             self.step = make_frame_step(model, cfg, out_hw, batched=True,

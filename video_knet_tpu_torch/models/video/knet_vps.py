@@ -2,15 +2,24 @@
 test step and its decode.
 
 Counterpart of `video_knet_tpu/models/video/knet_vps.py` (`TrackEmbed`,
-`VideoKNet.__call__` as `forward_train`, `extract_feat` / `run_branch` /
-`test_step`, `_track_loss_one`, `video_knet_loss`, `vps_decode`), for
-`track_head_type='kernel_embed'`.
+`QueryTrackEmbed`, `VideoKNet.__call__` as `forward_train`, `extract_feat` /
+`run_branch` / `test_step` / `_roi_embed`, `_track_loss_one`,
+`_query_match_loss_one`, `video_knet_loss`, `vps_decode`), for every
+`track_head_type`:
+
+- `kernel_embed` (the release head): the final kernels are embedded by
+  `TrackEmbed` and supervised with MultiPosCE and the L2 auxiliary loss on
+  instance-id matches;
+- `query_fuse` (the fuse-track ablation): `QueryTrackEmbed`'s 1024-wide
+  query embeddings, supervised with the match-score cross entropy against
+  the reference kernels (a leading "new object" column);
+- `roi_gt_box` (the RoI / GT-box ablation): `roi_track_head.ROITrackHead`
+  RoIAligns the fused features at GT-mask boxes (train, GT-slot aligned) or
+  at the predicted masks' boxes (test).
 
 Train: the key frame and one reference frame share one backbone, neck and
 init-head pass over [ref; key]; the ref stages run plain, the key stages
-link their last stage to the ref branch's final kernels (not detached). The
-final kernels of both branches are embedded and supervised with MultiPosCE
-and the L2 auxiliary loss on instance-id matches.
+link their last stage to the ref branch's final kernels (not detached).
 
 Test: per frame the carried state is the previous frame's final kernels.
 Linking is always computed (against zeros on a first frame) and `is_first`
@@ -41,6 +50,11 @@ from video_knet_tpu_torch.models.knet import (
     solve_lanes,
 )
 from video_knet_tpu_torch.models.layers import init_parameters
+from video_knet_tpu_torch.models.video.roi_track_head import (
+    ROITrackHead,
+    masks_to_boxes,
+    roi_track_loss,
+)
 from video_knet_tpu_torch.ops import losses as L
 from video_knet_tpu_torch.ops.targets import PanopticGT, gather_rows
 from video_knet_tpu_torch.utils.device import resolve_device
@@ -73,6 +87,20 @@ class TrackEmbed(nn.Module):
         return self.track_fc_embed(y)
 
 
+class QueryTrackEmbed(nn.Module):
+    """The fuse-track head's per-kernel MLP: Linear(C) + ReLU, Linear(1024).
+    The match score against the reference kernels has no parameters and
+    lives in the loss (`_query_match_loss_one`) and the tracker."""
+
+    def __init__(self, in_channels: int = 256, channels: int = 256, out_channels: int = 1024):
+        super().__init__()
+        self.fc0 = nn.Linear(in_channels, channels)
+        self.fc1 = nn.Linear(channels, out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc1(F.relu(self.fc0(x)))
+
+
 class VideoKNet(nn.Module):
     """The VPS model. Weights come from a seeded `generator` (flax's default
     initializers) or, after construction, from `utils/convert.py`.
@@ -88,9 +116,8 @@ class VideoKNet(nn.Module):
             raise NotImplementedError(
                 f"{type(cfg).__name__} is an image K-Net config: build it with "
                 f"video_knet_tpu_torch.models.knet.KNet")
-        if cfg.track_head_type != "kernel_embed":
-            raise NotImplementedError(
-                f"track_head_type={cfg.track_head_type!r} is not ported yet (ROADMAP E3)")
+        if cfg.track_head_type not in ("kernel_embed", "query_fuse", "roi_gt_box"):
+            raise ValueError(f"unknown track_head_type {cfg.track_head_type!r}")
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
                                        drop_path_rate=cfg.backbone_drop_path_rate)
@@ -104,8 +131,14 @@ class VideoKNet(nn.Module):
                 previous_type=cfg.previous_type,
                 previous_link=cfg.previous_link,
             ))
-        self.track_embed = TrackEmbed(cfg.track.in_channels, cfg.track.embed_channels,
-                                      cfg.track.num_fcs)
+        t = cfg.track
+        if cfg.track_head_type == "query_fuse":
+            self.track_embed = QueryTrackEmbed(t.in_channels, t.in_channels,
+                                               t.query_fc_out_channels)
+        elif cfg.track_head_type == "roi_gt_box":
+            self.roi_track_head = ROITrackHead(cfg.rpn.out_channels, t.embed_channels)
+        else:
+            self.track_embed = TrackEmbed(t.in_channels, t.embed_channels, t.num_fcs)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_parameters(self, generator)
@@ -145,14 +178,19 @@ class VideoKNet(nn.Module):
         return BranchOutput(rpn_out, outs, obj_track)
 
     def forward_train(self, img: torch.Tensor, ref_img: torch.Tensor,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      gt_masks: torch.Tensor | None = None,
+                      ref_gt_masks: torch.Tensor | None = None):
         """Joint train forward: one backbone / neck / init-head pass over
         [ref; key], the ref stages plain, the key stages linked to the ref
         branch's final kernels (gradients flow through both). `generator`
         draws the backbone's stochastic depth (`extract_feat`).
 
         Returns (key, ref, key_embeds, ref_embeds); the embeddings cover all
-        N proposals ([B, N, D]; the loss gathers the assigned ones)."""
+        N proposals ([B, N, D]; the loss gathers the assigned ones). With
+        `track_head_type='roi_gt_box'` they are RoIAligned at the GT masks'
+        boxes instead, GT-slot aligned [B, G, D]: `gt_masks` / `ref_gt_masks`
+        [B, G, h, w] are required then."""
         b = img.shape[0]
         both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img]), generator))
 
@@ -165,9 +203,23 @@ class VideoKNet(nn.Module):
         prev_obj = ref_outs[-1].object_feats
         key_outs, key_track = self._stages(rpn_key, prev_obj if self.cfg.link_previous else None)
         key = BranchOutput(rpn_key, key_outs, key_track)
+        if self.cfg.track_head_type == "roi_gt_box":
+            if gt_masks is None or ref_gt_masks is None:
+                raise ValueError("track_head_type='roi_gt_box' trains on the GT masks' boxes: "
+                                 "pass gt_masks and ref_gt_masks")
+            return (key, ref, self._roi_embed(rpn_key.x_feats, gt_masks),
+                    self._roi_embed(rpn_ref.x_feats, ref_gt_masks))
         n = self.cfg.num_proposals
         key_src = key_track if key_track is not None else key_outs[-1].object_feats
         return key, ref, self.embed(key_src[:, :n]), self.embed(ref_outs[-1].object_feats[:, :n])
+
+    def _roi_embed(self, x_feats: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        """RoIAlign track embeddings at mask-derived boxes. masks [B, M, h, w]
+        (GT slots at train time, sigmoid mask probabilities at test time);
+        the boxes are in mask pixels, rescaled to `x_feats` by the width
+        ratio."""
+        boxes = torch.stack([masks_to_boxes(m) for m in masks])
+        return self.roi_track_head(x_feats, boxes, x_feats.shape[2] / masks.shape[-1])
 
     def embed(self, kernels: torch.Tensor) -> torch.Tensor:
         """Track embeddings from kernel vectors [..., K*K, C] (tap 0)."""
@@ -192,7 +244,12 @@ class VideoKNet(nn.Module):
             track_src = torch.where(isf, last.object_feats, key.obj_feats_track)
         else:
             track_src = last.object_feats if isf else key.obj_feats_track
-        embeds = self.embed(track_src[:, : cfg.num_proposals])
+        if cfg.track_head_type == "roi_gt_box":
+            # RoI embeddings at the predicted masks' boxes
+            probs = torch.sigmoid(last.scaled_mask_preds[:, : cfg.num_proposals].float())
+            embeds = self._roi_embed(key.rpn_out.x_feats, probs)
+        else:
+            embeds = self.embed(track_src[:, : cfg.num_proposals])
         return dict(
             rpn_out=key.rpn_out,
             stage_outs=key.stage_outs,
@@ -236,6 +293,25 @@ def _track_loss_one(key_emb, ref_emb, key_valid, ref_valid, key_ids, ref_ids, *,
     return loss_track, torch.where(pair_valid.any(), loss_aux, zero)
 
 
+def _query_match_loss_one(key_emb_g, ref_emb_g, key_valid, ref_valid, key_ids, ref_ids, *,
+                          loss_weight: float) -> torch.Tensor:
+    """One image's match-score cross entropy on GT-slot-aligned query
+    embeddings [G, D]: key against ref correlations behind a leading all-zero
+    "new object" column; the target is the matching ref slot + 1, or 0."""
+    score = key_emb_g @ ref_emb_g.T  # [G, G]
+    score = torch.where(ref_valid[None, :], score, torch.full_like(score, -1e9))
+    score = torch.cat([torch.zeros_like(score[:, :1]), score], dim=1)  # [G, 1 + G]
+    same = (key_ids[:, None] == ref_ids[None, :]) & ref_valid[None, :]
+    # argmax of a bool row: its first True (torch.argmax of ties is not
+    # guaranteed to take the first on every device)
+    first = torch.where(same, torch.arange(same.shape[1], device=same.device)[None],
+                        same.shape[1]).amin(dim=1)
+    target = torch.where(same.any(dim=1), first + 1, 0)
+    ce = -torch.log_softmax(score, dim=1).gather(1, target[:, None])[:, 0]
+    w = key_valid.float()
+    return loss_weight * (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
 def video_knet_costs(key: BranchOutput, ref: BranchOutput, gt: PanopticGT,
                      ref_gt: PanopticGT, cfg: VideoKNetConfig):
     """Every assignment problem of a step, in solve order: key init head +
@@ -276,11 +352,23 @@ def video_knet_loss(model_out: tuple[BranchOutput, BranchOutput],
     losses.update({f"{k}_ref": v for k, v in ref_iter.items()})
 
     key_emb, ref_emb = embeds
+    t = cfg.track
+    if cfg.track_head_type == "roi_gt_box":
+        # GT-slot-aligned RoI embeddings: no gather at the assignments
+        losses.update(roi_track_loss(
+            key_emb, ref_emb, gt.valid, ref_gt.valid, gt.instance_ids, ref_gt.instance_ids,
+            loss_track_weight=t.loss_track_weight, aux_weight=t.loss_track_aux_weight))
+        return losses
     key_emb_g = gather_rows(key_emb, torch.clamp(key_p2g, min=0))
     ref_emb_g = gather_rows(ref_emb, torch.clamp(ref_p2g, min=0))
     key_valid = (key_p2g >= 0) & gt.valid
     ref_valid = (ref_p2g >= 0) & ref_gt.valid
-    t = cfg.track
+    if cfg.track_head_type == "query_fuse":
+        losses["loss_match"] = torch.stack([_query_match_loss_one(
+            key_emb_g[i], ref_emb_g[i], key_valid[i], ref_valid[i], gt.instance_ids[i],
+            ref_gt.instance_ids[i], loss_weight=t.match_loss_weight)
+            for i in range(key_emb.shape[0])]).mean()
+        return losses
     per_image = [_track_loss_one(
         key_emb_g[i], ref_emb_g[i], key_valid[i], ref_valid[i], gt.instance_ids[i],
         ref_gt.instance_ids[i], loss_track_weight=t.loss_track_weight,

@@ -1,8 +1,8 @@
-"""Gather-based bilinear sampling and the multi-scale deformable attention
-core.
+"""Gather-based bilinear sampling, RoIAlign and the multi-scale deformable
+attention core.
 
 Counterpart of `video_knet_tpu/ops/sampling.py` (`bilinear_sample`,
-`ms_deform_attn_core`): the four corner gathers with zero padding outside
+`roi_align`, `ms_deform_attn_core`): the four corner gathers with zero padding outside
 the map, in the reference's arithmetic order (`x * w - 0.5` in fp32, the
 top and bottom lerps, then the vertical one). The reference clips the
 indices and multiplies by the validity mask; torch indexing raises on an
@@ -55,6 +55,38 @@ def _bilinear_flat(flat: torch.Tensor, h: int, w: int, ys: torch.Tensor, xs: tor
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return top * (1 - wy) + bot * wy
+
+
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, *, out_size: int = 7,
+              sampling_ratio: int = 2, spatial_scale: float = 1.0,
+              aligned: bool = True) -> torch.Tensor:
+    """RoIAlign over one image, mmcv's `RoIAlign(aligned=True)`: feat
+    [H, W, C], rois [R, 4] xyxy in image coordinates -> [R, out, out, C].
+
+    Each output bin averages sampling_ratio^2 bilinear samples at regular
+    sub-bin positions. A sample outside [-1, H] x [-1, W] gives 0; one inside
+    that window is clamped to the map's edges (the border pixel's value, not
+    zero padding). Box sizes are floored at 1e-6. Autograd flows to `feat`
+    through the gathers."""
+    offset = 0.5 if aligned else 0.0
+    boxes = rois * spatial_scale - offset  # [R, 4]
+    x0, y0, x1, y1 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    bh = torch.clamp(y1 - y0, min=1e-6)[:, None, None, None]
+    bw = torch.clamp(x1 - x0, min=1e-6)[:, None, None, None]
+    s = sampling_ratio
+    dev = feat.device
+    bin_idx = torch.arange(out_size, dtype=torch.float32, device=dev)
+    sub_idx = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+    grid = (bin_idx[:, None] + sub_idx[None, :]) / out_size  # [out, s]
+    gy = grid.reshape(1, out_size, s, 1, 1)
+    gx = grid.reshape(1, 1, 1, out_size, s)
+    shape = (rois.shape[0], out_size, s, out_size, s)
+    ys = (y0[:, None, None, None, None] + bh[..., None] * gy).expand(shape)
+    xs = (x0[:, None, None, None, None] + bw[..., None] * gx).expand(shape)
+    h, w, _ = feat.shape
+    valid = (ys >= -1.0) & (ys <= h) & (xs >= -1.0) & (xs <= w)
+    samples = bilinear_sample(feat, ys.clamp(0.0, h - 1.0), xs.clamp(0.0, w - 1.0))
+    return (samples * valid[..., None]).mean(dim=(2, 4))
 
 
 def ms_deform_attn_core(value_levels: list[torch.Tensor], sampling_locations: torch.Tensor,

@@ -12,8 +12,9 @@ for VPS), or `VIS_MARGIN` of its tensor's largest magnitude
 K-Net, which also keep the decode's top-k logits that far apart).
 `chip_smoke.py` (train-check, swin-check, vis-check, image-check) and the
 card tests share them, and the small configurations of the Swin slice
-(`swin_check_cfg`), of the VIS slice (`vis_check_cfg`) and of the image
-slice (`image_check_cfg`, built by `image_check_model`).
+(`swin_check_cfg`), of the VIS slice (`vis_check_cfg`), of the image
+slice (`image_check_cfg`, built by `image_check_model`) and of the other
+track heads (`track_check_cfg`).
 
 A ReLU is a kink of the same kind for gradients: an input within the
 devices' forward error of zero may pass on one device and not the other,
@@ -148,7 +149,8 @@ def margin_seed(cfg: VideoKNetConfig, hw: tuple[int, int]) -> tuple[int, float]:
     def margin_of(seed: int) -> float:
         model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
         with torch.no_grad():
-            key, ref, _, _ = model.forward_train(batch.img, batch.ref_img)
+            key, ref, _, _ = model.forward_train(batch.img, batch.ref_img, None,
+                                                 batch.gt.masks, batch.ref_gt.masks)
         return min(mask_pool_margin(key, cfg), mask_pool_margin(ref, cfg))
 
     return _first_seed(margin_of)
@@ -229,6 +231,15 @@ def swin_check_cfg(tiny):
         test=dataclasses.replace(tiny.test, instance_score_thr=0.0),
         tracker=dataclasses.replace(tiny.tracker, init_score_thr=0.0, obj_score_thr=0.0,
                                     match_score_thr=0.05))
+
+
+def track_check_cfg(tiny, track_head_type: str):
+    """The check configuration of the other track heads: `tiny`'s MiT-b0
+    under 64-channel heads, 20 proposals and 4 GT slots (the trained tiny
+    config, `trained_golden.tiny_cfg()`, of either package: only field names
+    are read) with `track_head_type` 'query_fuse' (1024-wide query
+    embeddings) or 'roi_gt_box'."""
+    return dataclasses.replace(tiny, track_head_type=track_head_type)
 
 
 def vis_check_cfg(base):

@@ -84,7 +84,11 @@ def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
     check_train_config(cfg)
 
     def loss_fn(batch: VPSBatch, generator: torch.Generator | None = None):
-        key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img, generator)
+        # the RoI / GT-box head embeds at the GT masks' boxes
+        gt_masks = ((batch.gt.masks, batch.ref_gt.masks)
+                    if cfg.track_head_type == "roi_gt_box" else ())
+        key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img, generator,
+                                                         *gt_masks)
         losses = video_knet_loss((key, ref), (key_emb, ref_emb), batch.gt, batch.ref_gt, cfg)
         return sum(losses.values()), losses
 
