@@ -49,7 +49,8 @@ Phases, each raising on failure (the process then exits non-zero):
                Hungarian kernel's device time at the step's costs
  13. train-check  R-50, max_insts 4, 64x96: one train step's assignments,
                losses and gradients on the card against the CPU (weights
-               whose hard-threshold inputs keep a 1e-4 margin); the
+               whose hard-threshold inputs keep a 1e-4 margin; the CPU
+               replaying the card's ReLU decisions); the
                Hungarian kernel against its numpy copy on 256 seeded
                tie-heavy problems; K1's and K2's gradients against the plain
                versions' autograd at the stage shape and a ragged C
@@ -148,6 +149,33 @@ Phases, each raising on failure (the process then exits non-zero):
                1e-4 relative; one train step's assignments equal, losses
                within 1e-4, gradients within 1e-3 of each leaf's scale, the
                CPU replaying the card's ReLU decisions
+ 32. import-ref  a seeded synthetic joint-train Video K-Net R-50 checkpoint
+               under the reference's key names at the release widths (100 +
+               17 kernels, C=256, 3 stages with link layers, embed_fcs,
+               fc_embed, track_head; `tools/reference_sd.py`) imported with
+               `import_torch_knet(strict=True)` into the default VideoKNet on
+               the card, each tensor equal to some source tensor after a
+               layout rule (the key-by-key name map is held against JAX's
+               importer on the CPU, `tests/test_torch_port_checkpoint.py`); 8
+               frames of 384x1248 on the device tracker; import ms and frame
+               ms
+ 33. score     import-ref's frames, and a perturbed copy of the GT, against a
+               seeded synthetic GT sequence (`tools/eval_check.py`: things
+               with persistent track ids, stuff, void) with window VPQ at k =
+               1 and 2, STQ, mIoU and video consistency, the host ms a frame
+               of each; the trained
+               tiny model's 12 golden frames served on the card and on the
+               CPU: every metric equal; the `vis` decodes through
+               `segm2result` and `instances_to_coco_json`, every RLE decoding
+               to its mask bit for bit
+ 34. ckpt      phase 12's setup for 2 steps, `save_checkpoint`, then
+               `restore_checkpoint` into a model and optimizer built from
+               another seed: parameters, AdamW moments, step and each group's
+               lr bit-equal; one step from each state under
+               `torch.use_deterministic_algorithms` (the default backward's
+               atomic scatters are not repeatable, PERF.md section 6): losses
+               equal, parameters within 1e-6 of each leaf's scale; save and
+               restore ms, the file's bytes
 Every VPS serving phase resets the launch counts just before it drives its
 path and requires 4 launches of each kernel a frame (a round for B=2); the
 VIS phases require their own counts a clip, the image phases 4 an image.
@@ -262,6 +290,10 @@ HEAD_LOSS_KEYS = {"query_fuse": {"loss_match"},
                   "roi_gt_box": {"loss_track_roi", "loss_track_roi_aux"}}
 TOL_ROI_ALIGN = 1e-5  # card vs CPU, relative (the gradient's atomics sum in another order)
 TOL_TRACK_CHECK = 1e-4  # card vs CPU, relative to each output's scale
+IMPORT_SEED = 0  # the synthetic reference checkpoint's values
+SCORE_SEED = 0  # the synthetic GT sequences scored in `score`
+VIS_CAT_IDS = list(range(1, 41))  # YouTube-VIS 2019's category ids
+TOL_CKPT_STEP = 1e-6  # a step from the restored state, relative to each leaf's scale
 
 
 def log(msg: str) -> None:
@@ -925,11 +957,13 @@ def phase_train_check(device) -> None:
     seed, margin = train_check.margin_seed(cfg, TRAIN_CHECK_HW)
     log(f"[train-check] weight seed {seed}: mask-pool inputs at least {margin:.2e} from the "
         f"threshold (limit {train_check.MARGIN})")
-    runs = {}
+    runs, pattern = {}, []
     for dev in (device, torch.device("cpu")):
         model = _train_model(cfg, dev, seed).model
         batch = make_synthetic_batch(cfg, 1, TRAIN_CHECK_HW, seed=0, device=dev)
-        key, ref, ke, re = model.forward_train(batch.img, batch.ref_img)
+        # the CPU's step follows the card's ReLU decisions (train_check.relu_pattern)
+        with train_check.relu_pattern(pattern, replay=bool(runs)) as relus:
+            key, ref, ke, re = model.forward_train(batch.img, batch.ref_img)
         losses = video_knet_loss((key, ref), (ke, re), batch.gt, batch.ref_gt, cfg)
         sum(losses.values()).backward()
         g2p, p2g = solve_lanes(*video_knet_costs(key, ref, batch.gt, batch.ref_gt, cfg))
@@ -952,7 +986,9 @@ def phase_train_check(device) -> None:
         if not err <= 1e-3 * max(scale, 1e-12):
             raise AssertionError(f"[train-check] gradient of {k}: {err} vs scale {scale}")
     log(f"[train-check] assignments equal; losses within {worst:.2e} relative (limit 1e-4); "
-        f"gradients within {gworst:.2e} of each leaf's scale (limit 1e-3)")
+        f"gradients within {gworst:.2e} of each leaf's scale (limit 1e-3), the CPU step on the "
+        f"card's decisions at {relus['calls']} ReLUs ({relus['differ']} elements decided "
+        f"otherwise by the CPU)")
 
     problems = tie_heavy_problems(seed=1, shapes=((96, 32, 100), (96, 4, 100), (64, 7, 13)))
     count = 0
@@ -1223,7 +1259,9 @@ def _serve_vis(path: str, cfg, device, paths: Paths, clips: int, per_clip: dict)
         f"{[round(float(x), 4) for x in preds[0].scores]}; median clip {med:.2f} ms over "
         f"clips 1..{clips - 1}; peak memory {peak / 2**30:.3f} GiB ({peak} bytes)")
     del model
-    return dict(median_ms=med, clip_ms=ms, peak_bytes=peak)
+    return dict(median_ms=med, clip_ms=ms, peak_bytes=peak,
+                preds=[p._replace(**{f: getattr(p, f).cpu() for f in p._fields})
+                       for p in preds])
 
 
 def phase_vis(device, paths: Paths) -> dict:
@@ -2061,6 +2099,251 @@ def phase_track_check(device, paths: Paths) -> dict:
     return worst
 
 
+def _fingerprint(t: torch.Tensor) -> bytes:
+    import hashlib
+
+    t = t.detach().cpu().contiguous()
+    return hashlib.blake2b(t.numpy().tobytes() + str((t.dtype, tuple(t.shape))).encode(),
+                           digest_size=16).digest()
+
+
+def phase_import_ref(device, paths: Paths) -> dict:
+    """A seeded synthetic joint-train Video K-Net R-50 checkpoint under the
+    reference's key names at the release widths, imported strictly into the
+    default VideoKNet on the card: each tensor on the card equal to some
+    source tensor after a layout rule and to the import's CPU tensor (which
+    source key feeds which port key is held against JAX's importer on the
+    CPU, `tests/test_torch_port_checkpoint.py`); then 8 frames of 384x1248
+    served on the device tracker."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.tools.reference_sd import add_joint_train_sd, build_reference_sd
+    from video_knet_tpu_torch.utils.checkpoint import image_to_video_params
+    from video_knet_tpu_torch.utils.torch_import import import_torch_knet
+
+    gen = torch.Generator().manual_seed(IMPORT_SEED)
+    sd = add_joint_train_sd(build_reference_sd(gen), gen)
+    cfg = VideoKNetConfig()
+    model = VideoKNet(cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imported = image_to_video_params(import_torch_knet(sd, strict=True))
+    model.load_state_dict(imported, strict=True)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    # the layout rules: a copy (conv OIHW, Linear [out, in], norms), a row
+    # block of a packed MHA in_proj, or the init kernels' 1x1 conv squeezed
+    sources = {}
+    for k, v in sd.items():
+        forms = [v]
+        if k.endswith("in_proj_weight") or k.endswith("in_proj_bias"):
+            forms += list(v.chunk(3))
+        if k == "rpn_head.init_kernels.weight":
+            forms.append(v[:, :, 0, 0])
+        for f in forms:
+            sources[_fingerprint(f)] = k
+    own = model.state_dict()
+    if set(own) != set(imported):
+        raise AssertionError("[import-ref] the import does not cover the model")
+    unmatched = [k for k, v in own.items() if _fingerprint(v) not in sources]
+    differ = [k for k, v in own.items() if not torch.equal(v.cpu(), imported[k])]
+    if unmatched or differ:
+        raise AssertionError(f"[import-ref] tensors without their source {unmatched[:8]}; "
+                             f"tensors changed by the load {differ[:8]}")
+    used = {sources[_fingerprint(v)] for v in own.values()}
+    log(f"[import-ref] {len(sd)} reference keys -> {len(own)} tensors on the card in "
+        f"{import_ms:.1f} ms (import + load_state_dict), each equal to some source tensor "
+        f"after a layout rule; {len(sd) - len(used)} source keys read and dropped (the earlier "
+        f"stages' dead link layers)")
+
+    pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, SERVE_FRAMES)]
+    res = paths.drive("import-ref", lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                      list(range(SERVE_FRAMES)))
+    _check_maps("import-ref", res, SERVE_HW)
+    ms = paths.frame_ms["import-ref"]
+    med = statistics.median(ms[1:])
+    log(f"[import-ref] segments per frame {[len(r.segments_info) for r in res]}; median "
+        f"frame {med:.2f} ms")
+    return dict(import_ms=import_ms, median_ms=med, results=res)
+
+
+def _metrics_line(res: dict) -> dict:
+    return {"PQ_k1": res["vpq_k1"]["PQ"], "PQ_k2": res["vpq_k2"]["PQ"],
+            "STQ": res["stq"]["STQ"], "AQ": res["stq"]["AQ"], "mIoU": res["miou"]["mIoU"],
+            "VC2": res["vc"]}
+
+
+def phase_score(device, paths: Paths, served: list, vis_preds: list) -> dict:
+    """The port's metrics: `import-ref`'s 8 frames, and a perturbed copy of
+    the GT, against a seeded synthetic GT sequence at 384x1248 (window VPQ
+    k = 1, 2, STQ, mIoU, video consistency; host ms a frame of each); the
+    trained tiny model's 12 golden frames served on the card and on the
+    CPU, every metric equal; the `vis` decodes as COCO results, every RLE
+    decoding to its mask."""
+    from video_knet_tpu_torch.data.rle import decode_mask
+    from video_knet_tpu_torch.eval.coco_instance import instances_to_coco_json, segm2result
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools import eval_check
+    from video_knet_tpu_torch.tools import trained_golden as tg
+
+    gs, gi = eval_check.synthetic_sequence(SERVE_HW, len(served), seed=SCORE_SEED)
+    hw = "x".join(map(str, SERVE_HW))
+    # the served maps (random weights keep few segments), then a perturbed
+    # copy of the GT, whose many matches give the eval loop its full work
+    host_ms, metrics = {}, {}
+    for what, (ps, pi) in (("served", ([r.semantic_map for r in served],
+                                       [r.track_map for r in served])),
+                           ("perturbed_gt", eval_check.perturb(gs, gi, seed=SCORE_SEED + 1))):
+        res, host_ms[what] = eval_check.score(ps, pi, gs, gi)
+        if not all(np.isfinite(v).all() for k, v in eval_check.flatten(res).items()
+                   if v.dtype.kind == "f" and "per_class" not in k):
+            raise AssertionError(f"[score] {what}: a non-finite metric")
+        metrics[what] = _metrics_line(res)
+        log(f"[score] {what}: {len(gs)} frames of {hw} against a seeded GT: "
+            f"{json.dumps(metrics[what])}; host ms a frame {json.dumps(host_ms[what])}")
+
+    runs = []  # card, then CPU
+    frames = tg.eval_frames()
+    gs, gi = eval_check.synthetic_sequence(tg.HW, tg.N_FRAMES, seed=SCORE_SEED)
+    for dev in (device, torch.device("cpu")):
+        model = tg.tiny_model(dev)
+        pipe = VPSInferencePipeline(model, tg.tiny_cfg(), tg.HW, device=dev)
+        fr = [torch.from_numpy(f).to(dev) for f in frames]
+        if not runs:
+            out = paths.drive("score-trained", lambda i: pipe.run_frame(fr[i], is_first=(i == 0)),
+                              list(range(tg.N_FRAMES)))
+        else:
+            out = [pipe.run_frame(f, is_first=(i == 0)) for i, f in enumerate(fr)]
+        got, _ = eval_check.score([r.semantic_map for r in out], [r.track_map for r in out],
+                                  gs, gi)
+        runs.append((got, eval_check.flatten(got)))
+    (_, g), (trained, c) = runs
+    differ = [k for k in c if not np.array_equal(g[k], c[k], equal_nan=c[k].dtype.kind == "f")]
+    if set(g) != set(c) or differ:
+        raise AssertionError(f"[score] card and CPU metrics differ: {differ[:8]}")
+    log(f"[score] the trained tiny model's {tg.N_FRAMES} frames: {len(c)} metric fields equal "
+        f"on the card and the CPU: {json.dumps(_metrics_line(trained))}")
+
+    t0 = time.perf_counter()
+    n_det = n_img = 0
+    for clip, pred in enumerate(vis_preds):
+        probs = torch.sigmoid(pred.masks)  # [T, K, H, W]
+        for t in range(probs.shape[0]):
+            _, segm = segm2result(probs[t], pred.labels, pred.scores, num_classes=len(VIS_CAT_IDS))
+            dets = instances_to_coco_json(clip * 100 + t, probs[t], pred.labels, pred.scores,
+                                          VIS_CAT_IDS)
+            want = (probs[t] > 0.5).numpy()
+            for k, d in enumerate(dets):
+                if not np.array_equal(decode_mask(d["segmentation"]), want[k]):
+                    raise AssertionError(f"[score] clip {clip} frame {t} detection {k}: the RLE "
+                                         "does not decode to its mask")
+            if sum(len(x) for x in segm) != len(dets):
+                raise AssertionError("[score] segm2result and the JSON disagree on the count")
+            n_det += len(dets)
+            n_img += 1
+    coco_ms = (time.perf_counter() - t0) * 1e3 / n_img
+    log(f"[score] vis decodes: {n_det} detections on {n_img} frames of 360x640 to COCO results, "
+        f"every RLE decoding to its mask; {coco_ms:.2f} ms a frame on the host")
+    host_ms["coco_vis"] = coco_ms
+    return dict(host_ms=host_ms, metrics=metrics)
+
+
+def phase_ckpt(device, paths: Paths) -> dict:
+    """Phase 12's training setup for 2 steps, saved, restored into a model and
+    optimizer built from another seed: parameters, AdamW moments, step and
+    learning rates bit-equal; one step from each state, with deterministic
+    algorithms: losses equal, parameters within TOL_CKPT_STEP of each leaf's
+    scale."""
+    import os
+    import tempfile
+
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+    from video_knet_tpu_torch.utils.checkpoint import (
+        CHECKPOINT_FILE,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    cfg = VideoKNetConfig()
+    state = _train_model(cfg, device)
+    batches = [make_synthetic_batch(cfg, 1, TRAIN_HW, seed=i, device=device) for i in range(3)]
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    out = _timed_steps("ckpt", step, batches[:2], TRAIN_LAUNCHES,
+                       lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"})
+    paths.launches["ckpt"] = out["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, state, step=state.step)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(os.path.join(path, CHECKPOINT_FILE))
+        restored = _train_model(cfg, device, seed=TRAIN_SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(path, restored)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+
+    a, b = state.optimizer.adamw, restored.optimizer.adamw
+    bad = [n for (n, x), (_, y) in zip(state.model.state_dict().items(),
+                                       restored.model.state_dict().items())
+           if x.device != y.device or not torch.equal(x, y)]
+    for ga, gb in zip(a.param_groups, b.param_groups):
+        if ga["lr"] != gb["lr"]:
+            bad.append(f"lr of {ga['name']}")
+        for p, q in zip(ga["params"], gb["params"]):
+            bad += [f"{ga['name']} {k}" for k in ("exp_avg", "exp_avg_sq", "step")
+                    if not torch.equal(a.state[p][k], b.state[q][k])]
+    if bad or restored.step != state.step or state.step == 0:
+        raise AssertionError(f"[ckpt] restored state differs: {bad[:8]}, step {restored.step}")
+    log(f"[ckpt] step {state.step}: saved {nbytes} bytes in {save_ms:.1f} ms, restored in "
+        f"{restore_ms:.1f} ms; parameters, buffers, AdamW moments, steps and lr bit-equal")
+
+    # PyTorch's default backward sums some scatters (gather's backward) with
+    # atomics in no fixed order: two identical backward passes differ in
+    # rounding, and AdamW turns the rounding noise of the attention key
+    # biases (true gradient zero) into whole lr-sized steps (PERF.md section
+    # 6). So the compared steps run under `torch.use_deterministic_algorithms`.
+    losses = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, st in (("original", state), ("restored", restored)):
+            _reset_counts()
+            st, out_l = train_step(st, batches[2])
+            launches = _counts()
+            if launches != TRAIN_LAUNCHES:
+                raise AssertionError(f"[ckpt] {name} step: launches {launches}")
+            losses[name] = {k: float(v) for k, v in out_l.items()}
+            paths.launches["ckpt"] = {k: paths.launches["ckpt"][k] + launches[k]
+                                      for k in launches}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if losses["original"] != losses["restored"]:
+        raise AssertionError(f"[ckpt] the next step's losses differ: {losses}")
+    worst, n_differ = 0.0, 0
+    with torch.no_grad():
+        for x, y in zip(state.model.parameters(), restored.model.parameters()):
+            err = float((x - y).abs().max())
+            n_differ += err > 0
+            worst = max(worst, err / max(float(x.abs().max()), 1e-12))
+    if not worst <= TOL_CKPT_STEP:
+        raise AssertionError(f"[ckpt] parameters after the next step differ by {worst}")
+    log(f"[ckpt] the next step from either state, deterministic algorithms: losses equal "
+        f"(total {losses['original']['total_loss']:.6f}), parameters within {worst:.2e} of "
+        f"each leaf's scale (limit {TOL_CKPT_STEP}), {n_differ} parameter tensors not "
+        f"bit-equal")
+    return dict(save_ms=save_ms, restore_ms=restore_ms, bytes=nbytes, step_worst=worst,
+                step_differ=n_differ, step_ms=out["step_ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2116,11 +2399,15 @@ def main() -> int:
     fuse = phase_track_head(device, paths, "video_knet_kitti_step_fuse_track", "fuse-track")
     roi = phase_track_head(device, paths, "video_knet_kitti_step_roi_gt_box", "roi-gt-box")
     track_check = phase_track_check(device, paths)
+    import_ref = phase_import_ref(device, paths)
+    score = phase_score(device, paths, import_ref.pop("results"), vis.pop("preds"))
+    ckpt = phase_ckpt(device, paths)
     for rec in kernels:
         rec["launches_by_path"].update(
             {p: c[rec["name"]] for p, c in paths.launches.items()
              if p.startswith(("vis", "image", "trackers", "trained-", "unitrack", "fuse-track",
-                              "roi-gt-box", "track-check")) and rec["name"] in c})
+                              "roi-gt-box", "track-check", "import-ref", "score", "ckpt"))
+             and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
     log(f"[train-swin] median step {train_swin['median_ms']:.2f} ms, peak memory "
@@ -2153,6 +2440,12 @@ def main() -> int:
             f"({card})")
     log(f"[roi-align] {json.dumps(roi['roi_align'])} ({card})")
     log(f"[track-check] worst card-vs-CPU: {json.dumps(track_check)}")
+    log(f"[import-ref] import {import_ref['import_ms']:.1f} ms, median frame "
+        f"{import_ref['median_ms']:.2f} ms ({card})")
+    log(f"[score] host ms a frame {json.dumps(score['host_ms'])} ({card})")
+    log(f"[ckpt] save {ckpt['save_ms']:.1f} ms, restore {ckpt['restore_ms']:.1f} ms, "
+        f"{ckpt['bytes']} bytes; the next step's parameters within {ckpt['step_worst']:.2e} "
+        f"({ckpt['step_differ']} tensors not bit-equal) ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
 pytestmark = pytest.mark.cuda
 
@@ -39,7 +40,7 @@ SHAPES = [(1, 24, 12, 20, 64), (2, 13, 7, 9, 40), (1, 100, 5, 11, 36), (1, 117, 
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_fp32_numerics()  # cuBLAS and cuDNN in fp32, whatever an earlier test left
     return torch.device("cuda")
 
 
@@ -443,9 +444,7 @@ def test_track_heads_on_the_card_match_the_cpu(dev, head):
     from video_knet_tpu_torch.tools import train_check
     from video_knet_tpu_torch.tools import trained_golden as tg
     from video_knet_tpu_torch.train.vps import make_synthetic_batch
-    from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
-    set_fp32_numerics()  # cuDNN's convolutions in fp32, as the entry points hold them
     cfg = train_check.track_check_cfg(tg.tiny_cfg(), head)
     seed, _ = train_check.margin_seed(cfg, (64, 96))
     runs = {}
@@ -470,3 +469,89 @@ def test_track_heads_on_the_card_match_the_cpu(dev, head):
                           runs["cuda"], runs["cpu"]):
         err = float((g - c).abs().max() / c.abs().max().clamp(min=1e-6))
         assert err <= 1e-4, (head, name, err)
+
+
+def test_image_and_vis_models_turn_tf32_off(dev):
+    """`KNet` and `KNetVIS` built on CUDA hold cuBLAS and cuDNN to fp32, as
+    the VPS pipeline and the train entry points do, whatever the caller had
+    set."""
+    from video_knet_tpu_torch.config import KNetConfig
+    from video_knet_tpu_torch.config_vis import VISConfig
+    from video_knet_tpu_torch.models.knet import KNet
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
+    from video_knet_tpu_torch.tools import train_check
+
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    for build in (lambda: KNet(train_check.image_check_cfg(KNetConfig()), device=dev),
+                  lambda: KNetVIS(train_check.vis_check_cfg(VISConfig()), device=dev)):
+        for f in flags:
+            f.allow_tf32 = True
+        build()
+        assert [f.allow_tf32 for f in flags] == [False, False]
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """Two steps of the trained tiny config on the card, saved, restored
+    into a model and optimizer built from another seed: parameters, AdamW
+    moments, step and learning rates bit-equal; the next step's losses
+    equal from either state."""
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+    from video_knet_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cfg = tg.tiny_cfg()
+
+    def fresh(seed):
+        model = VideoKNet(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+        return create_train_state(model, make_optimizer(model, 1000))
+
+    batches = [make_synthetic_batch(cfg, 1, (64, 96), seed=i, device=dev) for i in range(3)]
+    state = fresh(0)
+    for b in batches[:2]:
+        state, _ = train_step(state, b)
+    path = save_checkpoint(str(tmp_path), state, step=state.step)
+    restored = restore_checkpoint(path, fresh(1))
+    assert restored.step == state.step == 2
+    for (n, p), (_, q) in zip(state.model.state_dict().items(),
+                              restored.model.state_dict().items()):
+        assert q.device == p.device and torch.equal(p, q), n
+    for a, b in zip(state.optimizer.adamw.param_groups, restored.optimizer.adamw.param_groups):
+        assert a["lr"] == b["lr"]
+        for p, q in zip(a["params"], b["params"]):
+            sa, sb = state.optimizer.adamw.state[p], restored.optimizer.adamw.state[q]
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa[k].cpu(), sb[k].cpu()), k
+    _, want = train_step(state, batches[2])
+    _, got = train_step(restored, batches[2])
+    assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in want.items()}
+
+
+def test_reference_import_serves_on_the_card(dev):
+    """A synthetic reference-named joint-train state dict at the release
+    widths, imported strictly into the default VideoKNet on the card, every
+    tensor bit-equal to the import; one 384x1248 frame served on the device
+    tracker with 4 launches of each mask kernel."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.tools.reference_sd import add_joint_train_sd, build_reference_sd
+    from video_knet_tpu_torch.utils.checkpoint import image_to_video_params
+    from video_knet_tpu_torch.utils.torch_import import import_torch_knet
+
+    gen = torch.Generator().manual_seed(0)
+    sd = add_joint_train_sd(build_reference_sd(gen), gen)
+    imported = image_to_video_params(import_torch_knet(sd, strict=True))
+    cfg = VideoKNetConfig()
+    model = VideoKNet(cfg, device=dev)
+    model.load_state_dict(imported, strict=True)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v.cpu(), imported[k]), k
+    pipe = VPSInferencePipeline(model, cfg, (384, 1248), device=dev)
+    frame = torch.from_numpy(np.random.RandomState(0).randn(1, 384, 1248, 3).astype(np.float32))
+    mo.reset_launch_counts()
+    res = pipe.run_frame(frame.to(dev), is_first=True)
+    assert mo.LAUNCHES == {"mask_pool": 4, "assemble": 4}
+    assert res.panoptic_seg.shape == (384, 1248)

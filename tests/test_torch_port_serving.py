@@ -204,7 +204,9 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "models.msdeform_decoder", "train.image",
                        "models.video.roi_track_head", "models.video.tracker_variants",
                        "models.video.tao_tracker", "models.video.unitrack",
-                       "models.video.appearance", "models.video.hrnet")
+                       "models.video.appearance", "models.video.hrnet", "eval",
+                       "eval.vpq", "eval.stq", "eval.miou", "eval.coco_instance", "data",
+                       "data.rle", "utils.checkpoint", "tools.reference_sd", "tools.eval_check")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

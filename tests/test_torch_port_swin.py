@@ -20,8 +20,10 @@ swin_check_cfg`), weights from `train_check.margin_seed`:
   against JAX's, with the norms perturbed so that things are kept and
   tracked: id, semantic and track maps and segments equal, scores within
   1e-4 relative;
-- one train step at drop path 0 against JAX's `value_and_grad`: assignments
-  equal, losses within 1e-4, gradients within 1e-3 of each leaf's scale;
+- one train step at drop path 0 against JAX's `value_and_grad`, the port
+  replaying JAX's ReLU decisions (`torch_port_common.jax_relu_decisions`):
+  assignments equal, losses within 1e-4, gradients within 1e-3 of each
+  leaf's scale;
   the backbone's (Swin-tiny at 64x96, `frozen_stages=1`) within 1e-4, and
   exactly zero, in both, where the reference's `stop_gradient` cuts (the
   patch embed and stage 0's patch merging; stage 0's blocks still reach
@@ -47,6 +49,8 @@ import trained_golden_common as jtg
 from flax import traverse_util
 from torch_port_common import (
     assert_rel_close,
+    jax_pre_relu,
+    jax_relu_decisions,
     jax_step_costs,
     jax_swin_tiny_apply,
     perturb_norms,
@@ -230,19 +234,27 @@ def slice_train(slice_setup):
     jb = jvps.make_synthetic_batch(jcfg, 1, HW, seed=0)
 
     def jloss(p, batch):
-        key, ref, ke, re = jm.apply({"params": p}, batch.img, batch.ref_img)
+        (key, ref, ke, re), inter = jm.apply({"params": p}, batch.img, batch.ref_img,
+                                             capture_intermediates=jax_pre_relu,
+                                             mutable=["intermediates"])
         losses = jvideo_knet_loss((key, ref), (ke, re), batch.gt, batch.ref_gt, jcfg)
         return sum(losses.values()), (losses, jax_step_costs(key, ref, batch.gt,
-                                                             batch.ref_gt, jcfg))
+                                                             batch.ref_gt, jcfg),
+                                      inter["intermediates"])
 
-    (_, (losses, (_, _, g2p, p2g))), grads = jax.jit(
+    (_, (losses, (_, _, g2p, p2g), inter)), grads = jax.jit(
         jax.value_and_grad(jloss, has_aux=True))(s["variables"]["params"], jb)
 
     # the seed's own weights, for which the margin holds; drop path is off
     # without a generator
     model = load_flax_variables(s["model"], s["variables"])
     tb = tvps.make_synthetic_batch(cfg, 1, HW, seed=0, device="cpu")
-    key, ref, ke, re = model.forward_train(tb.img, tb.ref_img)
+    # the port's ReLUs take JAX's decisions (`train_check.relu_pattern`)
+    with torch.no_grad():
+        relus = jax_relu_decisions(inter, model, lambda: model.forward_train(tb.img, tb.ref_img))
+    with train_check.relu_pattern(relus, replay=True) as stats:
+        key, ref, ke, re = model.forward_train(tb.img, tb.ref_img)
+    assert stats["calls"] == len(relus) > 0
     tlosses = video_knet_loss((key, ref), (ke, re), tb.gt, tb.ref_gt, cfg)
     sum(tlosses.values()).backward()
     tg2p, tp2g = solve_lanes(*video_knet_costs(key, ref, tb.gt, tb.ref_gt, cfg))

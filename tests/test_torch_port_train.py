@@ -11,6 +11,10 @@ Tolerances:
 - cost matrices and losses: 1e-4 relative (fp32 sums in another order).
 - gradients: each leaf within 1e-3 of its largest magnitude (the backward
   sums in another order than XLA's, through three kernel-update stages).
+  The port's forward replays JAX's ReLU decisions (`train_check.
+  relu_pattern`, from `torch_port_common.jax_relu_decisions`, ResNet's
+  included), so that a ReLU input within the forward error of zero cannot
+  send the two backwards down different sides of its kink.
   One kind of leaf is looser: an attention's key bias, whose true gradient
   is zero (softmax ignores a shift shared by a query's logits), so both
   packages hold only rounding noise there; it is held within 1e-3 of the
@@ -29,7 +33,13 @@ import optax
 import pytest
 import torch
 from flax import traverse_util
-from torch_port_common import assert_rel_close, jax_step_costs, perturb_norms
+from torch_port_common import (
+    assert_rel_close,
+    jax_pre_relu,
+    jax_relu_decisions,
+    jax_step_costs,
+    perturb_norms,
+)
 
 from video_knet_tpu import config as jc
 from video_knet_tpu.models.video.knet_vps import VideoKNet as JVideoKNet
@@ -42,6 +52,7 @@ from video_knet_tpu_torch.models.video.knet_vps import VideoKNet, video_knet_cos
 from video_knet_tpu_torch.models.video.knet_vps import video_knet_loss
 from video_knet_tpu_torch.ops.kernels.hungarian import hungarian_plain
 from video_knet_tpu_torch.ops.targets import PanopticGT
+from video_knet_tpu_torch.tools import train_check
 from video_knet_tpu_torch.train import optim as toptim
 from video_knet_tpu_torch.train import vps as tvps
 from video_knet_tpu_torch.utils.convert import (
@@ -73,19 +84,26 @@ def _setup(coarse: bool) -> dict:
     variables = perturb_norms(jax.tree_util.tree_map(np.asarray, variables), seed=1)
 
     def jloss(params, bs, batch):
-        key, ref, ke, re = jm.apply({"params": params, "batch_stats": bs}, batch.img,
-                                    batch.ref_img)
+        (key, ref, ke, re), inter = jm.apply(
+            {"params": params, "batch_stats": bs}, batch.img, batch.ref_img,
+            capture_intermediates=jax_pre_relu, mutable=["intermediates"])
         losses = jvideo_knet_loss((key, ref), (ke, re), batch.gt, batch.ref_gt, jcfg)
-        return sum(losses.values()), (losses, key, ref)
+        return sum(losses.values()), (losses, key, ref, inter["intermediates"])
 
-    (total, (losses, key, ref)), grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        variables["params"], variables["batch_stats"], jb)
+    (total, (losses, key, ref, inter)), grads = jax.jit(
+        jax.value_and_grad(jloss, has_aux=True))(variables["params"],
+                                                 variables["batch_stats"], jb)
     costs, valids, g2p, p2g = jax.jit(lambda k, r, b: jax_step_costs(k, r, b.gt, b.ref_gt, jcfg))(
         key, ref, jb)
 
     model = load_flax_variables(VideoKNet(tcfg, device="cpu"), variables)
     tb = tvps.make_synthetic_batch(tcfg, 1, HW, seed=0, device="cpu")
-    tkey, tref, tke, tre = model.forward_train(tb.img, tb.ref_img)
+    # the port's ReLUs take JAX's decisions (`train_check.relu_pattern`)
+    with torch.no_grad():
+        relus = jax_relu_decisions(inter, model, lambda: model.forward_train(tb.img, tb.ref_img))
+    with train_check.relu_pattern(relus, replay=True) as stats:
+        tkey, tref, tke, tre = model.forward_train(tb.img, tb.ref_img)
+    assert stats["calls"] == len(relus) > 0
     tlosses = video_knet_loss((tkey, tref), (tke, tre), tb.gt, tb.ref_gt, tcfg)
     sum(tlosses.values()).backward()
     tcosts, tvalids = video_knet_costs(tkey, tref, tb.gt, tb.ref_gt, tcfg)

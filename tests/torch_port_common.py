@@ -95,10 +95,17 @@ def jax_step_costs(key, ref, gt, ref_gt, cfg):
 # the input of every ReLU of the heads and necks, by its owner: a
 # ConvNormAct's GroupNorm, an MLP layer's LayerNorm, a KernelUpdator's
 # fc_norm, an FFN's Dense_0, a deformable encoder layer's ffn1, the RoI
-# track head's GroupNorms and hidden fc, the query track head's fc0 (the
-# same names in both packages)
+# track head's GroupNorms and hidden fc, the query track head's fc0, the
+# kernel track embedding's embed_ln0 and track fcs (the same names in both
+# packages); and of ResNet's: the stem's and a bottleneck's bn1 / bn2, and a
+# block's own output for its last ReLU (relu(z) > 0 exactly where z > 0)
 def _pre_relu(owner: str, name: str) -> bool:
-    return ((owner == "ConvNormAct" and name == "GroupNorm_0")
+    return ((owner == "ResNet" and (name == "bn1"
+                                    or re.fullmatch(r"layer\d+_block\d+", name) is not None))
+            or (owner == "BottleneckBlock" and name in ("bn1", "bn2"))
+            or (owner == "TrackEmbed" and (name == "embed_ln0"
+                                           or re.fullmatch(r"track_fc\d+", name) is not None))
+            or (owner == "ConvNormAct" and name == "GroupNorm_0")
             or (owner == "MLP" and name.startswith("LayerNorm_"))
             or (owner == "KernelUpdator" and name == "fc_norm")
             or (owner == "FFN" and name == "Dense_0")

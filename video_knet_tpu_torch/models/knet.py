@@ -52,7 +52,7 @@ from video_knet_tpu_torch.ops.targets import (
     gather_rows,
     pred_of_gt_from,
 )
-from video_knet_tpu_torch.utils.device import resolve_device
+from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 from video_knet_tpu_torch.utils.tree import tree_stack
 
 # ------------------------------------------------------------------- model
@@ -63,12 +63,15 @@ class KNet(nn.Module):
     default initializers) or, after construction, from `utils/convert.py`.
 
     `device` defaults to CUDA and raises when there is none; tests pass
-    `device="cpu"`."""
+    `device="cpu"`. On CUDA it turns TF32 off for cuBLAS and cuDNN
+    (`set_fp32_numerics`): the reference computes in fp32."""
 
     def __init__(self, cfg: KNetConfig, *, generator: torch.Generator | None = None,
                  device: str | torch.device | None = None):
         super().__init__()
         device = resolve_device(device)
+        if device.type == "cuda":
+            set_fp32_numerics()
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
                                        drop_path_rate=cfg.backbone_drop_path_rate)

@@ -65,7 +65,7 @@ from video_knet_tpu_torch.ops.targets import (
     gather_rows,
     pred_of_gt_from,
 )
-from video_knet_tpu_torch.utils.device import resolve_device
+from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 
 KERNEL_HEAD_MODES = ("frame", "volume")
 
@@ -91,12 +91,15 @@ class KNetVIS(nn.Module):
     `tracker`).
 
     `device` defaults to CUDA and raises when there is none; tests pass
-    `device="cpu"`."""
+    `device="cpu"`. On CUDA it turns TF32 off for cuBLAS and cuDNN
+    (`set_fp32_numerics`): the reference computes in fp32."""
 
     def __init__(self, cfg: VISConfig, *, generator: torch.Generator | None = None,
                  device: str | torch.device | None = None):
         super().__init__()
         device = resolve_device(device)
+        if device.type == "cuda":
+            set_fp32_numerics()
         if cfg.kernel_head_mode not in KERNEL_HEAD_MODES:
             raise ValueError(f"kernel_head_mode={cfg.kernel_head_mode!r}")
         self.cfg = cfg
