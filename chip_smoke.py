@@ -176,6 +176,26 @@ Phases, each raising on failure (the process then exits non-zero):
                atomic scatters are not repeatable, PERF.md section 6): losses
                equal, parameters within 1e-6 of each leaf's scale; save and
                restore ms, the file's bytes
+ 35. data      the VPS data path: a seeded KITTI-STEP tree (2 sequences x 6
+               frames of 375x1242, 12 stuff classes in bands, 15 person / car
+               boxes a sequence; `tools/data_check.py`) written with the port's
+               own PNG writer into a temp directory, every file read back
+               bit-equal by `load_png` (decode ms of a frame and of its
+               panoptic PNG); `VPSTrainLoader` alone on the
+               `video_knet_kitti_step_r50` preset at crop 384x1248, B=1 (host
+               ms a batch at 1 and 4 threads), its CUDA batches equal to a
+               `device="cpu"` loader's in every field; then `data-train`: 4
+               train steps on loader-fed batches (7 / 7 / 1 launches a step,
+               finite losses with the reference's keys, the wait on the
+               loader a step), and the same batches again with no loader
+               running (`data-train-alone`)
+ 36. eval-hook  `evaluate_vps` with the trained tiny model over its sequence
+               written as a KITTI-STEP tree, card and CPU: every metric equal,
+               PQ and STQ above 0; with the R-50 device tracker over phase
+               35's tree at 384x1248, 8 frames: frame ms and the loop's host
+               ms a frame by part; `evaluate_image_panoptic` with the
+               Cityscapes-STEP R-50 image K-Net over 4 frames: ms an image,
+               `format_pq_table`'s first and last lines
 Every VPS serving phase resets the launch counts just before it drives its
 path and requires 4 launches of each kernel a frame (a round for B=2); the
 VIS phases require their own counts a clip, the image phases 4 an image.
@@ -188,8 +208,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -294,6 +316,16 @@ IMPORT_SEED = 0  # the synthetic reference checkpoint's values
 SCORE_SEED = 0  # the synthetic GT sequences scored in `score`
 VIS_CAT_IDS = list(range(1, 41))  # YouTube-VIS 2019's category ids
 TOL_CKPT_STEP = 1e-6  # a step from the restored state, relative to each leaf's scale
+DATA_HW = (375, 1242)  # the raw KITTI-STEP frame size
+DATA_SEQS = 2
+DATA_FRAMES = 6
+DATA_THINGS = 15  # person / car boxes a sequence
+DATA_SEED = 0  # the tree, the loaders and the data-train weights
+DATA_REF = (-2, -1, 1, 2)  # video_knet_kitti_step_r50's reference offsets
+DATA_TRAIN_STEPS = 4
+DATA_DECODE_READS = 5
+EVAL_FRAMES = 8
+EVAL_IMAGES = 4
 
 
 def log(msg: str) -> None:
@@ -2256,9 +2288,6 @@ def phase_ckpt(device, paths: Paths) -> dict:
     learning rates bit-equal; one step from each state, with deterministic
     algorithms: losses equal, parameters within TOL_CKPT_STEP of each leaf's
     scale."""
-    import os
-    import tempfile
-
     from video_knet_tpu_torch.config import VideoKNetConfig
     from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
     from video_knet_tpu_torch.utils.checkpoint import (
@@ -2344,6 +2373,201 @@ def phase_ckpt(device, paths: Paths) -> dict:
                 step_differ=n_differ, step_ms=out["step_ms"])
 
 
+def _same_batch(a, b) -> bool:
+    """Every field of two VPSBatches equal, bit for bit (b on the CPU)."""
+    fields = [(a.img, b.img), (a.ref_img, b.ref_img), *zip(a.gt, b.gt), *zip(a.ref_gt, b.ref_gt)]
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y) for x, y in fields)
+
+
+def phase_data(device, paths: Paths, root: str) -> dict:
+    """The VPS data path: a seeded KITTI-STEP tree of 375x1242 frames written
+    with the port's PNG writer, every file read back bit-equal; decode ms;
+    the loader alone (host ms a batch at 1 and 4 threads; the CUDA batches
+    equal the CPU loader's); then 4 R-50 train steps on loader-fed batches
+    at 384x1248 (7 / 7 / 1 launches a step)."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.data import KittiStepDVPS, VPSTrainLoader
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+    from video_knet_tpu_torch.tools.data_check import write_kitti_step_tree
+    from video_knet_tpu_torch.train.vps import train_step
+
+    t0 = time.perf_counter()
+    written = write_kitti_step_tree(root, n_seqs=DATA_SEQS, n_frames=DATA_FRAMES, hw=DATA_HW,
+                                    n_things=DATA_THINGS, seed=DATA_SEED)
+    write_s = time.perf_counter() - t0
+    bad = []
+    for path, arr in written.items():
+        got = load_png(path)
+        if got.dtype != arr.dtype or not np.array_equal(got, arr):
+            bad.append(path)
+    if bad:
+        raise AssertionError(f"[data] files that do not read back bit-equal: {bad}")
+    decode_ms = {}
+    for kind in ("leftImg8bit", "panoptic"):
+        path = next(p for p in written if p.endswith(kind + ".png"))
+        ms = []
+        for _ in range(DATA_DECODE_READS):
+            t0 = time.perf_counter()
+            load_png(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[kind] = statistics.median(ms)
+    nbytes = sum(os.path.getsize(p) for p in written)
+    log(f"[data] wrote {len(written)} PNGs of {DATA_HW[0]}x{DATA_HW[1]} ({nbytes} bytes) in "
+        f"{write_s:.2f} s, each read back bit-equal; load_png median of {DATA_DECODE_READS} "
+        f"reads: RGB frame {decode_ms['leftImg8bit']:.3f} ms, panoptic PNG "
+        f"{decode_ms['panoptic']:.3f} ms")
+
+    cfg = get_config("video_knet_kitti_step_r50")
+    if (cfg.max_insts, cfg.num_stuff_classes, cfg.mask_assign_stride) != (32, 17, 2):
+        raise AssertionError("[data] not the KITTI-STEP R-50 preset")
+    ds = KittiStepDVPS(root, split="train", ref_seq_index=DATA_REF)
+
+    def loader(dev, threads: int = 4):
+        return VPSTrainLoader(ds, cfg, batch_size=1, crop_hw=TRAIN_HW, seed=DATA_SEED,
+                              num_threads=threads, device=dev)
+
+    loader_ms = {}
+    for threads in (1, 4):
+        ms, cpu_batches = [], []
+        t0 = time.perf_counter()
+        for b in loader("cpu", threads):
+            ms.append((time.perf_counter() - t0) * 1e3)
+            cpu_batches.append(b)
+            t0 = time.perf_counter()
+        loader_ms[threads] = dict(median_ms=statistics.median(ms[1:]),
+                                  mean_ms=sum(ms) / len(ms), ms=[round(t, 3) for t in ms])
+        log(f"[data] loader alone, {threads} thread(s), B=1 at {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+            f"median {loader_ms[threads]['median_ms']:.2f} ms a batch over batches "
+            f"1..{len(ms) - 1}, epoch mean {loader_ms[threads]['mean_ms']:.2f} ms; ms {ms}")
+    gt = cpu_batches[0].gt
+    cuda_batches = list(loader(device))
+    if len(cuda_batches) != len(ds) or len(cpu_batches) != len(ds) or not all(
+            b.img.device.type == device.type and _same_batch(b, c)
+            for b, c in zip(cuda_batches, cpu_batches)):
+        raise AssertionError("[data] the CUDA loader's batches differ from the CPU loader's")
+    log(f"[data] {len(cuda_batches)} CUDA batches equal the CPU loader's in every field; batch "
+        f"0: {int(gt.valid.sum())} thing slots of {cfg.max_insts}, {int(gt.sem_valid.sum())} "
+        f"stuff classes, GT at {tuple(gt.masks.shape[-2:])}")
+    del cuda_batches, cpu_batches
+
+    state = _train_model(cfg, device, seed=DATA_SEED)
+    model = state.model
+    frozen, trainable = _frozen_split("data-train", model)
+    batches = iter(loader(device))
+    waits, fed = [], []
+
+    def step(batch):
+        nonlocal state
+        if batch is None:  # loader-fed: the wait on the loader is part of the step
+            t0 = time.perf_counter()
+            batch = next(batches)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            fed.append(batch)
+        state, losses = train_step(state, batch)
+        return losses
+
+    keys_ok = lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"}  # noqa: E731
+    out = _timed_steps("data-train", step, [None] * DATA_TRAIN_STEPS, TRAIN_LAUNCHES, keys_ok)
+    batches.close()  # stops the producer
+    _check_trained("data-train", model, frozen, trainable)
+    paths.launches["data-train"] = out["launches"]
+    paths.frame_ms["data-train"] = out["step_ms"]
+    # the same batches again with no loader thread running: the step alone
+    alone = _timed_steps("data-train-alone", step, fed, TRAIN_LAUNCHES, keys_ok)
+    paths.launches["data-train-alone"] = alone["launches"]
+    out.update(wait_ms=waits, decode_ms=decode_ms, loader_ms=loader_ms,
+               alone_median_ms=alone["median_ms"], alone_ms=alone["step_ms"])
+    log(f"[data-train] waited on next(loader) {[round(w, 3) for w in waits]} ms a step; median "
+        f"step (wait included) {out['median_ms']:.2f} ms while the loader's threads run, "
+        f"{alone['median_ms']:.2f} ms on the same batches with none running")
+    del model, state, fed
+    return out
+
+
+def phase_eval_hook(device, paths: Paths, root: str, tmp: str) -> dict:
+    """`evaluate_vps` and `evaluate_image_panoptic`: (a) the trained tiny
+    model over its sequence written as a KITTI-STEP tree, card and CPU,
+    every metric equal, PQ and STQ above 0; (b) the R-50 device-tracker
+    pipeline over `data`'s tree at 384x1248, 8 frames, the loop's host ms by
+    part; (c) the Cityscapes-STEP R-50 image K-Net over 4 of its frames."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.data import KittiStepDVPS
+    from video_knet_tpu_torch.models.knet import KNet, panoptic_decode
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+    from video_knet_tpu_torch.train.eval_hook import evaluate_image_panoptic, evaluate_vps
+
+    def counted(path: str, n: int, fn, per_item: dict | None = None) -> dict:
+        """fn() over n frames (or images), its launches counted; each item is
+        credited the mean time."""
+        def body():
+            t0 = time.perf_counter()
+            res = fn()
+            return [res] * n, [(time.perf_counter() - t0) * 1e3 / n] * n
+        return paths._counted(path, n, body, per_item)[0]
+
+    # (a) the trained tiny model, card and CPU
+    tree = tg.write_sequence(tmp)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        pipe = VPSInferencePipeline(tg.tiny_model(dev), tg.tiny_cfg(), tg.HW, device=dev)
+        go = lambda: evaluate_vps(pipe, KittiStepDVPS(tree), size_hw=tg.HW)  # noqa: E731
+        runs.append(counted("eval-hook-trained", tg.N_FRAMES, go) if not runs else go())
+    (card, cpu) = runs
+    differ = [k for k in cpu if not np.array_equal(card[k], cpu[k])]
+    if set(card) != set(cpu) or differ:
+        log(f"[eval-hook] card and CPU metrics differ in {differ}: card "
+            f"{ {k: card[k] for k in differ} } CPU { {k: cpu[k] for k in differ} }")
+        raise AssertionError(f"[eval-hook] card and CPU metrics differ: {differ}")
+    if not all(r["PQ"] > 0 and r["STQ"] > 0 for r in runs):
+        raise AssertionError(f"[eval-hook] the trained model scores 0: {card}")
+    scalars = {k: v for k, v in card.items() if not isinstance(v, np.ndarray)}
+    log(f"[eval-hook] trained tiny model, {card['frames']} frames of 64x96 read from PNG: "
+        f"{len(card)} metric fields equal on the card and the CPU: {json.dumps(scalars)}")
+
+    # (b) R-50, device tracker, over data's tree at 384x1248
+    ds = KittiStepDVPS(root, split="train")
+    cfg = smoke_config()
+    pipe = VPSInferencePipeline(smoke_model(cfg, device), cfg, SERVE_HW, device=device)
+    stats = {}
+    res = counted("eval-hook", EVAL_FRAMES, lambda: evaluate_vps(
+        pipe, ds, size_hw=SERVE_HW, max_frames=EVAL_FRAMES, stats=stats))
+    if res["frames"] != EVAL_FRAMES or not all(
+            np.isfinite(v).all() for v in res.values() if not isinstance(v, (int, str))):
+        raise AssertionError(f"[eval-hook] R-50: {res}")
+    frame_ms = stats["total"] * 1e3 / EVAL_FRAMES
+    host_ms = {k: stats[k] * 1e3 / EVAL_FRAMES for k in ("load", "decode", "resize", "vpq", "stq")}
+    log(f"[eval-hook] R-50 device tracker, {EVAL_FRAMES} frames of {DATA_HW[0]}x{DATA_HW[1]} "
+        f"served at {SERVE_HW[0]}x{SERVE_HW[1]}: {frame_ms:.2f} ms a frame; the loop's host ms a "
+        f"frame {json.dumps({k: round(v, 3) for k, v in host_ms.items()})}; PQ {res['PQ']:.3f}, "
+        f"STQ {res['STQ']:.4f}")
+
+    # (c) the Cityscapes-STEP image K-Net over 4 frames
+    icfg = get_config("knet_s3_r50_fpn_cityscapes_step")
+    icfg = dataclasses.replace(icfg, test=dataclasses.replace(icfg.test, instance_score_thr=0.0))
+    model = KNet(icfg, generator=torch.Generator().manual_seed(IMAGE_SEED), device=device)
+
+    def decode_fn(img):
+        with torch.no_grad():
+            rpn, stages = model(img.to(device))
+        return _segments(panoptic_decode(rpn, stages, icfg, out_hw=SERVE_HW), icfg)
+
+    samples = [ds.frames[k] for k in ds.order[:EVAL_IMAGES]]
+    img_res = counted("eval-hook-image", EVAL_IMAGES, lambda: evaluate_image_panoptic(
+        decode_fn, samples, size_hw=SERVE_HW, thing_ids_in_seg=ds.thing_ids_in_seg,
+        num_classes=19, class_names=ds.CLASSES), per_item=IMAGE_LAUNCHES)
+    image_ms = paths.frame_ms["eval-hook-image"][0]
+    table = img_res["table"].splitlines()
+    if img_res["images"] != EVAL_IMAGES or len(table) != 21:
+        raise AssertionError(f"[eval-hook] image: {img_res['images']} images, table {table}")
+    log(f"[eval-hook] Cityscapes-STEP R-50 image K-Net, {EVAL_IMAGES} frames at "
+        f"{SERVE_HW[0]}x{SERVE_HW[1]}: {image_ms:.2f} ms an image (load, forward, decode, score); "
+        f"table first and last lines: {table[0]!r} / {table[-1]!r}")
+    del model
+    return dict(trained=scalars, frame_ms=frame_ms, host_ms=host_ms, image_ms=image_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2402,11 +2626,16 @@ def main() -> int:
     import_ref = phase_import_ref(device, paths)
     score = phase_score(device, paths, import_ref.pop("results"), vis.pop("preds"))
     ckpt = phase_ckpt(device, paths)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, golden_tree = os.path.join(tmp, "kitti_step"), os.path.join(tmp, "trained")
+        data = phase_data(device, paths, root)
+        eval_hook = phase_eval_hook(device, paths, root, golden_tree)
     for rec in kernels:
         rec["launches_by_path"].update(
             {p: c[rec["name"]] for p, c in paths.launches.items()
              if p.startswith(("vis", "image", "trackers", "trained-", "unitrack", "fuse-track",
-                              "roi-gt-box", "track-check", "import-ref", "score", "ckpt"))
+                              "roi-gt-box", "track-check", "import-ref", "score", "ckpt",
+                              "data-train", "eval-hook"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -2446,6 +2675,14 @@ def main() -> int:
     log(f"[ckpt] save {ckpt['save_ms']:.1f} ms, restore {ckpt['restore_ms']:.1f} ms, "
         f"{ckpt['bytes']} bytes; the next step's parameters within {ckpt['step_worst']:.2e} "
         f"({ckpt['step_differ']} tensors not bit-equal) ({card})")
+    log(f"[data] decode ms {json.dumps(data['decode_ms'])}; loader ms a batch "
+        f"{json.dumps({t: r['median_ms'] for t, r in data['loader_ms'].items()})}; "
+        f"[data-train] median step {data['median_ms']:.2f} ms ({data['alone_median_ms']:.2f} "
+        f"with no loader running), waits on the loader {json.dumps(data['wait_ms'])} ms, peak "
+        f"memory {data['peak_bytes']} bytes, host syncs a step {data['syncs']} ({card})")
+    log(f"[eval-hook] R-50 {eval_hook['frame_ms']:.2f} ms a frame, host ms a frame "
+        f"{json.dumps(eval_hook['host_ms'])}; image K-Net {eval_hook['image_ms']:.2f} ms an "
+        f"image ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

@@ -10,6 +10,8 @@ order than cuBLAS, and K2's 3xTF32 product leaves ~2^-21 of each term);
 the binarize is exact, so zero logits give exact zeros.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -555,3 +557,43 @@ def test_reference_import_serves_on_the_card(dev):
     res = pipe.run_frame(frame.to(dev), is_first=True)
     assert mo.LAUNCHES == {"mask_pool": 4, "assemble": 4}
     assert res.panoptic_seg.shape == (384, 1248)
+
+
+def test_png_codec_builds_and_round_trips(dev, tmp_path):
+    """g++ alone builds the port's PNG codec here; its own writer's gray,
+    RGB and 16-bit files read back bit-equal, without PIL."""
+    from video_knet_tpu_torch.data.panoptic_png import load_png, save_png
+    from video_knet_tpu_torch.native import build
+
+    build.load_library()
+    assert os.path.exists(build.library_path())
+    rng = np.random.RandomState(0)
+    for i, arr in enumerate((rng.randint(0, 256, (37, 61)).astype(np.uint8),
+                             rng.randint(0, 256, (375, 1242, 3)).astype(np.uint8),
+                             rng.randint(0, 65536, (20, 33)).astype(np.uint16))):
+        path = str(tmp_path / f"{i}.png")
+        save_png(path, arr)
+        got = load_png(path)
+        assert got.dtype == arr.dtype and np.array_equal(got, arr)
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_loader_on_the_card_matches_the_cpu(dev, tmp_path, threads):
+    """`VPSTrainLoader` on CUDA yields CUDA tensors equal, field for field,
+    to the `device="cpu"` loader's batches."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.data import KittiStepDVPS, VPSTrainLoader
+    from video_knet_tpu_torch.tools.data_check import write_kitti_step_tree
+
+    write_kitti_step_tree(str(tmp_path), n_seqs=2, n_frames=3, hw=(60, 94), n_things=6)
+    ds = KittiStepDVPS(str(tmp_path), ref_seq_index=(-1, 1))
+    cfg = VideoKNetConfig(max_insts=8)
+    mk = lambda d: VPSTrainLoader(ds, cfg, batch_size=2, crop_hw=(64, 96), seed=3,  # noqa: E731
+                                  num_threads=threads, device=d)
+    card, cpu = list(mk(dev)), list(mk("cpu"))
+    assert len(card) == len(cpu) == 3
+    for a, b in zip(card, cpu):
+        pairs = [(a.img, b.img), (a.ref_img, b.ref_img), *zip(a.gt, b.gt), *zip(a.ref_gt, b.ref_gt)]
+        for x, y in pairs:
+            assert x.device.type == "cuda" and y.device.type == "cpu"
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y)

@@ -206,7 +206,9 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "models.video.tao_tracker", "models.video.unitrack",
                        "models.video.appearance", "models.video.hrnet", "eval",
                        "eval.vpq", "eval.stq", "eval.miou", "eval.coco_instance", "data",
-                       "data.rle", "utils.checkpoint", "tools.reference_sd", "tools.eval_check")
+                       "data.rle", "utils.checkpoint", "tools.reference_sd", "tools.eval_check",
+                       "data.panoptic_png", "data.transforms", "data.datasets", "data.loader",
+                       "native.png_codec", "native.build", "train.eval_hook")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -221,6 +223,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "need = {'video_knet_tpu_torch.' + m for m in TRAIN_SLICE}\n"
         "missing = need - set(mods)\n"
         "assert len(mods) >= 40 and not missing and not bad, (len(mods), missing, bad)\n"
+        # the card has no PIL: nothing of the port imports it when imported
+        "assert 'PIL' not in sys.modules, [m for m in sys.modules if m.startswith('PIL')]\n"
     ).replace("TRAIN_SLICE", repr(TRAIN_SLICE_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)

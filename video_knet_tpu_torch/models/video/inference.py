@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from video_knet_tpu_torch.config import VideoKNetConfig
+from video_knet_tpu_torch.data.transforms import nearest_resize
 from video_knet_tpu_torch.models.layers import resize_nearest
 from video_knet_tpu_torch.models.video import device_tracker as dt
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet, vps_decode
@@ -64,15 +65,6 @@ def _track_embed_dim(cfg: VideoKNetConfig) -> int:
     if cfg.track_head_type == "query_fuse":
         return cfg.track.query_fc_out_channels
     return cfg.track.embed_channels
-
-
-def nearest_resize(arr: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
-    """Host nearest resize of a [H, W, ...] array (half-pixel centers)."""
-    h, w = arr.shape[:2]
-    oh, ow = out_hw
-    ys = np.clip(((np.arange(oh) + 0.5) * (h / oh)).astype(np.int64), 0, h - 1)
-    xs = np.clip(((np.arange(ow) + 0.5) * (w / ow)).astype(np.int64), 0, w - 1)
-    return arr[ys][:, xs]
 
 
 def _flags_tensor(is_first, device) -> torch.Tensor:

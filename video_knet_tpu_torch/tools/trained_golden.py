@@ -10,7 +10,8 @@ without PIL, so it runs wherever the port runs (the CPU tests and
 - `eval_frames()`: the 12-frame instance-lifecycle sequence (A persists, B
   leaves after frame 5 and expires from the memo, C is born at frame 8),
   drawn directly as uint8 (the reference writes it as lossless PNG), then
-  normalized with the ImageNet mean and std;
+  normalized with the ImageNet mean and std; `write_sequence()` writes it,
+  with its panoptic GT, as a KITTI-STEP tree;
 - `load_weights()` / `tiny_model()`: the committed fp16 checkpoint
   `tests/golden/serving_trained_tiny_fp16.npz` reloaded as fp32 through
   `utils/convert.py`;
@@ -33,6 +34,7 @@ from video_knet_tpu_torch.config import (
     TrackHeadConfig,
     VideoKNetConfig,
 )
+from video_knet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WEIGHTS = os.path.join(_ROOT, "tests", "golden", "serving_trained_tiny_fp16.npz")
@@ -45,8 +47,6 @@ A_FRAMES = (0, N_FRAMES - 1)
 B_FRAMES = (0, 5)
 C_FRAMES = (8, N_FRAMES - 1)
 
-IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
-IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
 
 
 def tiny_cfg() -> VideoKNetConfig:
@@ -64,29 +64,54 @@ def tiny_cfg() -> VideoKNetConfig:
                            test=TestCfg(max_per_img=20))
 
 
+def _blobs(f: int) -> list[tuple[int, int, int, int, tuple[int, int, int]]]:
+    """Frame f's instances: (y0, x0, class, instance id, colour)."""
+    w = HW[1]
+    bw = 28
+    # A: person, top row, left -> right
+    xa = 2 + int((w - bw - 4) * f / (N_FRAMES - 1))
+    blobs = [(2, xa, 11, 1, (200, 40, 40))]
+    if B_FRAMES[0] <= f <= B_FRAMES[1]:
+        # B: person, bottom row, right -> left
+        xb = (w - bw - 2) - int((w - bw - 4) * f / (N_FRAMES - 1))
+        blobs.append((36, xb, 11, 2, (40, 160, 220)))
+    if C_FRAMES[0] <= f <= C_FRAMES[1]:
+        # C: car, bottom row, slight motion
+        xc = 20 + 3 * (f - C_FRAMES[0])
+        blobs.append((36, xc, 13, 3, (230, 210, 60)))
+    return blobs
+
+
 def sequence_images() -> list[np.ndarray]:
     """The 12 [H, W, 3] uint8 frames of the lifecycle script."""
-    h, w = HW
     bh, bw = 24, 28
     frames = []
     for f in range(N_FRAMES):
         img = np.full((*HW, 3), 90, np.uint8)
-        blobs = []
-        # A: person, top row, left -> right
-        xa = 2 + int((w - bw - 4) * f / (N_FRAMES - 1))
-        blobs.append((2, xa, (200, 40, 40)))
-        if B_FRAMES[0] <= f <= B_FRAMES[1]:
-            # B: person, bottom row, right -> left
-            xb = (w - bw - 2) - int((w - bw - 4) * f / (N_FRAMES - 1))
-            blobs.append((36, xb, (40, 160, 220)))
-        if C_FRAMES[0] <= f <= C_FRAMES[1]:
-            # C: car, bottom row, slight motion
-            xc = 20 + 3 * (f - C_FRAMES[0])
-            blobs.append((36, xc, (230, 210, 60)))
-        for y0, x0, color in blobs:
+        for y0, x0, _, _, color in _blobs(f):
             img[y0:y0 + bh, x0:x0 + bw] = color
         frames.append(img)
     return frames
+
+
+def write_sequence(root: str) -> str:
+    """The lifecycle script as a KITTI-STEP tree under `root`
+    (`video_sequence/train`: RGB frames and `kitti_rgb` panoptic PNGs, road
+    everywhere else), written with the port's own PNG writer; the same files
+    as `tests/trained_golden_common.py:write_sequence` writes with PIL."""
+    from video_knet_tpu_torch.data.panoptic_png import save_png
+
+    d = os.path.join(root, "video_sequence", "train")
+    os.makedirs(d, exist_ok=True)
+    bh, bw = 24, 28
+    for f, img in enumerate(sequence_images()):
+        pan = np.zeros((*HW, 3), np.uint8)  # road (class 0) everywhere
+        for y0, x0, cls, inst, _ in _blobs(f):
+            pan[y0:y0 + bh, x0:x0 + bw, 0] = cls
+            pan[y0:y0 + bh, x0:x0 + bw, 2] = inst
+        save_png(os.path.join(d, f"000000_{f:06d}_leftImg8bit.png"), img)
+        save_png(os.path.join(d, f"000000_{f:06d}_panoptic.png"), pan)
+    return root
 
 
 def eval_frames() -> list[np.ndarray]:
