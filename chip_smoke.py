@@ -209,6 +209,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -326,6 +327,13 @@ DATA_TRAIN_STEPS = 4
 DATA_DECODE_READS = 5
 EVAL_FRAMES = 8
 EVAL_IMAGES = 4
+TTA_ARGS = ["--tta-scales", "0.75", "1.0", "1.25", "--tta-flip"]
+# a TTA frame: the pipeline's step and one test_step for each of 6 variants
+TTA_LAUNCHES = {"mask_pool": 28, "assemble": 28}
+CLI_IMAGES = 6  # test_image over the first frames of `data`'s tree
+DVPS_FRAMES = 4
+COCO_IMAGES = 2
+COCO_HW = (480, 640)  # COCO-sized images, served at the CLI's 800x1344 default
 
 
 def log(msg: str) -> None:
@@ -2568,6 +2576,337 @@ def phase_eval_hook(device, paths: Paths, root: str, tmp: str) -> dict:
     return dict(trained=scalars, frame_ms=frame_ms, host_ms=host_ms, image_ms=image_ms)
 
 
+def _run_cli(name: str, argv: list, patches=(), stats: list | None = None) -> str:
+    """The port's CLI `name` in process (its `main(argv)`), each (module,
+    attribute, value) of `patches` set meanwhile; returns what it printed,
+    which is also logged."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"video_knet_tpu_torch.tools.{name}")
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    out = io.StringIO()
+    try:
+        for m, a, v in patches:
+            setattr(m, a, v)
+        with contextlib.redirect_stdout(out):
+            mod.main(argv) if stats is None else mod.main(argv, stats=stats)
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+    for line in out.getvalue().splitlines():
+        log(f"[{name}] {line}")
+    return out.getvalue()
+
+
+def _cli_counted(paths: Paths, path: str, n: int, run, per_item: dict | None = None,
+                 after: int = 0) -> dict:
+    """`run(stats)` (a CLI run over n frames or images) with the launch counts
+    set to 0 just before and read just after. The CLI appends a timestamp as
+    each item's outputs are written; `mean_ms` is the time from item
+    `after`'s to the last one's over the items between. `test_step` writes a
+    window's frames together (`run_sequence`), so its callers pass the last
+    frame of the first sequence: the second sequence's frames, one window,
+    end to end. `loop_ms` is the CLI's own printed loop time an item, where
+    it prints one (first window included)."""
+    stats: list = []
+
+    def body():
+        t0 = time.perf_counter()
+        text = run(stats)
+        stamps = [t0, *stats]
+        return [text] * n, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+    text = paths._counted(path, n, body, per_item)[0]
+    ms = paths.frame_ms[path]
+    if len(ms) != n:
+        raise AssertionError(f"[{path}] {len(ms)} timestamps for {n} items")
+    rec = dict(text=text, ms=ms, first_ms=ms[0], mean_ms=sum(ms[after + 1:]) / (n - 1 - after))
+    m = re.search(r"done: (\d+) frames in ([\d.]+)s", text)
+    if m:
+        if int(m.group(1)) != n:
+            raise AssertionError(f"[{path}] printed {text!r}")
+        rec["loop_ms"] = float(m.group(2)) * 1e3 / n
+    log(f"[{path}] {n} items: {rec['mean_ms']:.2f} ms an item over items {after + 1}..{n - 1}"
+        f"; the CLI's loop {rec.get('loop_ms', float('nan')):.2f} ms an item; first item "
+        f"{ms[0]:.1f} ms with the model build; launches {paths.launches[path]}")
+    return rec
+
+
+def _same_pngs(path: str, a: str, b: str, ties=None) -> dict:
+    """Every PNG under directory `a` decodes equal to the same file under
+    `b`; `ties(relpath, got, want)` may excuse pixels (returns a bool mask
+    of those allowed to differ). Returns {"files": n, "excused": pixels}."""
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+
+    files = sorted(os.path.relpath(os.path.join(d, f), a)
+                   for d, _, fs in os.walk(a) for f in fs if f.endswith(".png"))
+    others = sorted(os.path.relpath(os.path.join(d, f), b)
+                    for d, _, fs in os.walk(b) for f in fs if f.endswith(".png"))
+    if files != others or not files:
+        raise AssertionError(f"[{path}] file lists differ: {len(files)} vs {len(others)}")
+    excused = 0
+    for f in files:
+        got, want = load_png(os.path.join(a, f)), load_png(os.path.join(b, f))
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"[{path}] {f}: {got.dtype}{got.shape} vs {want.dtype}"
+                                 f"{want.shape}")
+        differ = got != want
+        if differ.any():
+            allowed = ties(f, got, want) if ties is not None else np.zeros_like(differ)
+            if (differ & ~allowed).any():
+                raise AssertionError(f"[{path}] {f}: {int(differ.sum())} pixels differ, "
+                                     f"{int((differ & ~allowed).sum())} off the near-ties")
+            excused += int(differ.sum())
+    return {"files": len(files), "excused": excused}
+
+
+def _trained_ckpt(tmp: str) -> str:
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    return save_checkpoint(os.path.join(tmp, "trained_ckpt"), tg.tiny_model("cpu"))
+
+
+def phase_cli_step(device, paths: Paths, root: str, tmp: str) -> dict:
+    """`tools/test_step` in process on the card: R-50 (seeded random
+    weights, `smoke_config` gates) with the device tracker over `data`'s
+    KITTI-STEP tree at 384x1248, then `eval_dvpq` and `eval_stq` over its
+    output; the trained tiny model's 12 frames on the card and the CPU, every
+    `_cat` / `_ins` / `final` map equal."""
+    from video_knet_tpu_torch import config as tconfig
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+    from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ckpt = save_checkpoint(os.path.join(tmp, "r50_ckpt"),
+                           smoke_model(smoke_config(), device))
+    r50 = [(tconfig, "kitti_step_video_config", smoke_config)]
+    n = DATA_SEQS * DATA_FRAMES
+    out = os.path.join(tmp, "cli_step")
+    argv = ["--data-root", root, "--split", "train", "--size", *map(str, SERVE_HW),
+            "--checkpoint", ckpt, "--out", out]
+    rec = _cli_counted(paths, "cli-step", n,
+                       lambda stats: _run_cli("test_step", argv, r50, stats),
+                       after=DATA_FRAMES - 1)
+    gt = os.path.join(root, "video_sequence", "train")
+    scores = {}
+    for name, extra in (("eval_dvpq", ["--eval-frames", "1", "2"]), ("eval_stq", [])):
+        t0 = time.perf_counter()
+        text = _run_cli(name, [out, "--gt-dir", gt, *extra])
+        scores[name] = dict(text=text.strip(), ms=(time.perf_counter() - t0) * 1e3)
+        values = [float(v) for v in re.findall(r" (-?[\d.]+|nan|inf)\b", text)]
+        if not values or not all(np.isfinite(v) for v in values):
+            raise AssertionError(f"[{name}] printed {text!r}")
+    log(f"[cli-step] R-50 test_step over {n} frames of {DATA_HW[0]}x{DATA_HW[1]} at "
+        f"{SERVE_HW[0]}x{SERVE_HW[1]}: {rec['mean_ms']:.2f} ms a frame (second sequence); "
+        f"the CLI's loop {rec['loop_ms']:.2f} ms a frame ({1e3 / rec['loop_ms']:.3f} "
+        f"frames/s); eval_dvpq {scores['eval_dvpq']['ms']:.1f} ms, "
+        f"eval_stq {scores['eval_stq']['ms']:.1f} ms over the {n} frames")
+
+    # the trained tiny model, card and CPU
+    trained = os.path.join(tmp, "trained")
+    tiny_ckpt = _trained_ckpt(tmp)
+    tiny = [(tconfig, "kitti_step_video_config", tg.tiny_cfg)]
+    targv = ["--data-root", trained, "--split", "train", "--backbone", "mit_b0",
+             "--size", *map(str, tg.HW), "--checkpoint", tiny_ckpt]
+    outs = {d: os.path.join(tmp, f"cli_trained_{d}") for d in ("cuda", "cpu")}
+    _cli_counted(paths, "cli-step-trained", tg.N_FRAMES, lambda stats: _run_cli(
+        "test_step", [*targv, "--out", outs["cuda"]], tiny, stats))
+    _run_cli("test_step", [*targv, "--out", outs["cpu"], "--device", "cpu"], tiny)
+    same = _same_pngs("cli-step-trained", outs["cuda"], outs["cpu"])
+    log(f"[cli-step-trained] {same['files']} PNGs of the trained tiny model's {tg.N_FRAMES} "
+        f"frames equal on the card and the CPU")
+    return dict(rec, ckpt=ckpt, scores=scores, tiny_ckpt=tiny_ckpt)
+
+
+def _tta_split(device, root: str, frames: int = 3) -> dict:
+    """Where a fused R-50 TTA frame's time goes (`fn.logits` on `data`'s
+    first frames at SERVE_HW): host ms a frame in the keep-ratio resizes, in
+    `bilinear_resize` of the 6 variants' logits to the base grid, and the
+    rest (the 6 test_steps, each ending in its logits' copy to the host,
+    the flips and the sum); the first frame is left out."""
+    from video_knet_tpu_torch.data import tta as tta_mod
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+
+    cfg = smoke_config()
+    fn = tta_mod.make_tta_semantic_fn(smoke_model(cfg, device), cfg, SERVE_HW,
+                                      (0.75, 1.0, 1.25), flip=True, device=device)
+    spent = {"keep_ratio_resize_pad": 0.0, "bilinear_resize": 0.0}
+
+    def timed(name):
+        inner = getattr(tta_mod, name)
+
+        def f(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return f
+
+    imgs = sorted(f for f in os.listdir(os.path.join(root, "video_sequence", "train"))
+                  if f.endswith("leftImg8bit.png"))[:frames + 1]
+    saved = {k: getattr(tta_mod, k) for k in spent}
+    try:
+        for k in spent:
+            setattr(tta_mod, k, timed(k))
+        total = 0.0
+        for i, f in enumerate(imgs):
+            rgb = load_png(os.path.join(root, "video_sequence", "train", f))
+            if i == 1:
+                spent = dict.fromkeys(spent, 0.0)
+                total = 0.0
+            t0 = time.perf_counter()
+            fn.logits(rgb)
+            total += time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(tta_mod, k, v)
+    split = {k: v * 1e3 / frames for k, v in spent.items()}
+    split["total"] = total * 1e3 / frames
+    split["forwards_and_rest"] = split["total"] - sum(v for k, v in split.items() if k != "total")
+    log(f"[tta] fused logits of an R-50 frame at {SERVE_HW[0]}x{SERVE_HW[1]}, host ms a frame "
+        f"(mean of {frames}): {json.dumps({k: round(v, 3) for k, v in split.items()})}")
+    return split
+
+
+def phase_tta(device, paths: Paths, root: str, tmp: str, ckpt: str, tiny_ckpt: str) -> dict:
+    """`test_step --tta-scales 0.75 1.0 1.25 --tta-flip`: R-50 over `data`'s
+    tree (28 launches of each mask kernel a frame); the trained tiny model's
+    TTA run on the card and the CPU: `_ins` and `final`'s track channels
+    equal, `_cat` equal but at pixels whose CPU fused logits are within twice
+    the card-vs-CPU logit difference of a tie."""
+    from video_knet_tpu_torch import config as tconfig
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+    from video_knet_tpu_torch.data.tta import make_tta_semantic_fn, near_ties
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config
+
+    n = DATA_SEQS * DATA_FRAMES
+    argv = ["--data-root", root, "--split", "train", "--size", *map(str, SERVE_HW),
+            "--checkpoint", ckpt, "--out", os.path.join(tmp, "cli_tta"), *TTA_ARGS]
+    rec = _cli_counted(paths, "tta", n, lambda stats: _run_cli(
+        "test_step", argv, [(tconfig, "kitti_step_video_config", smoke_config)], stats),
+        per_item=TTA_LAUNCHES, after=DATA_FRAMES - 1)
+
+    rec["split_ms"] = _tta_split(device, root)
+
+    tiny = [(tconfig, "kitti_step_video_config", tg.tiny_cfg)]
+    targv = ["--data-root", os.path.join(tmp, "trained"), "--split", "train", "--backbone",
+             "mit_b0", "--size", *map(str, tg.HW), "--checkpoint", tiny_ckpt, *TTA_ARGS]
+    outs = {d: os.path.join(tmp, f"tta_trained_{d}") for d in ("cuda", "cpu")}
+    _cli_counted(paths, "tta-trained", tg.N_FRAMES, lambda stats: _run_cli(
+        "test_step", [*targv, "--out", outs["cuda"]], tiny, stats), per_item=TTA_LAUNCHES)
+    _run_cli("test_step", [*targv, "--out", outs["cpu"], "--device", "cpu"], tiny)
+    card_fn, cpu_fn = (make_tta_semantic_fn(tg.tiny_model(d), tg.tiny_cfg(), tg.HW,
+                                            (0.75, 1.0, 1.25), flip=True, device=d)
+                       for d in (device, torch.device("cpu")))
+    images = tg.sequence_images()
+    worst = {"logit_err": 0.0, "tie_pixels": 0}
+
+    def ties(rel, got, want):
+        if not rel.endswith("_cat.png") and not rel.startswith("final"):
+            return np.zeros(got.shape, bool)
+        rgb = images[int(os.path.basename(rel)[:6])]
+        card, cpu = card_fn.logits(rgb), cpu_fn.logits(rgb)
+        err = float(np.abs(card - cpu).max())
+        tie = near_ties(cpu, err)
+        worst["logit_err"] = max(worst["logit_err"], err)
+        worst["tie_pixels"] += int(tie.sum())
+        return tie if got.ndim == 2 else np.stack([tie, np.zeros_like(tie),
+                                                   np.zeros_like(tie)], -1)
+
+    same = _same_pngs("tta-trained", outs["cuda"], outs["cpu"], ties)
+    cats = [load_png(os.path.join(outs["cuda"], "panoptic", "0", f"{f:06d}_cat.png"))
+            for f in range(tg.N_FRAMES)]
+    log(f"[tta] R-50 TTA (3 scales x flip) over {n} frames: {rec['mean_ms']:.2f} ms a frame, "
+        f"{rec['split_ms']['bilinear_resize']:.2f} ms of it resizing the variants' logits; "
+        f"trained tiny model: {same['files']} PNGs equal on the card and the CPU, "
+        f"{same['excused']} pixels differing at near-ties (fused-logit difference up to "
+        f"{worst['logit_err']:.3e} where checked); {len(np.unique(np.concatenate(cats)))} "
+        f"classes in its fused maps")
+    return dict(rec, trained=same, worst=worst)
+
+
+def phase_cli_eval(device, paths: Paths, root: str, tmp: str, ckpt: str) -> dict:
+    """The other serving CLIs once each on the card: `test_vss` (R-50 over
+    `data`'s tree), `test_dvps` (R-50 SemKITTI preset with seeded random
+    weights over a seeded SemKITTI-DVPS tree; then `eval_dstq` over its
+    output), `test_image` (the Cityscapes-STEP R-50 image K-Net over the
+    KITTI-STEP frames), `test_coco_instance` (the COCO instance preset, two
+    images at its 800x1344 default): ms a frame or an image, 4 launches of
+    each mask kernel an item."""
+    from video_knet_tpu_torch import config as tconfig
+    from video_knet_tpu_torch import configs as tconfigs
+    from video_knet_tpu_torch.tools.data_check import write_coco_images, write_semkitti_tree
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config
+
+    out = {}
+    n = DATA_SEQS * DATA_FRAMES
+    vss = _cli_counted(paths, "cli-vss", n, lambda stats: _run_cli(
+        "test_vss", ["--data-root", root, "--split", "train", "--size", *map(str, SERVE_HW),
+                     "--checkpoint", ckpt, "--vc-windows", "2", "4"],
+        [(tconfig, "kitti_step_video_config", smoke_config)], stats))
+    want = "mIoU [\\d.]+  aAcc [\\d.]+\\n" + "".join(
+        f"mVC{k} [\\d.]+\\n" for k in (2, 4) if k <= DATA_FRAMES)
+    if not re.fullmatch(want, vss["text"]):
+        raise AssertionError(f"[cli-vss] printed {vss['text']!r}")
+    out["vss"] = vss
+
+    semkitti = write_semkitti_tree(os.path.join(tmp, "semkitti"), n_frames=DVPS_FRAMES,
+                                   hw=DATA_HW, seed=DATA_SEED)
+    sem_cfg = smoke_config(tconfig.semkitti_video_config())
+    dvps_out = os.path.join(tmp, "cli_dvps")
+    dvps = _cli_counted(paths, "cli-dvps", DVPS_FRAMES, lambda stats: _run_cli(
+        "test_dvps", ["--data-root", semkitti, "--size", *map(str, SERVE_HW), "--out",
+                      dvps_out],
+        [(tconfig, "semkitti_video_config", lambda: sem_cfg)], stats))
+    depth = os.path.join(dvps_out, "depth", "0")
+    if len(os.listdir(depth)) != DVPS_FRAMES:
+        raise AssertionError(f"[cli-dvps] {len(os.listdir(depth))} depth maps")
+    text = _run_cli("eval_dstq", [dvps_out, "--gt-dir", os.path.join(semkitti, "video_sequence",
+                                                                    "val"),
+                                  "--ann-mode", "class_instance", "--thing-ids",
+                                  *map(str, range(11, 19))])
+    # GT depth 2-90 m passed through, clipped at 80 m: every pixel within
+    # 1.25 (90 / 80 = 1.125), those beyond 88 m outside 1.1
+    dq = [float(v) for v in re.findall(r"DQ@[\d.]+ ([\d.]+)", text)]
+    if len(dq) != 2 or dq[0] != 1.0 or not 0.9 < dq[1] < 1.0:
+        raise AssertionError(f"[eval_dstq] printed {text!r}")
+    out["dvps"] = dvps
+
+    icfg = tconfigs.knet_s3_r50_fpn_cityscapes_step()
+    icfg = dataclasses.replace(icfg, test=dataclasses.replace(icfg.test, instance_score_thr=0.0))
+    image = _cli_counted(paths, "cli-image", CLI_IMAGES, lambda stats: _run_cli(
+        "test_image", ["--data-root", root, "--split", "train", "--size",
+                       *map(str, SERVE_HW), "--max-images", str(CLI_IMAGES)],
+        [(tconfigs, "knet_s3_r50_fpn_cityscapes_step", lambda: icfg)], stats))
+    lines = image["text"].splitlines()
+    if len(lines) != 22 or json.loads(lines[-1])["images"] != CLI_IMAGES:
+        raise AssertionError(f"[cli-image] printed {image['text']!r}")
+    out["image"] = image
+
+    ann = write_coco_images(os.path.join(tmp, "coco"), n=COCO_IMAGES, hw=COCO_HW, seed=IMAGE_SEED)
+    coco = _cli_counted(paths, "cli-coco", COCO_IMAGES, lambda stats: _run_cli(
+        "test_coco_instance", ["--ann-file", ann, "--img-root", os.path.dirname(ann),
+                               "--size", *map(str, IMAGE_HW),
+                               "--out", os.path.join(tmp, "cli_coco")], (), stats))
+    res = json.loads(coco["text"])
+    with open(res["results"]) as f:
+        dets = json.load(f)
+    if res["n_images"] != COCO_IMAGES or len(dets) != res["n_detections"] or not dets or any(
+            tuple(d["segmentation"]["size"]) != COCO_HW for d in dets):
+        raise AssertionError(f"[cli-coco] {res}, {len(dets)} results")
+    out["coco"] = coco
+    log(f"[cli-eval] ms an item: test_vss {vss['mean_ms']:.2f}, test_dvps {dvps['loop_ms']:.2f} "
+        f"(the CLI's loop: its {DVPS_FRAMES} frames are one window), "
+        f"test_image {image['mean_ms']:.2f}, test_coco_instance {coco['mean_ms']:.2f} "
+        f"({res['n_detections']} detections)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2630,12 +2969,15 @@ def main() -> int:
         root, golden_tree = os.path.join(tmp, "kitti_step"), os.path.join(tmp, "trained")
         data = phase_data(device, paths, root)
         eval_hook = phase_eval_hook(device, paths, root, golden_tree)
+        cli_step = phase_cli_step(device, paths, root, tmp)
+        tta = phase_tta(device, paths, root, tmp, cli_step["ckpt"], cli_step["tiny_ckpt"])
+        cli_eval = phase_cli_eval(device, paths, root, tmp, cli_step["ckpt"])
     for rec in kernels:
         rec["launches_by_path"].update(
             {p: c[rec["name"]] for p, c in paths.launches.items()
              if p.startswith(("vis", "image", "trackers", "trained-", "unitrack", "fuse-track",
                               "roi-gt-box", "track-check", "import-ref", "score", "ckpt",
-                              "data-train", "eval-hook"))
+                              "data-train", "eval-hook", "cli-", "tta"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -2683,6 +3025,11 @@ def main() -> int:
     log(f"[eval-hook] R-50 {eval_hook['frame_ms']:.2f} ms a frame, host ms a frame "
         f"{json.dumps(eval_hook['host_ms'])}; image K-Net {eval_hook['image_ms']:.2f} ms an "
         f"image ({card})")
+    log(f"[cli-step] R-50 {cli_step['mean_ms']:.2f} ms a frame (the CLI's loop "
+        f"{cli_step['loop_ms']:.2f}); [tta] {tta['mean_ms']:.2f} ms a frame (loop "
+        f"{tta['loop_ms']:.2f}); [cli-eval] ms an item "
+        f"{json.dumps({k: r.get('loop_ms', r['mean_ms']) if k == 'dvps' else r['mean_ms'] for k, r in cli_eval.items()})} "
+        f"({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

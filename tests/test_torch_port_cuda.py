@@ -597,3 +597,65 @@ def test_loader_on_the_card_matches_the_cpu(dev, tmp_path, threads):
         for x, y in pairs:
             assert x.device.type == "cuda" and y.device.type == "cpu"
             assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+
+
+def _run_test_step(argv, tiny_cfg):
+    """The port's `test_step` CLI in process under the trained tiny config."""
+    import video_knet_tpu_torch.config as tconfig
+    from video_knet_tpu_torch.tools import test_step
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tconfig, "kitti_step_video_config", tiny_cfg)
+        test_step.main(argv)
+
+
+def _pngs(root):
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+
+    return {os.path.relpath(os.path.join(d, f), root): load_png(os.path.join(d, f))
+            for d, _, fs in os.walk(root) for f in fs if f.endswith(".png")}
+
+
+def test_cli_step_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`test_step` with the trained tiny model (its committed checkpoint
+    saved as a port checkpoint) over its 12 frames as a KITTI-STEP tree: on
+    the card (no `--device`) and with `--device cpu`, every `_cat`, `_ins`
+    and `final` map equal, 4 launches of each mask kernel a frame."""
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    tree = tg.write_sequence(str(tmp_path / "data"))
+    ckpt = save_checkpoint(str(tmp_path / "ckpt"), tg.tiny_model("cpu"))
+    argv = ["--data-root", tree, "--split", "train", "--backbone", "mit_b0", "--size", "64",
+            "96", "--checkpoint", ckpt]
+    mo.reset_launch_counts()
+    _run_test_step([*argv, "--out", str(tmp_path / "card")], tg.tiny_cfg)
+    torch.cuda.synchronize()
+    assert mo.LAUNCHES == {"mask_pool": 4 * tg.N_FRAMES, "assemble": 4 * tg.N_FRAMES}
+    _run_test_step([*argv, "--out", str(tmp_path / "cpu"), "--device", "cpu"], tg.tiny_cfg)
+    card, cpu = _pngs(str(tmp_path / "card")), _pngs(str(tmp_path / "cpu"))
+    assert sorted(card) == sorted(cpu) and len(card) == 3 * tg.N_FRAMES
+    for k in cpu:
+        assert card[k].dtype == cpu[k].dtype and np.array_equal(card[k], cpu[k]), k
+
+
+def test_tta_on_the_card_matches_the_cpu(dev):
+    """`make_tta_semantic_fn` (scales 0.75 / 1.0 / 1.25, flip) with the
+    trained tiny model over its 12 frames: fused logits within 1e-4 of the
+    CPU's (relative to their scale), fused maps equal but at pixels whose
+    CPU logits are within twice that difference of a tie; 4 launches of each
+    mask kernel a variant."""
+    from video_knet_tpu_torch.data.tta import make_tta_semantic_fn, near_ties
+    from video_knet_tpu_torch.tools import trained_golden as tg
+
+    card, cpu = (make_tta_semantic_fn(tg.tiny_model(d), tg.tiny_cfg(), tg.HW, (0.75, 1.0, 1.25),
+                                      flip=True, device=d) for d in (dev, "cpu"))
+    for rgb in tg.sequence_images():
+        mo.reset_launch_counts()
+        a = card.logits(rgb)
+        assert mo.LAUNCHES == {"mask_pool": 24, "assemble": 24}
+        b = cpu.logits(rgb)
+        err = float(np.abs(a - b).max())
+        assert err <= 1e-4 * float(np.abs(b).max())
+        differ = card(rgb) != cpu(rgb)
+        assert not (differ & ~near_ties(b, err)).any()

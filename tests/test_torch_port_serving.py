@@ -195,7 +195,8 @@ def test_unported_serving_options_raise(golden_setup):
 
 
 # the modules of the later slices (training, Swin, VIS, image, the trackers
-# and track heads), which the guard must find and import
+# and track heads, scoring, data, TTA and the CLIs), which the guard must
+# find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
                        "tools.train_check", "models.swin", "configs", "utils.torch_import",
@@ -208,7 +209,10 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "eval.vpq", "eval.stq", "eval.miou", "eval.coco_instance", "data",
                        "data.rle", "utils.checkpoint", "tools.reference_sd", "tools.eval_check",
                        "data.panoptic_png", "data.transforms", "data.datasets", "data.loader",
-                       "native.png_codec", "native.build", "train.eval_hook")
+                       "native.png_codec", "native.build", "train.eval_hook", "data.tta",
+                       "tools._cli", "tools.test_step", "tools.test_vss", "tools.test_dvps",
+                       "tools.test_image", "tools.test_coco_instance", "tools.eval_dvpq",
+                       "tools.eval_stq", "tools.eval_dstq", "tools.eval_vpq_cityscapes")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -11,6 +11,11 @@ bottom), a void patch, and `n_things` person (11) / car (13) boxes that
 overlap and move from frame to frame with persistent ids (some above 255,
 so G is used). Frames are the bands' colours with the boxes' over them and
 seeded noise, which compresses about as a camera frame does.
+
+`write_semkitti_tree` writes the same scene in SemKITTI-DVPS's layout
+(`_gtFine_class.png` + `_gtFine_instance.png` and a uint16 `_depth.png` in
+metres * 256), its things drawn from SemKITTI's eight thing classes (11-18);
+`write_coco_images` writes seeded PNG images and a COCO image list.
 """
 
 from __future__ import annotations
@@ -68,3 +73,54 @@ def write_kitti_step_tree(root: str, *, n_seqs: int = 2, n_frames: int = 6,
                 save_png(stem + "panoptic.png", pan)
                 written[stem + "panoptic.png"] = pan
     return written
+
+
+def write_semkitti_tree(root: str, *, n_frames: int = 4, hw: tuple[int, int] = (375, 1242),
+                        split: str = "val", seed: int = 0) -> str:
+    """One SemKITTI-DVPS sequence under `root`: `write_kitti_step_tree`'s
+    scene (things relabelled into 11-18), the class and instance maps as
+    separate PNGs, and depth 2-90 m as uint16 metres * 256."""
+    from video_knet_tpu_torch.data.panoptic_png import decode_kitti_panoptic, save_png
+
+    written = write_kitti_step_tree(root, n_seqs=1, n_frames=n_frames, hw=hw, split=split,
+                                    seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    remap = np.arange(256)
+    remap[list(THING_CLASSES)] = (11, 15)  # person, car -> two of SemKITTI's things
+    for path, pan in written.items():
+        if not path.endswith("panoptic.png"):
+            continue
+        sem, inst = decode_kitti_panoptic(pan)
+        stem = path[: -len("panoptic.png")]
+        save_png(stem + "gtFine_class.png", remap[sem].astype(np.uint8))
+        save_png(stem + "gtFine_instance.png", inst.astype(np.uint16))
+        save_png(stem + "depth.png", (rng.uniform(2, 90, sem.shape) * 256).astype(np.uint16))
+        os.remove(path)
+    return root
+
+
+def write_coco_images(root: str, *, n: int = 2, hw: tuple[int, int] = (480, 640),
+                      seed: int = 0) -> str:
+    """`n` seeded PNG images of coloured boxes on noise and their COCO image
+    list (`ann.json`, no categories: the preset's 80 classes); returns the
+    list's path."""
+    import json
+
+    from video_knet_tpu_torch.data.panoptic_png import save_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    images = []
+    for i in range(n):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8) // 4 + 64
+        for _ in range(6):
+            bh, bw = rng.randint(h // 8, h // 3), rng.randint(w // 8, w // 3)
+            y, x = rng.randint(0, h - bh), rng.randint(0, w - bw)
+            img[y:y + bh, x:x + bw] = rng.randint(0, 256, 3)
+        save_png(os.path.join(root, f"{i:06d}.png"), img)
+        images.append({"id": i + 1, "file_name": f"{i:06d}.png", "height": h, "width": w})
+    ann = os.path.join(root, "ann.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": [], "categories": []}, f)
+    return ann

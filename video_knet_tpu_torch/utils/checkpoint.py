@@ -6,7 +6,9 @@ Counterpart of `video_knet_tpu/utils/checkpoint.py`:
   (`train/optim.py:Optimizer`), the step and, where given, a drop-path
   generator's state; restoring into a built `TrainState` gives back the
   parameters, moments, step and learning rates bit for bit, so a resumed run
-  continues as an unbroken one. The reference resumes with mmcv's
+  continues as an unbroken one. Given a bare model, `save_checkpoint` writes
+  its state_dict alone; `load_model_state` reads the model's state_dict from
+  either kind (the evaluation CLIs' `--checkpoint`). The reference resumes with mmcv's
   `--resume-from`; the JAX package writes orbax directories, which the port
   does not read (`utils/convert.py` takes a flax variables tree instead).
 - `import_torch_resnet`, `import_torch_fpn`, `import_torch_hrnet`: mmdet or
@@ -36,18 +38,21 @@ CHECKPOINT_FILE = "checkpoint.pt"
 
 def save_checkpoint(path: str, state, *, step: int | None = None,
                     generator: torch.Generator | None = None) -> str:
-    """Write `state` (a `train_state.TrainState`) to <path>[/step_{step}]/
-    checkpoint.pt; returns that directory. The file is written beside its
+    """Write `state` (a `train_state.TrainState`, or a model alone) to
+    <path>[/step_{step}]/checkpoint.pt; returns that directory. The file is written beside its
     final name and renamed into place, so an interrupted save leaves the
     previous checkpoint whole."""
     path = os.path.abspath(path)
     if step is not None:
         path = os.path.join(path, f"step_{step}")
     os.makedirs(path, exist_ok=True)
-    blob = {"model": state.model.state_dict(),
-            "adamw": state.optimizer.adamw.state_dict(),
-            "scheduler": state.optimizer.scheduler.state_dict(),
-            "step": int(state.step)}
+    if isinstance(state, torch.nn.Module):  # a model state alone
+        blob = {"model": state.state_dict(), "step": int(step or 0)}
+    else:
+        blob = {"model": state.model.state_dict(),
+                "adamw": state.optimizer.adamw.state_dict(),
+                "scheduler": state.optimizer.scheduler.state_dict(),
+                "step": int(state.step)}
     if generator is not None:
         blob["generator"] = generator.get_state()
     file = os.path.join(path, CHECKPOINT_FILE)
@@ -72,6 +77,15 @@ def restore_checkpoint(path: str, target, *, generator: torch.Generator | None =
             raise KeyError(f"{path}: the checkpoint holds no generator state")
         generator.set_state(blob["generator"])
     return target
+
+
+def load_model_state(path: str) -> dict[str, torch.Tensor]:
+    """The model's state_dict (CPU tensors) from a checkpoint that
+    `save_checkpoint` wrote, of a train state or of a model alone; `path` is
+    its directory or the file itself."""
+    path = os.path.abspath(path)
+    file = path if os.path.isfile(path) else os.path.join(path, CHECKPOINT_FILE)
+    return torch.load(file, map_location="cpu", weights_only=True)["model"]
 
 
 class TrackedStateDict(dict):
