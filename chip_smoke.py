@@ -9,13 +9,18 @@ Phases, each raising on failure (the process then exits non-zero):
   3. kernels   each kernel against its plain PyTorch version at the shapes
                the serving paths give it (R-50 stages and init head at B=1
                and B=2, the trained tiny config's N=20/37, 8x12, C=64,
-               Swin-B VIP-Seg's N=166 and N=100 at 92x160) and at ragged
+               Swin-B VIP-Seg's N=166 and N=100 at 92x160, VIS's B*T=5,
+               `test_whole_video`'s B*T=8 and `vis-data-train`'s B*T=10 at
+               45x80, the tiny VIS config's 8 x 8 proposals at 23x40, C=64)
+               and at ragged
                shapes; at the R-50 and the VIP-Seg stage shapes, device time
                (a CUDA graph of 20 calls, timed with CUDA events) of the
                kernel, the plain version and one PyTorch library call, the
                kernel's host-inclusive call time, and forward + backward
                beside the plain autograd, the library calls and the bound;
-               at VIS's stage shape (B*T=5, N=100, 45x80, C=256), at COCO
+               at VIS's stage shape (B*T=5, N=100, 45x80, C=256),
+               `test_whole_video`'s (B*T=8), `vis-data-train`'s (B*T=10)
+               and `vis-cli-tiny`'s (B*T=8, N=8, 23x40, C=64), at COCO
                panoptic's (N=153, 100x168) and at the image train step's (B=8,
                N=117, 64x128) the same
   4. serve     Video K-Net R-50 (default config, seeded random weights)
@@ -196,6 +201,47 @@ Phases, each raising on failure (the process then exits non-zero):
                ms a frame by part; `evaluate_image_panoptic` with the
                Cityscapes-STEP R-50 image K-Net over 4 frames: ms an image,
                `format_pq_table`'s first and last lines
+ 37. cli-step  `tools/test_step` in process: R-50 over phase 35's tree at
+               384x1248, then `eval_dvpq` / `eval_stq` over its output; the
+               trained tiny model's maps equal on the card and the CPU
+ 38. tta       `test_step` with 3 scales and flip (28 launches of each mask
+               kernel a frame); the trained tiny model's fused maps equal on
+               the card and the CPU but at near-ties
+ 39. cli-eval  `test_vss`, `test_dvps` + `eval_dstq`, `test_image` and
+               `test_coco_instance` once each
+ 40. vis-data  a seeded YouTube-VIS 2019-style train tree (8 videos x 8
+               frames of 720x1280, 1-3 instances a video as RLEs and
+               polygons; `tools/data_check.py`) converted by the
+               `youtubevis2coco` CLI and read by `YouTubeVISDataset`: decode
+               ms a frame, `clip_gt_arrays` ms a clip; `VISTrainLoader` alone
+               (host ms a batch of 2 clips x 5 frames on a 360x640 canvas at 1
+               and 4 threads; the CUDA batches equal the CPU loader's); 4
+               loader-fed steps of the R-50 YouTube-VIS 2019 preset at B=2
+               (7 / 7 / 1 launches a step, 0 host syncs after the first, the
+               wait on the loader), then the same batches with no loader
+               running (`vis-data-train-alone`); the Hungarian kernel at
+               the step's 44 problems
+ 41. vis-cli   `tools/test_whole_video` at its defaults (clips of 8 at
+               360x640) with the R-50 preset over a 2-video x 12-frame
+               720x1280 val tree: 7 / 7 launches a clip, ms a clip and a
+               frame, both videos in results.json, every RLE 360x640, the
+               zip's member equal to it; the tiny VIS config (weights from
+               `vis_margin_seed`) on the card and the CPU at 180x320:
+               tracks, categories and non-empty frames equal, scores within
+               1e-5, mask logits within 1e-4 of their scale, mask pixels
+               equal but where the CPU's logit lies within twice the
+               measured card-vs-CPU difference of 0; then the card test's
+               clips at 64x96, each clip's difference and the hard decisions
+               inside its forward taken otherwise (a clip past 1e-4 must show
+               one)
+ 42. coco-data  host only: a seeded COCO panoptic tree (4 images of 480x640,
+               ~20 segments) and a Cityscapes-VPS tree (2 clips x 3 frames
+               of 1024x2048): `load_sem_inst` ms, the `get_pair` sequence,
+               `load_instance_annotations` and `pad_to` on a 1024x2048
+               instance map
+ 43. kernel-shapes  K1 and K2 against their plain versions at every shape a
+               path launched them (`mask_ops.SHAPES`) that phase 3 did not
+               hold
 Every VPS serving phase resets the launch counts just before it drives its
 path and requires 4 launches of each kernel a frame (a round for B=2); the
 VIS phases require their own counts a clip, the image phases 4 an image.
@@ -206,8 +252,11 @@ when no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import re
 import statistics
@@ -334,6 +383,20 @@ CLI_IMAGES = 6  # test_image over the first frames of `data`'s tree
 DVPS_FRAMES = 4
 COCO_IMAGES = 2
 COCO_HW = (480, 640)  # COCO-sized images, served at the CLI's 800x1344 default
+VIS_DATA_HW = (720, 1280)  # YouTube-VIS 2019's common frame size
+VIS_DATA_VIDEOS = 8
+VIS_DATA_FRAMES = 8
+VIS_DATA_B = 2
+VIS_DATA_STEPS = 4
+VIS_DATA_INSTS = 3  # instances a video, at most
+VIS_CLI_VIDEOS = 2
+VIS_CLI_FRAMES = 12  # two clips of test_whole_video's default 8 frames, the second padded
+VIS_CLI_CLIP = 8
+VIS_CLI_TINY_HW = (180, 320)  # the tiny model's card-vs-CPU run (its CPU side is the cost)
+COCO_DATA_IMAGES = 4
+CITYSCAPES_HW = (1024, 2048)
+CITYSCAPES_CLIPS = 2
+CITYSCAPES_FRAMES = 3
 
 
 def log(msg: str) -> None:
@@ -372,6 +435,56 @@ def _fwd_bwd(op, feats, kern, wrt_kern: bool):
     return run
 
 
+def _hold_kernels(gen, device, shapes) -> tuple[float, float]:
+    """K1 and K2 (sigmoid off and on) against their plain versions on
+    random inputs at each (B, N, H, W, C) of `shapes`; their largest
+    absolute differences (mask_pool, assemble), each shape's logged."""
+    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+
+    err_pool, err_asm = 0.0, 0.0
+    for b, n, hh, ww, c in shapes:
+        logits = _logits(gen, (b, n, hh, ww), device)
+        feats = torch.randn((b, hh, ww, c), generator=gen, device=device)
+        kern = torch.randn((b, n, c), generator=gen, device=device) / c ** 0.5
+        e = (mo.fused_mask_pool(logits, feats) - mo.mask_pool_plain(logits, feats)).abs().max()
+        err_pool = max(err_pool, float(e))
+        for sig in (False, True):
+            e = (mo.fused_assemble(kern, feats, sigmoid=sig)
+                 - mo.assemble_plain(kern, feats, sigmoid=sig)).abs().max()
+            err_asm = max(err_asm, float(e))
+        log(f"[kernels] B={b} N={n} HW={hh}x{ww} C={c}: mask_pool err {err_pool:.3e}, "
+            f"assemble err {err_asm:.3e} (sigmoid off and on)")
+    return err_pool, err_asm
+
+
+def _launched_shapes() -> set:
+    """Every (B, N, H, W, C) at which a mask kernel was launched so far."""
+    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+
+    return set().union(*mo.SHAPES.values())
+
+
+def phase_kernel_shapes(device, kernels: list[dict], held: set) -> None:
+    """K1 and K2 against their plain versions at every shape the paths gave
+    them (`mask_ops.SHAPES`) that `phase_kernels` did not hold; each
+    kernel's `max_abs_err` takes these in. Run after the paths' counts are
+    read."""
+    shapes = sorted(_launched_shapes() - held)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    err_pool, err_asm = _hold_kernels(gen, device, shapes)
+    torch.cuda.synchronize()
+    log(f"[kernel-shapes] the paths launched the mask kernels at {len(_launched_shapes())} "
+        f"shapes; the {len(shapes)} that the kernels phase did not hold: mask_pool max abs err "
+        f"{err_pool:.3e} (tol {TOL_MASK_POOL}), assemble {err_asm:.3e} (tol {TOL_ASSEMBLE})")
+    if not (err_pool <= TOL_MASK_POOL and err_asm <= TOL_ASSEMBLE):
+        raise AssertionError(f"[kernel-shapes] a kernel disagrees with its plain version at a "
+                             f"path's shape: {err_pool}, {err_asm}")
+    for rec in kernels:
+        if rec["name"] in KERNELS:
+            err = err_pool if rec["name"] == "mask_pool" else err_asm
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
 def phase_kernels(device) -> list[dict]:
     from video_knet_tpu_torch.ops.kernels import mask_ops as mo
     from video_knet_tpu_torch.tools.kernel_timing import call_ms, device_ms
@@ -389,23 +502,18 @@ def phase_kernels(device) -> list[dict]:
               (2, 100, h, w, 256), (1, 37, 8, 12, 64), (1, 20, 8, 12, 64),
               (1, SWIN_VIPSEG_KERNELS, vh, vw, 256), (1, 100, vh, vw, 256),
               (2, 100, vh, vw, 256), (VIS_FRAMES, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
+              (VIS_CLI_CLIP, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
               (1, COCO_PAN_KERNELS, IMAGE_HW[0] // 8, IMAGE_HW[1] // 8, 256),
               (1, 100, IMAGE_HW[0] // 8, IMAGE_HW[1] // 8, 256),
               (IMAGE_TRAIN_B, 117, IMAGE_TRAIN_HW[0] // 8, IMAGE_TRAIN_HW[1] // 8, 256),
               (1, 100, 37, 61, 256), (1, 100, 37, 61, 200), (1, 100, 37, 61, 37)]
-    err_pool, err_asm = 0.0, 0.0
-    for b, n, hh, ww, c in shapes:
-        logits = _logits(gen, (b, n, hh, ww), device)
-        feats = torch.randn((b, hh, ww, c), generator=gen, device=device)
-        kern = torch.randn((b, n, c), generator=gen, device=device) / c ** 0.5
-        e = (mo.fused_mask_pool(logits, feats) - mo.mask_pool_plain(logits, feats)).abs().max()
-        err_pool = max(err_pool, float(e))
-        for sig in (False, True):
-            e = (mo.fused_assemble(kern, feats, sigmoid=sig)
-                 - mo.assemble_plain(kern, feats, sigmoid=sig)).abs().max()
-            err_asm = max(err_asm, float(e))
-        log(f"[kernels] B={b} N={n} HW={hh}x{ww} C={c}: mask_pool err {err_pool:.3e}, "
-            f"assemble err {err_asm:.3e} (sigmoid off and on)")
+    # the paths' VIS shapes: vis-data-train's B*T = 2 x 5, and the tiny VIS
+    # config's clips of 8 at 180x320 in vis-cli-tiny (8 proposals over 23x40,
+    # C=64); phase_kernel_shapes holds the kernels at any other shape a path
+    # gives them
+    shapes += [(VIS_DATA_B * VIS_FRAMES, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
+               (VIS_CLI_CLIP, 8, 23, 40, 64)]
+    err_pool, err_asm = _hold_kernels(gen, device, shapes)
     # tie case: a logit of exactly 0 has sigmoid 0.5, which is not > 0.5
     logits = _logits(gen, (1, 100, 37, 61), device)
     logits[:, :10] = 0.0
@@ -435,6 +543,20 @@ def phase_kernels(device) -> list[dict]:
     for rec, vis in zip(recs, _time_kernels(gen, device, 100, VIS_HW[0] // 8, VIS_HW[1] // 8,
                                             256, err_pool, err_asm, b=VIS_FRAMES)):
         rec["vis"] = {k: vis[k] for k in TIMED_KEYS}
+    # test_whole_video's stage shape: its default 8-frame clips at 360x640
+    for rec, whole in zip(recs, _time_kernels(gen, device, 100, VIS_HW[0] // 8, VIS_HW[1] // 8,
+                                              256, err_pool, err_asm, b=VIS_CLI_CLIP)):
+        rec["vis_whole_video"] = {k: whole[k] for k in TIMED_KEYS}
+    # vis-data-train's stage shape: B=2 clips of 5 frames folded into the
+    # batch; vis-cli-tiny's: the tiny VIS config's 8 proposals, C=64, over
+    # 23x40 (180x320 at stride 8) in clips of 8
+    for rec, vd in zip(recs, _time_kernels(gen, device, 100, VIS_HW[0] // 8, VIS_HW[1] // 8,
+                                           256, err_pool, err_asm,
+                                           b=VIS_DATA_B * VIS_FRAMES)):
+        rec["vis_data_train"] = {k: vd[k] for k in TIMED_KEYS}
+    for rec, tiny in zip(recs, _time_kernels(gen, device, 8, 23, 40, 64, err_pool, err_asm,
+                                             b=VIS_CLI_CLIP)):
+        rec["vis_cli_tiny"] = {k: tiny[k] for k in TIMED_KEYS}
     # the image slice's stage shapes: COCO panoptic (100 + 53 kernels over
     # 800x1344 at stride 8) and the image train step's (B=8, 100 + 17 over
     # 512x1024 at stride 8)
@@ -2580,9 +2702,7 @@ def _run_cli(name: str, argv: list, patches=(), stats: list | None = None) -> st
     """The port's CLI `name` in process (its `main(argv)`), each (module,
     attribute, value) of `patches` set meanwhile; returns what it printed,
     which is also logged."""
-    import contextlib
     import importlib
-    import io
 
     mod = importlib.import_module(f"video_knet_tpu_torch.tools.{name}")
     saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
@@ -2907,6 +3027,344 @@ def phase_cli_eval(device, paths: Paths, root: str, tmp: str, ckpt: str) -> dict
     return out
 
 
+def _ytvis_cocovid(root: str, **kw) -> tuple[str, str]:
+    """`data_check.write_ytvis_cocovid`: a seeded raw YouTube-VIS tree and
+    its COCO-VID json written by the `youtubevis2coco` CLI, whose printed
+    line is checked: (json, image root)."""
+    from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ann, img_root = write_ytvis_cocovid(root, **kw)
+    text = out.getvalue()
+    log(f"[youtubevis2coco] {text.strip()}")
+    n = kw["n_videos"] * kw["n_frames"]
+    if not re.fullmatch(f"wrote {re.escape(ann)}: {n} images, \\d+ annotations, "
+                        f"{kw['n_videos']} videos\n", text):
+        raise AssertionError(f"[youtubevis2coco] printed {text!r}")
+    return ann, img_root
+
+
+def _same_vis_batch(a, b) -> bool:
+    """Every field of two VISBatches equal, bit for bit (b on the CPU)."""
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y)
+               for x, y in ((a.clip, b.clip), *zip(a.gt, b.gt)))
+
+
+def phase_vis_data(device, paths: Paths, tmp: str) -> dict:
+    """The VIS data path: a seeded YouTube-VIS 2019-style train tree (8
+    videos x 8 frames of 720x1280, 1-3 instances a video as RLEs and
+    polygons) converted by `youtubevis2coco` and read by
+    `YouTubeVISDataset`; decode ms a frame and `clip_gt_arrays` ms a clip;
+    `VISTrainLoader` alone (host ms a batch of B=2 x 5 frames at 1 and 4
+    threads, the CUDA batches equal to the CPU loader's); 4 loader-fed
+    steps of the R-50 YouTube-VIS 2019 preset on a 360x640 canvas (7 / 7 /
+    1 launches a step, 0 host syncs after the first), then the same batches
+    with no loader running (`vis-data-train-alone`)."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+    from video_knet_tpu_torch.data.vis_loader import VISTrainLoader
+    from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, knet_vis_costs
+    from video_knet_tpu_torch.ops.hungarian import gt_rows
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vis import train_step
+
+    t0 = time.perf_counter()
+    ann, img_root = _ytvis_cocovid(os.path.join(tmp, "ytvis_train"), n_videos=VIS_DATA_VIDEOS,
+                                   n_frames=VIS_DATA_FRAMES, hw=VIS_DATA_HW,
+                                   max_insts=VIS_DATA_INSTS, seed=DATA_SEED)
+    write_s = time.perf_counter() - t0
+    ds = YouTubeVISDataset(ann, img_root)
+    n_anns = sum(len(a) for v in ds.videos for a in v.anns_by_frame)
+    if len(ds) != VIS_DATA_VIDEOS or not n_anns:
+        raise AssertionError(f"[vis-data] {len(ds)} videos, {n_anns} annotations")
+    frame = ds.frame_path(ds.videos[0].frames[0])
+    ms = []
+    for _ in range(DATA_DECODE_READS):
+        t0 = time.perf_counter()
+        rgb = load_png(frame)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if rgb.shape != (*VIS_DATA_HW, 3):
+        raise AssertionError(f"[vis-data] a frame of shape {rgb.shape}")
+    decode_ms = statistics.median(ms)
+    cfg = get_config("video_knet_vis_r50_ytvis2019")
+    if (cfg.max_insts, cfg.num_frames, cfg.num_classes) != (16, VIS_FRAMES, 40):
+        raise AssertionError("[vis-data] not the YouTube-VIS 2019 R-50 preset")
+    gt_ms = []
+    for v in range(len(ds)):
+        t0 = time.perf_counter()
+        ds.clip_gt_arrays(v, list(range(VIS_FRAMES)), max_insts=cfg.max_insts)
+        gt_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[vis-data] wrote and converted {VIS_DATA_VIDEOS} x {VIS_DATA_FRAMES} frames of "
+        f"{VIS_DATA_HW[0]}x{VIS_DATA_HW[1]} ({n_anns} annotations) in {write_s:.2f} s; load_png "
+        f"median {decode_ms:.3f} ms a frame; clip_gt_arrays (16 slots x {VIS_FRAMES} frames at "
+        f"full size) median {statistics.median(gt_ms):.3f} ms a clip")
+
+    def loader(dev, threads: int = 4):
+        return VISTrainLoader(ds, cfg, batch_size=VIS_DATA_B, canvas_hw=VIS_HW, seed=DATA_SEED,
+                              num_threads=threads, device=dev)
+
+    loader_ms, cpu = {}, {}
+    for threads in (1, 4):
+        ms, cpu[threads] = [], []
+        t0 = time.perf_counter()
+        for b in loader("cpu", threads):
+            ms.append((time.perf_counter() - t0) * 1e3)
+            cpu[threads].append(b)
+            t0 = time.perf_counter()
+        loader_ms[threads] = dict(median_ms=statistics.median(ms[1:]),
+                                  mean_ms=sum(ms) / len(ms), ms=[round(t, 3) for t in ms])
+        log(f"[vis-data] loader alone, {threads} thread(s), B={VIS_DATA_B} x {VIS_FRAMES} frames "
+            f"on {VIS_HW[0]}x{VIS_HW[1]}: median {loader_ms[threads]['median_ms']:.2f} ms a "
+            f"batch over batches 1..{len(ms) - 1}, epoch mean "
+            f"{loader_ms[threads]['mean_ms']:.2f} ms; ms {loader_ms[threads]['ms']}")
+    cuda = list(loader(device))
+    n_batches = VIS_DATA_VIDEOS // VIS_DATA_B
+    if not (len(cuda) == len(cpu[1]) == len(cpu[4]) == n_batches and all(
+            a.clip.device.type == device.type and _same_vis_batch(a, b) and _same_vis_batch(b, c)
+            for a, b, c in zip(cuda, cpu[1], cpu[4]))):
+        raise AssertionError("[vis-data] the CUDA loader's batches differ from the CPU loaders'")
+    gt = cpu[1][0].gt
+    log(f"[vis-data] {n_batches} CUDA batches equal the CPU loader's (1 and 4 threads) in every "
+        f"field; batch 0: {int(gt.valid.sum())} tube slots of {VIS_DATA_B} x {cfg.max_insts}, "
+        f"tubes at {tuple(gt.masks.shape[-2:])}, {float(gt.masks.sum()):.1f} mask pixels")
+    del cuda, cpu
+
+    model = KNetVIS(cfg, generator=torch.Generator().manual_seed(VIS_SEED), device=device)
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000))
+    frozen, trainable = _frozen_split("vis-data-train", model)
+    batches = iter(loader(device))
+    waits, fed, keys = [], [], []
+
+    def step(batch):
+        nonlocal state
+        if batch is None:  # loader-fed: the wait on the loader is part of the step
+            t0 = time.perf_counter()
+            batch = next(batches)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            fed.append(batch)
+        state, losses = train_step(state, batch)
+        return losses
+
+    def check_keys(got: set) -> bool:
+        keys.append(got)
+        return got == keys[0] and {"loss_rpn_seg", "tracker_s2_loss_dice", "total_loss"} <= got
+
+    out = _timed_steps("vis-data-train", step, [None] * VIS_DATA_STEPS, VIS_TRAIN_LAUNCHES,
+                       check_keys)
+    batches.close()  # stops the producer
+    _check_trained("vis-data-train", model, frozen, trainable)
+    paths.launches["vis-data-train"] = out["launches"]
+    paths.frame_ms["vis-data-train"] = out["step_ms"]
+    alone = _timed_steps("vis-data-train-alone", step, fed, VIS_TRAIN_LAUNCHES, check_keys)
+    paths.launches["vis-data-train-alone"] = alone["launches"]
+    out.update(wait_ms=waits, decode_ms=decode_ms, gt_ms=statistics.median(gt_ms),
+               loader_ms=loader_ms, write_s=write_s, alone_median_ms=alone["median_ms"],
+               alone_ms=alone["step_ms"])
+    log(f"[vis-data-train] waited on next(loader) {[round(w, 3) for w in waits]} ms a step; "
+        f"median step (wait included) {out['median_ms']:.2f} ms while the loader's threads run, "
+        f"{alone['median_ms']:.2f} ms on the same batches with none running")
+    # the step's problems at B=2 (4 per-frame sets of B*T = 10, 2 tube sets of B = 2)
+    with torch.no_grad():
+        costs, valids = knet_vis_costs(model(fed[-1].clip), fed[-1].gt, cfg)
+    out["hungarian"] = _hungarian_record("vis-data-train",
+                                         gt_rows(torch.cat(costs), torch.cat(valids)))
+    del model, state, fed
+    return out
+
+
+def phase_vis_cli(device, paths: Paths, tmp: str) -> dict:
+    """`tools/test_whole_video` in process at its defaults (clips of 8 at
+    360x640) on a seeded 2-video x 12-frame 720x1280 val tree: the R-50
+    YouTube-VIS 2019 preset (seeded random weights) on the card, 7 / 7
+    launches a clip, results.json with both videos, every RLE of 360x640,
+    the zip's member equal to it; then the tiny VIS config (weights from
+    `vis_margin_seed`) on the card and on the CPU at 180x320, equal under
+    the threshold's near-tie rule (`train_check.vis_results_agree`)."""
+    import zipfile
+
+    from video_knet_tpu_torch import config_vis
+    from video_knet_tpu_torch.data.rle import decode_mask
+    from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ann, img_root = _ytvis_cocovid(os.path.join(tmp, "ytvis_val"), n_videos=VIS_CLI_VIDEOS,
+                                   n_frames=VIS_CLI_FRAMES, hw=VIS_DATA_HW,
+                                   max_insts=VIS_DATA_INSTS, seed=DATA_SEED + 1)
+    clips = VIS_CLI_VIDEOS * -(-VIS_CLI_FRAMES // VIS_CLI_CLIP)
+    out_dir = os.path.join(tmp, "cli_vis")
+    argv = ["--ann-file", ann, "--img-root", img_root, "--out", out_dir]
+    rec = _cli_counted(paths, "vis-cli", clips, lambda stats: _run_cli(
+        "test_whole_video", argv, (), stats), per_item=VIS_LAUNCHES)
+    # clips 1.. cover every frame but the first clip's, their reads included;
+    # a video's later clips read no frame: the forward, decode and copy alone
+    rec["frame_ms"] = sum(rec["ms"][1:]) / (VIS_CLI_VIDEOS * VIS_CLI_FRAMES - VIS_CLI_CLIP)
+    per_video = clips // VIS_CLI_VIDEOS
+    rec["clip_ms"] = statistics.median(rec["ms"][i] for i in range(1, clips) if i % per_video)
+    with open(os.path.join(out_dir, "results.json")) as f:
+        results = json.load(f)
+    with zipfile.ZipFile(os.path.join(out_dir, "submission_file.zip")) as z:
+        member = json.loads(z.read("results.json"))
+    rles = [s for r in results for s in r["segmentations"] if s is not None]
+    k = config_vis.youtube_vis_2019_config().test.max_per_img
+    if (member != results or {r["video_id"] for r in results} != set(range(1, VIS_CLI_VIDEOS + 1))
+            or len(results) != VIS_CLI_VIDEOS * k or not rles
+            or any(decode_mask(s).shape != VIS_HW for s in rles)
+            or rec["text"] != f"wrote {os.path.join(out_dir, 'results.json')}\n"):
+        raise AssertionError(f"[vis-cli] {len(results)} results, {len(rles)} RLEs, printed "
+                             f"{rec['text']!r}")
+    log(f"[vis-cli] R-50 test_whole_video over {VIS_CLI_VIDEOS} x {VIS_CLI_FRAMES} frames of "
+        f"{VIS_DATA_HW[0]}x{VIS_DATA_HW[1]} in clips of {VIS_CLI_CLIP} at "
+        f"{VIS_HW[0]}x{VIS_HW[1]}: {rec['clip_ms']:.2f} ms a clip that reads no frame "
+        f"(ms {[round(t, 3) for t in rec['ms']]}: a video's first clip waits for its frames' "
+        f"reads), {rec['frame_ms']:.2f} ms a frame over clips 1..{clips - 1} (reads "
+        f"included); {len(results)} tracks, {len(rles)} non-empty masks, the zip "
+        f"equal to results.json")
+
+    cfg = train_check.vis_check_cfg(config_vis.VISConfig())
+    seed, _ = train_check.vis_margin_seed(cfg, CHECK_HW)
+    models = {d: KNetVIS(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+              for d, dev in (("cuda", device), ("cpu", "cpu"))}
+    ckpt = save_checkpoint(os.path.join(tmp, "vis_tiny_ckpt"), models["cpu"])
+    tiny = [(config_vis, "youtube_vis_2019_config", lambda: cfg)]
+    targv = ["--ann-file", ann, "--img-root", img_root, "--checkpoint", ckpt, "--size",
+             *map(str, VIS_CLI_TINY_HW)]
+    res = {}
+    for d in ("cuda", "cpu"):
+        tout = os.path.join(tmp, f"cli_vis_tiny_{d}")
+        if d == "cuda":
+            _cli_counted(paths, "vis-cli-tiny", clips, lambda stats: _run_cli(
+                "test_whole_video", [*targv, "--out", tout], tiny, stats), per_item=VIS_LAUNCHES)
+        else:
+            _run_cli("test_whole_video", [*targv, "--out", tout, "--device", "cpu"], tiny)
+        with open(os.path.join(tout, "results.json")) as f:
+            res[d] = json.load(f)
+    # raises where the mask logits differ by more than VIS_MASK_TOL of their scale
+    near, worst, per_clip = train_check.vis_near_ties(
+        models["cuda"], models["cpu"], cfg, YouTubeVISDataset(ann, img_root), VIS_CLI_TINY_HW,
+        VIS_CLI_CLIP)
+    agree = train_check.vis_results_agree(res["cuda"], res["cpu"], near)
+    n_near = sum(int(v.sum()) for v in near.values())
+    log(f"[vis-cli-tiny] the tiny VIS model (seed {seed}) at {VIS_CLI_TINY_HW[0]}x"
+        f"{VIS_CLI_TINY_HW[1]}, card vs CPU: {agree['tracks']} tracks with equal video ids, "
+        f"order, categories and non-empty frames, scores within {train_check.VIS_SCORE_TOL}; "
+        f"mask logits within {worst:.2e} of their scale (limit {train_check.VIS_MASK_TOL}); "
+        f"{agree['excused']} mask pixels differ, all at near-ties ({n_near} near-tie pixels); "
+        f"clip by clip, the difference and the hard decisions taken otherwise: {per_clip}")
+    rec.update(tiny=dict(agree, worst=worst, near=n_near))
+    rec["flip_clips"] = _vis_flip_clips(models, cfg, os.path.join(tmp, "ytvis_flip"))
+    return rec
+
+
+def _vis_flip_clips(models: dict, cfg, root: str) -> dict:
+    """The tiny VIS model on the clips of the card test
+    `test_whole_video_on_the_card_matches_the_cpu` (2 videos x 7 frames of
+    72x128, tree seed 2, clips of 3) at the size its weight seed was chosen
+    for, 64x96: each clip's card-vs-CPU difference of the mask logits and
+    the hard decisions inside its forward that the devices took otherwise.
+    Not bounded: a clip whose difference exceeds VIS_MASK_TOL must show such
+    a decision, the cause of the difference."""
+    from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        ann, img_root = write_ytvis_cocovid(root, n_videos=2, n_frames=7, hw=(72, 128), seed=2)
+    _, worst, per_clip = train_check.vis_near_ties(
+        models["cuda"], models["cpu"], cfg, YouTubeVISDataset(ann, img_root), (64, 96), 3,
+        tol=math.inf)
+    log(f"[vis-cli-tiny] the card test's clips at 64x96: worst difference {worst:.3e} of the "
+        f"scale; clip by clip, the difference and the hard decisions taken otherwise: "
+        f"{per_clip}")
+    unexplained = [(v, i) for v, clips in per_clip.items() for i, c in enumerate(clips)
+                   if c["err"] > train_check.VIS_MASK_TOL and len(c) == 1]
+    if unexplained:
+        raise AssertionError(f"[vis-cli-tiny] (video, clip) {unexplained}: the mask logits "
+                             f"differ past {train_check.VIS_MASK_TOL} with no hard decision "
+                             f"taken otherwise")
+    return per_clip
+
+
+def phase_coco_data(tmp: str) -> dict:
+    """The COCO-panoptic, Cityscapes-VPS and forecasting readers on the
+    host: a seeded COCO panoptic tree (4 images of 480x640, ~20 segments:
+    stuff bands, thing boxes, a crowd and an unknown category, void) and a
+    Cityscapes-VPS tree (2 clips x 3 frames of 1024x2048); `load_sem_inst`
+    ms, the `get_pair` sequence, `load_instance_annotations` and `pad_to` on
+    a 1024x2048 Cityscapes-style instance map. No PIL: every file is a PNG."""
+    from video_knet_tpu_torch.data.coco_panoptic import CityscapesVPSDataset, CocoPanopticDataset
+    from video_knet_tpu_torch.data.forecasting import load_instance_annotations, pad_to
+    from video_knet_tpu_torch.data.panoptic_png import load_png
+    from video_knet_tpu_torch.tools.data_check import (
+        write_cityscapes_vps_tree,
+        write_coco_panoptic_tree,
+    )
+
+    out = {}
+    ds = CocoPanopticDataset(*write_coco_panoptic_tree(
+        os.path.join(tmp, "coco_panoptic"), n_images=COCO_DATA_IMAGES, hw=COCO_HW,
+        seed=DATA_SEED))
+    ms, labels = [], set()
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        sem, inst = ds.load_sem_inst(i)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        labels |= set(np.unique(sem).tolist())
+        crowd = [s["id"] for s in ds.samples[i].segments_info if s.get("iscrowd")]
+        if not (inst.max() > 1 and (sem == 255).any()) or len(crowd) != 1:
+            raise AssertionError(f"[coco-data] image {i}: {int(inst.max())} instances, crowd "
+                                 f"{crowd}")
+    if not (any(lb < ds.num_thing_classes for lb in labels)
+            and any(ds.num_thing_classes <= lb < 255 for lb in labels)):
+        raise AssertionError(f"[coco-data] labels {sorted(labels)}")
+    out["coco_ms"] = statistics.median(ms)
+    log(f"[coco-data] COCO panoptic, {len(ds)} images of {COCO_HW[0]}x{COCO_HW[1]} "
+        f"({sum(len(s.segments_info) for s in ds.samples)} segments): load_sem_inst median "
+        f"{out['coco_ms']:.3f} ms; labels {sorted(labels)}")
+
+    paths_ = write_cityscapes_vps_tree(os.path.join(tmp, "cityscapes_vps"),
+                                       n_clips=CITYSCAPES_CLIPS, n_frames=CITYSCAPES_FRAMES,
+                                       hw=CITYSCAPES_HW, seed=DATA_SEED)
+    cvps = CityscapesVPSDataset(*paths_, seed=DATA_SEED)
+    pairs = [cvps.get_pair(k) for k in range(len(cvps.keys))]
+    clip_of = lambda i: os.path.basename(cvps.samples[i].img)[:4]  # noqa: E731
+    if len(pairs) != CITYSCAPES_CLIPS * CITYSCAPES_FRAMES or any(
+            k == r or clip_of(k) != clip_of(r) for k, r in pairs):
+        raise AssertionError(f"[coco-data] get_pair {pairs}")
+    t0 = time.perf_counter()
+    sem, inst = cvps.load_sem_inst(0)
+    out["cityscapes_ms"] = (time.perf_counter() - t0) * 1e3
+    # a Cityscapes-style instance map of that frame: things (trainIds 11-18,
+    # things-first labels 0-7) as class * 1000 + instance, stuff and crowd
+    # as their trainId, void as 255
+    thing = (sem < cvps.num_thing_classes) & (inst > 0)
+    train_id = np.where(sem < cvps.num_thing_classes, sem + 11, sem - cvps.num_thing_classes)
+    inst_map = np.where(thing, train_id * 1000 + inst, np.where(sem == 255, 255, train_id))
+    t0 = time.perf_counter()
+    ann = load_instance_annotations(inst_map, with_inst=True, semantic_seg=sem)
+    padded = pad_to(load_png(cvps.samples[0].img), size_divisor=32, masks=ann["gt_masks"],
+                    seg=ann["gt_semantic_seg"])
+    square = pad_to(load_png(cvps.samples[0].img), pad_to_square=True)
+    out["forecast_ms"] = (time.perf_counter() - t0) * 1e3
+    n_inst = int(len(np.unique(inst[thing])))
+    if (len(ann["gt_labels"]) != n_inst or not n_inst
+            or padded["img"].shape[:2] != CITYSCAPES_HW or square["img"].shape[:2] != (max(CITYSCAPES_HW),) * 2
+            or padded["masks"].shape != (n_inst, *CITYSCAPES_HW)):
+        raise AssertionError(f"[coco-data] {len(ann['gt_labels'])} instances of {n_inst}, "
+                             f"padded {padded['img'].shape}, square {square['img'].shape}")
+    out["pairs"] = pairs
+    log(f"[coco-data] Cityscapes-VPS, {CITYSCAPES_CLIPS} clips x {CITYSCAPES_FRAMES} frames of "
+        f"{CITYSCAPES_HW[0]}x{CITYSCAPES_HW[1]}: get_pair {pairs}; load_sem_inst "
+        f"{out['cityscapes_ms']:.2f} ms; load_instance_annotations + pad_to (divisor 32, square) "
+        f"{out['forecast_ms']:.2f} ms for {n_inst} instances, boxes "
+        f"{ann['gt_bboxes'][:2].tolist()}...")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2922,6 +3380,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     phase_build()
     kernels = phase_kernels(device)
+    held = _launched_shapes()
     paths = Paths()
     serve = phase_serve(device, paths)
     phase_mit(device, paths)
@@ -2972,6 +3431,18 @@ def main() -> int:
         cli_step = phase_cli_step(device, paths, root, tmp)
         tta = phase_tta(device, paths, root, tmp, cli_step["ckpt"], cli_step["tiny_ckpt"])
         cli_eval = phase_cli_eval(device, paths, root, tmp, cli_step["ckpt"])
+        phase_s = {}
+        t1 = time.perf_counter()
+        vis_data = phase_vis_data(device, paths, tmp)
+        phase_s["vis-data"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        vis_cli = phase_vis_cli(device, paths, tmp)
+        phase_s["vis-cli"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        coco_data = phase_coco_data(tmp)
+        phase_s["coco-data"] = time.perf_counter() - t1
+    hrec["vis_data"] = vis_data["hungarian"]
+    phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
         rec["launches_by_path"].update(
             {p: c[rec["name"]] for p, c in paths.launches.items()
@@ -3030,6 +3501,19 @@ def main() -> int:
         f"{tta['loop_ms']:.2f}); [cli-eval] ms an item "
         f"{json.dumps({k: r.get('loop_ms', r['mean_ms']) if k == 'dvps' else r['mean_ms'] for k, r in cli_eval.items()})} "
         f"({card})")
+    log(f"[vis-data] decode {vis_data['decode_ms']:.2f} ms a 720x1280 frame, clip_gt_arrays "
+        f"{vis_data['gt_ms']:.2f} ms a clip; loader ms a batch "
+        f"{json.dumps({t: r['median_ms'] for t, r in vis_data['loader_ms'].items()})}; "
+        f"[vis-data-train] median step {vis_data['median_ms']:.2f} ms "
+        f"({vis_data['alone_median_ms']:.2f} with no loader running), waits on the loader "
+        f"{json.dumps(vis_data['wait_ms'])} ms, peak memory {vis_data['peak_bytes']} bytes, host "
+        f"syncs a step {vis_data['syncs']} ({card})")
+    log(f"[vis-cli] R-50 test_whole_video {vis_cli['clip_ms']:.2f} ms a clip of "
+        f"{VIS_CLI_CLIP}, {vis_cli['frame_ms']:.2f} ms a frame; tiny model card vs CPU "
+        f"{json.dumps(vis_cli['tiny'])}; [coco-data] load_sem_inst {coco_data['coco_ms']:.2f} ms "
+        f"(480x640), {coco_data['cityscapes_ms']:.2f} ms (1024x2048) ({card})")
+    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data phases, {sum(phase_s.values()):.1f} "
+        f"s together ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

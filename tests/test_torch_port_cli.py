@@ -14,8 +14,10 @@ by an empty params tree: every leaf comes from the checkpoint, as
 
 Equal: the decoded `_cat` / `_ins` / `final` / depth PNGs bit for bit (the
 two packages write PNG bytes with different encoders), the COCO results
-JSON entry for entry, the printed metric lines as strings. The eval CLIs
-run on seeded prediction and GT trees in each `--ann-mode`.
+JSON and `test_whole_video`'s YT-VIS results.json (the tiny VIS config over
+a seeded YouTube-VIS tree) entry for entry, the printed metric lines as
+strings. The eval CLIs run on seeded prediction and GT trees in each
+`--ann-mode`.
 """
 
 import argparse
@@ -40,19 +42,23 @@ from flax import traverse_util
 # every module the JAX CLIs import inside `main`, imported here once, so that
 # their runs in threads import nothing
 import video_knet_tpu.config as jconfig
+import video_knet_tpu.config_vis as jconfig_vis
 import video_knet_tpu.configs as jconfigs
 import video_knet_tpu.data.datasets  # noqa: F401
 import video_knet_tpu.data.panoptic_png  # noqa: F401
 import video_knet_tpu.data.transforms  # noqa: F401
 import video_knet_tpu.data.tta  # noqa: F401
+import video_knet_tpu.data.ytvis  # noqa: F401
 import video_knet_tpu.eval.coco_instance  # noqa: F401
 import video_knet_tpu.eval.miou  # noqa: F401
 import video_knet_tpu.models.video.inference  # noqa: F401
 import video_knet_tpu.ops.panoptic  # noqa: F401
 import video_knet_tpu.train.eval_hook  # noqa: F401
 import video_knet_tpu_torch.config as tconfig
+import video_knet_tpu_torch.config_vis as tconfig_vis
 import video_knet_tpu_torch.configs as tconfigs
 from video_knet_tpu.models.knet import KNet as JKNet
+from video_knet_tpu.models.vis.knet_vis import KNetVIS as JKNetVIS
 from video_knet_tpu.models.video.knet_vps import VideoKNet as JVideoKNet
 from video_knet_tpu.utils import checkpoint as jck
 from video_knet_tpu_torch.data.datasets import KittiStepDVPS
@@ -61,13 +67,17 @@ from video_knet_tpu_torch.data.transforms import keep_ratio_resize_pad
 from video_knet_tpu_torch.models.knet import KNet
 from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
 from video_knet_tpu_torch.tools import trained_golden as tg
-from video_knet_tpu_torch.tools.train_check import image_check_cfg
+from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+from video_knet_tpu_torch.tools.train_check import image_check_cfg, vis_check_cfg, vis_margin_seed
 from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
 from video_knet_tpu_torch.utils.convert import state_dict_to_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = ["--size", "64", "128"]  # keep-ratio: 64x96 content, padded on the right
+VIS_HW = (64, 96)
+VIS_CLIP = ["--clip-len", "3"]  # videos of 5 and 4 frames: the last clip is padded
 TRACKERS = ("quasi_dense", "quasi_dense_host", "unitrack", "tao", "simple", "overlap")
 COCO_CATS = (1, 3, 7, 9, 12)
 WEIGHT_SEED = 0
@@ -238,6 +248,28 @@ def _coco_tree(root) -> str:
     return ann
 
 
+def _ytvis_tree(root) -> tuple[str, str]:
+    """A seeded YouTube-VIS val tree (two videos, 5 frames of 48x80 and 4),
+    converted to COCO-VID by the port's `youtubevis2coco`: (json, image root)."""
+    ann, img_root = write_ytvis_cocovid(root, n_videos=2, n_frames=5, hw=(48, 80), seed=3)
+    with open(ann) as f:
+        coco = json.load(f)
+    last = max(im["id"] for im in coco["images"])  # the second video loses a frame
+    coco["images"] = [im for im in coco["images"] if im["id"] != last]
+    coco["annotations"] = [a for a in coco["annotations"] if a["image_id"] != last]
+    with open(ann, "w") as f:
+        json.dump(coco, f)
+    return ann, img_root
+
+
+def _vis_cfgs():
+    """The tiny VIS config (`vis_check_cfg`) of both packages, and its
+    weight seed (`vis_margin_seed`: mask-pool inputs and the decode's top-k
+    logits kept off their thresholds)."""
+    pair = (vis_check_cfg(tconfig_vis.VISConfig()), vis_check_cfg(jconfig_vis.VISConfig()))
+    return pair, vis_margin_seed(pair[0], VIS_HW)[0]
+
+
 @pytest.fixture(scope="module")
 def serving(tmp_path_factory):
     """Every serving CLI of both packages over the same trees and weights.
@@ -256,6 +288,8 @@ def serving(tmp_path_factory):
     kitti = _kitti_tree(os.path.join(root, "kitti"))
     semkitti = str(_write_fake_semkitti(tmp_path_factory.mktemp("cli_semkitti"), n_frames=4))
     ann = _coco_tree(os.path.join(root, "coco"))
+    vis_ann, vis_imgs = _ytvis_tree(os.path.join(root, "ytvis"))
+    (vis_t, vis_j), vis_seed = _vis_cfgs()
     gen = lambda: torch.Generator().manual_seed(WEIGHT_SEED)  # noqa: E731
     cfgs = {"dvps": (_tiny_vps_cfg(tg.tiny_cfg(), True, (8, 11)),
                      _tiny_vps_cfg(jtg.tiny_cfg(), True, (8, 11))),
@@ -267,7 +301,9 @@ def serving(tmp_path_factory):
              "dvps": write_checkpoints(VideoKNet(cfgs["dvps"][0], generator=gen(), device="cpu"),
                                        os.path.join(root, "d")),
              **{k: write_checkpoints(KNet(cfgs[k][0], generator=gen(), device="cpu"),
-                                     os.path.join(root, k)) for k in ("image", "coco")}}
+                                     os.path.join(root, k)) for k in ("image", "coco")},
+             "vis": write_checkpoints(KNetVIS(vis_t, generator=torch.Generator().manual_seed(
+                 vis_seed), device="cpu"), os.path.join(root, "v"))}
     mit = ["--backbone", "mit_b0"]
     step = ["--data-root", kitti, *mit]
     runs = {  # tag: (cli, argv, checkpoint, writes an --out directory)
@@ -282,6 +318,8 @@ def serving(tmp_path_factory):
         "coco": ("test_coco_instance", ["--ann-file", ann, "--img-root",
                                         os.path.join(root, "coco", "imgs"), *mit, *SIZE,
                                         "--score-thr", "0.05"], "coco", True),
+        "vis": ("test_whole_video", ["--ann-file", vis_ann, "--img-root", vis_imgs, *VIS_CLIP,
+                                     "--size", *map(str, VIS_HW)], "vis", True),
     }
     made = []
     make = jtta.make_tta_semantic_fn
@@ -298,6 +336,9 @@ def serving(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         for module, attr, value in (
                 (JVideoKNet, "init", _no_init), (JKNet, "init", _no_init),
+                (JKNetVIS, "init", _no_init),
+                (jconfig_vis, "youtube_vis_2019_config", lambda: vis_j),
+                (tconfig_vis, "youtube_vis_2019_config", lambda: vis_t),
                 (jtta, "make_tta_semantic_fn", recorded),
                 (jconfig, "kitti_step_video_config", jtg.tiny_cfg),
                 (tconfig, "kitti_step_video_config", tg.tiny_cfg),
@@ -315,6 +356,8 @@ def serving(tmp_path_factory):
             jax_out = {tag: f.result() for tag, f in futures.items()}
     assert len(made) == 1
     return dict(root=root, kitti=kitti, semkitti=semkitti, ckpt=ckpts["kitti"],
+                vis=dict(ann=vis_ann, img_root=vis_imgs, ckpt=ckpts["vis"]["port"], cfg=vis_t,
+                         seed=vis_seed),
                 base=[*step, *SIZE], jax=jax_out, port=port, jax_tta=made[0],
                 model=tg.tiny_model("cpu"),
                 out={tag: {pkg: os.path.join(root, f"{pkg}_{tag}") for pkg in ("jax", "port")}
@@ -488,6 +531,76 @@ def test_test_coco_instance_matches_jax(serving):
     assert {r["category_id"] for r in got_res} <= set(COCO_CATS)
     sizes = {r["image_id"]: tuple(r["segmentation"]["size"]) for r in got_res}
     assert sizes.get(11, (35, 40)) == (35, 40)
+
+
+def test_test_whole_video_matches_jax(serving):
+    """The tiny VIS config over a two-video YT-VIS tree (5 and 4 frames) in
+    clips of 3 at 64x96, so each video's last clip is padded: results.json
+    equal entry for entry (video ids, categories and RLEs exactly, scores
+    within 1e-5), the zip's member equal to it, the printed lines equal."""
+    import zipfile
+
+    from video_knet_tpu_torch.data.rle import decode_mask
+
+    out = serving["out"]["vis"]
+    res = {}
+    for pkg in ("port", "jax"):
+        with open(os.path.join(out[pkg], "results.json")) as f:
+            res[pkg] = json.load(f)
+        with zipfile.ZipFile(os.path.join(out[pkg], "submission_file.zip")) as z:
+            assert json.loads(z.read("results.json")) == res[pkg]
+        text = serving[pkg]["vis"].replace(out[pkg], "<out>")
+        assert text == "wrote <out>/results.json\n", text
+    got, want = res["port"], res["jax"]
+    k = serving["vis"]["cfg"].test.max_per_img
+    assert len(got) == len(want) == 2 * k
+    for a, b in zip(got, want):
+        assert set(a) == set(b) == {"video_id", "category_id", "score", "segmentations"}
+        assert (a["video_id"], a["category_id"], a["segmentations"]) == (
+            b["video_id"], b["category_id"], b["segmentations"])
+        assert a["score"] == pytest.approx(b["score"], rel=1e-5, abs=1e-6)
+    assert [len(r["segmentations"]) for r in got] == [5] * k + [4] * k
+    rles = [s for r in got for s in r["segmentations"] if s is not None]
+    assert rles and all(decode_mask(s).shape == VIS_HW for s in rles)
+
+
+def test_test_whole_video_without_device_raises_on_a_box_without_a_gpu(serving, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    vis = serving["vis"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_port("test_whole_video", ["--ann-file", vis["ann"], "--img-root", vis["img_root"],
+                                      "--out", str(tmp_path / "out")], device=())
+    assert not os.listdir(tmp_path)
+
+
+def test_test_whole_video_takes_labels_from_the_first_clip(serving):
+    """The port's CLI against `KNetVIS` + `vis_decode` run clip by clip:
+    each video's masks are its clips' (the padded last clip cut to the real
+    frames), its labels and scores the first clip's."""
+    from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset, tracks_from_prediction
+    from video_knet_tpu_torch.models.vis.knet_vis import vis_decode
+    from video_knet_tpu_torch.tools.test_whole_video import video_frames
+
+    vis, t = serving["vis"], int(VIS_CLIP[1])
+    model = KNetVIS(vis["cfg"], generator=torch.Generator().manual_seed(vis["seed"]),
+                    device="cpu")
+    ds = YouTubeVISDataset(vis["ann"], img_root=vis["img_root"])
+    want = []
+    for video in ds.videos:
+        frames = video_frames(ds, video, VIS_HW)
+        n = len(frames)
+        padded = frames + [frames[-1]] * (2 * t - n)
+        with torch.no_grad():
+            first, second = (vis_decode(model(torch.from_numpy(np.stack(padded[i:i + t])[None])),
+                                        vis["cfg"], out_hw=VIS_HW) for i in (0, t))
+        masks = np.concatenate([first.masks.numpy(), second.masks.numpy()[: n - t]])
+        want += tracks_from_prediction(video.video_id, masks, first.labels.numpy(),
+                                       first.scores.numpy(), ds.cat_ids)
+    with open(os.path.join(serving["out"]["vis"]["port"], "results.json")) as f:
+        got = json.load(f)
+    assert [(r["video_id"], r["category_id"], r["score"], r["segmentations"]) for r in got] == [
+        (r["video_id"], r["category_id"], r["score"], r["segmentations"]) for r in want]
 
 
 def test_checkpoint_flag_reads_a_model_state_and_checks_it(tmp_path):

@@ -659,3 +659,77 @@ def test_tta_on_the_card_matches_the_cpu(dev):
         assert err <= 1e-4 * float(np.abs(b).max())
         differ = card(rgb) != cpu(rgb)
         assert not (differ & ~near_ties(b, err)).any()
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_vis_loader_on_the_card_matches_the_cpu(dev, tmp_path, threads):
+    """`VISTrainLoader` on CUDA yields CUDA tensors equal, field for field,
+    to the `device="cpu"` loader's clips and tubes (short sides of 40 and
+    64 on a 48x80 canvas: the crop path)."""
+    from video_knet_tpu_torch.config_vis import VISConfig
+    from video_knet_tpu_torch.data.vis_loader import VISTrainLoader
+    from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
+    from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+
+    ann, img_root = write_ytvis_cocovid(str(tmp_path), n_videos=4, n_frames=5, hw=(72, 128),
+                                        seed=1)
+    ds = YouTubeVISDataset(ann, img_root)
+    cfg = VISConfig(num_frames=3, max_insts=4)
+    mk = lambda d: VISTrainLoader(ds, cfg, batch_size=2, canvas_hw=(48, 80),  # noqa: E731
+                                  short_sides=(40, 64), seed=3, num_threads=threads, device=d)
+    card, cpu = list(mk(dev)), list(mk("cpu"))
+    assert len(card) == len(cpu) == 2
+    for a, b in zip(card, cpu):
+        for x, y in ((a.clip, b.clip), *zip(a.gt, b.gt)):
+            assert x.device.type == "cuda" and y.device.type == "cpu"
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+    assert any(float(b.gt.masks.sum()) > 0 for b in cpu)
+
+
+def test_whole_video_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`test_whole_video` with the tiny VIS config (weights from
+    `vis_margin_seed`) over two 7-frame videos in clips of 3 at 180x320 (the
+    size of chip_smoke's `vis-cli-tiny`), on the card (no `--device`) and
+    with `--device cpu`: the mask logits within `train_check.VIS_MASK_TOL`
+    of their scale; tracks, categories and non-empty frames equal, scores
+    within 1e-5, mask pixels equal but where the CPU's logit lies within
+    twice the measured card-vs-CPU difference of 0
+    (`train_check.vis_results_agree`); 7 launches of each mask kernel a
+    clip. At 64x96 a mask-pool decision inside a clip's forward can flip
+    between the devices and move the logits past that bound (PERF.md §7);
+    at 180x320 a flipped pixel is one of 920 a pool, not one of 96."""
+    import json
+
+    import video_knet_tpu_torch.config_vis as tconfig_vis
+    from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
+    from video_knet_tpu_torch.tools import test_whole_video, train_check
+    from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+    from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    hw = (180, 320)
+    cfg = train_check.vis_check_cfg(tconfig_vis.VISConfig())
+    seed, _ = train_check.vis_margin_seed(cfg, (64, 96))
+    models = {d: KNetVIS(cfg, generator=torch.Generator().manual_seed(seed), device=d)
+              for d in ("cuda", "cpu")}
+    ckpt = save_checkpoint(str(tmp_path / "ckpt"), models["cpu"])
+    ann, img_root = write_ytvis_cocovid(str(tmp_path / "data"), n_videos=2, n_frames=7,
+                                        hw=(72, 128), seed=2)
+    argv = ["--ann-file", ann, "--img-root", img_root, "--checkpoint", ckpt, "--clip-len", "3",
+            "--size", *map(str, hw)]
+    res = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tconfig_vis, "youtube_vis_2019_config", lambda: cfg)
+        for d, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            mo.reset_launch_counts()
+            test_whole_video.main([*argv, "--out", str(tmp_path / d), *extra])
+            if d == "cuda":
+                torch.cuda.synchronize()
+                assert mo.LAUNCHES == {"mask_pool": 7 * 6, "assemble": 7 * 6}
+            with open(tmp_path / d / "results.json") as f:
+                res[d] = json.load(f)
+    near, worst, _ = train_check.vis_near_ties(models["cuda"], models["cpu"], cfg,
+                                               YouTubeVISDataset(ann, img_root), hw, 3)
+    assert worst <= train_check.VIS_MASK_TOL
+    out = train_check.vis_results_agree(res["cuda"], res["cpu"], near)
+    assert out["tracks"] == 2 * cfg.test.max_per_img

@@ -195,7 +195,8 @@ def test_unported_serving_options_raise(golden_setup):
 
 
 # the modules of the later slices (training, Swin, VIS, image, the trackers
-# and track heads, scoring, data, TTA and the CLIs), which the guard must
+# and track heads, scoring, data, TTA and the CLIs, the VIS / COCO data and
+# the VIS CLIs), which the guard must
 # find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
@@ -212,7 +213,10 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "native.png_codec", "native.build", "train.eval_hook", "data.tta",
                        "tools._cli", "tools.test_step", "tools.test_vss", "tools.test_dvps",
                        "tools.test_image", "tools.test_coco_instance", "tools.eval_dvpq",
-                       "tools.eval_stq", "tools.eval_dstq", "tools.eval_vpq_cityscapes")
+                       "tools.eval_stq", "tools.eval_dstq", "tools.eval_vpq_cityscapes",
+                       "data.polygon", "data.ytvis", "data.vis_loader", "data.coco_panoptic",
+                       "data.forecasting", "tools.youtubevis2coco", "tools.test_whole_video",
+                       "tools.data_check")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -19,6 +19,8 @@ mask-assign stride.
 On CUDA the workers stack each batch into pinned host memory and the
 consumer copies it to the card with `non_blocking=True` on its current
 stream, so the copy is ordered before the train step that reads it.
+`ThreadedLoader` holds this machinery; the VIS clip loader
+(`data/vis_loader.py`) shares it.
 """
 
 from __future__ import annotations
@@ -53,31 +55,21 @@ def _process_rank() -> tuple[int, int]:
     return 0, 1
 
 
-class VPSTrainLoader:
-    def __init__(
-        self,
-        dataset: _DVPSScan,
-        cfg: VideoKNetConfig,
-        *,
-        batch_size: int,
-        crop_hw: tuple[int, int] = (384, 1248),
-        img_scale: tuple[int, int] | None = None,
-        seed: int = 0,
-        prefetch: int = 2,
-        num_threads: int = 4,
-        process_index: int | None = None,
-        process_count: int | None = None,
-        device: str | torch.device | None = None,
-    ):
-        self.ds = dataset
-        self.cfg = cfg
+class ThreadedLoader:
+    """The threaded batch machinery both train loaders share: the up-front
+    epoch permutation and seeds, the rank striding, a pool of
+    `num_threads` workers running `_load(index, rng)` with `prefetch`
+    batches in flight, the stop event and error propagation, pinned host
+    batches and the consumer's `non_blocking` copy. A subclass sets `ds`
+    and `batch_size` and gives `_load`, `_assemble` (the host batch of a
+    batch's items) and `_to_device`."""
+
+    producer_name = "loader-producer"
+
+    def __init__(self, *, seed: int, prefetch: int, num_threads: int,
+                 process_index: int | None, process_count: int | None,
+                 device: str | torch.device | None):
         self.device = resolve_device(device)
-        self.batch_size = batch_size
-        self.crop_hw = crop_hw
-        # base scale the random ratio multiplies (reference img_scale, e.g.
-        # (384, 1248) KITTI-STEP / (720, 100000) VIP-Seg short-side-720);
-        # defaults to the crop size, the release configs' choice.
-        self.img_scale = img_scale if img_scale is not None else crop_hw
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self.num_threads = max(1, num_threads)
@@ -85,28 +77,6 @@ class VPSTrainLoader:
             process_index, process_count = _process_rank()
         self.process_index = process_index
         self.process_count = max(1, process_count)
-
-    def _load_pair(self, idx: int, rng: np.random.RandomState):
-        key, ref = self.ds.get_pair(idx, rng)
-        p = sample_transform_params(rng, img_scale=self.img_scale)
-        out = []
-        for s in (key, ref):
-            img = apply_image_transform(load_png(s.img), p, self.crop_hw)
-            sem, inst = decode_panoptic_ann(
-                s.ann, getattr(self.ds, "ann_mode", "kitti_rgb")
-            )
-            sem_t = apply_mask_transform(sem, p, self.crop_hw)
-            inst_t = apply_mask_transform(inst, p, self.crop_hw, pad_value=0)
-            gt = pack_panoptic_gt(
-                sem_t,
-                inst_t,
-                thing_ids_in_seg=self.ds.thing_ids_in_seg,
-                num_stuff_classes=self.cfg.num_stuff_classes,
-                max_insts=self.cfg.max_insts,
-                assign_stride=self.cfg.mask_assign_stride,
-            )
-            out.append((img, gt))
-        return out
 
     def _stack(self, arrays: list[np.ndarray]) -> torch.Tensor:
         """The host tensor of one batch field: pinned memory for CUDA."""
@@ -119,25 +89,10 @@ class VPSTrainLoader:
             view[i] = a
         return out
 
-    def _assemble(self, pairs) -> VPSBatch:
-        """Host batch of `pairs` (the consumer moves it to the device)."""
-        def stack_gt(gts: list[PanopticGT]) -> PanopticGT:
-            return PanopticGT(*[self._stack(list(x)) for x in zip(*gts)])
+    def _move(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.device, non_blocking=True)
 
-        imgs = self._stack([p[0][0] for p in pairs])
-        ref_imgs = self._stack([p[1][0] for p in pairs])
-        gt = stack_gt([p[0][1] for p in pairs])
-        ref_gt = stack_gt([p[1][1] for p in pairs])
-        return VPSBatch(imgs, ref_imgs, gt, ref_gt)
-
-    def _to_device(self, batch: VPSBatch) -> VPSBatch:
-        def move(x: torch.Tensor) -> torch.Tensor:
-            return x.to(self.device, non_blocking=True)
-
-        return VPSBatch(move(batch.img), move(batch.ref_img),
-                        PanopticGT(*map(move, batch.gt)), PanopticGT(*map(move, batch.ref_gt)))
-
-    def __iter__(self) -> Iterator[VPSBatch]:
+    def __iter__(self) -> Iterator:
         # epoch permutation + ALL augmentation seeds drawn up front: batches
         # are reproducible regardless of thread count or host sharding
         order = self.rng.permutation(len(self.ds))
@@ -169,8 +124,7 @@ class VPSTrainLoader:
                     def submit(b: int):
                         sl = slice(b * bsz, (b + 1) * bsz)
                         pending.append([
-                            pool.submit(self._load_pair, int(i),
-                                        np.random.RandomState(int(s)))
+                            pool.submit(self._load, int(i), np.random.RandomState(int(s)))
                             for i, s in zip(order[sl], seeds[sl])
                         ])
 
@@ -190,7 +144,7 @@ class VPSTrainLoader:
             except BaseException as e:  # surface worker errors to the consumer
                 put(e)
 
-        t = threading.Thread(target=producer, daemon=True, name="vps-loader-producer")
+        t = threading.Thread(target=producer, daemon=True, name=self.producer_name)
         t.start()
         try:
             while True:
@@ -208,3 +162,72 @@ class VPSTrainLoader:
             except queue.Empty:
                 pass
             t.join(timeout=10.0)
+
+
+class VPSTrainLoader(ThreadedLoader):
+    producer_name = "vps-loader-producer"
+
+    def __init__(
+        self,
+        dataset: _DVPSScan,
+        cfg: VideoKNetConfig,
+        *,
+        batch_size: int,
+        crop_hw: tuple[int, int] = (384, 1248),
+        img_scale: tuple[int, int] | None = None,
+        seed: int = 0,
+        prefetch: int = 2,
+        num_threads: int = 4,
+        process_index: int | None = None,
+        process_count: int | None = None,
+        device: str | torch.device | None = None,
+    ):
+        super().__init__(seed=seed, prefetch=prefetch, num_threads=num_threads,
+                         process_index=process_index, process_count=process_count,
+                         device=device)
+        self.ds = dataset
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.crop_hw = crop_hw
+        # base scale the random ratio multiplies (reference img_scale, e.g.
+        # (384, 1248) KITTI-STEP / (720, 100000) VIP-Seg short-side-720);
+        # defaults to the crop size, the release configs' choice.
+        self.img_scale = img_scale if img_scale is not None else crop_hw
+
+    def _load(self, idx: int, rng: np.random.RandomState):
+        key, ref = self.ds.get_pair(idx, rng)
+        p = sample_transform_params(rng, img_scale=self.img_scale)
+        out = []
+        for s in (key, ref):
+            img = apply_image_transform(load_png(s.img), p, self.crop_hw)
+            sem, inst = decode_panoptic_ann(
+                s.ann, getattr(self.ds, "ann_mode", "kitti_rgb")
+            )
+            sem_t = apply_mask_transform(sem, p, self.crop_hw)
+            inst_t = apply_mask_transform(inst, p, self.crop_hw, pad_value=0)
+            gt = pack_panoptic_gt(
+                sem_t,
+                inst_t,
+                thing_ids_in_seg=self.ds.thing_ids_in_seg,
+                num_stuff_classes=self.cfg.num_stuff_classes,
+                max_insts=self.cfg.max_insts,
+                assign_stride=self.cfg.mask_assign_stride,
+            )
+            out.append((img, gt))
+        return out
+
+    def _assemble(self, pairs) -> VPSBatch:
+        """Host batch of `pairs` (the consumer moves it to the device)."""
+        def stack_gt(gts: list[PanopticGT]) -> PanopticGT:
+            return PanopticGT(*[self._stack(list(x)) for x in zip(*gts)])
+
+        imgs = self._stack([p[0][0] for p in pairs])
+        ref_imgs = self._stack([p[1][0] for p in pairs])
+        gt = stack_gt([p[0][1] for p in pairs])
+        ref_gt = stack_gt([p[1][1] for p in pairs])
+        return VPSBatch(imgs, ref_imgs, gt, ref_gt)
+
+    def _to_device(self, batch: VPSBatch) -> VPSBatch:
+        move = self._move
+        return VPSBatch(move(batch.img), move(batch.ref_img),
+                        PanopticGT(*map(move, batch.gt)), PanopticGT(*map(move, batch.ref_gt)))

@@ -15,6 +15,9 @@ mmtrack/pipelines/test_time_aug.py:11-108, `MultiScaleFlipAugVideo`):
   argmax.
 - `things_first_to_dataset_lut` maps the model's things-first classes to the
   dataset's label space.
+- `near_ties` and `near_threshold` give the pixels whose decision (an argmax,
+  a threshold) another device's arithmetic may flip: the cross-device
+  checks excuse only those.
 """
 
 from __future__ import annotations
@@ -187,3 +190,10 @@ def near_ties(logits: np.ndarray, err: float) -> np.ndarray:
     every logit moves by up to `err` (another device's arithmetic)."""
     top2 = np.partition(logits, -2, axis=-1)[..., -2:]
     return (top2[..., 1] - top2[..., 0]) <= 2 * err
+
+
+def near_threshold(values: np.ndarray, thr: float, err: float) -> np.ndarray:
+    """bool, `values`' shape: the elements within 2 * `err` of `thr`, where
+    `values > thr` may flip when every value moves by up to `err` (another
+    device's arithmetic); `near_ties`'s rule for a threshold."""
+    return np.abs(np.asarray(values) - thr) <= 2 * err

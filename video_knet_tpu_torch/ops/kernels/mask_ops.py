@@ -14,7 +14,9 @@ trains through the einsum route; its Pallas kernels have no VJP).
 `LAUNCHES` counts the forward kernel launches, one per wrapper call that
 launched (a K1 call is three chained kernels: binarize,
 partial sums on the tensor cores, ordered reduce; a K2 call is one kernel,
-a 3xTF32 product on the tensor cores).
+a 3xTF32 product on the tensor cores). `SHAPES` keeps the (B, N, H, W, C)
+of every launch, so that a caller can hold each kernel against its plain
+version at every shape it was given.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import torch
 
 LAUNCHES = {"mask_pool": 0, "assemble": 0}
+SHAPES: dict[str, set[tuple[int, ...]]] = {"mask_pool": set(), "assemble": set()}
 
 
 def reset_launch_counts() -> None:
@@ -180,6 +183,7 @@ class _MaskPool(torch.autograd.Function):
                                   float(hard_thr), splits, chunk, stream)
         _raise_on(rc, "vk_mask_pool")
         LAUNCHES["mask_pool"] += 1
+        SHAPES["mask_pool"].add((b, n, h, w, c))
         ctx.save_for_backward(bits)
         return out
 
@@ -226,6 +230,7 @@ class _Assemble(torch.autograd.Function):
         from video_knet_tpu_torch.ops.kernels.build import load_library
 
         b, n, c = kernels.shape
+        shape_c = c
         h, w = feats.shape[1:3]
         out = torch.empty((b, n, h, w), dtype=torch.float32, device=feats.device)
         ctx.sigmoid = sigmoid
@@ -245,6 +250,7 @@ class _Assemble(torch.autograd.Function):
                                  h * w, c, int(sigmoid), stream)
         _raise_on(rc, "vk_assemble")
         LAUNCHES["assemble"] += 1
+        SHAPES["assemble"].add((b, n, h, w, shape_c))
         return out
 
     @staticmethod

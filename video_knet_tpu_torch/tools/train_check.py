@@ -26,6 +26,15 @@ card's ReLU decisions and replays them on the CPU: the CPU step then
 follows the card at exactly the elements the devices cannot decide alike,
 and is the CPU's step everywhere else (a replayed element's value differs
 from the CPU's own ReLU by less than the forward error).
+
+`test_whole_video`'s masks are logits thresholded at 0, a hard decision of
+the same kind on outputs no seed search covers: `vis_near_ties` measures
+the card-vs-CPU difference of each video's logits, holds it within
+`VIS_MASK_TOL` of their scale and marks the pixels within twice of it of 0,
+and `vis_results_agree` holds two devices' YT-VIS results equal but there.
+Where the difference exceeds that bound, `vis_flips` names the hard
+decisions inside a clip's forward (`vis_decisions`) that the devices took
+otherwise.
 """
 
 from __future__ import annotations
@@ -34,13 +43,14 @@ import contextlib
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from video_knet_tpu_torch.config import KNetConfig, VideoKNetConfig
 from video_knet_tpu_torch.config_vis import VISConfig
 from video_knet_tpu_torch.models.kernel_head import RPNOutputs
-from video_knet_tpu_torch.models.knet import KNet
+from video_knet_tpu_torch.models.knet import KNet, top_k
 from video_knet_tpu_torch.models.layers import resize_mask_bilinear
 from video_knet_tpu_torch.models.video.knet_vps import BranchOutput, VideoKNet
 from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, VISOutputs
@@ -51,6 +61,8 @@ from video_knet_tpu_torch.train.vps import make_synthetic_batch
 MARGIN = 1e-4  # logits; ~10x the card's forward error at the threshold
 VIS_MARGIN = 2e-5  # of a tensor's largest magnitude; ~4x the card's relative forward error
 SEEDS = 16
+VIS_SCORE_TOL = 1e-5  # card vs CPU, absolute, on `test_whole_video`'s sigmoid scores
+VIS_MASK_TOL = 1e-4  # card vs CPU, `test_whole_video`'s mask logits, relative to their scale
 
 
 def _dist(x: torch.Tensor, thr: float, relative: bool = False) -> float:
@@ -64,15 +76,18 @@ def _dist(x: torch.Tensor, thr: float, relative: bool = False) -> float:
     return d / max(float(x.abs().max()), 1e-30) if bool((x > t0).any()) else 0.0
 
 
-def _stage_margin(prev: torch.Tensor, outs, thr: float, relative: bool = False) -> float:
+def _stage_inputs(prev: torch.Tensor, outs) -> list[torch.Tensor]:
     """The stages' mask-pool inputs: each stage pools the previous masks
     resized to its own mask size."""
-    margin = math.inf
+    inputs = []
     for out in outs:
-        margin = min(margin, _dist(resize_mask_bilinear(prev, out.mask_preds.shape[-2:]), thr,
-                                   relative))
+        inputs.append(resize_mask_bilinear(prev, out.mask_preds.shape[-2:]))
         prev = out.mask_preds
-    return margin
+    return inputs
+
+
+def _stage_margin(prev: torch.Tensor, outs, thr: float, relative: bool = False) -> float:
+    return min((_dist(x, thr, relative) for x in _stage_inputs(prev, outs)), default=math.inf)
 
 
 def mask_pool_margin(branch: BranchOutput, cfg: VideoKNetConfig) -> float:
@@ -84,32 +99,61 @@ def mask_pool_margin(branch: BranchOutput, cfg: VideoKNetConfig) -> float:
                              cfg.head.hard_mask_thr))
 
 
-def vis_margin(outs: VISOutputs, cfg: VISConfig) -> float:
-    """The smallest distance, as a share of its tensor's largest magnitude,
-    between a hard decision's input and its boundary in a VIS clip: the
-    mask pools (the init head's, or the volume head's tube pool; the
-    per-frame stages'; the clip stages', which start from the per-frame
-    head's last masks, or the init tubes) and the decode's top-k order (the
-    gaps between adjacent logits of the k + 1 best (proposal, class) pairs
-    of the first batch entry); 0 if a pool has no input above its
-    threshold. Without `with_mask_init`, whose re-initialized masks are not
-    among the outputs."""
+def vis_decisions(outs: VISOutputs, cfg: VISConfig) -> dict[str, tuple[torch.Tensor, float]]:
+    """The inputs of a VIS clip's hard mask-pool decisions by name, in the
+    forward's order, each with its threshold as a probability: the init
+    head's (`init`; `tubes`, the volume head's tube pool), the per-frame
+    stages' (`frame0`, ...) and the clip stages' (`clip0`, ...), which start
+    from the per-frame head's last masks, or the init tubes. Without
+    `with_mask_init`, whose re-initialized masks are not among the outputs."""
     if cfg.with_mask_init:
         raise NotImplementedError("the fc_mask_init masks are not among the outputs")
     thr = cfg.head.hard_mask_thr
-    gap = _top_k_gap(outs.clip_stage_outs[cfg.tracker_assign_stages - 1].cls_score[0],
-                     cfg.test.max_per_img)
     if cfg.kernel_head_mode == "volume":
         tubes = outs.rpn_out.tube_mask_preds
-        return min(gap, _dist(tubes, 0.5, True),
-                   _stage_margin(tubes, outs.clip_stage_outs, thr, True))
-    n = cfg.num_proposals
-    b, t = outs.clip_stage_outs[0].mask_preds.shape[:2]
-    last = outs.frame_stage_outs[-1].mask_preds[:, :n]
-    return min(gap, _dist(outs.rpn_out.thing_mask_preds, 0.5, True),
-               _stage_margin(outs.rpn_out.mask_preds, outs.frame_stage_outs, thr, True),
-               _stage_margin(last.reshape(b, t, *last.shape[1:]), outs.clip_stage_outs, thr,
-                             True))
+        first, clip_prev = {"tubes": (tubes, 0.5)}, tubes
+    else:
+        n = cfg.num_proposals
+        b, t = outs.clip_stage_outs[0].mask_preds.shape[:2]
+        last = outs.frame_stage_outs[-1].mask_preds[:, :n]
+        first = {"init": (outs.rpn_out.thing_mask_preds, 0.5)}
+        first.update((f"frame{i}", (x, thr)) for i, x in enumerate(
+            _stage_inputs(outs.rpn_out.mask_preds, outs.frame_stage_outs)))
+        clip_prev = last.reshape(b, t, *last.shape[1:])
+    return {**first, **{f"clip{i}": (x, thr) for i, x in enumerate(
+        _stage_inputs(clip_prev, outs.clip_stage_outs))}}
+
+
+def _decode_logits(outs: VISOutputs, cfg: VISConfig) -> torch.Tensor:
+    """The (proposal, class) logits whose top-k `vis_decode` takes."""
+    return outs.clip_stage_outs[cfg.tracker_assign_stages - 1].cls_score[0]
+
+
+def vis_margin(outs: VISOutputs, cfg: VISConfig) -> float:
+    """The smallest distance, as a share of its tensor's largest magnitude,
+    between a hard decision's input and its boundary in a VIS clip: the
+    mask pools (`vis_decisions`) and the decode's top-k order (the gaps
+    between adjacent logits of the k + 1 best (proposal, class) pairs of the
+    first batch entry); 0 if a pool has no input above its threshold."""
+    return min(_top_k_gap(_decode_logits(outs, cfg), cfg.test.max_per_img),
+               *(_dist(x, thr, True) for x, thr in vis_decisions(outs, cfg).values()))
+
+
+def vis_flips(a: VISOutputs, b: VISOutputs, cfg: VISConfig) -> dict[str, int]:
+    """The hard decisions that two forwards of one clip (two devices) took
+    otherwise: per `vis_decisions` entry, the elements binarized
+    differently, and `top_k`, the decode's top-k positions whose (proposal,
+    class) differs; only the nonzero counts, in the forward's order."""
+    flips = {}
+    for (name, (xa, thr)), (xb, _) in zip(vis_decisions(a, cfg).items(),
+                                          vis_decisions(b, cfg).values()):
+        t0 = math.log(thr / (1 - thr))
+        flips[name] = int(((xa.cpu() > t0) != (xb.cpu() > t0)).sum())
+    k = cfg.test.max_per_img
+    ia, ib = (top_k(torch.sigmoid(_decode_logits(o, cfg).cpu()).reshape(-1), k)[1]
+              for o in (a, b))
+    flips["top_k"] = int((ia != ib).sum())
+    return {name: n for name, n in flips.items() if n}
 
 
 def _top_k_gap(cls: torch.Tensor, k: int) -> float:
@@ -303,3 +347,95 @@ def image_check_model(cfg: KNetConfig, seed: int, device) -> KNet:
     """`KNet(cfg)` with weights from `seed`, its deformable encoder (if any)
     cut to `NECK_LAYERS`."""
     return shallow_neck(KNet(cfg, generator=torch.Generator().manual_seed(seed), device=device))
+
+
+def vis_near_ties(card_model: KNetVIS, cpu_model: KNetVIS, cfg: VISConfig, ds,
+                  hw: tuple[int, int], clip_len: int,
+                  tol: float = VIS_MASK_TOL) -> tuple[dict, float, dict]:
+    """Each video of `ds` through `test_whole_video`'s frames and clip loop
+    with the same weights on the card and on the CPU. Returns ({video_id:
+    [n, K, H, W] bool}, the worst difference as a share of its video's
+    largest CPU |logit|, {video_id: one dict a clip}): a pixel is a near-tie
+    where the CPU's mask logit lies within twice the video's card-vs-CPU
+    difference of the CLI's threshold (0 on logits;
+    `data/tta.py:near_threshold`); a clip's dict holds its difference as a
+    share of the video's scale (`err`) and the hard decisions the devices
+    took otherwise (`vis_flips`). Raises AssertionError, naming those
+    decisions, where a video's difference exceeds `tol` of its scale."""
+    from video_knet_tpu_torch.data.tta import near_threshold
+    from video_knet_tpu_torch.tools.test_whole_video import (
+        clip_runner,
+        video_frames,
+        video_prediction,
+    )
+
+    def run(model, frames):
+        outs = []
+        hook = model.register_forward_hook(lambda _m, _i, out: outs.append(out))
+        try:
+            return video_prediction(clip_runner(model, cfg, hw), frames, clip_len)[0], outs
+        finally:
+            hook.remove()
+
+    near, worst, clips = {}, 0.0, {}
+    for video in ds.videos:
+        frames = video_frames(ds, video, hw)
+        (card, card_outs), (cpu, cpu_outs) = run(card_model, frames), run(cpu_model, frames)
+        if not cpu.min() < 0:
+            raise AssertionError(f"video {video.video_id}: the decode gave no logit below 0")
+        diff = np.abs(card - cpu)
+        err = float(diff.max())
+        scale = max(float(np.abs(cpu).max()), 1e-30)
+        near[video.video_id] = near_threshold(cpu, 0.0, err)
+        clips[video.video_id] = [
+            dict(err=float(diff[i * clip_len : (i + 1) * clip_len].max()) / scale,
+                 **vis_flips(a, b, cfg))
+            for i, (a, b) in enumerate(zip(card_outs, cpu_outs))]
+        worst = max(worst, err / scale)
+        if not err / scale <= tol:
+            raise AssertionError(
+                f"video {video.video_id}: the card's mask logits differ from the CPU's by "
+                f"{err / scale:.3e} of their scale (limit {tol}); clip by clip, the difference "
+                f"and the hard decisions taken otherwise: {clips[video.video_id]}")
+    return near, worst, clips
+
+
+def vis_results_agree(got: list[dict], want: list[dict], near: dict) -> dict:
+    """Two devices' YT-VIS results of the same videos (`data/ytvis.py:
+    format_vis_results` entries in order; `got` the card's, `want` the
+    CPU's): video ids, track order, categories and each track's count of
+    non-empty frames equal, scores within `VIS_SCORE_TOL`, each frame's
+    mask equal but at the pixels that `near[video_id]` ([n, K, H, W] bool,
+    `data/tta.py:near_threshold` of the CPU's mask logits at the measured
+    card-vs-CPU difference) excuses. Raises AssertionError; returns
+    {"tracks": n, "excused": pixels that differ at near-ties}."""
+    from video_knet_tpu_torch.data.rle import decode_mask
+
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} tracks against {len(want)}")
+    excused, slot = 0, {}
+    for a, b in zip(got, want):
+        vid = b["video_id"]
+        j = slot[vid] = slot.get(vid, -1) + 1
+        if (a["video_id"], a["category_id"]) != (vid, b["category_id"]):
+            raise AssertionError(f"video {vid} track {j}: {a['video_id']}/{a['category_id']} "
+                                 f"against {vid}/{b['category_id']}")
+        if not abs(a["score"] - b["score"]) <= VIS_SCORE_TOL:
+            raise AssertionError(f"video {vid} track {j}: score {a['score']} against "
+                                 f"{b['score']}")
+        segs = a["segmentations"], b["segmentations"]
+        counts = [(len(x), sum(s is not None for s in x)) for x in segs]
+        if counts[0] != counts[1]:
+            raise AssertionError(f"video {vid} track {j}: (frames, non-empty frames) "
+                                 f"{counts[0]} against {counts[1]}")
+        hw = near[vid].shape[-2:]
+        for f, (sa, sb) in enumerate(zip(*segs)):
+            ma, mb = (decode_mask(s) if s is not None else np.zeros(hw, np.uint8)
+                      for s in (sa, sb))
+            differ = ma != mb
+            if (differ & ~near[vid][f, j]).any():
+                raise AssertionError(f"video {vid} track {j} frame {f}: {int(differ.sum())} "
+                                     f"pixels differ, {int((differ & ~near[vid][f, j]).sum())}"
+                                     " off the near-ties")
+            excused += int(differ.sum())
+    return {"tracks": len(got), "excused": excused}
