@@ -239,7 +239,30 @@ Phases, each raising on failure (the process then exits non-zero):
                of 1024x2048): `load_sem_inst` ms, the `get_pair` sequence,
                `load_instance_annotations` and `pad_to` on a 1024x2048
                instance map
- 43. kernel-shapes  K1 and K2 against their plain versions at every shape a
+ 43. train-cli  `tools/train_vps` in process on phase 35's tree (and a 2-frame
+               val split): the R-50 default config at 384x1248, B=1, one
+               epoch with a record a step and eval of 2 frames; `--resume-from`
+               for a second epoch (the step count carries on); a SIGTERM after
+               the first step (the checkpoint at step 1, then `--resume-from`
+               it); `--freeze-detector` at B=6 (the detector bit-equal, every
+               track / link parameter moved); `--bf16` at B=1 (the first
+               step's total within 5% of the fp32 run's on the same batch,
+               fp32 masters and gradients): 7 / 7 / 1 launches a step, 0 host
+               syncs after the first; loader-fed step ms, eval ms a frame,
+               peak memory
+ 44. train-vis-cli  `tools/train_vis` on phase 40's tree: the R-50 YouTube-VIS
+               2019 preset, 360x640, T=5, B=2, one epoch; then a `bf16_train`
+               step of `train/vis.py` on the loader's first batch (within 5%
+               of the fp32 loss)
+ 45. train-image-cli  `tools/train_image --dataset cityscapes_step` on a seeded
+               Cityscapes-STEP tree (1024x2048, crop 512x1024, B=2, 2 steps,
+               eval of 2 val images), then `--dataset coco` on a COCO
+               panoptic tree with 80 + 53 categories, one step
+ 46. flops     `tools/get_flops` for vps, image and vis at their defaults on
+               the card and on the CPU: equal lines; `utils/profiling`:
+               `benchmark` of an R-50 serving frame, a `trace` of one naming
+               K1's and K2's CUDA kernels, `device_memory_stats`
+ 47. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
 Every VPS serving phase resets the launch counts just before it drives its
@@ -397,6 +420,20 @@ COCO_DATA_IMAGES = 4
 CITYSCAPES_HW = (1024, 2048)
 CITYSCAPES_CLIPS = 2
 CITYSCAPES_FRAMES = 3
+TRAIN_CLI_VAL_FRAMES = 2  # a val split beside `data`'s tree, for train_vps's eval
+TRAIN_CLI_EVAL_FRAMES = 2
+TRAIN_CLI_B = 6  # the --freeze-detector run: 2 steps over the 12 frames
+BF16_REL = 0.05  # bf16 against fp32 on the same batch (tests/test_train_extras.py's band)
+IMAGE_CLI_IMAGES = 4  # Cityscapes-STEP train images: 2 steps of B=2
+IMAGE_CLI_EVAL_IMAGES = 2
+IMAGE_CLI_B = 2
+# COCO panoptic's 80 thing and 53 stuff categories (any ids: the reader maps
+# them things-first onto the preset's 133 classes)
+COCO_THING_IDS = tuple(range(1, 81))
+COCO_STUFF_IDS = tuple(range(92, 145))
+FLOPS_BENCH_ITERS = 10
+# the CUDA kernels of K1 (binarize, partial sums) and K2 that a profiler trace must name
+TRACE_KERNELS = ("mask_pool_binarize_kernel", "mask_pool_partial_kernel", "assemble_kernel")
 
 
 def log(msg: str) -> None:
@@ -3365,6 +3402,423 @@ def phase_coco_data(tmp: str) -> dict:
     return out
 
 
+def _uncounted(fn):
+    """`fn()` with the launch counts put back as they were after it (a
+    reference computation beside the path, not the path)."""
+    from video_knet_tpu_torch.ops.kernels import hungarian, mask_ops
+
+    saved = (dict(mask_ops.LAUNCHES), dict(hungarian.LAUNCHES), dict(mask_ops.FLOPS))
+    try:
+        return fn()
+    finally:
+        for table, old in zip((mask_ops.LAUNCHES, hungarian.LAUNCHES, mask_ops.FLOPS), saved):
+            table.update(old)
+
+
+class _StepProbe:
+    """A train module's `train_step` wrapped while a CLI runs: each step's
+    launches (the counts read before and after it), the host syncs inside
+    it (`set_sync_debug_mode("warn")`), the last state it returned;
+    `before(state, batch)` runs before the first step and `after(i, state)`
+    after each."""
+
+    def __init__(self, module, before=None, after=None):
+        self.module, self.orig = module, module.train_step
+        self.before, self.after = before, after
+        self.launches, self.syncs, self.state = [], [], None
+
+    def __call__(self, state, batch, *args, **kwargs):
+        import warnings
+
+        if self.before is not None and not self.launches:
+            _uncounted(lambda: self.before(state, batch))
+        start = _counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if batch[0].device.type == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = self.orig(state, batch, *args, **kwargs)
+            finally:
+                if batch[0].device.type == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+        end = _counts()
+        self.launches.append({k: end[k] - start[k] for k in end})
+        self.syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        self.state = out[0]
+        if self.after is not None:
+            self.after(len(self.launches), out[0])
+        return out
+
+    def check(self, path: str, expected: dict) -> None:
+        bad = [i for i, c in enumerate(self.launches) if c != expected]
+        if bad or any(self.syncs[1:]):
+            raise AssertionError(f"[{path}] launches a step {self.launches} (expected "
+                                 f"{expected}), host syncs a step {self.syncs}")
+
+
+def _records(text: str) -> list[dict]:
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{") and '"iter"' in line]
+
+
+def _finite_records(path: str, recs: list, n: int) -> None:
+    if len(recs) != n or not all(np.isfinite(v) for r in recs for v in r.values()):
+        raise AssertionError(f"[{path}] {len(recs)} records (expected {n}): {recs}")
+
+
+def _cli_run(paths: Paths, path: str, name: str, argv: list, module, expected: dict,
+             n_steps: int, extra: dict | None = None, patches=(), before=None,
+             after=None) -> dict:
+    """The port's train CLI `name` in process with `module.train_step`
+    probed: the launch counts set to 0 just before the run and read just
+    after (its steps' and any eval's), each step's launches held to
+    `expected` and 0 host syncs after the first; the step ms between the
+    CLI's per-step timestamps (a record every step syncs), peak memory."""
+    probe = _StepProbe(module, before, after)
+    stats: list = []
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    text = _run_cli(name, argv, patches=[*patches, (module, "train_step", probe)], stats=stats)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = _counts()
+    probe.check(path, expected)
+    preempted = "preemption checkpoint written" in text  # its last step has no stamp
+    if len(probe.launches) != n_steps or len(stats) != n_steps - preempted:
+        raise AssertionError(f"[{path}] {len(probe.launches)} steps, {len(stats)} stamps, "
+                             f"expected {n_steps}")
+    want = {k: expected[k] * n_steps + (extra or {}).get(k, 0) for k in expected}
+    if total != want:
+        raise AssertionError(f"[{path}] launches in the run {total}, expected {want}")
+    paths.launches[path] = dict(total)  # the mask kernels' and the Hungarian kernel's
+    ms = [(b - a) * 1e3 for a, b in zip(stats, stats[1:])]
+    paths.frame_ms[path] = ms or [seconds * 1e3]
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    rec = dict(text=text, records=_records(text), step_ms=ms,
+               median_ms=statistics.median(ms) if ms else float("nan"), peak_bytes=peak,
+               syncs=probe.syncs, launches=total, steps=n_steps, seconds=seconds,
+               state=probe.state)
+    log(f"[{path}] {n_steps} steps in {seconds:.1f} s: median step {rec['median_ms']:.2f} ms "
+        f"over steps 2..{n_steps} (loader-fed, a record a step), launches a step "
+        f"{probe.launches[0]}, host syncs a step {probe.syncs}, peak memory {peak} bytes")
+    return rec
+
+
+def phase_train_cli(device, paths: Paths, root: str, tmp: str) -> dict:
+    """`tools/train_vps` in process on `data`'s KITTI-STEP tree (and a val
+    split written beside it): the R-50 default config at 384x1248, B=1, one
+    epoch with a record a step and eval; `--resume-from` for a second epoch;
+    a SIGTERM after the first step (the preemption checkpoint, then
+    `--resume-from` it); `--freeze-detector` for one epoch of B=6 (2 steps);
+    `--bf16` for one epoch of B=1 (its first step's loss against the fp32
+    run's on the same batch; every backbone and neck convolution and dense
+    layer of that step in bf16)."""
+    import signal
+
+    import video_knet_tpu_torch.train.vps as tvps
+    from video_knet_tpu_torch.tools.data_check import write_kitti_step_tree
+    from video_knet_tpu_torch.train.optim import frozen_mask
+    from video_knet_tpu_torch.utils.precision import layer_dtypes
+
+    write_kitti_step_tree(root, n_seqs=1, n_frames=TRAIN_CLI_VAL_FRAMES, hw=DATA_HW,
+                          n_things=DATA_THINGS, split="val", seed=DATA_SEED + 1)
+    n = DATA_SEQS * DATA_FRAMES
+    work = os.path.join(tmp, "train_vps")
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    base = ["--data-root", root, "--crop", *map(str, TRAIN_HW), "--log-interval", "1", *dev]
+    out = {}
+    t0 = time.perf_counter()
+    import video_knet_tpu_torch.train.eval_hook as eval_hook
+
+    evaluate, eval_s = eval_hook.evaluate_vps, []
+
+    def timed_eval(*args, **kwargs):
+        t1 = time.perf_counter()
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            eval_s.append(time.perf_counter() - t1)
+
+    first = _cli_run(paths, "train-cli", "train_vps",
+                     [*base, "--epochs", "1", "--batch-size", "1", "--work-dir", work,
+                      "--eval-interval", "1", "--eval-max-frames", str(TRAIN_CLI_EVAL_FRAMES)],
+                     tvps, TRAIN_LAUNCHES, n,
+                     extra={k: 4 * TRAIN_CLI_EVAL_FRAMES for k in KERNELS},
+                     patches=[(eval_hook, "evaluate_vps", timed_eval)])
+    _finite_records("train-cli", first["records"], n)
+    evals = [line for line in first["text"].splitlines() if line.startswith("eval:")]
+    rec = json.loads(evals[0][len("eval:"):]) if evals else {}
+    if rec.get("frames") != TRAIN_CLI_EVAL_FRAMES:
+        raise AssertionError(f"[train-cli] eval {evals}")
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if logged != [*first["records"], {"eval": rec}]:
+        raise AssertionError("[train-cli] train_log.jsonl differs from the printed records")
+    out.update(median_ms=first["median_ms"], peak_bytes=first["peak_bytes"],
+               syncs=first["syncs"], eval=rec, eval_ms=eval_s[0] * 1e3 / TRAIN_CLI_EVAL_FRAMES)
+    # a second epoch from the first's checkpoint: the step count carries on
+    second = _cli_run(paths, "train-cli-resume", "train_vps",
+                      [*base, "--epochs", "2", "--batch-size", "1", "--work-dir", work,
+                       "--resume-from", os.path.join(work, "ckpt", "step_1")],
+                      tvps, TRAIN_LAUNCHES, n)
+    if [r["epoch"] for r in second["records"]] != [1] * n or second["state"].step != 2 * n:
+        raise AssertionError(f"[train-cli-resume] records {second['records'][:2]}..., step "
+                             f"{second['state'].step}")
+    # SIGTERM after the first step: the step finishes, ckpt/step_1 is written
+    pre = os.path.join(tmp, "train_vps_preempt")
+
+    def term(i, state):
+        if i == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    text = _cli_run(paths, "train-cli-preempt", "train_vps",
+                    [*base, "--epochs", "1", "--batch-size", "1", "--work-dir", pre],
+                    tvps, TRAIN_LAUNCHES, 1, after=term)["text"]
+    ckpt = os.path.join(pre, "ckpt", "step_1")
+    saved = torch.load(os.path.join(ckpt, "checkpoint.pt"), map_location="cpu",
+                       weights_only=True)["step"]
+    if "preemption checkpoint written; exiting" not in text or saved != 1:
+        raise AssertionError(f"[train-cli-preempt] printed {text!r}, checkpoint step {saved}")
+    resumed = _cli_run(paths, "train-cli-preempt-resume", "train_vps",
+                       [*base, "--epochs", "1", "--batch-size", "1", "--work-dir", pre,
+                        "--resume-from", ckpt], tvps, TRAIN_LAUNCHES, n)
+    if resumed["state"].step != 1 + n:
+        raise AssertionError(f"[train-cli-preempt] resumed to step {resumed['state'].step}")
+    # --freeze-detector: the detector stays bit-equal, every track / link parameter moves
+    start = {}
+
+    def keep(state, batch):
+        start.update({k: p.detach().clone() for k, p in state.model.named_parameters()})
+
+    b = TRAIN_CLI_B
+    frz = _cli_run(paths, "train-cli-freeze", "train_vps",
+                   [*base, "--epochs", "1", "--batch-size", str(b), "--freeze-detector",
+                    "--work-dir", os.path.join(tmp, "train_vps_freeze")],
+                   tvps, TRAIN_LAUNCHES, n // b, before=keep)
+    model = frz["state"].model
+    trainable = {k for k, v in frozen_mask(model, True).items() if v}
+    wrong = [k for k, p in model.named_parameters()
+             if torch.equal(p, start[k]) == (k in trainable)]
+    if wrong or not trainable:
+        raise AssertionError(f"[train-cli-freeze] parameters that moved when frozen or stayed "
+                             f"when trainable: {wrong[:8]}")
+    out["freeze"] = dict(trainable=len(trainable), frozen=len(start) - len(trainable),
+                         median_ms=frz["median_ms"])
+    # --bf16 from the same weights over the same batches: the first step's
+    # total within 5% of the fp32 run's first step; in that step every
+    # convolution and dense layer of the backbone and neck computes in bf16
+    watch = contextlib.ExitStack()
+    layers: dict = {}
+
+    def watch_layers(state, batch):
+        layers.update(seen=watch.enter_context(layer_dtypes(state.model)))
+
+    def dtypes(i, state):
+        if i == 1:
+            watch.close()
+            not16 = sorted(k for k, d in layers["seen"].items() if d != {torch.bfloat16})
+            if not layers["seen"] or not16:
+                raise AssertionError(f"[train-cli-bf16] layers not in bf16: {not16[:8]}")
+        bad = [k for k, p in state.model.named_parameters()
+               if p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != torch.float32)]
+        if bad:
+            raise AssertionError(f"[train-cli-bf16] masters or gradients not fp32: {bad[:8]}")
+
+    bf = _cli_run(paths, "train-cli-bf16", "train_vps",
+                  [*base, "--epochs", "1", "--batch-size", "1", "--bf16",
+                   "--work-dir", os.path.join(tmp, "train_vps_bf16")],
+                  tvps, TRAIN_LAUNCHES, n, before=watch_layers, after=dtypes)
+    _finite_records("train-cli-bf16", bf["records"], n)
+    fp32 = first["records"][0]["total_loss"]
+    rel = abs(bf["records"][0]["total_loss"] - fp32) / fp32
+    if rel > BF16_REL:
+        raise AssertionError(f"[train-cli-bf16] first step {bf['records'][0]['total_loss']} "
+                             f"vs fp32 {fp32}: {rel:.4f} > {BF16_REL}")
+    out["bf16"] = dict(total=bf["records"][0]["total_loss"], fp32_total=fp32, rel=rel,
+                       median_ms=bf["median_ms"], peak_bytes=bf["peak_bytes"],
+                       bf16_layers=len(layers["seen"]))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train-cli] R-50 train_vps at {TRAIN_HW[0]}x{TRAIN_HW[1]}: loader-fed median step "
+        f"{out['median_ms']:.2f} ms (B=1), host syncs a step {out['syncs']}, peak memory "
+        f"{out['peak_bytes']} bytes, eval {json.dumps(rec)}; resume, preemption (checkpoint at "
+        f"step 1, resumed to step {1 + n}), freeze ({out['freeze']['trainable']} trainable, "
+        f"{out['freeze']['frozen']} frozen parameters), bf16 first step "
+        f"{out['bf16']['total']} vs fp32 {fp32} ({rel:.4%}; {out['bf16']['bf16_layers']} "
+        f"backbone / neck layers in bf16), bf16 loader-fed median step "
+        f"{out['bf16']['median_ms']:.2f} ms; eval {out['eval_ms']:.2f} ms a frame; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def phase_train_vis_cli(device, paths: Paths, tmp: str) -> dict:
+    """`tools/train_vis` on `vis-data`'s YouTube-VIS tree: the R-50 preset,
+    360x640, T=5, B=2, one epoch; then `train/vis.py:train_step` with
+    `bf16_train` on the loader's first batch: the loss within 5% of fp32,
+    every backbone and neck convolution and dense layer in bf16, fp32
+    masters and gradients, 7 / 7 / 1 launches."""
+    import video_knet_tpu_torch.train.vis as tvis
+    from video_knet_tpu_torch.config_vis import youtube_vis_2019_config
+    from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.utils.precision import layer_dtypes
+
+    ann = os.path.join(tmp, "ytvis_train", "cocovid.json")
+    img_root = os.path.join(tmp, "ytvis_train", "JPEGImages")
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    batches = []
+    t0 = time.perf_counter()
+    n = VIS_DATA_VIDEOS // VIS_DATA_B
+    run = _cli_run(paths, "train-vis-cli", "train_vis",
+                   ["--ann-file", ann, "--img-root", img_root, "--epochs", "1", "--batch-size",
+                    str(VIS_DATA_B), "--crop", *map(str, VIS_HW), "--num-frames",
+                    str(VIS_FRAMES), "--log-interval", "1", "--work-dir",
+                    os.path.join(tmp, "train_vis"), *dev],
+                   tvis, VIS_TRAIN_LAUNCHES, n, before=lambda s, b: batches.append(b))
+    _finite_records("train-vis-cli", run["records"], n)
+    cfg = dataclasses.replace(youtube_vis_2019_config(), num_frames=VIS_FRAMES)
+    out = dict(median_ms=run["median_ms"], peak_bytes=run["peak_bytes"], syncs=run["syncs"])
+    # a bf16 step on the loader's first batch against the fp32 loss there
+    models = {}
+    for bf16 in (False, True):
+        c = dataclasses.replace(cfg, bf16_train=bf16)
+        models[bf16] = KNetVIS(c, generator=torch.Generator().manual_seed(VIS_SEED),
+                               device=device)
+    with torch.no_grad():
+        t32 = float(tvis.make_vis_loss_fn(models[False], cfg)(batches[0])[0])
+    del models[False]
+    model16 = models[True]
+    probe16 = _StepProbe(tvis)
+    with layer_dtypes(model16) as seen:
+        _, losses16 = probe16(create_train_state(model16, make_optimizer(model16, 1000)),
+                              batches[0])
+    probe16.check("train-vis-cli-bf16", VIS_TRAIN_LAUNCHES)
+    b16 = float(losses16["total_loss"])
+    bad = [k for k, p in model16.named_parameters()
+           if p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != torch.float32)]
+    not16 = sorted(k for k, d in seen.items() if d != {torch.bfloat16})
+    rel = abs(b16 - t32) / t32
+    if bad or not seen or not16 or not np.isfinite(b16) or rel > BF16_REL:
+        raise AssertionError(f"[train-vis-cli-bf16] bf16 {b16} vs fp32 {t32} ({rel:.4f}); "
+                             f"not fp32: {bad[:8]}; layers not in bf16: {not16[:8]}")
+    out["seconds"] = time.perf_counter() - t0
+    out["bf16"] = dict(total=b16, fp32_total=t32, rel=rel, launches=probe16.launches[0],
+                       bf16_layers=len(seen))
+    log(f"[train-vis-cli] R-50 YouTube-VIS 2019, B={VIS_DATA_B} x T={VIS_FRAMES} at "
+        f"{VIS_HW[0]}x{VIS_HW[1]}: loader-fed median step {out['median_ms']:.2f} ms, host syncs "
+        f"a step {out['syncs']}, peak memory {out['peak_bytes']} bytes; bf16 step loss {b16:.4f} "
+        f"vs fp32 {t32:.4f} ({rel:.4%}; {len(seen)} backbone / neck layers in bf16); "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def phase_train_image_cli(device, paths: Paths, tmp: str) -> dict:
+    """`tools/train_image --dataset cityscapes_step` on a seeded Cityscapes-STEP
+    tree (1024x2048 images, crop 512x1024, B=2, one epoch of 2 steps, eval
+    of 2 val images), then `--dataset coco` on a COCO panoptic tree with
+    COCO's 80 + 53 categories (2 images, one step)."""
+    import video_knet_tpu_torch.train.image as timage
+    from video_knet_tpu_torch.tools.data_check import (
+        write_cityscapes_step_tree,
+        write_coco_panoptic_tree,
+    )
+
+    t0 = time.perf_counter()
+    city = os.path.join(tmp, "cityscapes_step")
+    write_cityscapes_step_tree(city, cities=("aachen",), n_images=IMAGE_CLI_IMAGES,
+                               hw=CITYSCAPES_HW, seed=DATA_SEED)
+    write_cityscapes_step_tree(city, cities=("bremen",), n_images=IMAGE_CLI_EVAL_IMAGES,
+                               hw=CITYSCAPES_HW, split="val", seed=DATA_SEED + 1)
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    b = IMAGE_CLI_B
+    base = ["--epochs", "1", "--batch-size", str(b), "--crop", *map(str, IMAGE_TRAIN_HW),
+            "--log-interval", "1", *dev]
+    run = _cli_run(paths, "train-image-cli", "train_image",
+                   ["--dataset", "cityscapes_step", "--data-root", city, *base,
+                    "--eval-interval", "1", "--eval-max-images", str(IMAGE_CLI_EVAL_IMAGES),
+                    "--work-dir", os.path.join(tmp, "train_image")],
+                   timage, IMAGE_TRAIN_LAUNCHES, IMAGE_CLI_IMAGES // b,
+                   extra={k: IMAGE_LAUNCHES[k] * IMAGE_CLI_EVAL_IMAGES for k in KERNELS})
+    _finite_records("train-image-cli", run["records"], IMAGE_CLI_IMAGES // b)
+    lines = run["text"][run["text"].index("epoch 1 done"):].splitlines()[1:]
+    ev = json.loads(lines[-1])["eval"] if lines and lines[-1].startswith("{") else {}
+    if ev.get("images") != IMAGE_CLI_EVAL_IMAGES or not lines[-2].startswith("ALL"):
+        raise AssertionError(f"[train-image-cli] eval lines {lines}")
+    ann, img_root, pan_root = write_coco_panoptic_tree(
+        os.path.join(tmp, "coco_train"), n_images=b, hw=COCO_HW, thing_ids=COCO_THING_IDS,
+        stuff_ids=COCO_STUFF_IDS, seed=DATA_SEED)
+    coco = _cli_run(paths, "train-image-cli-coco", "train_image",
+                    ["--dataset", "coco", "--ann-file", ann, "--img-root", img_root,
+                     "--pan-root", pan_root, *base, "--work-dir",
+                     os.path.join(tmp, "train_image_coco")],
+                    timage, IMAGE_TRAIN_LAUNCHES, 1)
+    _finite_records("train-image-cli-coco", coco["records"], 1)
+    out = dict(median_ms=run["median_ms"], step_ms=run["step_ms"], peak_bytes=run["peak_bytes"],
+               syncs=run["syncs"], eval=ev, coco_s=coco["seconds"],
+               seconds=time.perf_counter() - t0)
+    log(f"[train-image-cli] Cityscapes-STEP R-50, B={b} crops of {IMAGE_TRAIN_HW[0]}x"
+        f"{IMAGE_TRAIN_HW[1]} from {CITYSCAPES_HW[0]}x{CITYSCAPES_HW[1]}: step ms "
+        f"{[round(t, 2) for t in run['step_ms']]}, host syncs a step {run['syncs']}, peak memory "
+        f"{run['peak_bytes']} bytes, eval {json.dumps(ev)}; COCO panoptic (80 + 53 classes) one "
+        f"step in {coco['seconds']:.1f} s; {out['seconds']:.1f} s")
+    return out
+
+
+def phase_flops(device, paths: Paths, tmp: str) -> dict:
+    """`tools/get_flops` for vps, image and vis at their defaults on the card
+    and on the CPU: equal lines. Then `utils/profiling`: `benchmark` of an
+    R-50 serving frame, a `trace` of one naming both mask kernels, and
+    `device_memory_stats` of the card."""
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+    from video_knet_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    out = {"flops": {}}
+    for model in ("vps", "image", "vis"):
+        lines = {d: _run_cli("get_flops", ["--model", model, "--device", d]).splitlines()
+                 for d in (device.type, "cpu")}
+        if lines[device.type] != lines["cpu"] or len(lines["cpu"]) != 3:
+            raise AssertionError(f"[flops] {model}: {lines}")
+        out["flops"][model] = dict(gflops=float(lines["cpu"][1].split()[1]),
+                                   params_m=float(lines["cpu"][2].split()[1]))
+    cfg = smoke_config()
+    pipe = VPSInferencePipeline(smoke_model(cfg, device), cfg, SERVE_HW, device=device)
+    frame = torch.from_numpy(_frames(SERVE_HW, 1)[0]).to(device)
+    pipe.run_frame(frame, is_first=True)
+    bench = profiling.benchmark(lambda: pipe.run_frame(frame, is_first=False), warmup=2,
+                                iters=FLOPS_BENCH_ITERS)
+    tdir = os.path.join(tmp, "trace")
+    with profiling.trace(tdir):
+        profiling.block_until_ready(pipe.run_frame(frame, is_first=False))
+    with open(os.path.join(tdir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernels if k in n) for k in TRACE_KERNELS}
+    if device.type == "cuda" and not all(named.values()):
+        raise AssertionError(f"[flops] the trace names no {[k for k, v in named.items() if not v]}"
+                             f" kernel among {sorted(kernels)[:20]}...")
+    mem = profiling.device_memory_stats()
+    if device.type == "cuda" and not any(v.get("allocated_bytes.all.peak", 0) > 0
+                                         for v in mem.values()):
+        raise AssertionError(f"[flops] device_memory_stats {list(mem)}")
+    out.update(bench=dict(compile_s=bench.compile_s, mean_ms=bench.mean_s * 1e3,
+                          p50_ms=bench.p50_s * 1e3, p99_ms=bench.p99_s * 1e3, iters=bench.iters),
+               trace_kernels=named, trace_events=len(events),
+               memory={k: v.get("allocated_bytes.all.peak") for k, v in mem.items()},
+               seconds=time.perf_counter() - t0)
+    log(f"[flops] get_flops on the card and the CPU, equal: {json.dumps(out['flops'])}; "
+        f"benchmark of an R-50 frame at {SERVE_HW[0]}x{SERVE_HW[1]}: {json.dumps(out['bench'])}; "
+        f"trace ({len(events)} events) kernels {json.dumps(named)}; device_memory_stats peak "
+        f"{json.dumps(out['memory'])}; {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3441,6 +3895,15 @@ def main() -> int:
         t1 = time.perf_counter()
         coco_data = phase_coco_data(tmp)
         phase_s["coco-data"] = time.perf_counter() - t1
+        new_s = {}
+        for tag, run in (("train-cli", lambda: phase_train_cli(device, paths, root, tmp)),
+                         ("train-vis-cli", lambda: phase_train_vis_cli(device, paths, tmp)),
+                         ("train-image-cli", lambda: phase_train_image_cli(device, paths, tmp)),
+                         ("flops", lambda: phase_flops(device, paths, tmp))):
+            t1 = time.perf_counter()
+            new_s[tag] = run()
+            phase_s[tag] = time.perf_counter() - t1
+        train_cli, train_vis_cli, train_image_cli, flops = new_s.values()
     hrec["vis_data"] = vis_data["hungarian"]
     phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
@@ -3448,7 +3911,8 @@ def main() -> int:
             {p: c[rec["name"]] for p, c in paths.launches.items()
              if p.startswith(("vis", "image", "trackers", "trained-", "unitrack", "fuse-track",
                               "roi-gt-box", "track-check", "import-ref", "score", "ckpt",
-                              "data-train", "eval-hook", "cli-", "tta"))
+                              "data-train", "eval-hook", "cli-", "tta", "train-cli",
+                              "train-vis-cli", "train-image-cli"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -3512,8 +3976,20 @@ def main() -> int:
         f"{VIS_CLI_CLIP}, {vis_cli['frame_ms']:.2f} ms a frame; tiny model card vs CPU "
         f"{json.dumps(vis_cli['tiny'])}; [coco-data] load_sem_inst {coco_data['coco_ms']:.2f} ms "
         f"(480x640), {coco_data['cityscapes_ms']:.2f} ms (1024x2048) ({card})")
-    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data phases, {sum(phase_s.values()):.1f} "
-        f"s together ({card})")
+    log(f"[train-cli] loader-fed median step {train_cli['median_ms']:.2f} ms (R-50, B=1, "
+        f"384x1248; --bf16 {train_cli['bf16']['median_ms']:.2f} ms), peak memory "
+        f"{train_cli['peak_bytes']} bytes (--bf16 {train_cli['bf16']['peak_bytes']}), host syncs "
+        f"a step {train_cli['syncs']}; eval {train_cli['eval_ms']:.2f} ms a frame; "
+        f"--freeze-detector {train_cli['freeze']['median_ms']:.2f} ms a B={TRAIN_CLI_B} step "
+        f"({card})")
+    log(f"[train-vis-cli] loader-fed median step {train_vis_cli['median_ms']:.2f} ms, peak "
+        f"memory {train_vis_cli['peak_bytes']} bytes; [train-image-cli] step ms "
+        f"{[round(t, 2) for t in train_image_cli['step_ms']]}, peak memory "
+        f"{train_image_cli['peak_bytes']} bytes ({card})")
+    log(f"[flops] {json.dumps(flops['flops'])}; R-50 frame benchmark "
+        f"{json.dumps(flops['bench'])} ({card})")
+    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data and train CLI phases, "
+        f"{sum(phase_s.values()):.1f} s together ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

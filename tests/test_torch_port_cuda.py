@@ -733,3 +733,102 @@ def test_whole_video_on_the_card_matches_the_cpu(dev, tmp_path):
     assert worst <= train_check.VIS_MASK_TOL
     out = train_check.vis_results_agree(res["cuda"], res["cpu"], near)
     assert out["tracks"] == 2 * cfg.test.max_per_img
+
+
+def test_train_vps_cli_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`train_vps` with the trained tiny model (`--load-from` its committed
+    weights) over its 12 frames, B=6 at 64x96: on the card (no `--device`)
+    and with `--device cpu` the first step's losses agree within 1e-4
+    relative (and one unit of the records' 4th decimal); 7 launches of each
+    mask kernel and one Hungarian launch a step on the card."""
+    import json
+
+    import video_knet_tpu_torch.config as tconfig
+    from video_knet_tpu_torch.ops.kernels import hungarian as hk
+    from video_knet_tpu_torch.tools import train_vps
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    tree = tg.write_sequence(str(tmp_path / "data"))
+    ckpt = save_checkpoint(str(tmp_path / "ckpt"), tg.tiny_model("cpu"))
+    argv = ["--data-root", tree, "--backbone", "mit_b0", "--epochs", "1", "--batch-size", "6",
+            "--crop", "64", "96", "--max-insts", "4", "--log-interval", "1", "--load-from",
+            ckpt]
+    records = {}
+    for d in ("cuda", "cpu"):
+        mo.reset_launch_counts()
+        hk.reset_launch_counts()
+        out = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tconfig, "kitti_step_video_config", tg.tiny_cfg)
+            mp.setattr(train_vps, "print", lambda *a, **k: out.append(" ".join(map(str, a))),
+                       raising=False)
+            train_vps.main([*argv, "--work-dir", str(tmp_path / d),
+                            *([] if d == "cuda" else ["--device", "cpu"])])
+        records[d] = [json.loads(line) for line in out if line.startswith("{")]
+        if d == "cuda":
+            assert mo.LAUNCHES == {"mask_pool": 14, "assemble": 14}
+            assert hk.LAUNCHES == {"hungarian": 2}
+    assert len(records["cuda"]) == len(records["cpu"]) == 2
+    card, cpu = records["cuda"][0], records["cpu"][0]
+    assert set(card) == set(cpu)
+    for k, want in cpu.items():
+        if k not in ("epoch", "iter", "imgs_per_sec"):
+            assert abs(card[k] - want) <= 1e-4 * abs(want) + 1e-4, (k, card[k], want)
+
+
+def test_get_flops_on_the_card_equals_the_cpu(dev):
+    """`get_flops` counts the same FLOPs and parameters on the card as on the
+    CPU for each model: the mask kernels' 2*B*N*H*W*C a launch take the
+    place of their plain einsums."""
+    from video_knet_tpu_torch.tools import get_flops
+
+    for model in ("vps", "image", "vis"):
+        cpu = get_flops.count(model, 64, 96, "resnet50", torch.device("cpu"))
+        card = get_flops.count(model, 64, 96, "resnet50", dev)
+        assert card == cpu and card[0] > 0, (model, card, cpu)
+        assert sum(mo.FLOPS.values()) > 0  # the card's count came through the kernels
+
+
+def test_bf16_kernel_boundary_on_the_card(dev):
+    """K1 and K2 on bf16 CUDA inputs launch the kernels on the upcast inputs
+    and return fp32 equal to the fp32 call; a bf16 VPS train step launches
+    7 / 7 / 1 kernels, runs every backbone and neck convolution and dense
+    layer in bf16, keeps fp32 masters and gradients, and its loss lies
+    within 5% of the fp32 loss."""
+    import dataclasses
+
+    from video_knet_tpu_torch.ops.kernels import hungarian as hk
+    from video_knet_tpu_torch.tools import trained_golden as tg
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, make_vps_loss_fn, train_step
+    from video_knet_tpu_torch.utils.precision import layer_dtypes
+
+    rng = np.random.RandomState(0)
+    logits = _logits(rng, (2, 37, 8, 12), dev).bfloat16()
+    feats = _rand(rng, (2, 8, 12, 64), dev).bfloat16()
+    kern = _rand(rng, (2, 37, 64), dev).bfloat16()
+    mo.reset_launch_counts()
+    pooled, assembled = mo.fused_mask_pool(logits, feats), mo.fused_assemble(kern, feats)
+    assert mo.LAUNCHES == {"mask_pool": 1, "assemble": 1}
+    assert pooled.dtype == assembled.dtype == torch.float32
+    assert torch.equal(pooled, mo.fused_mask_pool(logits.float(), feats.float()))
+    assert torch.equal(assembled, mo.fused_assemble(kern.float(), feats.float()))
+
+    cfg = tg.tiny_cfg()
+    model = tg.tiny_model(dev)
+    batch = make_synthetic_batch(cfg, 1, (64, 96), device=dev)
+    with torch.no_grad():
+        t32 = float(make_vps_loss_fn(model, cfg)(batch)[0])
+    model.cfg = dataclasses.replace(cfg, bf16_train=True)
+    mo.reset_launch_counts()
+    hk.reset_launch_counts()
+    with layer_dtypes(model) as seen:
+        _, losses = train_step(create_train_state(model, make_optimizer(model, 1000)), batch)
+    assert mo.LAUNCHES == {"mask_pool": 7, "assemble": 7} and hk.LAUNCHES == {"hungarian": 1}
+    assert seen and all(d == {torch.bfloat16} for d in seen.values()), seen
+    t16 = float(losses["total_loss"])
+    assert abs(t16 - t32) <= 0.05 * t32, (t16, t32)
+    for k, p in model.named_parameters():
+        assert p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32), k

@@ -222,10 +222,15 @@ def test_schedule_matches_optax_schedule():
 
 
 def test_unported_train_options_raise():
+    """`norm_eval=False` raises (ROADMAP B5), and so does `bf16_train` with
+    it (JAX's ValueError); `bf16_train` alone is ported."""
     model = VideoKNet(tc.VideoKNetConfig(max_insts=4), device="cpu")
-    for change in (dict(bf16_train=True), dict(norm_eval=False)):
-        with pytest.raises(NotImplementedError):
-            tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, **change))
+    with pytest.raises(NotImplementedError, match="B5"):
+        tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, norm_eval=False))
+    with pytest.raises(ValueError, match="norm_eval=True"):
+        tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, bf16_train=True,
+                                                         norm_eval=False))
+    tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, bf16_train=True))
 
 
 def test_loss_fn_turns_tf32_off():

@@ -7,13 +7,22 @@ and its port; weights go from the flax variables to the port through
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import functools
+import importlib
+import importlib.util
+import io
+import json
+import os
 import re
+import types
 from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import traverse_util
 
@@ -21,8 +30,11 @@ import video_knet_tpu.ops.hungarian as jhung
 from video_knet_tpu.models import msdeform_decoder as jdec
 from video_knet_tpu.models.knet import branch_assignment_costs
 from video_knet_tpu.models.swin import SwinTransformer as JSwin
-from video_knet_tpu_torch.tools.train_check import NECK_LAYERS
-from video_knet_tpu_torch.utils.convert import load_flax_variables
+from video_knet_tpu.utils import checkpoint as jck
+from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+from video_knet_tpu_torch.tools.train_check import NECK_LAYERS, image_check_cfg
+from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
+from video_knet_tpu_torch.utils.convert import load_flax_variables, state_dict_to_flax
 
 # One intra-op thread per process: the suite runs in several pytest-xdist
 # workers at once, and torch's default (one thread a core in every worker)
@@ -166,3 +178,107 @@ def jax_shallow_neck():
     """While active, JAX's `build_neck` builds `_ShallowDecoder` (it imports
     the decoder class when called); trace the JAX function inside it."""
     return mock.patch.object(jdec, "MSDeformAttnPixelDecoder", _ShallowDecoder)
+
+
+# ------------------------------------------------- CLIs in process (both packages)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COCO_CATS = (1, 3, 7, 9, 12)
+
+
+def _no_init(self, *args, **kwargs):
+    """The JAX CLIs' `model.init`, replaced: an empty params tree, which the
+    checkpoint's leaves fill through `merge_params`."""
+    return {"params": {}}
+
+
+def _own_argv_and_stdout(mod, argv: list, out: io.StringIO) -> None:
+    """Give a CLI module instance its own argv and standard output: its
+    `argparse` parses `argv`, its `print` writes to `out` (module globals,
+    so runs in several threads do not share `sys.argv` or `sys.stdout`)."""
+    class Parser(argparse.ArgumentParser):
+        def parse_args(self, args=None, namespace=None):
+            return super().parse_args(argv if args is None else args, namespace)
+
+    mod.argparse = types.SimpleNamespace(ArgumentParser=Parser)
+    mod.print = functools.partial(print, file=out)
+
+
+def run_jax(name: str, argv: list) -> str:
+    """A fresh instance of the root `tools/{name}.py` run in process; its
+    printed output. The JAX models' `init` and any config factory must be
+    patched by the caller (`JAX_PATCHES`)."""
+    spec = importlib.util.spec_from_file_location(f"jax_cli_{name}",
+                                                  os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    _own_argv_and_stdout(mod, argv, out)
+    mod.main()
+    return out.getvalue()
+
+
+def run_port(name: str, argv: list, device=("--device", "cpu")) -> str:
+    """The port's CLI `name` in process; its printed output."""
+    mod = importlib.import_module(f"video_knet_tpu_torch.tools.{name}")
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, "print", functools.partial(print, file=out), raising=False)
+        mod.main([*argv, *device])
+    return out.getvalue()
+
+
+def write_checkpoints(model, root) -> dict:
+    """{"port": its save_checkpoint directory, "jax": an orbax directory of
+    the same weights in flax's layouts}."""
+    port = save_checkpoint(os.path.join(root, "port_ckpt"), model)
+    flat = state_dict_to_flax(model, model.state_dict())
+    tree = traverse_util.unflatten_dict(flat, sep="/")
+    jax_dir = jck.save_checkpoint(os.path.join(root, "jax_ckpt"), tree)
+    return {"port": port, "jax": jax_dir}
+
+
+def _tiny_vps_cfg(base, gates_at_zero=False, split=None):
+    """The trained tiny config of either package (`base` its `tiny_cfg()`),
+    with another (things, stuff) split and the score gates at zero."""
+    cfg = base
+    if split is not None:
+        t, s = split
+        kw = dict(num_classes=t + s, num_thing_classes=t, num_stuff_classes=s)
+        cfg = dataclasses.replace(cfg, num_thing_classes=t, num_stuff_classes=s,
+                                  rpn=dataclasses.replace(cfg.rpn, **kw),
+                                  head=dataclasses.replace(cfg.head, **kw))
+    if gates_at_zero:
+        cfg = dataclasses.replace(
+            cfg, test=dataclasses.replace(cfg.test, instance_score_thr=0.0),
+            tracker=dataclasses.replace(cfg.tracker, init_score_thr=0.0, obj_score_thr=0.0,
+                                        match_score_thr=0.05))
+    return cfg
+
+
+def _tiny_image_cfg(base, instance: bool = False):
+    """MiT-b0 under 64-channel heads with the FPN neck (`image_check_cfg`),
+    20 proposals; KITTI-STEP's 2 thing + 17 stuff classes, or the
+    COCO instance form with one class a category."""
+    cfg = image_check_cfg(base, instance=instance, deformable=False)
+    t, s = (len(COCO_CATS), 0) if instance else (2, 17)
+    kw = dict(num_classes=t + s, num_thing_classes=t, num_stuff_classes=s)
+    return dataclasses.replace(
+        cfg, num_proposals=20, num_thing_classes=t, num_stuff_classes=s,
+        rpn=dataclasses.replace(cfg.rpn, num_proposals=20, **kw),
+        head=dataclasses.replace(cfg.head, **kw),
+        test=dataclasses.replace(cfg.test, max_per_img=20))
+
+
+def _ytvis_tree(root) -> tuple[str, str]:
+    """A seeded YouTube-VIS val tree (two videos, 5 frames of 48x80 and 4),
+    converted to COCO-VID by the port's `youtubevis2coco`: (json, image root)."""
+    ann, img_root = write_ytvis_cocovid(root, n_videos=2, n_frames=5, hw=(48, 80), seed=3)
+    with open(ann) as f:
+        coco = json.load(f)
+    last = max(im["id"] for im in coco["images"])  # the second video loses a frame
+    coco["images"] = [im for im in coco["images"] if im["id"] != last]
+    coco["annotations"] = [a for a in coco["annotations"] if a["image_id"] != last]
+    with open(ann, "w") as f:
+        json.dump(coco, f)
+    return ann, img_root

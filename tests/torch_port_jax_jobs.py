@@ -1,0 +1,191 @@
+"""JAX-side jobs of `tests/test_torch_port_train_cli.py`, each run in a
+process of its own (`python tests/torch_port_jax_jobs.py SPEC OUT`).
+
+Tracing a JAX train step holds the GIL for tens of seconds, so JAX jobs
+in threads of the test process run one after another; in processes they
+overlap. SPEC is a pickle of {"job": name, **arguments}; OUT gets a pickle
+of the job's result. Every process runs JAX on one host CPU device, with a
+persistent compilation cache under the temporary directory (`TMPDIR`).
+
+Jobs:
+- `cli`: the repo root's `tools/{name}.py` in process (`run_jax`), with
+  config factories patched to the given configs, the given models' `init`
+  returning the given variables (the CLI's optimizer needs the params
+  tree), the train state replicated on a one-device mesh from the start
+  (each train step compiles once) and `save_checkpoint` keeping the
+  state's parameters and BatchNorm statistics in the result; optionally a
+  `train_vps` whose step only counts, a `--resume-from` at a given step,
+  and the first step's gradient with a `freeze_detector` step from it;
+  returns {"out": printed text, "params": {work dir: flat params},
+  "batch_stats": {work dir: flat statistics}, "batches": image digests,
+  "first": {"params", "grads", "stepped"}}.
+- `direct_vps`: the VPS fp32 and bf16 losses on the synthetic batch.
+- `direct_vis`: the VIS fp32 and bf16 losses on a given clip.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import importlib
+import os
+import pickle
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _setup_jax():
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+
+    jax.config.update("jax_enable_x64", False)
+    jax.config.update("jax_platforms", "cpu")  # as tests/conftest.py forces it
+    jax.config.update("jax_compilation_cache_dir",
+                      os.path.join(tempfile.gettempdir(), "vknet_jax_cache"))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def _flat(tree) -> dict:
+    import numpy as np
+    from flax import traverse_util
+
+    return {k: np.asarray(v) for k, v in traverse_util.flatten_dict(tree, sep="/").items()}
+
+
+def cli(name: str, argv: list, configs: dict, inits: dict, still: bool = False,
+        resume_step: int | None = None, keep_grads: bool = False) -> dict:
+    """configs: {(module, factory name): config}; inits: {(module, class
+    name): variables}. With `still`, `train_vps`'s step only counts (the
+    parameters and statistics stay as they are) and keeps a digest of each
+    batch's images; with `resume_step`, `--resume-from` gives the state at
+    that step (no checkpoint is read); with `keep_grads`, the first step's
+    parameters and gradient come back, and one `freeze_detector` step of
+    the CLI's optimizer from them."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    import video_knet_tpu.parallel.mesh as jmesh
+    import video_knet_tpu.train.optim as joptim
+    import video_knet_tpu.train.train_state as jts
+    import video_knet_tpu.train.vps as jtvps
+    import video_knet_tpu.utils.checkpoint as jck
+    from torch_port_common import run_jax
+
+    for (mod, attr), cfg in configs.items():
+        setattr(importlib.import_module(mod), attr, lambda cfg=cfg: cfg)
+    for (mod, cls), variables in inits.items():
+        setattr(getattr(importlib.import_module(mod), cls), "init",
+                lambda self, *a, variables=variables, **k: variables)
+    mesh = jmesh.make_mesh(n_data=1, n_model=1)
+    jmesh.make_mesh = lambda *a, **k: mesh
+    # The train state on the mesh from the start, as every step returns it:
+    # a CLI's first state is off the mesh, so its second step would trace
+    # and compile the step again.
+    create_train_state, merge_params = jts.create_train_state, jck.merge_params
+    on_mesh = lambda tree: jax.device_put(tree, jmesh.replicated(mesh))  # noqa: E731
+    jts.create_train_state = lambda *a, **k: on_mesh(create_train_state(*a, **k))
+    jck.merge_params = lambda *a, **k: on_mesh(merge_params(*a, **k))
+    params, stats, batches = {}, {}, []
+
+    def keep_state(path, state, *, step=None):
+        work_dir = os.path.dirname(os.path.abspath(path))
+        stats[work_dir] = _flat(state.batch_stats)
+        if not still:  # a still run's parameters are its loaded ones
+            params[work_dir] = _flat(state.params)
+        return path
+
+    def still_step(*args, **kwargs):
+        def step(state, batch):
+            batches.append(hashlib.sha1(np.asarray(batch.img).tobytes()).hexdigest())
+            return state._replace(step=state.step + 1), {}
+        return step
+
+    first = {}
+    make_optimizer = joptim.make_optimizer
+
+    def keeping_optimizer(params, *args, **kwargs):
+        """The CLI's optimizer, whose update hands its first gradient and
+        parameters to the host; its `freeze_detector` twin kept aside."""
+        tx = make_optimizer(params, *args, **kwargs)
+        first["frozen"] = make_optimizer(params, *args, **{**kwargs, "freeze_detector": True})
+
+        def update(grads, state, params=None):
+            jax.debug.callback(lambda g, p: first.setdefault("at", (g, p)), grads, params)
+            return tx.update(grads, state, params)
+
+        return optax.GradientTransformation(tx.init, update)
+
+    jck.save_checkpoint = keep_state
+    if still:
+        jtvps.make_sharded_train_step = still_step
+    if resume_step is not None:
+        jck.restore_checkpoint = lambda path, target=None: target._replace(
+            step=jnp.asarray(resume_step, jnp.int32))
+    if keep_grads:
+        joptim.make_optimizer = keeping_optimizer
+    out = {"out": run_jax(name, argv), "params": params, "batch_stats": stats,
+           "batches": batches}
+    if keep_grads:
+        grads, at = first["at"]
+        tx = first["frozen"]
+
+        @jax.jit
+        def frozen_step(p, g):
+            updates, _ = tx.update(g, tx.init(p), p)
+            return optax.apply_updates(p, updates)
+
+        out["first"] = dict(params=_flat(at), grads=_flat(grads),
+                            stepped=_flat(frozen_step(at, grads)))
+    return out
+
+
+def direct_vps(vps_cfg, vps_vars, hw) -> dict:
+    """The VPS fp32 and bf16 losses on the synthetic batch."""
+    import jax
+
+    import video_knet_tpu.train.vps as jtvps
+    from video_knet_tpu.models.video.knet_vps import VideoKNet
+
+    batch = jtvps.make_synthetic_batch(vps_cfg, 1, hw)
+    out = {}
+    for key, cfg in (("t32", vps_cfg), ("t16", dataclasses.replace(vps_cfg, bf16_train=True))):
+        loss = jtvps.make_vps_loss_fn(VideoKNet(cfg, train=True), cfg)
+        out[key] = float(jax.jit(lambda p, loss=loss: loss(
+            p, vps_vars.get("batch_stats", {}), batch)[0])(vps_vars["params"]))
+    return out
+
+
+def direct_vis(vis_cfg, vis_vars, vis_clip, vis_gt) -> dict:
+    """The VIS fp32 and bf16 losses on the given clip."""
+    import jax
+    import jax.numpy as jnp
+
+    import video_knet_tpu.train.vis as jtvis
+    from video_knet_tpu.models.vis.knet_vis import ClipGT, KNetVIS
+
+    clip = jnp.asarray(vis_clip)
+    gt = ClipGT(*(jnp.asarray(x) for x in vis_gt))
+    out = {}
+    for key, cfg in (("t32", vis_cfg), ("t16", dataclasses.replace(vis_cfg, bf16_train=True))):
+        loss = jtvis.make_vis_loss_fn(KNetVIS(cfg, train=True), cfg)
+        out[key] = float(jax.jit(lambda p, loss=loss: loss(
+            p, vis_vars.get("batch_stats", {}), clip, gt)[0])(vis_vars["params"]))
+    return out
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.dirname(HERE))
+    _setup_jax()
+    spec_path, out_path = sys.argv[1:3]
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    result = {"cli": cli, "direct_vps": direct_vps, "direct_vis": direct_vis}[
+        spec.pop("job")](**spec)
+    with open(out_path + ".tmp", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(out_path + ".tmp", out_path)

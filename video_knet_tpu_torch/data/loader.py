@@ -92,11 +92,22 @@ class ThreadedLoader:
     def _move(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.device, non_blocking=True)
 
-    def __iter__(self) -> Iterator:
-        # epoch permutation + ALL augmentation seeds drawn up front: batches
-        # are reproducible regardless of thread count or host sharding
+    def _epoch_draws(self) -> tuple[np.ndarray, np.ndarray]:
+        """An epoch's permutation and ALL its augmentation seeds, drawn up
+        front: batches are reproducible regardless of thread count or host
+        sharding."""
         order = self.rng.permutation(len(self.ds))
-        seeds = self.rng.randint(0, 2**31, size=len(order))
+        return order, self.rng.randint(0, 2**31, size=len(order))
+
+    def skip_epochs(self, n: int) -> None:
+        """Draw `n` epochs' permutations and seeds unused, so that the next
+        epoch is the one an unbroken run would see after `n` (a resumed
+        run)."""
+        for _ in range(n):
+            self._epoch_draws()
+
+    def __iter__(self) -> Iterator:
+        order, seeds = self._epoch_draws()
         n_batches = len(order) // self.batch_size
         my_batches = list(range(self.process_index, n_batches, self.process_count))
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)

@@ -71,7 +71,9 @@ class ConvKernelHead(nn.Module):
         b = loc_feats.shape[0]
         loc_feats = loc_feats.contiguous()
         kernels = self.init_kernels[None].expand(b, -1, -1).contiguous()
-        mask_preds = fused_assemble(kernels, loc_feats)  # [B, N, H, W]
+        # [B, N, H, W], in the inputs' dtype as JAX's einsum gives it (bf16 training)
+        mask_preds = fused_assemble(kernels, loc_feats).to(
+            torch.promote_types(kernels.dtype, loc_feats.dtype))
 
         seg_preds = self.conv_seg(semantic_feats)  # [B, H, W, num_classes]
         x_feats = (semantic_feats + loc_feats).contiguous()

@@ -50,7 +50,9 @@ def assemble_masks(kernels: torch.Tensor, x: torch.Tensor, kernel_size: int) -> 
     if kernel_size != 1:
         raise NotImplementedError(
             "conv_kernel_size > 1 (grouped dynamic conv) is not ported yet (ROADMAP E4)")
-    return fused_assemble(kernels[:, :, 0, :].contiguous(), x.contiguous())
+    # in the inputs' dtype, as JAX's einsum gives it (bf16 training)
+    return fused_assemble(kernels[:, :, 0, :].contiguous(), x.contiguous()).to(
+        torch.promote_types(kernels.dtype, x.dtype))
 
 
 class KernelUpdateHead(nn.Module):

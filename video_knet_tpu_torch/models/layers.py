@@ -48,10 +48,13 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int], dims=(-2, -1)) -> t
 
 def _interp_bilinear(x_nchw: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     shrinks = out_hw[0] < x_nchw.shape[-2] or out_hw[1] < x_nchw.shape[-1]
-    return F.interpolate(
-        x_nchw, size=tuple(out_hw), mode="bilinear", align_corners=False,
-        antialias=shrinks,
+    # bf16 (the bf16 training forward) resizes in fp32 and rounds once:
+    # PyTorch has no bf16 antialiased kernel on the CPU
+    y = F.interpolate(
+        x_nchw.float() if x_nchw.dtype == torch.bfloat16 else x_nchw, size=tuple(out_hw),
+        mode="bilinear", align_corners=False, antialias=shrinks,
     )
+    return y.to(x_nchw.dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -75,6 +78,19 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- modules
+
+
+def _fp32(x: torch.Tensor) -> torch.Tensor:
+    """flax's norms reduce in at least fp32: bf16 -> fp32, fp32 unchanged."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _result_dtype(*ts: torch.Tensor) -> torch.dtype:
+    """The dtype flax gives a norm's output: that of its input and params."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return dtype
 
 
 class Conv2d(nn.Module):
@@ -113,7 +129,9 @@ class Conv2d(nn.Module):
 
 class GroupNorm(nn.Module):
     """flax `nn.GroupNorm(use_fast_variance=False)` on NHWC: two-pass
-    variance, eps 1e-5."""
+    variance, eps 1e-5. As in flax, a bf16 input's statistics and
+    normalization are computed in fp32 and the result takes the dtype of
+    the input and parameters."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -124,18 +142,19 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
-        g = x.reshape(b, -1, self.num_groups, c // self.num_groups)
+        g = _fp32(x).reshape(b, -1, self.num_groups, c // self.num_groups)
         mean = g.mean(dim=(1, 3), keepdim=True)
         d = g - mean
         var = (d * d).mean(dim=(1, 3), keepdim=True)
         y = (d * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return y * self.weight + self.bias
+        return (y * self.weight + self.bias).to(_result_dtype(x, self.weight, self.bias))
 
 
 class FastVarianceLayerNorm(nn.Module):
     """flax `nn.LayerNorm` as it runs by default (`use_fast_variance=True`):
     var = max(mean(x^2) - mean(x)^2, 0), and the scale folded into the
-    rsqrt before it multiplies (x - mean)."""
+    rsqrt before it multiplies (x - mean). Statistics in fp32 for a bf16
+    input, as in flax."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -144,9 +163,11 @@ class FastVarianceLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=-1, keepdim=True)
-        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        x32 = _fp32(x)
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(_result_dtype(x, self.weight, self.bias))
 
 
 class BatchNorm(nn.Module):

@@ -59,7 +59,8 @@ def clip_assemble(kernels: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         kernels = kernels[:, None].expand(b, t, n, c)
     out = fused_assemble(kernels.reshape(b * t, n, c).contiguous(),
                          x.reshape(b * t, h, w, c).contiguous())
-    return out.reshape(b, t, n, h, w)
+    # in the inputs' dtype, as JAX's einsum gives it (bf16 training)
+    return out.reshape(b, t, n, h, w).to(torch.promote_types(kernels.dtype, x.dtype))
 
 
 def clip_mask_pool(mask_logits: torch.Tensor, x: torch.Tensor, hard_thr: float) -> torch.Tensor:

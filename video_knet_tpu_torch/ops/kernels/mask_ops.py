@@ -16,7 +16,10 @@ launched (a K1 call is three chained kernels: binarize,
 partial sums on the tensor cores, ordered reduce; a K2 call is one kernel,
 a 3xTF32 product on the tensor cores). `SHAPES` keeps the (B, N, H, W, C)
 of every launch, so that a caller can hold each kernel against its plain
-version at every shape it was given.
+version at every shape it was given, and `FLOPS` adds 2*B*N*H*W*C a launch
+(two per multiply-add of the contraction), what `torch.utils.flop_counter`
+counts for the plain versions' einsums on the CPU, so that
+`tools/get_flops.py` counts the same work on both devices.
 """
 
 from __future__ import annotations
@@ -27,11 +30,13 @@ import torch
 
 LAUNCHES = {"mask_pool": 0, "assemble": 0}
 SHAPES: dict[str, set[tuple[int, ...]]] = {"mask_pool": set(), "assemble": set()}
+FLOPS = {"mask_pool": 0, "assemble": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        FLOPS[k] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -61,6 +66,15 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     if devices != {"cuda"} or len({t.device for t in ts}) != 1:
         raise ValueError(f"inputs on mixed or unsupported devices: {[t.device for t in ts]}")
     return False
+
+
+def _fp32(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """bf16 inputs (the bf16 training forward) upcast to fp32 for the
+    kernels, which take fp32 only: exact, since a bf16 value is exact in fp32
+    and in K2's TF32 big plane, and a product of two bf16 values is exact in
+    fp32. The result stays fp32, as a Pallas call's does; the caller casts
+    it back where JAX's einsum would give bf16."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
 
 
 def _check(name: str, t: torch.Tensor, ndim: int) -> None:
@@ -132,8 +146,9 @@ def split_tf32x2(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def fused_mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *,
                     hard_thr: float = 0.5) -> torch.Tensor:
     """Binarized mask pooling. mask_logits [B, N, H, W]; feats [B, H, W, C]
-    -> [B, N, C] float32. Differentiable in `feats` (the hard threshold
-    passes no gradient to the logits)."""
+    -> [B, N, C] float32 (bf16 inputs are upcast). Differentiable in
+    `feats` (the hard threshold passes no gradient to the logits)."""
+    mask_logits, feats = _fp32(mask_logits, feats)
     if _on_cpu(mask_logits, feats):
         return mask_pool_plain(mask_logits, feats, hard_thr)
     _check("mask_logits", mask_logits, 4)
@@ -184,6 +199,7 @@ class _MaskPool(torch.autograd.Function):
         _raise_on(rc, "vk_mask_pool")
         LAUNCHES["mask_pool"] += 1
         SHAPES["mask_pool"].add((b, n, h, w, c))
+        FLOPS["mask_pool"] += 2 * b * n * h * w * c
         ctx.save_for_backward(bits)
         return out
 
@@ -209,8 +225,9 @@ def _zero_padded(x: torch.Tensor, c: int) -> torch.Tensor:
 def fused_assemble(kernels: torch.Tensor, feats: torch.Tensor, *,
                    sigmoid: bool = False) -> torch.Tensor:
     """K=1 dynamic conv. kernels [B, N, C]; feats [B, H, W, C] -> [B, N, H, W]
-    float32 logits, or probabilities with `sigmoid`. Differentiable in both
-    inputs."""
+    float32 logits, or probabilities with `sigmoid` (bf16 inputs are
+    upcast). Differentiable in both inputs."""
+    kernels, feats = _fp32(kernels, feats)
     if _on_cpu(kernels, feats):
         return assemble_plain(kernels, feats, sigmoid)
     _check("kernels", kernels, 3)
@@ -251,6 +268,7 @@ class _Assemble(torch.autograd.Function):
         _raise_on(rc, "vk_assemble")
         LAUNCHES["assemble"] += 1
         SHAPES["assemble"].add((b, n, h, w, shape_c))
+        FLOPS["assemble"] += 2 * b * n * h * w * shape_c
         return out
 
     @staticmethod

@@ -16,7 +16,9 @@ def mask_pool(mask_logits: torch.Tensor, feats: torch.Tensor, *, hard_thr: float
               binary: bool = True) -> torch.Tensor:
     """mask_logits [B, N, H, W]; feats [B, H, W, C] (NHWC) -> [B, N, C]."""
     if binary:
-        return fused_mask_pool(mask_logits.contiguous(), feats.contiguous(), hard_thr=hard_thr)
+        # in the features' dtype, as JAX's mask_pool gives it (bf16 training)
+        return fused_mask_pool(mask_logits.contiguous(), feats.contiguous(),
+                               hard_thr=hard_thr).to(feats.dtype)
     s = torch.sigmoid(mask_logits.float())
     m = (s > hard_thr).to(feats.dtype) * s.to(feats.dtype)
     return torch.einsum("bnhw,bhwc->bnc", m, feats)

@@ -11,6 +11,8 @@ bottom), a void patch, and `n_things` person (11) / car (13) boxes that
 overlap and move from frame to frame with persistent ids (some above 255,
 so G is used). Frames are the bands' colours with the boxes' over them and
 seeded noise, which compresses about as a camera frame does.
+`write_cityscapes_step_tree` writes the same scene as a Cityscapes-STEP
+image tree (`leftImg8bit/` + `panoptic/`, a directory a city).
 
 `write_semkitti_tree` writes the same scene in SemKITTI-DVPS's layout
 (`_gtFine_class.png` + `_gtFine_instance.png` and a uint16 `_depth.png` in
@@ -37,6 +39,36 @@ STUFF_BANDS = (10, 2, 8, 1, 5, 6, 7, 3, 4, 9, 12, 0)  # top to bottom
 THING_CLASSES = (11, 13)
 
 
+def _sequence(rng: np.random.RandomState, palette: np.ndarray, hw: tuple[int, int],
+              n_things: int, n_frames: int):
+    """One sequence's frames: yields (frame index, RGB image, kitti_rgb
+    panoptic GT)."""
+    h, w = hw
+    cuts = np.sort(rng.randint(1, h, len(STUFF_BANDS) - 1))  # some bands empty at small h
+    band_cls = np.zeros(h, np.uint8)
+    for cls, (y0, y1) in zip(STUFF_BANDS, zip((0, *cuts), (*cuts, h))):
+        band_cls[y0:y1] = cls
+    bh = rng.randint(max(2, h // 10), max(3, h // 3), n_things)
+    bw = rng.randint(max(2, w // 20), max(3, w // 6), n_things)
+    y0s = rng.randint(0, h - bh + 1)
+    x0s = rng.randint(0, w - bw + 1)
+    dx = rng.randint(-(w // 60) - 1, w // 60 + 2, n_things)
+    cls_of = np.array(THING_CLASSES)[rng.randint(0, 2, n_things)]
+    ids = 1 + np.arange(n_things) * 37  # persistent; above 255 from the 8th
+    for f in range(n_frames):
+        pan = np.zeros((h, w, 3), np.uint8)
+        pan[..., 0] = band_cls[:, None]
+        pan[: max(1, h // 20), : max(1, w // 30), 0] = 255  # void
+        for k in range(n_things):
+            x0 = int(np.clip(x0s[k] + dx[k] * f, 0, w - bw[k]))
+            box = pan[y0s[k]:y0s[k] + bh[k], x0:x0 + bw[k]]
+            box[...] = (cls_of[k], ids[k] // 256, ids[k] % 256)
+        cls_map = pan[..., 0].astype(np.int64)
+        key = cls_map * 7 + pan[..., 2]
+        img = palette[key % 256] + rng.randint(-12, 13, (h, w, 3))
+        yield f, np.clip(img, 0, 255).astype(np.uint8), pan
+
+
 def write_kitti_step_tree(root: str, *, n_seqs: int = 2, n_frames: int = 6,
                           hw: tuple[int, int] = (375, 1242), n_things: int = 15,
                           split: str = "train", seed: int = 0,
@@ -48,39 +80,43 @@ def write_kitti_step_tree(root: str, *, n_seqs: int = 2, n_frames: int = 6,
     d = os.path.join(root, "video_sequence", split)
     os.makedirs(d, exist_ok=True)
     rng = np.random.RandomState(seed)
-    h, w = hw
     palette = rng.randint(0, 256, (256, 3))
     written = {}
     for s in range(n_seqs):
-        cuts = np.sort(rng.randint(1, h, len(STUFF_BANDS) - 1))  # some bands empty at small h
-        band_cls = np.zeros(h, np.uint8)
-        for cls, (y0, y1) in zip(STUFF_BANDS, zip((0, *cuts), (*cuts, h))):
-            band_cls[y0:y1] = cls
-        bh = rng.randint(max(2, h // 10), max(3, h // 3), n_things)
-        bw = rng.randint(max(2, w // 20), max(3, w // 6), n_things)
-        y0s = rng.randint(0, h - bh + 1)
-        x0s = rng.randint(0, w - bw + 1)
-        dx = rng.randint(-(w // 60) - 1, w // 60 + 2, n_things)
-        cls_of = np.array(THING_CLASSES)[rng.randint(0, 2, n_things)]
-        ids = 1 + np.arange(n_things) * 37  # persistent; above 255 from the 8th
-        for f in range(n_frames):
-            pan = np.zeros((h, w, 3), np.uint8)
-            pan[..., 0] = band_cls[:, None]
-            pan[: max(1, h // 20), : max(1, w // 30), 0] = 255  # void
-            for k in range(n_things):
-                x0 = int(np.clip(x0s[k] + dx[k] * f, 0, w - bw[k]))
-                box = pan[y0s[k]:y0s[k] + bh[k], x0:x0 + bw[k]]
-                box[...] = (cls_of[k], ids[k] // 256, ids[k] % 256)
-            cls_map = pan[..., 0].astype(np.int64)
-            key = cls_map * 7 + pan[..., 2]
-            img = palette[key % 256] + rng.randint(-12, 13, (h, w, 3))
-            img = np.clip(img, 0, 255).astype(np.uint8)
+        for f, img, pan in _sequence(rng, palette, hw, n_things, n_frames):
             stem = os.path.join(d, f"{s:06d}_{f:06d}_")
             save_png(stem + "leftImg8bit.png", img)
             written[stem + "leftImg8bit.png"] = img
             if (s, f) not in no_ann:
                 save_png(stem + "panoptic.png", pan)
                 written[stem + "panoptic.png"] = pan
+    return written
+
+
+def write_cityscapes_step_tree(root: str, *, cities: tuple = ("aachen", "bremen"),
+                               n_images: int = 2, hw: tuple[int, int] = (1024, 2048),
+                               n_things: int = 15, split: str = "train",
+                               seed: int = 0) -> dict[str, np.ndarray]:
+    """A Cityscapes-STEP tree as `data/datasets.py:CityscapesSTEPImages`
+    reads it: `leftImg8bit/{split}/{city}/{city}_{i:06d}_000019_leftImg8bit.png`
+    and its `panoptic/{split}/{city}/..._panoptic.png` (kitti_rgb GT, the
+    19-class space), `n_images` frames of `write_kitti_step_tree`'s scene a
+    city. Returns {path: the array written}."""
+    from video_knet_tpu_torch.data.panoptic_png import save_png
+
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(0, 256, (256, 3))
+    written = {}
+    for city in cities:
+        dirs = [os.path.join(root, kind, split, city) for kind in ("leftImg8bit", "panoptic")]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        for f, img, pan in _sequence(rng, palette, hw, n_things, n_images):
+            stem = f"{city}_{f:06d}_000019_"
+            for d, kind, arr in zip(dirs, ("leftImg8bit", "panoptic"), (img, pan)):
+                path = os.path.join(d, stem + kind + ".png")
+                save_png(path, arr)
+                written[path] = arr
     return written
 
 

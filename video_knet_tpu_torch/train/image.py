@@ -4,8 +4,8 @@ function and the single-device train step.
 Counterpart of the step in `tools/train_image.py:198-214` (the reference's
 image pretraining on Cityscapes-STEP or COCO panoptic): one `KNet` forward,
 `knet_loss`, the backward and the AdamW update. Scope: fp32 (`bf16_train`
-raises), BatchNorm on its running statistics (`norm_eval=False` raises),
-one device (the reference's data-parallel mesh is ROADMAP F7).
+raises: the reference package's image step has no bf16 path), BatchNorm on
+its running statistics (`norm_eval=False` raises), one device (the reference's data-parallel mesh is ROADMAP F7).
 """
 
 from __future__ import annotations
@@ -52,6 +52,9 @@ def make_image_loss_fn(model: KNet, cfg: KNetConfig):
     draws the backbone's stochastic depth. `check_train_config` first (TF32
     off)."""
     check_train_config(cfg)
+    if cfg.bf16_train:
+        raise NotImplementedError("bf16_train: the image K-Net step trains in fp32 only, as "
+                                  "tools/train_image.py of the JAX package does")
 
     def loss_fn(batch: ImageBatch, generator: torch.Generator | None = None):
         rpn_out, stage_outs = model(batch.img, generator)

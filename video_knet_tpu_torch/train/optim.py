@@ -9,6 +9,15 @@ given epochs. The model owns freezing: ResNet's `frozen_stages` (1: the
 stem and layer1) turns `requires_grad` off, and those parameters stay out of
 the optimizer, as `optax.masked` leaves them.
 
+`freeze_detector` is the non-joint two-phase mode of the reference's
+VideoKNetQuansiEmbedFC (knet/video/knet_quansi_dense_embed_fc.py:92-139):
+the detector is frozen and only the tracking pieces train, the parameters
+whose flax names hold one of JAX's `TRACK_KEYS`. The frozen parameters
+take no gradient, no update, no weight decay and no moment state, and do
+not move. (JAX's `optax.masked` passes a masked leaf's raw gradient through
+to `apply_updates`, so its detector moves by +gradient each step; the port
+does not copy that.)
+
 optax.adamw's order (adam, + wd * p, * lr) is torch.optim.AdamW's
 (p *= 1 - lr * wd, then the adam step) with the same numbers. The schedule
 is read at the step count before the update, as optax reads its count: the
@@ -37,9 +46,20 @@ def make_lr_schedule(base_lr: float, steps_per_epoch: int, *,
     return schedule
 
 
-def frozen_mask(model: nn.Module) -> dict[str, bool]:
-    """{parameter name: trainable}, as the model set `requires_grad`."""
-    return {name: p.requires_grad for name, p in model.named_parameters()}
+TRACK_KEYS = ("track_embed", "attention_previous", "link_ffn", "link_update", "track_update")
+
+
+def frozen_mask(model: nn.Module, freeze_detector: bool = False) -> dict[str, bool]:
+    """{parameter name: trainable}: as the model set `requires_grad`, or with
+    `freeze_detector` exactly the parameters whose flax names
+    (`utils/convert.py:flax_names`) hold a track key, as JAX's
+    `frozen_mask` decides leaf by leaf."""
+    if not freeze_detector:
+        return {name: p.requires_grad for name, p in model.named_parameters()}
+    from video_knet_tpu_torch.utils.convert import flax_names
+
+    names = flax_names(model, [name for name, _ in model.named_parameters()])
+    return {name: any(k in flax for k in TRACK_KEYS) for name, flax in names.items()}
 
 
 def backbone_label(model: nn.Module) -> dict[str, str]:
@@ -88,11 +108,19 @@ class Optimizer:
 def make_optimizer(model: nn.Module, steps_per_epoch: int, *, base_lr: float = 1e-4,
                    weight_decay: float = 0.05, backbone_lr_mult: float = 0.25,
                    grad_clip: float = 1.0, decay_epochs: Sequence[int] = (9, 11),
-                   warmup_iters: int = 1000) -> Optimizer:
-    """The optimizer of `model`'s trainable parameters."""
+                   warmup_iters: int = 1000, freeze_detector: bool = False) -> Optimizer:
+    """The optimizer of `model`'s trainable parameters. With
+    `freeze_detector`, every other parameter stops taking gradients
+    (`requires_grad` off, as the reference freezes it)."""
     sched = make_lr_schedule(base_lr, steps_per_epoch, decay_epochs=decay_epochs,
                              warmup_iters=warmup_iters)
-    trainable = frozen_mask(model)
+    trainable = frozen_mask(model, freeze_detector)
+    if not any(trainable.values()):
+        raise ValueError("no trainable parameter (freeze_detector on a model without "
+                         "track layers?)")
+    for name, p in model.named_parameters():
+        if not trainable[name]:
+            p.requires_grad_(False)
     label = backbone_label(model)
     groups: dict[str, list[nn.Parameter]] = {"backbone": [], "rest": []}
     for name, p in model.named_parameters():

@@ -30,11 +30,14 @@ def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:
 
 
 def check_train_config(cfg) -> None:
-    """The training the port runs: fp32 (`bf16_train` raises) with BatchNorm
-    on its running statistics (`norm_eval=False` raises). Turns TF32 off
-    for cuBLAS and cuDNN (the reference trains in fp32), as serving does."""
-    if cfg.bf16_train:
-        raise NotImplementedError("bf16_train is not ported yet (ROADMAP B5)")
+    """The training the port runs: fp32, or bf16 with `bf16_train`
+    (`utils/precision.py`), with BatchNorm on its running statistics
+    (`norm_eval=False` raises). Turns TF32 off for cuBLAS and cuDNN (the
+    reference trains in fp32), as serving does."""
+    if getattr(cfg, "bf16_train", False) and not cfg.norm_eval:
+        raise ValueError(
+            "bf16_train requires norm_eval=True (frozen BN stats): live BN "
+            "stat updates would be accumulated in bfloat16")
     if not cfg.norm_eval:
         raise NotImplementedError(
             "norm_eval=False (BatchNorm batch statistics) is not ported yet (ROADMAP B5)")

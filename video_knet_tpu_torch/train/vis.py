@@ -2,9 +2,9 @@
 single-device clip train step.
 
 Counterpart of `video_knet_tpu/train/vis.py`: the KNetVIS clip forward,
-`knet_vis_loss`, the backward and the AdamW update. Scope: fp32
-(`bf16_train` raises), BatchNorm on its running statistics (`norm_eval=
-False` raises), one device; the reference's clip parallelism over frames
+`knet_vis_loss`, the backward and the AdamW update. Scope: fp32, or a bf16
+forward with `bf16_train` (as `train/vps.py`); BatchNorm on its running
+statistics (`norm_eval=False` raises); one device; the reference's clip parallelism over frames
 (the mesh's `model` axis) and its data parallelism are ROADMAP F7.
 """
 
@@ -23,6 +23,7 @@ from video_knet_tpu_torch.train.train_state import (
     make_train_step,
 )
 from video_knet_tpu_torch.utils.device import resolve_device
+from video_knet_tpu_torch.utils.precision import bf16_forward
 
 
 class VISBatch(NamedTuple):
@@ -77,11 +78,16 @@ def make_synthetic_batch(cfg: VISConfig, b: int, hw: tuple[int, int], t: int | N
 def make_vis_loss_fn(model: KNetVIS, cfg: VISConfig):
     """loss_fn(batch, generator=None) -> (total, loss_dict); `generator`
     draws the backbone's stochastic depth. `check_train_config` first (TF32
-    off)."""
+    off). `cfg.bf16_train`: a bf16 forward on a bf16 clip, fp32 loss math
+    (`train/vps.py:make_vps_loss_fn`)."""
     check_train_config(cfg)
 
     def loss_fn(batch: VISBatch, generator: torch.Generator | None = None):
-        losses = knet_vis_loss(model(batch.clip, generator), batch.gt, cfg)
+        if cfg.bf16_train:
+            outs = bf16_forward(model, "forward", batch.clip.to(torch.bfloat16), generator)
+        else:
+            outs = model(batch.clip, generator)
+        losses = knet_vis_loss(outs, batch.gt, cfg)
         return sum(losses.values()), losses
 
     return loss_fn

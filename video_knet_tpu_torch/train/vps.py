@@ -4,8 +4,9 @@ the single-device train step.
 Counterpart of `video_knet_tpu/train/vps.py` (the reference's
 `VideoKNetQuansiEmbedFCJointTrain.forward_train` under its trainer): the
 joint key + ref forward, every loss, the backward and the AdamW update.
-Scope: fp32 (`bf16_train` raises), BatchNorm on its running statistics
-(`norm_eval=False` raises), one device (the reference's data-parallel mesh
+Scope: fp32, or a bf16 forward with `bf16_train` (fp32 masters, optimizer
+state, gradients and loss math); BatchNorm on its running statistics
+(`norm_eval=False` raises); one device (the reference's data-parallel mesh
 is ROADMAP F7).
 """
 
@@ -25,6 +26,7 @@ from video_knet_tpu_torch.train.train_state import (
     make_train_step,
 )
 from video_knet_tpu_torch.utils.device import resolve_device
+from video_knet_tpu_torch.utils.precision import bf16_forward
 
 
 class VPSBatch(NamedTuple):
@@ -80,15 +82,25 @@ def make_synthetic_batch(cfg: VideoKNetConfig, b: int, hw: tuple[int, int], seed
 def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
     """loss_fn(batch, generator=None) -> (total, loss_dict); `generator`
     draws the backbone's stochastic depth. `check_train_config` first (TF32
-    off)."""
+    off).
+
+    `cfg.bf16_train`: the forward (and so the backward) runs on bf16 casts
+    of the parameters and BatchNorm statistics with bf16 images
+    (`utils/precision.py:bf16_forward`); the outputs come back fp32 before
+    every loss, cost and assignment, as in `video_knet_tpu/train/vps.py`."""
     check_train_config(cfg)
 
     def loss_fn(batch: VPSBatch, generator: torch.Generator | None = None):
         # the RoI / GT-box head embeds at the GT masks' boxes
         gt_masks = ((batch.gt.masks, batch.ref_gt.masks)
                     if cfg.track_head_type == "roi_gt_box" else ())
-        key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img, generator,
-                                                         *gt_masks)
+        if cfg.bf16_train:
+            key, ref, key_emb, ref_emb = bf16_forward(
+                model, "forward_train", batch.img.to(torch.bfloat16),
+                batch.ref_img.to(torch.bfloat16), generator, *gt_masks)
+        else:
+            key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img,
+                                                             generator, *gt_masks)
         losses = video_knet_loss((key, ref), (key_emb, ref_emb), batch.gt, batch.ref_gt, cfg)
         return sum(losses.values()), losses
 

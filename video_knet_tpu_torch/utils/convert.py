@@ -133,6 +133,38 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
     return module
 
 
+def _flax_key(module: nn.Module, name: str) -> tuple[str, str, str]:
+    """A port tensor name -> (flax key, its layout rule, the owner's path):
+    the rule is "" (as is), "conv" (OIHW -> HWIO), "dense" ([out, in] ->
+    [in, out]), "mha_out" / "mha_in" (an MHA projection) or "mha_bias"."""
+    owner_path, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_path)
+    parent = module.get_submodule(owner_path.rpartition(".")[0])
+    path = owner_path.replace(".", "/")
+    if isinstance(owner, BatchNorm) and leaf in ("running_mean", "running_var"):
+        return f"batch_stats/{path}/{leaf[len('running_'):]}", "", owner_path
+    mha = isinstance(parent, MultiHeadAttention) and isinstance(owner, nn.Linear)
+    rule = ""
+    if leaf == "weight" and isinstance(owner, _NORMS):
+        leaf = "scale"
+    elif leaf == "weight" and isinstance(owner, Conv2d):
+        leaf, rule = "kernel", "conv"
+    elif leaf == "weight" and mha:
+        leaf, rule = "kernel", "mha_out" if owner_path.endswith("out") else "mha_in"
+    elif leaf == "weight" and isinstance(owner, nn.Linear):
+        leaf, rule = "kernel", "dense"
+    elif leaf == "bias" and mha and not owner_path.endswith("out"):
+        rule = "mha_bias"
+    # a parameter of the root module itself (e.g. a head's init_query) has no path
+    return "/".join(("params", path, leaf) if path else ("params", leaf)), rule, owner_path
+
+
+def flax_names(module: nn.Module, names) -> dict[str, str]:
+    """{port name: the flax leaf path it carries}, as `state_dict_to_flax`
+    names it, Swin's block pairs under their stacked (scan) path."""
+    return {name: _UNSTACKED.sub(r"\1/\3", _flax_key(module, name)[0]) for name in names}
+
+
 def state_dict_to_flax(module: nn.Module,
                        tensors: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Port {name: tensor} (parameters, buffers, or parameter gradients) ->
@@ -143,31 +175,20 @@ def state_dict_to_flax(module: nn.Module,
     out: dict[str, np.ndarray] = {}
     for name, t in tensors.items():
         v = t.detach().cpu().numpy().copy()  # owned: no view of the module's storage
-        owner_path, _, leaf = name.rpartition(".")
-        owner = module.get_submodule(owner_path)
-        parent = module.get_submodule(owner_path.rpartition(".")[0])
-        path = owner_path.replace(".", "/")
-        if isinstance(owner, BatchNorm) and leaf in ("running_mean", "running_var"):
-            out[f"batch_stats/{path}/{leaf[len('running_'):]}"] = v
-            continue
-        mha = isinstance(parent, MultiHeadAttention) and isinstance(owner, nn.Linear)
-        if leaf == "weight" and isinstance(owner, _NORMS):
-            leaf = "scale"
-        elif leaf == "weight" and isinstance(owner, Conv2d):
-            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and mha:
-            h = parent.num_heads
-            d = v.shape[1] if owner_path.endswith("out") else v.shape[0]
-            leaf = "kernel"
-            v = (v.T.reshape(h, d // h, -1) if owner_path.endswith("out")
-                 else v.T.reshape(v.shape[1], h, -1))
-        elif leaf == "weight" and isinstance(owner, nn.Linear):
-            leaf, v = "kernel", v.T
-        elif leaf == "bias" and mha and not owner_path.endswith("out"):
-            v = v.reshape(parent.num_heads, -1)
-        # a parameter of the root module itself (e.g. a head's init_query) has no path
-        out["/".join(("params", path, leaf) if path else ("params", leaf))] = \
-            np.ascontiguousarray(v)
+        key, rule, owner_path = _flax_key(module, name)
+        if rule == "conv":
+            v = v.transpose(2, 3, 1, 0)
+        elif rule == "dense":
+            v = v.T
+        elif rule.startswith("mha"):
+            h = module.get_submodule(owner_path.rpartition(".")[0]).num_heads
+            if rule == "mha_out":
+                v = v.T.reshape(h, v.shape[1] // h, -1)
+            elif rule == "mha_in":
+                v = v.T.reshape(v.shape[1], h, -1)
+            else:
+                v = v.reshape(h, -1)
+        out[key] = np.ascontiguousarray(v)
     return _restack(out)
 
 
