@@ -13,7 +13,8 @@ Phases, each raising on failure (the process then exits non-zero):
                `test_whole_video`'s B*T=8 and `vis-data-train`'s B*T=10 at
                45x80, the tiny VIS config's 8 x 8 proposals at 23x40, C=64)
                and at ragged
-               shapes; at the R-50 and the VIP-Seg stage shapes, device time
+               shapes (and the live-BN train step's init head at B=4); at the
+               R-50 and the VIP-Seg stage shapes, device time
                (a CUDA graph of 20 calls, timed with CUDA events) of the
                kernel, the plain version and one PyTorch library call, the
                kernel's host-inclusive call time, and forward + backward
@@ -21,8 +22,9 @@ Phases, each raising on failure (the process then exits non-zero):
                at VIS's stage shape (B*T=5, N=100, 45x80, C=256),
                `test_whole_video`'s (B*T=8), `vis-data-train`'s (B*T=10)
                and `vis-cli-tiny`'s (B*T=8, N=8, 23x40, C=64), at COCO
-               panoptic's (N=153, 100x168) and at the image train step's (B=8,
-               N=117, 64x128) the same
+               panoptic's (N=153, 100x168), at the image train step's (B=8,
+               N=117, 64x128) and at the live-BN train step's (B=2, N=117 and
+               B=4, N=100, 48x156) the same
   4. serve     Video K-Net R-50 (default config, seeded random weights)
                serves 8 frames of 384x1248 through VPSInferencePipeline with
                the tracker on the device
@@ -262,7 +264,40 @@ Phases, each raising on failure (the process then exits non-zero):
                the card and on the CPU: equal lines; `utils/profiling`:
                `benchmark` of an R-50 serving frame, a `trace` of one naming
                K1's and K2's CUDA kernels, `device_memory_stats`
- 47. kernel-shapes  K1 and K2 against their plain versions at every shape a
+ 47. train-live-bn  the R-50 default config with `norm_eval=False` (live
+               BatchNorm: batch statistics over the 2B images of [ref; key],
+               running averages updated once a step) at 384x1248, B=2, 4
+               steps: 7 / 7 / 1 launches a step, 0 host syncs after the
+               first, step ms beside phase 12's frozen-BN step; the stem's
+               and layer1's statistics unchanged, every other BatchNorm's
+               moved; then 2 steps at 64x96, B=2, on the card and the CPU
+               (the CPU replaying the card's ReLU decisions): losses, the
+               first step's gradient and the statistics (TOL_LIVE_BN)
+ 48. train-dp  the same config, DP_STEPS steps, against the one-process
+               B=2 step on the card (`tools/dp_check.py`, ranks in
+               processes of their own): 1 NCCL rank alone on the card
+               (DDP_VARIANTS, DDP_ROUNDS runs each, interleaved: the step
+               without a mesh, over the mesh without DDP, with DDP, with
+               DDP looking for unused parameters; their step ms), then 2
+               gloo ranks sharing it at B=1 each; the first LOSS_STEPS
+               steps' losses and the final statistics within TOL_LIVE_BN,
+               and at 64x96 (phase 47's check, the ranks replaying its
+               ReLU decisions on their rows) every step's losses and the
+               first step's gradient summed over the ranks too; the ranks'
+               states bit-equal; 7 / 7 / 1 launches a step on each rank
+               (the gloo ranks share the card: not a scaling figure)
+ 49. train-cli-dp  `torchrun --standalone --nproc_per_node=2` of
+               `tools/train_vps` over gloo (`--dist-backend gloo`, both
+               ranks on the card) on phase 35's tree, B=4 (2 a rank), one
+               epoch, then `--resume-from` its checkpoint for a second;
+               against the one-process CLI at B=4 for two epochs: the same
+               records (the first step's every loss, later the total
+               loss, within TOL_CLI_DP_LOSS beside the decisions each
+               step's batch splits take apart at the one-process run's
+               weights, printed), the final statistics; one log and one
+               checkpoint a epoch, rank 1 printing nothing of the run; each
+               rank's launches 7 / 7 / 1 a step
+ 50. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
 Every VPS serving phase resets the launch counts just before it drives its
@@ -432,6 +467,46 @@ IMAGE_CLI_B = 2
 COCO_THING_IDS = tuple(range(1, 81))
 COCO_STUFF_IDS = tuple(range(92, 145))
 FLOPS_BENCH_ITERS = 10
+LIVE_BN_B = 2
+LIVE_BN_STEPS = 4
+LIVE_BN_CHECK_STEPS = 2
+# card vs CPU (train-live-bn at 64x96) and ranks vs one process (train-dp):
+# live statistics at 64x96 come from few values a channel, and each live
+# BatchNorm divides the forward's rounding by the batch's own spread
+# (tests/test_torch_port_parallel.py: port vs JAX 1.1e-4 in the losses,
+# 3.8e-5 in the statistics); the first step's gradient, each parameter
+# within 1e-3 of its largest magnitude (`_grad_scale`), the CPU or the
+# ranks replaying the reference's ReLU decisions. Parameters are not held: under the warmup
+# (lr(0) = 1e-7) an AdamW step moves an element by about lr whatever its
+# gradient, so two runs' parameters cannot tell a right gradient from a
+# wrong one.
+TOL_LIVE_BN = {"loss": 1e-3, "stats": 1e-4, "grads": 1e-3}
+DP_STEPS = 6  # two batches, three times: steps 2.. time the step
+LOSS_STEPS = 2  # train-dp at 384x1248 holds these steps' losses
+# train-dp's one NCCL rank, alone on the card: the one-process step in the
+# rank's own process ("plain"), the step over the mesh without DDP (its
+# collectives only: "none"), the DDP step the port builds ("ddp") and DDP
+# walking the autograd graph for unused parameters ("find_unused"); each
+# run twice, the rounds interleaved, so that a drift of the card's or the
+# host's pace over the phase falls on every variant alike
+DDP_VARIANTS = ("plain", "none", "ddp", "find_unused")
+DDP_ROUNDS = 2
+CLI_DP_B = 4  # 2 images a rank
+# train-cli-dp, each step's record against the one-process CLI's (random
+# weights, loader-fed, no ReLU replay). At the first step both runs hold
+# the same weights and rows, and only the batch split differs (B=4 in one
+# process, B=2 a rank): every loss within the first limit, unless the two
+# splits of that batch decide apart somewhere (`train_check.vps_decisions`:
+# a hard mask-pool input on the other side of its threshold, or another
+# Hungarian assignment), which moves a loss by a discrete amount; then
+# within the second (an H100 reads loss_track 2.4e-3 there, beside 25
+# decisions apart). From the second step the weights differ by rounding
+# too (the gradient summed in another order, which AdamW's normalization
+# carries to ~lr an element), and a near-tie can go either way where no
+# split of one run's weights shows it: a loss of a few proposals moves by
+# up to ~1% (an H100 read 8.4e-3); the total loss, summed over every
+# proposal, is held to the first limit.
+TOL_CLI_DP_LOSS = (1e-3, 1e-2)
 # the CUDA kernels of K1 (binarize, partial sums) and K2 that a profiler trace must name
 TRACE_KERNELS = ("mask_pool_binarize_kernel", "mask_pool_partial_kernel", "assemble_kernel")
 
@@ -549,7 +624,7 @@ def phase_kernels(device) -> list[dict]:
     # C=64); phase_kernel_shapes holds the kernels at any other shape a path
     # gives them
     shapes += [(VIS_DATA_B * VIS_FRAMES, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
-               (VIS_CLI_CLIP, 8, 23, 40, 64)]
+               (VIS_CLI_CLIP, 8, 23, 40, 64), (2 * LIVE_BN_B, 100, h, w, 256)]
     err_pool, err_asm = _hold_kernels(gen, device, shapes)
     # tie case: a logit of exactly 0 has sigmoid 0.5, which is not > 0.5
     logits = _logits(gen, (1, 100, 37, 61), device)
@@ -604,6 +679,12 @@ def phase_kernels(device) -> list[dict]:
                                            IMAGE_TRAIN_HW[1] // 8, 256, err_pool, err_asm,
                                            b=IMAGE_TRAIN_B)):
         rec["image_train"] = {k: tr[k] for k in TIMED_KEYS}
+    # the live-BN train step's shapes at B=2 (train-live-bn): the stages'
+    # 100 + 17 kernels at B=2, the init head's 100 over [ref; key] at B=4
+    for key, b, n in (("train_b2_stage", LIVE_BN_B, 117), ("train_b2_init", 2 * LIVE_BN_B, 100)):
+        for rec, tb in zip(recs, _time_kernels(gen, device, n, h, w, 256, err_pool, err_asm,
+                                               b=b)):
+            rec[key] = {k: tb[k] for k in TIMED_KEYS}
     return recs
 
 
@@ -3419,12 +3500,12 @@ class _StepProbe:
     """A train module's `train_step` wrapped while a CLI runs: each step's
     launches (the counts read before and after it), the host syncs inside
     it (`set_sync_debug_mode("warn")`), the last state it returned;
-    `before(state, batch)` runs before the first step and `after(i, state)`
-    after each."""
+    `before(state, batch)` runs before the first step, `each(state, batch)`
+    before every step and `after(i, state)` after each."""
 
-    def __init__(self, module, before=None, after=None):
+    def __init__(self, module, before=None, after=None, each=None):
         self.module, self.orig = module, module.train_step
-        self.before, self.after = before, after
+        self.before, self.after, self.each = before, after, each
         self.launches, self.syncs, self.state = [], [], None
 
     def __call__(self, state, batch, *args, **kwargs):
@@ -3432,6 +3513,8 @@ class _StepProbe:
 
         if self.before is not None and not self.launches:
             _uncounted(lambda: self.before(state, batch))
+        if self.each is not None:
+            _uncounted(lambda: self.each(state, batch))
         start = _counts()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -3469,13 +3552,13 @@ def _finite_records(path: str, recs: list, n: int) -> None:
 
 def _cli_run(paths: Paths, path: str, name: str, argv: list, module, expected: dict,
              n_steps: int, extra: dict | None = None, patches=(), before=None,
-             after=None) -> dict:
+             after=None, each=None) -> dict:
     """The port's train CLI `name` in process with `module.train_step`
     probed: the launch counts set to 0 just before the run and read just
     after (its steps' and any eval's), each step's launches held to
     `expected` and 0 host syncs after the first; the step ms between the
     CLI's per-step timestamps (a record every step syncs), peak memory."""
-    probe = _StepProbe(module, before, after)
+    probe = _StepProbe(module, before, after, each)
     stats: list = []
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -3819,6 +3902,351 @@ def phase_flops(device, paths: Paths, tmp: str) -> dict:
     return out
 
 
+def _state_diffs(a: dict, b: dict) -> dict:
+    """Worst |a - b| over the BatchNorm statistics, relative to each leaf's
+    largest magnitude."""
+    stats = 0.0
+    for k, v in b.items():
+        if k.endswith(("running_mean", "running_var")) and v.numel():
+            err = float((a[k].float() - v.float()).abs().max())
+            stats = max(stats, err / max(float(v.abs().max()), 1e-12))
+    return {"stats": stats}
+
+
+def _grad_scale(grads: dict, name: str) -> float:
+    """The magnitude `name`'s gradient error is measured against: its own
+    largest, but an attention's query and key parameters take the largest
+    over the attention's projections. Their gradients are differences of
+    softmax weights, which cancel where the keys are near-equal (random
+    weights: the previous frame's kernels in a link attention, 1% of its
+    value projection's scale) and cancel exactly for a key's bias (a shift
+    equal for every key), leaving rounding noise."""
+    module, _, proj = name.rpartition(".")[0].rpartition(".")
+    if proj in ("query", "key") and f"{module}.value.weight" in grads:
+        return max(float(grads[f"{module}.{p}.{w}"].abs().max())
+                   for p in ("query", "key", "value", "out") for w in ("weight", "bias"))
+    return float(grads[name].abs().max())
+
+
+def _grad_diff(a: dict, b: dict) -> tuple[float, str]:
+    """(worst |a - b| over two runs' gradients, each parameter relative to
+    `_grad_scale` in `b`; the parameter)."""
+    if set(a) != set(b):
+        raise AssertionError(f"gradients of {sorted(set(a) ^ set(b))[:8]} on one side only")
+    worst, leaf = 0.0, ""
+    for k, v in b.items():
+        err = float((a[k].float() - v.float()).abs().max()) / max(_grad_scale(b, k), 1e-12)
+        if err >= worst:
+            worst, leaf = err, k
+    return worst, leaf
+
+
+def _loss_diff(a: list, b: list) -> float:
+    """Worst relative difference of two runs' per-step loss dicts."""
+    return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-6) for x, y in zip(a, b) for k in y)
+
+
+def _hold(path: str, what: str, diffs: dict, tol: dict) -> None:
+    log(f"[{path}] {what}: worst differences {json.dumps(diffs)} (tolerances {json.dumps(tol)})")
+    bad = {k: v for k, v in diffs.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"[{path}] {what}: {bad} beyond {tol}")
+
+
+def phase_train_live_bn(device, paths: Paths, train_ms: float) -> dict:
+    """Live BatchNorm (`norm_eval=False`) on the default config: 4 steps at
+    384x1248, B=2, then the card against the CPU at 64x96."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.parallel.mesh import DataMesh
+    from video_knet_tpu_torch.tools import dp_check
+    from video_knet_tpu_torch.tools.train_check import margin_seed
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    cfg = dataclasses.replace(VideoKNetConfig(), norm_eval=False)
+    state = _train_model(cfg, device)
+    model = state.model
+    stats0 = {k: v.clone() for k, v in model.named_buffers() if k.startswith("backbone.")}
+    batches = [make_synthetic_batch(cfg, LIVE_BN_B, TRAIN_HW, seed=i, device=device)
+               for i in range(LIVE_BN_STEPS)]
+    frozen, trainable = _frozen_split("train-live-bn", model)
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    out = _timed_steps("train-live-bn", step, batches, TRAIN_LAUNCHES,
+                       lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"})
+    _check_trained("train-live-bn", model, frozen, trainable)
+    moved = {k: not torch.equal(v, stats0[k]) for k, v in model.named_buffers() if k in stats0}
+    wrong = [k for k, m in moved.items() if m == k.startswith(FROZEN)]
+    if wrong or model.training:
+        raise AssertionError(f"[train-live-bn] statistics moved in a frozen stage or stayed "
+                             f"in a live one: {wrong[:8]} (training mode after: "
+                             f"{model.training})")
+    paths.launches["train-live-bn"] = out["launches"]
+    paths.frame_ms["train-live-bn"] = out["step_ms"]
+    # the card against the CPU at 64x96: two steps on one batch, the CPU
+    # replaying the card's ReLU decisions
+    seed = margin_seed(cfg, TRAIN_CHECK_HW)[0]
+    batch = make_synthetic_batch(cfg, LIVE_BN_B, TRAIN_CHECK_HW, seed=0, device="cpu")
+    spec = dict(kind="vps", cfg=cfg, seed=seed, batches=[batch] * LIVE_BN_CHECK_STEPS)
+    relus: list = []
+    card = _uncounted(lambda: dp_check.train_steps(DataMesh(), device, spec, record=relus))
+    cpu = dp_check.train_steps(DataMesh(), "cpu", {**spec, "relus": relus})
+    if not all(cpu["replayed"]):
+        raise AssertionError("[train-live-bn] the CPU did not replay every ReLU decision")
+    grads, leaf = _grad_diff(card["grads"], cpu["grads"])
+    diffs = {"loss": _loss_diff(card["losses"], cpu["losses"]), "grads": grads,
+             **_state_diffs(card["state"], cpu["state"])}
+    _hold("train-live-bn", f"card vs CPU at 64x96 (gradient's worst: {leaf})", diffs,
+          TOL_LIVE_BN)
+    # train-dp's ranks replay the card's decisions on their rows
+    out.update(check=diffs, frozen_bn_ms=train_ms, check_spec={**spec, "relus": relus},
+               check_card=card)
+    log(f"[train-live-bn] median step {out['median_ms']:.2f} ms at B={LIVE_BN_B} (the frozen-BN "
+        f"`train` phase: {train_ms:.2f} ms at B=1), peak memory {out['peak_bytes']} bytes, "
+        f"host syncs a step {out['syncs']}")
+    return out
+
+
+def _check_ranks(path: str, what: str, ranks: list, one: dict, expected: dict,
+                 replayed: bool = True) -> dict:
+    """Each rank against the one-process run: the worst differences of the
+    losses, the first step's gradient summed over the ranks and the final
+    statistics, held to `TOL_LIVE_BN`; the ranks' states bit-equal, each
+    rank's launches a step `expected`. Without the ReLU decisions replayed
+    (`replayed=False`) the gradient is printed, not held, and so are the
+    losses after LOSS_STEPS: from the second step the runs' weights differ
+    by rounding, which a near-tie decision can turn into a discrete change
+    (train-cli-dp's steps)."""
+    worst = {"loss": 0.0, "grads": 0.0, "stats": 0.0, "later_loss": 0.0}
+    leaf = ""
+    n = len(one["losses"]) if replayed else LOSS_STEPS
+    for r in ranks:
+        if r["launches"] != [expected] * len(one["losses"]):
+            raise AssertionError(f"[{path}] launches a step {r['launches']}, expected {expected}")
+        grads, at = _grad_diff(r["grads"], one["grads"])
+        d = {"loss": _loss_diff(r["losses"][:n], one["losses"][:n]), "grads": grads,
+             **_state_diffs(r["state"], one["state"]),
+             "later_loss": _loss_diff(r["losses"][n:], one["losses"][n:])
+             if len(one["losses"]) > n else 0.0}
+        leaf = at if grads >= worst["grads"] else leaf
+        worst = {k: max(worst[k], d[k]) for k in worst}
+    differ = [k for k, v in ranks[0]["state"].items()
+              if any(not torch.equal(v, r["state"][k]) for r in ranks[1:])]
+    if differ:
+        raise AssertionError(f"[{path}] the ranks' states differ: {differ[:8]}")
+    hold = ("loss", "grads", "stats") if replayed else ("loss", "stats")
+    _hold(path, what, {k: worst[k] for k in hold}, TOL_LIVE_BN)
+    log(f"[{path}] {what}: the gradient's worst at {leaf}"
+        + ("" if replayed else f"; not held (no ReLU replay at this size): gradient "
+           f"{worst['grads']:.3e}, losses of steps {n + 1}.. {worst['later_loss']:.3e}"))
+    return worst
+
+
+def _rank_threads(processes: int) -> int:
+    """Intra-op threads a rank process when `processes` share the host's
+    cores (the model's seeded init runs on the CPU in each)."""
+    return max(1, (os.cpu_count() or 1) // processes)
+
+
+def _later_median(ms: list) -> float:
+    """The median step time after the first (which builds and tunes)."""
+    return statistics.median(ms[1:])
+
+
+def phase_train_dp(device, paths: Paths, tmp: str, live_bn: dict) -> dict:
+    """The live-BN default config at 384x1248, global B=2, DP_STEPS steps,
+    against the one-process step on the card: 1 NCCL rank alone on the card
+    at B=2 (DDP_VARIANTS, DDP_ROUNDS times, timed; then train-live-bn's
+    64x96 check), then 2 gloo ranks sharing it at B=1 each (the 384x1248
+    spec and the check). At 64x96 the ranks replay the one-process card
+    run's ReLU decisions on their rows, and the first step's gradient is
+    held too."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.parallel.mesh import DataMesh
+    from video_knet_tpu_torch.tools import dp_check
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch
+
+    cfg = dataclasses.replace(VideoKNetConfig(), norm_eval=False)
+    pair = [make_synthetic_batch(cfg, 2, TRAIN_HW, seed=s, device="cpu") for s in range(2)]
+    spec = dict(kind="vps", cfg=cfg, seed=TRAIN_SEED, batches=pair * (DP_STEPS // 2))
+    check, check_one = live_bn["check_spec"], live_bn["check_card"]
+    one = _uncounted(lambda: dp_check.train_steps(DataMesh(), device, spec))
+    order = list(DDP_VARIANTS) * DDP_ROUNDS
+    t0 = time.perf_counter()
+    nccl = dp_check.run_ranks(1, [{**spec, "ddp": v, "timing": True} for v in order] + [check],
+                              os.path.join(tmp, "dp_nccl"), device=device.type,
+                              backend="nccl" if device.type == "cuda" else "gloo",
+                              threads=_rank_threads(1))[0]
+    t1 = time.perf_counter()
+    gloo = dp_check.run_ranks(2, [spec, check], os.path.join(tmp, "dp_gloo"),
+                              device=device.type, backend="gloo", threads=_rank_threads(2))
+    launch_s = [t1 - t0, time.perf_counter() - t1]
+    later = {v: [] for v in DDP_VARIANTS}  # each variant's steps 2.., over its rounds
+    worst = 0.0
+    for v, r in zip(order, nccl):
+        if r["launches"] != [TRAIN_LAUNCHES] * DP_STEPS:
+            raise AssertionError(f"[train-dp] NCCL ({v}) launches a step {r['launches']}")
+        worst = max(worst, _loss_diff(r["losses"][:LOSS_STEPS], one["losses"][:LOSS_STEPS]))
+        later[v] += r["ms"][1:]
+    _hold("train-dp", f"1 NCCL rank (every variant) vs one process at "
+          f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, steps 1..{LOSS_STEPS}", {"loss": worst}, TOL_LIVE_BN)
+    out = dict(one_ms=one["ms"], variant_ms={v: r["ms"] for v, r in zip(order, nccl)},
+               gloo_ms=[r[0]["ms"] for r in gloo], launch_s=launch_s, nccl_loss=worst)
+    out["nccl_check"] = _check_ranks("train-dp", f"1 NCCL rank vs one process at "
+                                     f"{TRAIN_CHECK_HW[0]}x{TRAIN_CHECK_HW[1]}", [nccl[-1]],
+                                     check_one, TRAIN_LAUNCHES)
+    out["gloo"] = _check_ranks("train-dp", f"2 gloo ranks at B=1 vs one process at B=2, "
+                               f"{TRAIN_HW[0]}x{TRAIN_HW[1]}", [r[0] for r in gloo], one,
+                               TRAIN_LAUNCHES, replayed=False)
+    out["gloo_check"] = _check_ranks("train-dp", f"2 gloo ranks at B=1 vs one process at B=2, "
+                                     f"{TRAIN_CHECK_HW[0]}x{TRAIN_CHECK_HW[1]}",
+                                     [r[1] for r in gloo], check_one, TRAIN_LAUNCHES)
+    if not all(all(r[1]["replayed"]) for r in gloo) or not all(nccl[-1]["replayed"]):
+        raise AssertionError("[train-dp] a rank did not replay every ReLU decision")
+    paths.launches["train-dp"] = {k: sum(c[k] for c in gloo[0][0]["launches"])
+                                  for k in TRAIN_LAUNCHES}
+    paths.frame_ms["train-dp"] = gloo[0][0]["ms"]
+    medians = {"one process": _later_median(one["ms"]),
+               **{f"NCCL {v}": statistics.median(ms) for v, ms in later.items()}}
+    log(f"[train-dp] median step ms at B=2 over steps 2..{DP_STEPS} ({DDP_ROUNDS} runs of each "
+        f"NCCL variant, interleaved), each alone on the card: {json.dumps(medians)}; the NCCL "
+        f"steps {json.dumps({v: [round(t, 2) for t in ms] for v, ms in later.items()})}; gloo "
+        f"ranks at B=1, sharing it: {[_later_median(r[0]['ms']) for r in gloo]}; launches "
+        f"{launch_s[0]:.1f} s (NCCL) and {launch_s[1]:.1f} s (gloo)")
+    out["medians"] = medians
+    return out
+
+
+def _split_flips(model, snaps: list) -> list[dict]:
+    """For each (weights, global batch) of `snaps`: the decisions
+    (`train_check.vps_decisions`) that the batch at B=4 in one process and
+    its two ranks' halves at B=2 take apart, at those weights (both on the
+    card): {"mask_pool": elements, "hungarian": assignments}."""
+    from video_knet_tpu_torch.parallel.mesh import DataMesh, shard_batch
+    from video_knet_tpu_torch.tools.train_check import vps_decisions
+
+    out = []
+    for weights, batch in snaps:
+        model.load_state_dict(weights)
+        whole = vps_decisions(model, batch)
+        halves = [vps_decisions(model, shard_batch(DataMesh(r, 2), batch)) for r in range(2)]
+        out.append({kind: sum(int((w != torch.cat([a, b])).sum())
+                              for w, a, b in zip(whole[i], halves[0][i], halves[1][i]))
+                    for i, kind in enumerate(("mask_pool", "hungarian"))})
+    return out
+
+
+def phase_train_cli_dp(device, paths: Paths, root: str, tmp: str) -> dict:
+    """`train_vps` under `torchrun --nproc_per_node=2` over gloo, one epoch
+    then a resumed second, against the one-process CLI for two epochs; each
+    step's records held to TOL_CLI_DP_LOSS beside the decisions its batch
+    splits take apart at the one-process run's weights (`_split_flips`)."""
+    import copy
+    import subprocess
+
+    import video_knet_tpu_torch.train.vps as tvps
+    from video_knet_tpu_torch.utils.checkpoint import load_model_state
+
+    n = DATA_SEQS * DATA_FRAMES // CLI_DP_B  # steps an epoch
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    base = ["--data-root", root, "--crop", *map(str, TRAIN_HW), "--log-interval", "1",
+            "--batch-size", str(CLI_DP_B), *dev]
+    work = os.path.join(tmp, "train_vps_dp")
+
+    def torchrun(epochs: int, *extra):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=2", "-m", "video_knet_tpu_torch.tools.dp_check", "--cli",
+               "train_vps", *base, "--epochs", str(epochs), "--work-dir", work,
+               "--dist-backend", "gloo", *extra]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=dict(os.environ, OMP_NUM_THREADS=str(_rank_threads(2))))
+
+    def finish(proc) -> str:
+        out, err = proc.communicate(timeout=600)
+        for line in out.splitlines():
+            log(f"[train-cli-dp] {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[train-cli-dp] torchrun exited {proc.returncode}: "
+                                 f"{err[-3000:]}")
+        return out
+
+    snaps: list = []
+
+    def keep(state, batch):  # each step's weights and global batch, for `_split_flips`
+        snaps.append(({k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                      torch.utils._pytree.tree_map(torch.clone, batch)))
+
+    # the first epoch over two ranks while the one-process CLI runs here
+    t0 = time.perf_counter()
+    first = torchrun(1)
+    try:
+        one = _cli_run(paths, "train-cli-dp-one", "train_vps",
+                       [*base, "--epochs", "2", "--work-dir",
+                        os.path.join(tmp, "train_vps_one")], tvps, TRAIN_LAUNCHES, 2 * n,
+                       each=keep)
+    finally:
+        texts = [finish(first)]
+    texts.append(finish(torchrun(2, "--resume-from", os.path.join(work, "ckpt", "step_1"))))
+    dp_s = time.perf_counter() - t0
+    got = _records(texts[0]) + _records(texts[1])
+    want = one["records"]
+    if [(r["epoch"], r["iter"]) for r in got] != [(r["epoch"], r["iter"]) for r in want]:
+        raise AssertionError(f"[train-cli-dp] records {got} vs {want}")
+    model = copy.deepcopy(one["state"].model).eval()
+    flips = _uncounted(lambda: _split_flips(model, snaps))
+    del model, snaps
+    steps = []
+    for i, (g, w, f) in enumerate(zip(got, want, flips)):
+        gaps = {k: abs(g[k] - w[k]) / max(abs(w[k]), 1.0) for k in w
+                if k not in ("epoch", "iter", "imgs_per_sec")}
+        worst = max(gaps, key=gaps.get)
+        total = abs(g["total_loss"] - w["total_loss"]) / abs(w["total_loss"])
+        split = f["mask_pool"] + f["hungarian"] > 0
+        # held: every loss at the first step, the total loss after it
+        held, limit = ((gaps[worst], TOL_CLI_DP_LOSS[1] if split else TOL_CLI_DP_LOSS[0])
+                       if i == 0 else (total, TOL_CLI_DP_LOSS[0]))
+        steps.append(dict(step=i + 1, gap=gaps[worst], key=worst, total=total, held=held,
+                          limit=limit, **f,
+                          over_1e3=sorted(k for k, v in gaps.items() if v > TOL_CLI_DP_LOSS[0])))
+        log(f"[train-cli-dp] step {i + 1}: losses within {gaps[worst]:.3e} ({worst}), total "
+            f"{total:.3e}; held {'every loss' if i == 0 else 'the total'} to {limit:g}; "
+            f"decisions the batch splits take apart {json.dumps(f)}; losses beyond "
+            f"{TOL_CLI_DP_LOSS[0]:g}: {steps[-1]['over_1e3']}")
+    bad = [st for st in steps if not st["held"] <= st["limit"]]
+    if bad:
+        raise AssertionError(f"[train-cli-dp] records vs the one-process CLI beyond their "
+                             f"limits: {bad}")
+    a = load_model_state(os.path.join(work, "ckpt", "step_2"))
+    b = load_model_state(os.path.join(tmp, "train_vps_one", "ckpt", "step_2"))
+    diffs = {"loss": max(st["gap"] for st in steps), **_state_diffs(a, b)}
+    _hold("train-cli-dp", "2 torchrun ranks vs one process, final statistics",
+          {"stats": diffs["stats"]}, TOL_LIVE_BN)
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if (sorted(os.listdir(work)) != ["ckpt", "train_log.jsonl"] or logged != got
+            or sorted(os.listdir(os.path.join(work, "ckpt"))) != ["step_1", "step_2"]):
+        raise AssertionError(f"[train-cli-dp] work dir {os.listdir(work)}, log {len(logged)} "
+                             f"records")
+    launches = [json.loads(m.group(2)) for t in texts  # the ranks' lines may share one
+                for m in re.finditer(r"LAUNCHES rank=(\d) (\{[^}]*\})", t)]
+    want_l = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
+    if len(launches) != 4 or any(c != want_l for c in launches):
+        raise AssertionError(f"[train-cli-dp] each rank's launches {launches}, expected "
+                             f"{want_l} an epoch")
+    paths.launches["train-cli-dp"] = {k: sum(c[k] for c in launches) for k in want_l}
+    per_rank = sum('"iter"' in line for line in "".join(texts).splitlines())
+    if per_rank != 2 * n:
+        raise AssertionError(f"[train-cli-dp] {per_rank} records printed, expected {2 * n}")
+    log(f"[train-cli-dp] 2 ranks x 2 epochs of {n} steps (B={CLI_DP_B}) in {dp_s:.1f} s, the "
+        f"first beside the one-process CLI ({one['seconds']:.1f} s, median step "
+        f"{one['median_ms']:.2f} ms, both on the card at once)")
+    return dict(dp_s=dp_s, one_s=one["seconds"], one_ms=one["median_ms"], diffs=diffs,
+                steps=steps, imgs_per_sec=[r["imgs_per_sec"] for r in got])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3899,11 +4327,17 @@ def main() -> int:
         for tag, run in (("train-cli", lambda: phase_train_cli(device, paths, root, tmp)),
                          ("train-vis-cli", lambda: phase_train_vis_cli(device, paths, tmp)),
                          ("train-image-cli", lambda: phase_train_image_cli(device, paths, tmp)),
-                         ("flops", lambda: phase_flops(device, paths, tmp))):
+                         ("flops", lambda: phase_flops(device, paths, tmp)),
+                         ("train-live-bn",
+                          lambda: phase_train_live_bn(device, paths, train["median_ms"])),
+                         ("train-dp", lambda: phase_train_dp(device, paths, tmp,
+                                                             new_s["train-live-bn"])),
+                         ("train-cli-dp", lambda: phase_train_cli_dp(device, paths, root, tmp))):
             t1 = time.perf_counter()
             new_s[tag] = run()
             phase_s[tag] = time.perf_counter() - t1
-        train_cli, train_vis_cli, train_image_cli, flops = new_s.values()
+        (train_cli, train_vis_cli, train_image_cli, flops, live_bn, train_dp,
+         cli_dp) = new_s.values()
     hrec["vis_data"] = vis_data["hungarian"]
     phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
@@ -3912,7 +4346,8 @@ def main() -> int:
              if p.startswith(("vis", "image", "trackers", "trained-", "unitrack", "fuse-track",
                               "roi-gt-box", "track-check", "import-ref", "score", "ckpt",
                               "data-train", "eval-hook", "cli-", "tta", "train-cli",
-                              "train-vis-cli", "train-image-cli"))
+                              "train-vis-cli", "train-image-cli", "train-live-bn",
+                              "train-dp"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -3988,8 +4423,20 @@ def main() -> int:
         f"{train_image_cli['peak_bytes']} bytes ({card})")
     log(f"[flops] {json.dumps(flops['flops'])}; R-50 frame benchmark "
         f"{json.dumps(flops['bench'])} ({card})")
-    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data and train CLI phases, "
-        f"{sum(phase_s.values()):.1f} s together ({card})")
+    log(f"[train-live-bn] median step {live_bn['median_ms']:.2f} ms (B={LIVE_BN_B}; frozen-BN "
+        f"`train` {train['median_ms']:.2f} ms at B=1), peak memory {live_bn['peak_bytes']} "
+        f"bytes, host syncs a step {live_bn['syncs']}; card vs CPU {json.dumps(live_bn['check'])}"
+        f" ({card})")
+    log(f"[train-dp] median step ms {json.dumps(train_dp['medians'])} (B=2, each alone on the "
+        f"card), gloo ranks {json.dumps(train_dp['gloo_ms'])} (B=1, sharing it); worst vs one "
+        f"process: gloo {json.dumps(train_dp['gloo'])} / at 64x96 "
+        f"{json.dumps(train_dp['gloo_check'])}, NCCL loss {train_dp['nccl_loss']:.3e} / at "
+        f"64x96 {json.dumps(train_dp['nccl_check'])} ({card})")
+    log(f"[train-cli-dp] torchrun 2 ranks {cli_dp['dp_s']:.1f} s, one process "
+        f"{cli_dp['one_s']:.1f} s (median step {cli_dp['one_ms']:.2f} ms); worst "
+        f"{json.dumps(cli_dp['diffs'])}; steps {json.dumps(cli_dp['steps'])} ({card})")
+    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI and data-parallel "
+        f"phases, {sum(phase_s.values()):.1f} s together ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

@@ -486,15 +486,18 @@ def test_loader_takes_its_rank_from_torch_distributed(tmp_path):
     ds = tds.KittiStepDVPS(root)
     loader = TLoader(ds, TConfig(max_insts=4), batch_size=1, device="cpu")
     assert (loader.process_index, loader.process_count) == (0, 1)
+    assert (loader.mesh.rank, loader.mesh.world) == (0, 1)
     dist = torch.distributed
     with mock.patch.object(dist, "is_initialized", return_value=True), \
             mock.patch.object(dist, "get_rank", return_value=3), \
             mock.patch.object(dist, "get_world_size", return_value=4):
-        loader = TLoader(ds, TConfig(max_insts=4), batch_size=1, device="cpu")
-        assert (loader.process_index, loader.process_count) == (3, 4)
+        # under a process group a rank loads its rows of every global batch
+        loader = TLoader(ds, TConfig(max_insts=4), batch_size=4, device="cpu")
+        assert (loader.mesh.rank, loader.mesh.world) == (3, 4)
+        assert (loader.process_index, loader.process_count) == (0, 1)
         loader = TLoader(ds, TConfig(max_insts=4), batch_size=1, device="cpu",
                          process_index=1, process_count=2)
-        assert (loader.process_index, loader.process_count) == (1, 2)
+        assert (loader.process_index, loader.process_count) == (1, 2) and loader.mesh is None
 
 
 def test_loader_without_a_device_needs_a_gpu(tmp_path):

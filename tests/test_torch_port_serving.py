@@ -196,8 +196,8 @@ def test_unported_serving_options_raise(golden_setup):
 
 # the modules of the later slices (training, Swin, VIS, image, the trackers
 # and track heads, scoring, data, TTA and the CLIs, the VIS / COCO data and
-# the VIS CLIs, the train CLIs and their utilities), which the guard must
-# find and import
+# the VIS CLIs, the train CLIs and their utilities, data parallelism), which
+# the guard must find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
                        "tools.train_check", "models.swin", "configs", "utils.torch_import",
@@ -218,7 +218,8 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "data.forecasting", "tools.youtubevis2coco", "tools.test_whole_video",
                        "tools.data_check", "tools.train_vps", "tools.train_vis",
                        "tools.train_image", "tools.get_flops", "utils.preemption",
-                       "utils.profiling", "utils.visualizer", "utils.precision")
+                       "utils.profiling", "utils.visualizer", "utils.precision", "parallel",
+                       "parallel.mesh", "parallel.distributed", "tools.dp_check")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -222,15 +222,44 @@ def test_schedule_matches_optax_schedule():
 
 
 def test_unported_train_options_raise():
-    """`norm_eval=False` raises (ROADMAP B5), and so does `bf16_train` with
-    it (JAX's ValueError); `bf16_train` alone is ported."""
+    """`norm_eval=False` (live BatchNorm) is ported; `bf16_train` with it
+    raises JAX's ValueError, `bf16_train` alone is ported, and a mesh with a
+    `model` axis (spatial sharding) raises (ROADMAP F7b)."""
+    from video_knet_tpu_torch.parallel.mesh import make_mesh
+
     model = VideoKNet(tc.VideoKNetConfig(max_insts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
-        tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, norm_eval=False))
+    tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, norm_eval=False))
     with pytest.raises(ValueError, match="norm_eval=True"):
         tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, bf16_train=True,
                                                          norm_eval=False))
     tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, bf16_train=True))
+    with pytest.raises(NotImplementedError, match="F7b"):
+        make_mesh(n_model=2)
+
+
+def test_image_step_raises_for_live_bn_as_jax_does():
+    """JAX's image step applies the model with `mutable=False`
+    (tools/train_image.py:198-201), so flax cannot write live statistics
+    and raises; the port's image step raises for `norm_eval=False` too,
+    naming that reason."""
+    import flax
+    import jax.numpy as jnp
+
+    from video_knet_tpu.models.knet import KNet as JKNet
+    from video_knet_tpu_torch.models.knet import KNet
+    from video_knet_tpu_torch.train import image as timage
+
+    stage = dict(num_stages=1, assign_stages=1, stage_loss_weights=(1.0,))
+    jcfg = dataclasses.replace(jc.KNetConfig(), norm_eval=False, **stage)
+    jm = JKNet(jcfg, train=True)
+    x = jnp.zeros((1, *HW, 3), jnp.float32)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)
+    with pytest.raises(flax.errors.ModifyScopeVariableError):
+        jax.eval_shape(lambda v: jm.apply(v, x, mutable=False), shapes)
+    jax.eval_shape(lambda v: jm.apply(v, x, mutable=["batch_stats"]), shapes)  # live
+    tcfg = dataclasses.replace(tc.KNetConfig(), norm_eval=False, **stage)
+    with pytest.raises(NotImplementedError, match="mutable=False"):
+        timage.make_image_loss_fn(KNet(tcfg, device="cpu"), tcfg)
 
 
 def test_loss_fn_turns_tf32_off():

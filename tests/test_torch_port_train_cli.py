@@ -45,7 +45,14 @@ import torch
 import torch_port_common  # noqa: F401  (one torch thread)
 import trained_golden_common as jtg
 from flax import traverse_util
-from torch_port_common import _tiny_image_cfg, _ytvis_tree, run_port, write_checkpoints
+from torch_port_common import (
+    _collect,
+    _spawn,
+    _tiny_image_cfg,
+    _ytvis_tree,
+    run_port,
+    write_checkpoints,
+)
 
 import video_knet_tpu.config as jconfig
 import video_knet_tpu.config_vis as jconfig_vis
@@ -85,8 +92,6 @@ BF16_VS_JAX_REL = 2e-3
 FLOPS_RATIO = (1.0, 1.08)
 VIS_FRAMES = 2
 STEPS_PER_EPOCH = 2  # the VPS tree's 8 train frames at B=4
-JOBS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_jax_jobs.py")
-JOB_TIMEOUT_S = 900
 
 
 def _variables(model) -> dict:
@@ -131,34 +136,6 @@ def _vps_tree(root: str) -> str:
             name = f"000000_{f:06d}_{kind}.png"
             os.rename(os.path.join(src, name), os.path.join(val, name))
     return root
-
-
-def _spawn(tmp: str, tag: str, spec: dict, nice: int = 10):
-    """`tests/torch_port_jax_jobs.py` on `spec` in a process of its own,
-    JAX on one CPU device, at `nice` (the longest job goes first for the
-    cores): (the process, its result file)."""
-    spec_path, out = os.path.join(tmp, f"{tag}.spec"), os.path.join(tmp, f"{tag}.out")
-    with open(spec_path, "wb") as f:
-        pickle.dump(spec, f)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=" ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
-                                  if "xla_force_host_platform_device_count" not in f))
-    proc = subprocess.Popen([sys.executable, JOBS, spec_path, out], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
-    return proc, out
-
-
-def _collect(proc, out: str):
-    """The job's result; its spec and result files removed (the R-50
-    ones hold 100 MB each)."""
-    log = proc.communicate(timeout=JOB_TIMEOUT_S)[0]
-    assert proc.returncode == 0, log[-4000:]
-    with open(out, "rb") as f:
-        result = pickle.load(f)
-    os.remove(out)
-    os.remove(out[:-len(".out")] + ".spec")
-    return result
 
 
 @pytest.fixture(scope="module")
@@ -209,11 +186,16 @@ def runs(tmp_path_factory):
                 ("train_image", KNet, img_cfg[0], 0, ("video_knet_tpu.models.knet", "KNet"))):
             tag = tag_of[cli]
             models[tag] = cls(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
-            ckpts[tag] = write_checkpoints(models[tag], os.path.join(root, tag))
+            # the job imports while the checkpoints it reads are written here
+            ckpts[tag] = {pkg: os.path.join(root, tag, f"{pkg}_ckpt") for pkg in ("port", "jax")}
+            ready = os.path.join(root, f"{tag}.ready")
             jobs[cli] = _spawn(root, cli, dict(job="cli", name=cli, argv=argv_of(cli, "jax"),
                                                configs=configs, keep_grads=cli == "train_vps",
-                                               inits={jax_model: _variables(models[tag])}),
+                                               inits={jax_model: _variables(models[tag])},
+                                               wait_for=ready),
                                nice=0 if cli == "train_vps" else 5)
+            assert write_checkpoints(models[tag], os.path.join(root, tag)) == ckpts[tag]
+            open(ready, "w").close()
         direct = _direct_models()
         vis_batch = ttvis.make_synthetic_batch(direct["vis"].cfg, 1, HW, device="cpu")
         jobs["direct_vps"] = _spawn(root, "direct_vps", dict(

@@ -336,16 +336,19 @@ def test_vis_loader_on_jpeg_frames_matches_jax(tmp_path):
 
 def test_vis_loader_rank_and_device(tree):
     """The rank of an initialized torch.distributed group (the VPS loader's
-    `_process_rank`); CUDA by default, raising without a GPU."""
+    default mesh: a rank loads its rows of each global batch); CUDA by
+    default, raising without a GPU."""
     cfg = TVISConfig(num_frames=3, max_insts=3)
     loader = tvl.VISTrainLoader(tree["port"], cfg, device="cpu")
     assert (loader.process_index, loader.process_count) == (0, 1)
+    assert (loader.mesh.rank, loader.mesh.world) == (0, 1)
     dist = torch.distributed
     with mock.patch.object(dist, "is_initialized", return_value=True), \
             mock.patch.object(dist, "get_rank", return_value=1), \
             mock.patch.object(dist, "get_world_size", return_value=2):
-        loader = tvl.VISTrainLoader(tree["port"], cfg, device="cpu")
-        assert (loader.process_index, loader.process_count) == (1, 2)
+        loader = tvl.VISTrainLoader(tree["port"], cfg, batch_size=2, device="cpu")
+        assert (loader.mesh.rank, loader.mesh.world) == (1, 2)
+        assert (loader.process_index, loader.process_count) == (0, 1)
     with mock.patch.object(torch.cuda, "is_available", return_value=False):
         with pytest.raises(RuntimeError, match="CUDA"):
             tvl.VISTrainLoader(tree["port"], cfg)

@@ -15,7 +15,10 @@ import importlib.util
 import io
 import json
 import os
+import pickle
 import re
+import subprocess
+import sys
 import types
 from unittest import mock
 
@@ -282,3 +285,39 @@ def _ytvis_tree(root) -> tuple[str, str]:
     with open(ann, "w") as f:
         json.dump(coco, f)
     return ann, img_root
+
+
+# ------------------------------------------------- JAX jobs in processes of their own
+
+JOBS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_jax_jobs.py")
+JOB_TIMEOUT_S = 900
+
+
+def _spawn(tmp: str, tag: str, spec: dict, nice: int = 10, devices: int = 1):
+    """`tests/torch_port_jax_jobs.py` on `spec` in a process of its own,
+    JAX on `devices` virtual CPU devices, at `nice` (the longest job goes
+    first for the cores): (the process, its result file)."""
+    spec_path, out = os.path.join(tmp, f"{tag}.spec"), os.path.join(tmp, f"{tag}.out")
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
+             if "xla_force_host_platform_device_count" not in f]
+    if devices > 1:
+        flags.append(f"--xla_force_host_platform_device_count={devices}")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=" ".join(flags))
+    proc = subprocess.Popen([sys.executable, JOBS, spec_path, out], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
+    return proc, out
+
+
+def _collect(proc, out: str):
+    """The job's result; its spec and result files removed (the R-50
+    ones hold 100 MB each)."""
+    log = proc.communicate(timeout=JOB_TIMEOUT_S)[0]
+    assert proc.returncode == 0, log[-4000:]
+    with open(out, "rb") as f:
+        result = pickle.load(f)
+    os.remove(out)
+    os.remove(out[:-len(".out")] + ".spec")
+    return result

@@ -9,10 +9,15 @@ bounded window keeps `prefetch` batches in flight.
 
 Determinism and ranks: the epoch permutation and every per-sample
 augmentation seed are drawn up front from the loader seed, so batches are
-bit-identical for any thread count and equal JAX's loader's; each process
-takes the strided slice `batches[process_index::process_count]` of the same
-global batch sequence (by default the rank and world size of an initialized
-`torch.distributed` process group, else 0 and 1). Batches have one shape:
+bit-identical for any thread count and equal JAX's loader's. Over ranks,
+every rank walks the whole sequence of global batches of `batch_size` and
+loads only its own rows of each (`mesh.batch_sharding`): the R ranks'
+batches, stacked, are a one-process loader's row for row. The data `mesh`
+is the given one, else that of an initialized `torch.distributed` process
+group (`parallel/mesh.py:make_mesh`), else one process. Given
+`process_index` and `process_count` instead, a process takes the strided
+slice `batches[process_index::process_count]` of whole global batches,
+as JAX's loader does. Batches have one shape:
 images [B, H, W, 3] float32 at crop size, GT in fixed slots at the
 mask-assign stride.
 
@@ -43,21 +48,14 @@ from video_knet_tpu_torch.data.transforms import (
     sample_transform_params,
 )
 from video_knet_tpu_torch.ops.targets import PanopticGT
+from video_knet_tpu_torch.parallel.mesh import DataMesh, batch_sharding, make_mesh
 from video_knet_tpu_torch.train.vps import VPSBatch
 from video_knet_tpu_torch.utils.device import resolve_device
 
 
-def _process_rank() -> tuple[int, int]:
-    """(rank, world size) of the initialized process group, else (0, 1)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 class ThreadedLoader:
     """The threaded batch machinery both train loaders share: the up-front
-    epoch permutation and seeds, the rank striding, a pool of
+    epoch permutation and seeds, the split over ranks, a pool of
     `num_threads` workers running `_load(index, rng)` with `prefetch`
     batches in flight, the stop event and error propagation, pinned host
     batches and the consumer's `non_blocking` copy. A subclass sets `ds`
@@ -68,13 +66,16 @@ class ThreadedLoader:
 
     def __init__(self, *, seed: int, prefetch: int, num_threads: int,
                  process_index: int | None, process_count: int | None,
-                 device: str | torch.device | None):
+                 device: str | torch.device | None, mesh: DataMesh | None = None):
         self.device = resolve_device(device)
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self.num_threads = max(1, num_threads)
-        if process_index is None or process_count is None:
-            process_index, process_count = _process_rank()
+        if mesh is None and (process_index is None or process_count is None):
+            mesh = make_mesh()
+        self.mesh = mesh
+        if mesh is not None:  # every global batch, this rank's rows of it
+            process_index, process_count = 0, 1
         self.process_index = process_index
         self.process_count = max(1, process_count)
 
@@ -112,6 +113,7 @@ class ThreadedLoader:
         my_batches = list(range(self.process_index, n_batches, self.process_count))
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         bsz = self.batch_size
+        rows = slice(0, bsz) if self.mesh is None else batch_sharding(self.mesh, bsz)
         # consumers (especially tests) abandon the generator mid-epoch; without
         # a stop signal the producer blocks on q.put forever and leaks its
         # thread pool into the rest of the process
@@ -133,7 +135,7 @@ class ThreadedLoader:
                     it = iter(my_batches)
 
                     def submit(b: int):
-                        sl = slice(b * bsz, (b + 1) * bsz)
+                        sl = slice(b * bsz + rows.start, b * bsz + rows.stop)
                         pending.append([
                             pool.submit(self._load, int(i), np.random.RandomState(int(s)))
                             for i, s in zip(order[sl], seeds[sl])
@@ -192,10 +194,11 @@ class VPSTrainLoader(ThreadedLoader):
         process_index: int | None = None,
         process_count: int | None = None,
         device: str | torch.device | None = None,
+        mesh: DataMesh | None = None,
     ):
         super().__init__(seed=seed, prefetch=prefetch, num_threads=num_threads,
                          process_index=process_index, process_count=process_count,
-                         device=device)
+                         device=device, mesh=mesh)
         self.ds = dataset
         self.cfg = cfg
         self.batch_size = batch_size

@@ -12,7 +12,8 @@ mask-assign stride.
 One canvas shape (`canvas_hw`, padded bottom/right with zeros, the
 normalized mean) instead of the reference's per-batch size_divisor=32
 padding; content that overflows the canvas is cropped with clip-shared
-offsets. The threads, the up-front seeds, the rank striding and the pinned
+offsets. The threads, the up-front seeds, the ranks' rows of each global
+batch (or, asked for, JAX's striding of whole batches) and the pinned
 `non_blocking` copy to `device` are `data/loader.py:ThreadedLoader`'s, so
 batches equal JAX's bit for bit at any thread count. Batches are
 `train/vis.py:VISBatch` of torch tensors on `device`.
@@ -40,6 +41,7 @@ from video_knet_tpu_torch.data.transforms import (
 )
 from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
 from video_knet_tpu_torch.models.vis.knet_vis import ClipGT
+from video_knet_tpu_torch.parallel.mesh import DataMesh
 from video_knet_tpu_torch.train.vis import VISBatch
 
 # the reference's discrete short-side draw (youtubevis_2019.py SeqResize)
@@ -84,10 +86,11 @@ class VISTrainLoader(ThreadedLoader):
         process_index: int | None = None,
         process_count: int | None = None,
         device: str | torch.device | None = None,
+        mesh: DataMesh | None = None,
     ):
         super().__init__(seed=seed, prefetch=prefetch, num_threads=num_threads,
                          process_index=process_index, process_count=process_count,
-                         device=device)
+                         device=device, mesh=mesh)
         self.ds = dataset
         self.cfg = cfg
         self.batch_size = batch_size

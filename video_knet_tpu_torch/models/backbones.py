@@ -12,13 +12,16 @@ from video_knet_tpu_torch.models.resnet import FPN, RESNET_STAGE_BLOCKS, ResNet
 from video_knet_tpu_torch.models.swin import SWIN_PRESETS, SwinTransformer
 
 
-def build_backbone(name: str, frozen_stages: int = -1, drop_path_rate: float = 0.0) -> nn.Module:
+def build_backbone(name: str, frozen_stages: int = -1, drop_path_rate: float = 0.0,
+                   norm_eval: bool = True) -> nn.Module:
     """The backbone module; its four stage widths are `out_channels`.
     `frozen_stages` applies to ResNet and Swin (MiT ignores it, as in the
-    reference); `drop_path_rate` is Swin's stochastic depth."""
+    reference); `drop_path_rate` is Swin's stochastic depth; `norm_eval`
+    is ResNet's (False: live BatchNorm in training mode). The reference's
+    `train` flag is the module's training mode."""
     depths = {f"resnet{d}": d for d in RESNET_STAGE_BLOCKS}
     if name in depths:
-        return ResNet(depth=depths[name], frozen_stages=frozen_stages)
+        return ResNet(depth=depths[name], frozen_stages=frozen_stages, norm_eval=norm_eval)
     if name.startswith("mit_"):
         return MixVisionTransformer(preset=name.split("_", 1)[1])
     if name.startswith("swin_") and name[len("swin_"):] in SWIN_PRESETS:

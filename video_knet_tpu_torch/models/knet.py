@@ -52,6 +52,7 @@ from video_knet_tpu_torch.ops.targets import (
     gather_rows,
     pred_of_gt_from,
 )
+from video_knet_tpu_torch.parallel.mesh import global_sum
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 from video_knet_tpu_torch.utils.tree import tree_stack
 
@@ -74,7 +75,10 @@ class KNet(nn.Module):
             set_fp32_numerics()
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
-                                       drop_path_rate=cfg.backbone_drop_path_rate)
+                                       drop_path_rate=cfg.backbone_drop_path_rate,
+                                       norm_eval=cfg.norm_eval)
+        # parameters no loss reaches (data parallelism has DDP look for them)
+        self.leaves_parameters_unused = getattr(self.backbone, "leaves_parameters_unused", False)
         self.neck = build_neck(cfg.neck_type, self.backbone)
         self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
         self.roi_head = KernelIterHead(cfg.head, num_stages=cfg.num_stages)
@@ -155,17 +159,29 @@ def solve_assignments(costs: list[torch.Tensor], valid: torch.Tensor):
 
 def _rank_loss_batched(scaled_masks: torch.Tensor, rank_target: torch.Tensor,
                        weight: float) -> torch.Tensor:
-    """CE over the N mask logits of each pixel, ignore 255."""
+    """CE over the N mask logits of each pixel, ignore 255, averaged over the
+    global batch's labelled pixels."""
     return L.softmax_cross_entropy(scaled_masks.movedim(1, -1), rank_target, ignore_index=255,
-                                   loss_weight=weight)
+                                   loss_weight=weight,
+                                   avg_factor=global_sum((rank_target != 255).float().sum()))
+
+
+def mask_losses(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor, mask_weight: float,
+                dice_weight: float, names) -> dict[str, torch.Tensor]:
+    """Mask BCE and dice of rows pred / tgt [P, ...] weighted by w [P], each
+    averaged over the global batch's weights (BCE's broadcast over a row's
+    elements)."""
+    rows = global_sum(w.sum())
+    return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight,
+                                             avg_factor=rows * pred[0].numel()),
+            names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight, avg_factor=rows)}
 
 
 def _mask_losses(rows_pred, rows_t, rows_w, mask_weight, dice_weight, names):
     b, r = rows_w.shape
     hw = rows_pred.shape[-2:]
     pred, tgt, w = rows_pred.reshape(b * r, *hw), rows_t.reshape(b * r, *hw), rows_w.reshape(b * r)
-    return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight),
-            names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight)}
+    return mask_losses(pred, tgt, w, mask_weight, dice_weight, names)
 
 
 def rpn_loss(rpn_out, gt: PanopticGT, cfg: KNetConfig,
@@ -191,13 +207,14 @@ def rpn_loss(rpn_out, gt: PanopticGT, cfg: KNetConfig,
                                  (h * r.feat_downsample_stride, w * r.feat_downsample_stride))
     if r.seg_use_sigmoid:
         flat_t = seg_targets.reshape(-1)
-        num_dense_pos = torch.clamp((flat_t < c).float().sum(), min=1.0)
+        num_dense_pos = torch.clamp(global_sum((flat_t < c).float().sum()), min=1.0)
         losses["loss_rpn_seg"] = L.sigmoid_focal_loss(
             seg_scaled.reshape(-1, c), flat_t, num_classes=c, loss_weight=r.loss_seg_weight,
             avg_factor=num_dense_pos)
     else:
         losses["loss_rpn_seg"] = L.softmax_cross_entropy(
-            seg_scaled, seg_targets, ignore_index=c, loss_weight=r.loss_seg_weight)
+            seg_scaled, seg_targets, ignore_index=c, loss_weight=r.loss_seg_weight,
+            avg_factor=global_sum((seg_targets != c).float().sum()))
     return losses
 
 
@@ -217,7 +234,7 @@ def stage_loss(out: StageOutput, gt_of_pred: torch.Tensor, gt: PanopticGT, cfg: 
         out.cls_score.reshape(b * n_tot, c), labels.reshape(b * n_tot),
         label_weights.reshape(b * n_tot, c), num_classes=c, gamma=h.focal_gamma,
         alpha=h.focal_alpha, loss_weight=h.loss_cls_weight,
-        avg_factor=torch.clamp(num_pos, min=1.0))}
+        avg_factor=torch.clamp(global_sum(num_pos), min=1.0))}
     p2g = pred_of_gt_from(gt_of_pred[:, :n_prop], gt.masks.shape[1])
     safe = torch.clamp(p2g, min=0)
     mp = out.mask_preds

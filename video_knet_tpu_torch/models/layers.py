@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from video_knet_tpu_torch.parallel.mesh import active_mesh, sum_with_grad
+
 # ---------------------------------------------------------------- XLA helpers
 
 
@@ -171,20 +173,50 @@ class FastVarianceLayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm (running averages only) on NHWC."""
+    """BatchNorm on NHWC: flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Running averages (the default, and always in eval mode): the inference
+    normalization. Live (`use_running_average=False` in training mode, the
+    reference's `use_running_average=False`): flax's one-pass statistics
+    over N, H and W in fp32, mean = E[x] and the biased var = max(E[x^2] -
+    mean^2, 0), normalized as (x - mean) * (rsqrt(var + eps) * scale) + bias
+    with gradients through mean, var and the clamp; the running averages
+    then move to 0.9 * running + 0.1 * statistic (the same biased var;
+    torch's `momentum=0.1`), outside the graph. Under data parallelism the
+    moments sum over every rank first (`parallel/mesh.py:sum_with_grad`),
+    so the statistics are the global batch's, as under JAX's mesh."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, use_running_average: bool = True):
         super().__init__()
         self.eps = eps
+        self.use_running_average = use_running_average
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and not self.use_running_average:
+            return self._live(x)
         y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean, self.running_var,
                          self.weight, self.bias, False, 0.0, self.eps)
         return y.permute(0, 2, 3, 1)
+
+    def _live(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = _fp32(x)
+        c = x32.shape[-1]
+        moments = torch.cat([x32.sum(dim=(0, 1, 2)), (x32 * x32).sum(dim=(0, 1, 2))])
+        count = x32.numel() // c
+        if active_mesh() is not None:
+            moments = sum_with_grad(torch.cat([moments, moments.new_full((1,), count)]))
+            count = moments[-1]
+        mean, mean2 = moments[:c] / count, moments[c:2 * c] / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean.detach())
+            self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var.detach())
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(_result_dtype(x, self.weight, self.bias))
 
 
 class ConvNormAct(nn.Module):

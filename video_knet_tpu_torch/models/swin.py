@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.models.layers import Conv2d, FastVarianceLayerNorm, resize_bilinear
+from video_knet_tpu_torch.parallel.mesh import batch_uniform
 
 SWIN_PRESETS = {
     # embed_dim, depths, num_heads
@@ -83,12 +84,14 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int, device=None) -> torch.T
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """Residual-branch stochastic depth: one Bernoulli keep draw a sample,
-    scaled by 1 / keep. Off (the identity) without a generator."""
+    scaled by 1 / keep. Off (the identity) without a generator. Under data
+    parallelism the draws cover the global batch (`parallel/mesh.py:
+    batch_uniform`)."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = batch_uniform(x.shape[0], generator, x.device).reshape(shape) < keep
     return x * mask.to(x.dtype) / keep
 
 
@@ -198,6 +201,10 @@ class SwinTransformer(nn.Module):
         embed_dim, depths, num_heads = SWIN_PRESETS[preset]
         self.window_size = window_size
         self.frozen_stages = frozen_stages
+        # the frozen stages are cut from the graph, their parameters left
+        # trainable (optax decays them): the patch embedding's and the cut
+        # downsamples' take no gradient
+        self.leaves_parameters_unused = frozen_stages >= 0
         self.depths = depths
         self.out_channels = tuple(embed_dim * 2 ** s for s in range(4))
         self.patch_embed = Conv2d(3, embed_dim, 4, stride=4)

@@ -57,6 +57,7 @@ from video_knet_tpu_torch.models.video.roi_track_head import (
 )
 from video_knet_tpu_torch.ops import losses as L
 from video_knet_tpu_torch.ops.targets import PanopticGT, gather_rows
+from video_knet_tpu_torch.parallel.mesh import batch_blocks, global_mean
 from video_knet_tpu_torch.utils.device import resolve_device
 
 
@@ -120,7 +121,13 @@ class VideoKNet(nn.Module):
             raise ValueError(f"unknown track_head_type {cfg.track_head_type!r}")
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
-                                       drop_path_rate=cfg.backbone_drop_path_rate)
+                                       drop_path_rate=cfg.backbone_drop_path_rate,
+                                       norm_eval=cfg.norm_eval)
+        # parameters no loss reaches (data parallelism has DDP look for
+        # them): the backbone's, and with roi_gt_box the last stage's link
+        self.leaves_parameters_unused = (
+            getattr(self.backbone, "leaves_parameters_unused", False)
+            or (cfg.track_head_type == "roi_gt_box" and cfg.link_previous))
         self.neck = build_neck(cfg.neck_type, self.backbone)
         self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
         self.num_stages = cfg.num_stages
@@ -192,7 +199,8 @@ class VideoKNet(nn.Module):
         boxes instead, GT-slot aligned [B, G, D]: `gt_masks` / `ref_gt_masks`
         [B, G, h, w] are required then."""
         b = img.shape[0]
-        both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img]), generator))
+        with batch_blocks(2):  # [ref; key]: two slices of the global batch
+            both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img]), generator))
 
         def half(sl: slice) -> RPNOutputs:
             return RPNOutputs(*(x[sl] for x in both[:-1]), init_kernels=both.init_kernels)
@@ -364,16 +372,16 @@ def video_knet_loss(model_out: tuple[BranchOutput, BranchOutput],
     key_valid = (key_p2g >= 0) & gt.valid
     ref_valid = (ref_p2g >= 0) & ref_gt.valid
     if cfg.track_head_type == "query_fuse":
-        losses["loss_match"] = torch.stack([_query_match_loss_one(
+        losses["loss_match"] = global_mean(torch.stack([_query_match_loss_one(
             key_emb_g[i], ref_emb_g[i], key_valid[i], ref_valid[i], gt.instance_ids[i],
             ref_gt.instance_ids[i], loss_weight=t.match_loss_weight)
-            for i in range(key_emb.shape[0])]).mean()
+            for i in range(key_emb.shape[0])]))
         return losses
     per_image = [_track_loss_one(
         key_emb_g[i], ref_emb_g[i], key_valid[i], ref_valid[i], gt.instance_ids[i],
         ref_gt.instance_ids[i], loss_track_weight=t.loss_track_weight,
         aux_weight=t.loss_track_aux_weight, aux_neg_pos_ub=t.aux_neg_pos_ub,
         aux_neg_margin=t.aux_neg_margin) for i in range(key_emb.shape[0])]
-    losses["loss_track"] = torch.stack([lt for lt, _ in per_image]).mean()
-    losses["loss_track_aux"] = torch.stack([la for _, la in per_image]).mean()
+    losses["loss_track"] = global_mean(torch.stack([lt for lt, _ in per_image]))
+    losses["loss_track_aux"] = global_mean(torch.stack([la for _, la in per_image]))
     return losses

@@ -101,10 +101,11 @@ def roi_track_loss(key_embeds, ref_embeds, key_valid, ref_valid, key_ids, ref_id
     """MultiPosCE + L2 aux on GT-slot-aligned embeddings [B, G, D], image by
     image (the kernel-embedding head's `_track_loss_one`)."""
     from video_knet_tpu_torch.models.video.knet_vps import _track_loss_one
+    from video_knet_tpu_torch.parallel.mesh import global_mean
 
     per_image = [_track_loss_one(
         key_embeds[i], ref_embeds[i], key_valid[i], ref_valid[i], key_ids[i], ref_ids[i],
         loss_track_weight=loss_track_weight, aux_weight=aux_weight, aux_neg_pos_ub=3,
         aux_neg_margin=0.1) for i in range(key_embeds.shape[0])]
-    return {"loss_track_roi": torch.stack([lt for lt, _ in per_image]).mean(),
-            "loss_track_roi_aux": torch.stack([la for _, la in per_image]).mean()}
+    return {"loss_track_roi": global_mean(torch.stack([lt for lt, _ in per_image])),
+            "loss_track_roi_aux": global_mean(torch.stack([la for _, la in per_image]))}

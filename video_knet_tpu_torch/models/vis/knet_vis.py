@@ -43,6 +43,7 @@ from video_knet_tpu_torch.models.kernel_iter_head import (
 from video_knet_tpu_torch.models.knet import (
     branch_assignment_costs,
     iter_head_losses,
+    mask_losses,
     rpn_loss,
     solve_lanes,
     top_k,
@@ -65,6 +66,7 @@ from video_knet_tpu_torch.ops.targets import (
     gather_rows,
     pred_of_gt_from,
 )
+from video_knet_tpu_torch.parallel.mesh import global_sum
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 
 KERNEL_HEAD_MODES = ("frame", "volume")
@@ -104,7 +106,10 @@ class KNetVIS(nn.Module):
             raise ValueError(f"kernel_head_mode={cfg.kernel_head_mode!r}")
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone, frozen_stages=cfg.frozen_stages,
-                                       drop_path_rate=cfg.backbone_drop_path_rate)
+                                       drop_path_rate=cfg.backbone_drop_path_rate,
+                                       norm_eval=cfg.norm_eval)
+        # parameters no loss reaches (data parallelism has DDP look for them)
+        self.leaves_parameters_unused = getattr(self.backbone, "leaves_parameters_unused", False)
         self.neck = build_neck(cfg.neck_type, self.backbone)
         volume = cfg.kernel_head_mode == "volume"
         if volume:
@@ -224,8 +229,7 @@ def _tube_mask_losses(scaled_masks: torch.Tensor, gt_of_pred: torch.Tensor, gt: 
     rows = gather_rows(_tubes(scaled_masks), torch.clamp(p2g, min=0))  # [B, G, T, H, W]
     pred, tgt = rows.reshape(b * g, -1), gt.masks.reshape(b * g, -1)
     w = (p2g >= 0).float().reshape(b * g)
-    return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight),
-            names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight)}
+    return mask_losses(pred, tgt, w, mask_weight, dice_weight, names)
 
 
 def tube_stage_loss(out: ClipStageOutput, gt_of_pred: torch.Tensor, gt: ClipGT,
@@ -243,7 +247,7 @@ def tube_stage_loss(out: ClipStageOutput, gt_of_pred: torch.Tensor, gt: ClipGT,
         losses[f"{prefix}_loss_cls"] = L.sigmoid_focal_loss(
             out.cls_score.reshape(b * n, c), labels.reshape(b * n), num_classes=c,
             gamma=h.focal_gamma, alpha=h.focal_alpha, loss_weight=h.loss_cls_weight,
-            avg_factor=torch.clamp(matched.float().sum(), min=1.0))
+            avg_factor=torch.clamp(global_sum(matched.float().sum()), min=1.0))
     losses.update(_tube_mask_losses(out.scaled_mask_preds, gt_of_pred, gt, h.loss_mask_weight,
                                     h.loss_dice_weight,
                                     (f"{prefix}_loss_mask", f"{prefix}_loss_dice")))
@@ -266,7 +270,7 @@ def volume_rpn_loss(vol: VolumeRPNOutputs, gt: ClipGT, cfg: VISConfig,
                                num_classes=c).reshape(-1)
     losses["loss_rpn_seg"] = L.sigmoid_focal_loss(
         seg.reshape(-1, c), seg_t, num_classes=c, loss_weight=r.loss_seg_weight,
-        avg_factor=torch.clamp((seg_t < c).float().sum(), min=1.0))
+        avg_factor=torch.clamp(global_sum((seg_t < c).float().sum()), min=1.0))
     return losses
 
 

@@ -42,6 +42,27 @@ def setup_device(name: str | None) -> torch.device:
     return device
 
 
+def add_dist_args(p: argparse.ArgumentParser) -> None:
+    """The process-group flags of the train CLIs, read under torchrun."""
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="under torchrun: the process group's backend (default nccl on GPUs, "
+                        "gloo on the CPU; gloo lets ranks share one GPU)")
+    p.add_argument("--dist-url", default=None,
+                   help="under torchrun: the process group's init method (default env://, "
+                        "torchrun's store; e.g. file:///shared/path)")
+
+
+def setup_ranks(args):
+    """`--device`, then, under torchrun, this process's place in the data
+    mesh over every rank (`parallel/distributed.py`): (this rank's device,
+    the mesh). Without torchrun: (the device, the one-process mesh)."""
+    from video_knet_tpu_torch.parallel import distributed
+
+    device = distributed.initialize(setup_device(args.device), backend=args.dist_backend,
+                                    init_method=args.dist_url)
+    return device, distributed.global_mesh()
+
+
 def build_model(cls, cfg, device: torch.device, checkpoint: str | None = None):
     """`cls(cfg)` on `device` from the seeded init, with `checkpoint`'s
     model state merged over it (every key it holds must keep its shape, and

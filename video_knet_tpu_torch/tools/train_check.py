@@ -99,6 +99,30 @@ def mask_pool_margin(branch: BranchOutput, cfg: VideoKNetConfig) -> float:
                              cfg.head.hard_mask_thr))
 
 
+def vps_decisions(model: VideoKNet, batch) -> tuple[list, list]:
+    """The discrete decisions of a VPS train forward on `batch` (no
+    gradient), each tensor batch-major: (every hard-threshold mask pool's
+    inputs against its threshold: the init head's at 0.5 and each stage's
+    at `head.hard_mask_thr`, in both branches; every assignment of the
+    step's Hungarian problems, `video_knet_costs` solved as the loss solves
+    them). Two batch splits that decide alike give equal tensors once the
+    splits' are stacked."""
+    from video_knet_tpu_torch.models.video.knet_vps import solve_lanes, video_knet_costs
+
+    cfg = model.cfg
+    t_stage = math.log(cfg.head.hard_mask_thr / (1 - cfg.head.hard_mask_thr))
+    with torch.no_grad():
+        key, ref, _, _ = model.forward_train(batch.img, batch.ref_img, None, batch.gt.masks,
+                                             batch.ref_gt.masks)
+        out = []
+        for branch in (key, ref):
+            out.append(branch.rpn_out.thing_mask_preds > 0)
+            out += [x > t_stage for x in _stage_inputs(branch.rpn_out.mask_preds,
+                                                        branch.stage_outs)]
+        gt_of_pred, _ = solve_lanes(*video_knet_costs(key, ref, batch.gt, batch.ref_gt, cfg))
+    return out, list(gt_of_pred)
+
+
 def vis_decisions(outs: VISOutputs, cfg: VISConfig) -> dict[str, tuple[torch.Tensor, float]]:
     """The inputs of a VIS clip's hard mask-pool decisions by name, in the
     forward's order, each with its threshold as a probability: the init

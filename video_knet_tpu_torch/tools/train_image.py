@@ -1,19 +1,25 @@
-"""Train image K-Net (Cityscapes-STEP / COCO panoptic pretraining) on one GPU.
+"""Train image K-Net (Cityscapes-STEP / COCO panoptic pretraining) on every
+visible GPU.
 
 Counterpart of the reference package's `tools/train_image.py` (the same
-arguments and printed lines, plus `--device`): phase 1 of the two-phase
-workflow (pretrain the image model, then `--load-from` it into
-`train_vps`). Samples are read, augmented and packed on the host in a
-seeded order, stacked into batches of `--batch-size`, and each batch takes
-one train step (`train/image.py`); a JSON record every `--log-interval`
-steps, a checkpoint a epoch in `work_dir/ckpt/step_{epoch}`, and with
-`--eval-interval` the per-class PQ table on the val split (not for coco).
+arguments and printed lines, plus `--device` and the process-group flags):
+phase 1 of the two-phase workflow (pretrain the image model, then
+`--load-from` it into `train_vps`). Samples are read, augmented and packed
+on the host in a seeded order, stacked into batches of `--batch-size`, and
+each batch takes one train step (`train/image.py`); a JSON record every
+`--log-interval` steps, a checkpoint a epoch in `work_dir/ckpt/step_{epoch}`,
+and with `--eval-interval` the per-class PQ table on the val split (not
+for coco). Under torchrun `--batch-size` is the global batch: every rank
+draws the whole seeded sequence of augmentations but reads only its rows
+of each batch; rank 0 alone prints, checkpoints and evaluates.
 
 Usage:
   python -m video_knet_tpu_torch.tools.train_image --dataset cityscapes_step \\
       --data-root data/cityscapes --epochs 8 --batch-size 8 [--device cpu]
   python -m video_knet_tpu_torch.tools.train_image --dataset coco \\
       --ann-file panoptic_train.json --img-root train2017 --pan-root panoptic_train2017
+  torchrun --nproc_per_node=8 -m video_knet_tpu_torch.tools.train_image ... \\
+      [--dist-backend gloo] [--dist-url file:///shared/path]
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ def parse_args(argv=None):
                    help="evaluate PQ on the val split every N epochs (0 = off)")
     p.add_argument("--eval-size", type=int, nargs=2, default=None)
     p.add_argument("--eval-max-images", type=int, default=None)
+    _cli.add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -89,9 +96,10 @@ def _run_eval(args, cfg, model, device) -> dict:
     return {k: float(v) for k, v in res.items() if not hasattr(v, "shape")}
 
 
-def _iter_samples(args, cfg, rng: np.random.RandomState):
+def _iter_samples(args, cfg, rng: np.random.RandomState, keep=lambda k: True):
     """Yields (img [H, W, 3] float32, PanopticGT of numpy arrays) at crop
-    size, in `rng`'s order, with `rng`'s augmentations."""
+    size, in `rng`'s order, with `rng`'s augmentations; for the k-th sample
+    with `keep(k)` false, None, with its draws made and nothing read."""
     from video_knet_tpu_torch.data.panoptic_png import decode_kitti_panoptic, load_png
     from video_knet_tpu_torch.data.transforms import (
         apply_image_transform,
@@ -105,8 +113,12 @@ def _iter_samples(args, cfg, rng: np.random.RandomState):
         from video_knet_tpu_torch.data.coco_panoptic import CocoPanopticDataset
 
         ds = CocoPanopticDataset(args.ann_file, args.img_root, args.pan_root)
-        for i in rng.permutation(len(ds)):
+        for k, i in enumerate(rng.permutation(len(ds))):
             s = ds.samples[int(i)]
+            if not keep(k):
+                sample_transform_params(rng)
+                yield None
+                continue
             sem, inst = ds.load_sem_inst(int(i))
             p = sample_transform_params(rng)
             img = apply_image_transform(load_png(s.img), p, crop)  # a JPEG through PIL
@@ -128,9 +140,15 @@ def _iter_samples(args, cfg, rng: np.random.RandomState):
         else:
             scan = CityscapesSTEPImages(args.data_root, split="train")
             samples = scan.samples
+        k = 0
         for i in rng.permutation(len(samples)):
             s = samples[int(i)]
             if s.ann is None:
+                continue
+            k += 1
+            if not keep(k - 1):
+                sample_transform_params(rng)
+                yield None
                 continue
             sem, inst = decode_kitti_panoptic(load_png(s.ann))
             p = sample_transform_params(rng)
@@ -156,13 +174,16 @@ def main(argv=None, stats: list | None = None):
     )
     from video_knet_tpu_torch.models.knet import KNet
     from video_knet_tpu_torch.ops.targets import PanopticGT
-    from video_knet_tpu_torch.tools.train_vps import host_losses, load_weights
+    from video_knet_tpu_torch.parallel import distributed
+    from video_knet_tpu_torch.parallel.mesh import batch_sharding
+    from video_knet_tpu_torch.tools.train_vps import _quiet, host_losses, load_weights
     from video_knet_tpu_torch.train.image import ImageBatch, train_step
     from video_knet_tpu_torch.train.optim import make_optimizer
     from video_knet_tpu_torch.train.train_state import create_train_state
     from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
 
-    device = _cli.setup_device(args.device)
+    device, mesh = _cli.setup_ranks(args)
+    say = print if mesh.rank == 0 else _quiet
     cfg = (knet_s3_r50_fpn_coco_panoptic() if args.dataset == "coco"
            else knet_s3_r50_fpn_cityscapes_step())
     cfg = dataclasses.replace(cfg, backbone=args.backbone, max_insts=args.max_insts)
@@ -173,40 +194,48 @@ def main(argv=None, stats: list | None = None):
     # the reference package's fixed 1000 steps an epoch: the schedule's decay
     # epochs count in thousands of steps, whatever the dataset's length
     state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000,
-                                                     base_lr=args.lr))
+                                                     base_lr=args.lr), mesh)
 
     def to_device(x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(device, non_blocking=True)
 
-    os.makedirs(args.work_dir, exist_ok=True)
+    if mesh.rank == 0:
+        os.makedirs(args.work_dir, exist_ok=True)
     rng = np.random.RandomState(args.seed)
     b = args.batch_size
+    rows = batch_sharding(mesh, b)  # this rank's rows of each global batch
     for epoch in range(args.epochs):
         t0 = time.time()
         imgs, gts = [], []
-        it = 0
-        for img, gt in _iter_samples(args, cfg, rng):
-            imgs.append(img)
-            gts.append(gt)
-            if len(imgs) < b:
+        it = seen = 0
+        for sample in _iter_samples(args, cfg, rng, keep=lambda k: rows.start <= k % b < rows.stop):
+            seen += 1
+            if sample is not None:
+                imgs.append(sample[0])
+                gts.append(sample[1])
+            if seen < b:
                 continue
             batch = ImageBatch(to_device(np.stack(imgs)),
                                PanopticGT(*[to_device(np.stack(x)) for x in zip(*gts)]))
             state, losses = train_step(state, batch)
             imgs, gts = [], []
-            it += 1
+            it, seen = it + 1, 0
             if it % args.log_interval == 0:
-                print(json.dumps({"epoch": epoch, "iter": it, **{
+                say(json.dumps({"epoch": epoch, "iter": it, **{
                     k: round(v, 4) for k, v in host_losses(losses).items()}}))
             if stats is not None:
                 stats.append(time.perf_counter())
-        save_checkpoint(os.path.join(args.work_dir, "ckpt"), state, step=epoch + 1)
-        print(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s")
+        if mesh.rank == 0:
+            save_checkpoint(os.path.join(args.work_dir, "ckpt"), state, step=epoch + 1)
+        distributed.barrier()
+        say(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s")
         if (args.eval_interval and args.dataset != "coco"
                 and (epoch + 1) % args.eval_interval == 0):
-            metrics = _run_eval(args, cfg, model, device)
-            print(json.dumps({"epoch": epoch + 1, "eval": {
-                k: round(v, 2) for k, v in metrics.items()}}))
+            if mesh.rank == 0:
+                metrics = _run_eval(args, cfg, model, device)
+                say(json.dumps({"epoch": epoch + 1, "eval": {
+                    k: round(v, 2) for k, v in metrics.items()}}))
+            distributed.barrier()
 
 
 if __name__ == "__main__":

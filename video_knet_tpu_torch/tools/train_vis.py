@@ -1,17 +1,21 @@
-"""Train Video K-Net VIS on YouTube-VIS on one GPU.
+"""Train Video K-Net VIS on YouTube-VIS on every visible GPU.
 
 Counterpart of the reference package's `tools/train_vis.py` (the same
-arguments and printed lines, plus `--device`): the YouTube-VIS 2019 config
-(KNetTrack clip training) over a COCO-VID json (`youtubevis2coco`), the
-threaded clip loader, train steps on one device, a JSON record every
-`--log-interval` steps and a checkpoint a epoch in
-`work_dir/ckpt/step_{epoch}`. The reference's data and clip parallelism
-over a mesh is ROADMAP F7.
+arguments and printed lines, plus `--device` and the process-group flags):
+the YouTube-VIS 2019 config (KNetTrack clip training) over a COCO-VID json
+(`youtubevis2coco`), the threaded clip loader, train steps over the data
+mesh, a JSON record every `--log-interval` steps and a checkpoint a epoch
+in `work_dir/ckpt/step_{epoch}`. Under torchrun `--batch-size` is the
+global batch and each rank loads and trains its clips of it, as
+`tools/train_vps.py` does; rank 0 alone prints and checkpoints. The
+reference's clip parallelism over the mesh's `model` axis is ROADMAP F7b.
 
 Usage:
   python -m video_knet_tpu_torch.tools.train_vis --ann-file train.json \\
       --img-root train/JPEGImages --epochs 12 --batch-size 4 [--crop 360 640] \\
       [--device cpu]
+  torchrun --nproc_per_node=8 -m video_knet_tpu_torch.tools.train_vis ... \\
+      [--dist-backend gloo] [--dist-url file:///shared/path]
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def parse_args(argv=None):
     p.add_argument("--load-from", default=None, help=_cli.CHECKPOINT_HELP)
     p.add_argument("--log-interval", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
+    _cli.add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -51,36 +56,42 @@ def main(argv=None, stats: list | None = None):
     from video_knet_tpu_torch.data.vis_loader import VISTrainLoader
     from video_knet_tpu_torch.data.ytvis import YouTubeVISDataset
     from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
-    from video_knet_tpu_torch.tools.train_vps import host_losses, load_weights
+    from video_knet_tpu_torch.parallel import distributed
+    from video_knet_tpu_torch.tools.train_vps import _quiet, host_losses, load_weights
     from video_knet_tpu_torch.train.optim import make_optimizer
     from video_knet_tpu_torch.train.train_state import create_train_state
     from video_knet_tpu_torch.train.vis import train_step
     from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
 
-    device = _cli.setup_device(args.device)
+    device, mesh = _cli.setup_ranks(args)
+    say = print if mesh.rank == 0 else _quiet
     cfg = dataclasses.replace(youtube_vis_2019_config(), backbone=args.backbone,
                               num_frames=args.num_frames)
     ds = YouTubeVISDataset(args.ann_file, img_root=args.img_root)
     loader = VISTrainLoader(ds, cfg, batch_size=args.batch_size, canvas_hw=tuple(args.crop),
-                            seed=args.seed, device=device)
+                            seed=args.seed, device=device, mesh=mesh)
     steps_per_epoch = max(1, len(ds) // args.batch_size)
 
     model = KNetVIS(cfg, generator=torch.Generator().manual_seed(args.seed), device=device)
     if args.load_from:
         load_weights(model, args.load_from)
-    state = create_train_state(model, make_optimizer(model, steps_per_epoch, base_lr=args.lr))
-    os.makedirs(args.work_dir, exist_ok=True)
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch, base_lr=args.lr),
+                               mesh)
+    if mesh.rank == 0:
+        os.makedirs(args.work_dir, exist_ok=True)
     for epoch in range(args.epochs):
         t0 = time.time()
         for it, batch in enumerate(loader):
             state, losses = train_step(state, batch)
             if (it + 1) % args.log_interval == 0:
-                print(json.dumps(dict(epoch=epoch, iter=it + 1, **{
+                say(json.dumps(dict(epoch=epoch, iter=it + 1, **{
                     k: round(v, 4) for k, v in host_losses(losses).items()})))
             if stats is not None:
                 stats.append(time.perf_counter())
-        save_checkpoint(os.path.join(args.work_dir, "ckpt"), state, step=epoch + 1)
-        print(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s")
+        if mesh.rank == 0:
+            save_checkpoint(os.path.join(args.work_dir, "ckpt"), state, step=epoch + 1)
+        distributed.barrier()
+        say(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s")
 
 
 if __name__ == "__main__":

@@ -1,20 +1,29 @@
-"""Train Video K-Net VPS (KITTI-STEP / VIP-Seg) on one GPU.
+"""Train Video K-Net VPS (KITTI-STEP / VIP-Seg) on every visible GPU.
 
 Counterpart of the reference package's `tools/train_vps.py` (the same
-arguments, files and printed lines, plus `--device`): config -> dataset ->
-threaded loader -> train steps on one device, a checkpoint a epoch in
-`work_dir/ckpt/step_{epoch}`, a JSON record every `--log-interval` steps on
-stdout and in `work_dir/train_log.jsonl`, and with `--eval-interval` VPQ /
-STQ on the val split. SIGTERM or SIGINT finishes the step, writes
-`work_dir/ckpt/step_{step}` and returns; `--resume-from` that directory
-continues. The losses stay on the device between log steps. The
-reference's data-parallel mesh is ROADMAP F7.
+arguments, files and printed lines, plus `--device` and the process-group
+flags): config -> dataset -> threaded loader -> train steps over the data
+mesh, a checkpoint a epoch in `work_dir/ckpt/step_{epoch}`, a JSON record
+every `--log-interval` steps on stdout and in `work_dir/train_log.jsonl`,
+and with `--eval-interval` VPQ / STQ on the val split. SIGTERM or SIGINT
+finishes the step, writes `work_dir/ckpt/step_{step}` and returns;
+`--resume-from` that directory continues. The losses stay on the device
+between log steps.
+
+Under torchrun each process is one rank of the data mesh, as JAX's CLI
+spans every device: `--batch-size` is the global batch, each rank loads
+and trains on its rows of it, and the steps equal one process at the
+global batch. Rank 0 alone prints, logs, checkpoints and evaluates; every
+rank restores `--resume-from`; a preemption signal on any rank stops every
+rank at the same step.
 
 Usage:
   python -m video_knet_tpu_torch.tools.train_vps --data-root data/kitti-step \\
       --epochs 12 --batch-size 8 --crop 384 1248 [--dataset vipseg] \\
       [--backbone swin_base] [--load-from ckpt] [--resume-from ckpt] \\
       [--work-dir work_dirs/vps] [--freeze-detector] [--bf16] [--device cpu]
+  torchrun --nproc_per_node=8 -m video_knet_tpu_torch.tools.train_vps ... \\
+      [--dist-backend gloo] [--dist-url file:///shared/path]
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ def parse_args(argv=None):
                    help="bfloat16 forward/backward compute (fp32 master params)")
     p.add_argument("--freeze-detector", action="store_true",
                    help="non-joint two-phase mode: train only track/link layers")
+    _cli.add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -76,6 +86,10 @@ def load_weights(model, path: str, video: bool = False) -> None:
     model.load_state_dict(merge_params(model.state_dict(), loaded), strict=True)
 
 
+def _quiet(*args, **kwargs) -> None:
+    """`print` of the ranks other than 0."""
+
+
 def host_losses(losses: dict) -> dict:
     """The loss dict as Python floats, read off the device in one copy."""
     vals = torch.stack([v.float() for v in losses.values()]).tolist()
@@ -90,13 +104,16 @@ def main(argv=None, stats: list | None = None):
     from video_knet_tpu_torch.data.datasets import KittiStepDVPS, VIPSegDVPS
     from video_knet_tpu_torch.data.loader import VPSTrainLoader
     from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
+    from video_knet_tpu_torch.parallel import distributed
     from video_knet_tpu_torch.train.optim import make_optimizer
     from video_knet_tpu_torch.train.train_state import create_train_state
     from video_knet_tpu_torch.train.vps import train_step
     from video_knet_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
     from video_knet_tpu_torch.utils.preemption import PreemptionGuard
 
-    device = _cli.setup_device(args.device)
+    device, mesh = _cli.setup_ranks(args)
+    main_rank = mesh.rank == 0
+    say = print if main_rank else _quiet
     cfg = (kitti_step_video_config() if args.dataset == "kitti_step"
            else vipseg_video_config())
     cfg = dataclasses.replace(cfg, backbone=args.backbone, max_insts=args.max_insts,
@@ -106,7 +123,7 @@ def main(argv=None, stats: list | None = None):
     ds = ds_cls(args.data_root, split="train", ref_seq_index=list(cfg.ref_seq_index),
                 seed=args.seed)
     loader = VPSTrainLoader(ds, cfg, batch_size=args.batch_size, crop_hw=tuple(args.crop),
-                            seed=args.seed, device=device)
+                            seed=args.seed, device=device, mesh=mesh)
     steps_per_epoch = max(1, len(ds) // args.batch_size)
 
     model = VideoKNet(cfg, generator=torch.Generator().manual_seed(args.seed), device=device)
@@ -114,14 +131,20 @@ def main(argv=None, stats: list | None = None):
         load_weights(model, args.load_from, video=True)
     tx = make_optimizer(model, steps_per_epoch, base_lr=args.lr,
                         freeze_detector=args.freeze_detector)
-    state = create_train_state(model, tx)
-    if args.resume_from:
+    state = create_train_state(model, tx, mesh)
+    if args.resume_from:  # every rank
         state = restore_checkpoint(args.resume_from, state)
 
-    os.makedirs(args.work_dir, exist_ok=True)
     log_path = os.path.join(args.work_dir, "train_log.jsonl")
     ckpt_dir = os.path.join(args.work_dir, "ckpt")
-    print(f"devices: 1 | steps/epoch: {steps_per_epoch}")
+    if main_rank:
+        os.makedirs(args.work_dir, exist_ok=True)
+    say(f"devices: {mesh.world} | steps/epoch: {steps_per_epoch}")
+
+    def checkpoint(step: int) -> None:
+        if main_rank:
+            save_checkpoint(ckpt_dir, state, step=step)
+        distributed.barrier()
 
     guard = PreemptionGuard()
     try:
@@ -131,23 +154,26 @@ def main(argv=None, stats: list | None = None):
             t0 = time.time()
             for it, batch in enumerate(loader):
                 state, losses = train_step(state, batch)
-                if guard.requested:
-                    save_checkpoint(ckpt_dir, state, step=state.step)
-                    print("preemption checkpoint written; exiting")
+                if distributed.any_rank(guard.requested):
+                    checkpoint(state.step)
+                    say("preemption checkpoint written; exiting")
                     return
                 if (it + 1) % args.log_interval == 0:
                     rate = args.batch_size * (it + 1) / (time.time() - t0)
                     rec = dict(epoch=epoch, iter=it + 1, imgs_per_sec=round(rate, 2),
                                **{k: round(v, 4) for k, v in host_losses(losses).items()})
-                    print(json.dumps(rec))
-                    with open(log_path, "a") as f:
-                        f.write(json.dumps(rec) + "\n")
+                    say(json.dumps(rec))
+                    if main_rank:
+                        with open(log_path, "a") as f:
+                            f.write(json.dumps(rec) + "\n")
                 if stats is not None:
                     stats.append(time.perf_counter())
-            save_checkpoint(ckpt_dir, state, step=epoch + 1)
-            print(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s")
+            checkpoint(epoch + 1)
+            say(f"epoch {epoch + 1} done in {time.time() - t0:.1f}s")
             if args.eval_interval and (epoch + 1) % args.eval_interval == 0:
-                _eval(args, cfg, ds_cls, model, device, epoch, log_path)
+                if main_rank:
+                    _eval(args, cfg, ds_cls, model, device, epoch, log_path)
+                distributed.barrier()
     finally:
         guard.restore()
 

@@ -1,15 +1,18 @@
 """VIS training: batch container, synthetic clips, the loss function and the
-single-device clip train step.
+clip train step, on one device or data-parallel.
 
 Counterpart of `video_knet_tpu/train/vis.py`: the KNetVIS clip forward,
-`knet_vis_loss`, the backward and the AdamW update. Scope: fp32, or a bf16
-forward with `bf16_train` (as `train/vps.py`); BatchNorm on its running
-statistics (`norm_eval=False` raises); one device; the reference's clip parallelism over frames
-(the mesh's `model` axis) and its data parallelism are ROADMAP F7.
+`knet_vis_loss`, the backward and the AdamW update; over a data mesh it is
+`make_sharded_vis_train_step` on a `data`-only mesh
+(`train/train_state.py`). Scope: fp32, or a bf16 forward with `bf16_train`
+(as `train/vps.py`); BatchNorm on its running statistics, or live with
+`norm_eval=False` (fp32; statistics over the B*T frames). The reference's
+clip parallelism over frames (the mesh's `model` axis) is ROADMAP F7b.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +24,7 @@ from video_knet_tpu_torch.train.train_state import (
     TrainState,
     check_train_config,
     make_train_step,
+    train_forward,
 )
 from video_knet_tpu_torch.utils.device import resolve_device
 from video_knet_tpu_torch.utils.precision import bf16_forward
@@ -75,18 +79,26 @@ def make_synthetic_batch(cfg: VISConfig, b: int, hw: tuple[int, int], t: int | N
                                                  device=device))
 
 
-def make_vis_loss_fn(model: KNetVIS, cfg: VISConfig):
+def vis_train_forward(model: KNetVIS, bf16: bool, clip: torch.Tensor,
+                      generator: torch.Generator | None):
+    """The clip forward of the step, or with `bf16` its bf16 run on a bf16
+    clip."""
+    if bf16:
+        return bf16_forward(model, "forward", clip.to(torch.bfloat16), generator)
+    return model(clip, generator)
+
+
+def make_vis_loss_fn(model: KNetVIS, cfg: VISConfig, apply=None):
     """loss_fn(batch, generator=None) -> (total, loss_dict); `generator`
-    draws the backbone's stochastic depth. `check_train_config` first (TF32
-    off). `cfg.bf16_train`: a bf16 forward on a bf16 clip, fp32 loss math
-    (`train/vps.py:make_vps_loss_fn`)."""
+    draws the backbone's stochastic depth; `apply(bf16, clip, generator)`
+    runs the forward (`vis_train_forward` on `model` by default).
+    `check_train_config` first (TF32 off). `cfg.bf16_train`: a bf16 forward
+    on a bf16 clip, fp32 loss math (`train/vps.py:make_vps_loss_fn`)."""
     check_train_config(cfg)
+    apply = apply or functools.partial(vis_train_forward, model)
 
     def loss_fn(batch: VISBatch, generator: torch.Generator | None = None):
-        if cfg.bf16_train:
-            outs = bf16_forward(model, "forward", batch.clip.to(torch.bfloat16), generator)
-        else:
-            outs = model(batch.clip, generator)
+        outs = apply(cfg.bf16_train, batch.clip, generator)
         losses = knet_vis_loss(outs, batch.gt, cfg)
         return sum(losses.values()), losses
 
@@ -96,17 +108,20 @@ def make_vis_loss_fn(model: KNetVIS, cfg: VISConfig):
 def train_step(state: TrainState, batch: VISBatch, generator: torch.Generator | None = None,
                *, clip_parallel: int = 1):
     """One VIS train step on the model's device -> (state, loss dict with
-    `total_loss`, as device tensors).
+    `total_loss`, as device tensors). Over a data mesh `batch` is this
+    rank's clips of the global batch and the losses are the global batch's.
 
     With `backbone_drop_path_rate` > 0 (the Swin-B config) the stochastic
     depth draws from `generator`, by default one on the batch's device
-    seeded with the step count. `clip_parallel` > 1, the reference's frame
-    sharding over its mesh's `model` axis, raises."""
+    seeded with the step count (over a mesh, the global batch's draws).
+    `clip_parallel` > 1, the reference's frame sharding over its mesh's
+    `model` axis, raises (ROADMAP F7b)."""
     if clip_parallel != 1:
         raise NotImplementedError(
             "clip parallelism over the frames (the mesh's `model` axis) is not ported yet "
-            "(ROADMAP F7)")
+            "(ROADMAP F7b)")
     cfg = state.model.cfg
     if generator is None and cfg.backbone_drop_path_rate > 0:
         generator = torch.Generator(device=batch.clip.device).manual_seed(state.step)
-    return make_train_step(make_vis_loss_fn(state.model, cfg))(state, batch, generator)
+    return make_train_step(lambda st: make_vis_loss_fn(
+        st.model, cfg, train_forward(st, vis_train_forward)))(state, batch, generator)

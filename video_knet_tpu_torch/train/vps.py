@@ -1,17 +1,21 @@
 """VPS training: batch container, synthetic batches, the loss function and
-the single-device train step.
+the train step, on one device or data-parallel.
 
 Counterpart of `video_knet_tpu/train/vps.py` (the reference's
 `VideoKNetQuansiEmbedFCJointTrain.forward_train` under its trainer): the
-joint key + ref forward, every loss, the backward and the AdamW update.
-Scope: fp32, or a bf16 forward with `bf16_train` (fp32 masters, optimizer
-state, gradients and loss math); BatchNorm on its running statistics
-(`norm_eval=False` raises); one device (the reference's data-parallel mesh
-is ROADMAP F7).
+joint key + ref forward, every loss, the backward and the AdamW update;
+over a data mesh (`TrainState.mesh`) it is `make_sharded_train_step` on a
+`data`-only mesh (`train/train_state.py`). Scope: fp32, or a bf16 forward
+with `bf16_train` (fp32 masters, optimizer state, gradients and loss
+math); BatchNorm on its running statistics, or live with
+`norm_eval=False` (fp32; statistics over the 2B images of [ref; key],
+updated once a step). The mesh's `model` axis (spatial sharding) is
+ROADMAP F7b.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -24,6 +28,7 @@ from video_knet_tpu_torch.train.train_state import (
     TrainState,
     check_train_config,
     make_train_step,
+    train_forward,
 )
 from video_knet_tpu_torch.utils.device import resolve_device
 from video_knet_tpu_torch.utils.precision import bf16_forward
@@ -79,28 +84,36 @@ def make_synthetic_batch(cfg: VideoKNetConfig, b: int, hw: tuple[int, int], seed
     return VPSBatch(img, ref_img, gt, ref_gt)
 
 
-def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
+def vps_train_forward(model: VideoKNet, bf16: bool, img: torch.Tensor, ref_img: torch.Tensor,
+                      generator: torch.Generator | None, *gt_masks):
+    """The train forward of the step: `forward_train`, or with `bf16` its
+    bf16 run on bf16 images (`utils/precision.py:bf16_forward`)."""
+    if bf16:
+        return bf16_forward(model, "forward_train", img.to(torch.bfloat16),
+                            ref_img.to(torch.bfloat16), generator, *gt_masks)
+    return model.forward_train(img, ref_img, generator, *gt_masks)
+
+
+def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig, apply=None):
     """loss_fn(batch, generator=None) -> (total, loss_dict); `generator`
-    draws the backbone's stochastic depth. `check_train_config` first (TF32
-    off).
+    draws the backbone's stochastic depth; `apply(bf16, img, ref_img,
+    generator, *gt_masks)` runs the forward (`vps_train_forward` on `model`
+    by default; the data-parallel step's DDP wrapper). `check_train_config`
+    first (TF32 off).
 
     `cfg.bf16_train`: the forward (and so the backward) runs on bf16 casts
     of the parameters and BatchNorm statistics with bf16 images
     (`utils/precision.py:bf16_forward`); the outputs come back fp32 before
     every loss, cost and assignment, as in `video_knet_tpu/train/vps.py`."""
     check_train_config(cfg)
+    apply = apply or functools.partial(vps_train_forward, model)
 
     def loss_fn(batch: VPSBatch, generator: torch.Generator | None = None):
         # the RoI / GT-box head embeds at the GT masks' boxes
         gt_masks = ((batch.gt.masks, batch.ref_gt.masks)
                     if cfg.track_head_type == "roi_gt_box" else ())
-        if cfg.bf16_train:
-            key, ref, key_emb, ref_emb = bf16_forward(
-                model, "forward_train", batch.img.to(torch.bfloat16),
-                batch.ref_img.to(torch.bfloat16), generator, *gt_masks)
-        else:
-            key, ref, key_emb, ref_emb = model.forward_train(batch.img, batch.ref_img,
-                                                             generator, *gt_masks)
+        key, ref, key_emb, ref_emb = apply(cfg.bf16_train, batch.img, batch.ref_img,
+                                           generator, *gt_masks)
         losses = video_knet_loss((key, ref), (key_emb, ref_emb), batch.gt, batch.ref_gt, cfg)
         return sum(losses.values()), losses
 
@@ -109,13 +122,17 @@ def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig):
 
 def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | None = None):
     """One VPS train step on the model's device -> (state, loss dict with
-    `total_loss`, as device tensors).
+    `total_loss`, as device tensors). Over a data mesh `batch` is this
+    rank's rows of the global batch (`parallel/mesh.py:shard_batch`) and
+    the losses are the global batch's.
 
     With `backbone_drop_path_rate` > 0 (the Swin configs) the stochastic
     depth draws from `generator`, by default one on the batch's device
     seeded with the step count (the reference folds the step into its
-    key)."""
+    key); over a mesh every rank draws the global batch's masks and keeps
+    its rows."""
     cfg = state.model.cfg
     if generator is None and cfg.backbone_drop_path_rate > 0:
         generator = torch.Generator(device=batch.img.device).manual_seed(state.step)
-    return make_train_step(make_vps_loss_fn(state.model, cfg))(state, batch, generator)
+    return make_train_step(lambda st: make_vps_loss_fn(
+        st.model, cfg, train_forward(st, vps_train_forward)))(state, batch, generator)
