@@ -297,7 +297,36 @@ Phases, each raising on failure (the process then exits non-zero):
                weights, printed), the final statistics; one log and one
                checkpoint a epoch, rank 1 printing nothing of the run; each
                rank's launches 7 / 7 / 1 a step
- 50. kernel-shapes  K1 and K2 against their plain versions at every shape a
+ 50. rfp-detectors  the image K-Net preset `knet_s3_detectors_r50_cityscapes_
+               step` (the DetectoRS ResNet-50 under the recursive feature
+               pyramid, no neck), seeded random weights with every `rfp_conv`
+               and SAC's `weight_diff` drawn nonzero and the fusion convs
+               scaled to unit spread (else their sigmoids saturate on the
+               random levels and pass no gradient), score gate at zero: 5
+               images of 384x1248 through the forward and `panoptic_decode` (4
+               / 4 launches an image; ms an image, peak memory); 3 train steps
+               at B=2 (`rfp-detectors-train`: 4 / 4 / 1 launches, 0 host syncs
+               after the first, finite losses, a nonzero gradient on every
+               parameter but the DetectoRS stem and layer1, which take none
+               and move by weight decay alone)
+ 51. rfp-swin  the same for `knet_s3_swin_b_rfp_cityscapes_step` (Swin-B under
+               the RFP; every parameter takes a gradient)
+ 52. upernet-align  Video K-Net R-50 with `rpn.fpn_type='upernet_align'` (the
+               SFNet aligned head with its DCN output conv), DCN's offsets
+               drawn nonzero: 6 frames of 384x1248 on the device tracker (4 /
+               4 a frame); 3 `train_step`s at B=1 (`upernet-align-train`: 7 /
+               7 / 1, the aligned head, `dcn_out` and the aux convs with
+               nonzero gradients, the head's BatchNorm statistics unchanged);
+               `DeformConv2d` alone at 48x156x256: device time of the forward
+               and of its sampling beside the bound and one `F.grid_sample`
+               over the same taps (the `[dcn]` line)
+ 53. models-check  card against CPU at 64x96: the image K-Net's check heads
+               over `detectors_r50` (forward, decode, one train step with the
+               CPU replaying the card's ReLU decisions) and `swin_t_rfp`
+               (forward, decode); `UperNetAlignHead` v1 and v2 and STDCNet-813
+               at 384x1248, `KernelUpdateHead` at K=3 at the R-50 stage shape
+               (1e-4 of each output's scale)
+ 54. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
 Every VPS serving phase resets the launch counts just before it drives its
@@ -508,6 +537,21 @@ CLI_DP_B = 4  # 2 images a rank
 # proposal, is held to the first limit.
 TOL_CLI_DP_LOSS = (1e-3, 1e-2)
 # the CUDA kernels of K1 (binarize, partial sums) and K2 that a profiler trace must name
+RFP_HW = (384, 1248)
+RFP_IMAGES = 5
+RFP_TRAIN_B = 2
+RFP_TRAIN_STEPS = 3
+RFP_SEED = 0
+RFP_PRESETS = (("knet_s3_detectors_r50_cityscapes_step", "rfp-detectors"),
+               ("knet_s3_swin_b_rfp_cityscapes_step", "rfp-swin"))
+# the DetectoRS stem and layer1: cut by the reference's stop_gradient
+RFP_CUT = ("backbone.bb.conv1.", "backbone.bb.bn1.", "backbone.bb.layer1_")
+RFP_LEAVES = ("rfp_conv", "fusion_weight", "weight_diff", "pre_context", "post_context",
+              "switch")
+ALIGN_FRAMES = 6
+ALIGN_TRAIN_STEPS = 3
+ALIGN_SEED = 0
+DCN_SHAPE = (1, 48, 156, 256)  # the aligned head's stride-8 map at 384x1248
 TRACE_KERNELS = ("mask_pool_binarize_kernel", "mask_pool_partial_kernel", "assemble_kernel")
 
 
@@ -1141,6 +1185,41 @@ def _check_trained(path: str, model, frozen: dict, trainable: list,
         raise AssertionError(f"[{path}] frozen parameters moved or got gradients: {moved[:8]}")
 
 
+def _cut_and_decayed(path: str, model, step, batches, expected, keys, cut_prefixes) -> dict:
+    """`_timed_steps` of `step` over `batches`, then: a finite gradient on
+    every parameter in every step and a nonzero one in some step, but on the
+    parameters under `cut_prefixes` (the reference's stop_gradient), which
+    take a zero gradient and move by AdamW's weight decay alone (the
+    nonzero ones)."""
+    cut = {n: p.detach().clone() for n, p in model.named_parameters()
+           if n.startswith(cut_prefixes)}
+    params = dict(model.named_parameters())
+    reached, non_finite, cut_grads = set(), set(), set()
+
+    def record_grads():
+        for n, p in params.items():
+            if p.grad is None:
+                continue
+            if not bool(torch.isfinite(p.grad).all()):
+                non_finite.add(n)
+            elif bool(p.grad.any()):
+                (cut_grads if n in cut else reached).add(n)
+
+    out = _timed_steps(path, step, batches, expected, keys, record_grads)
+    bad = sorted(non_finite | (set(params) - set(cut) - reached))
+    if bad:
+        raise AssertionError(f"[{path}] {len(bad)} parameters outside the cut without a finite "
+                             f"gradient in every step and a nonzero one in some step: {bad[:8]}")
+    stuck = sorted(cut_grads | {n for n, before in cut.items()
+                                if bool(before.any()) and torch.equal(params[n], before)})
+    if stuck:
+        raise AssertionError(f"[{path}] cut parameters with a gradient, or not moved by weight "
+                             f"decay: {stuck[:8]}")
+    log(f"[{path}] {len(reached)} parameters with a nonzero gradient; {len(cut)} cut "
+        f"parameters: zero gradient, the nonzero ones moved by weight decay")
+    return out
+
+
 def _frozen_split(path: str, model) -> tuple[dict, list]:
     """(copies of R-50's frozen stem and layer1, the other parameters)."""
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -1443,46 +1522,22 @@ def phase_train_swin(device, paths: Paths, model, cfg) -> dict:
                                                      warmup_iters=0))
     batches = [make_synthetic_batch(cfg, 1, SWIN_VIPSEG_HW, seed=i, device=device)
                for i in range(SWIN_TRAIN_STEPS)]
-    cut = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith(SWIN_CUT)}
-    if not cut or not all(p.requires_grad for p in model.parameters()):
+    if not any(n.startswith(SWIN_CUT) for n, _ in model.named_parameters()) or \
+            not all(p.requires_grad for p in model.parameters()):
         raise AssertionError("[train-swin] every Swin parameter must stay trainable")
     gen = torch.Generator(device=device).manual_seed(SWIN_DROP_PATH_SEED)
-    params = dict(model.named_parameters())
-    # a block whose branch drop path removes from both samples takes no
-    # gradient in that step: every parameter must be reached in some step
-    reached, non_finite, cut_grads = set(), set(), set()
 
     def step(batch):
         nonlocal state
         state, losses = train_step(state, batch, gen)
         return losses
 
-    def record_grads():
-        for n, p in params.items():
-            if p.grad is None:
-                continue
-            if not bool(torch.isfinite(p.grad).all()):
-                non_finite.add(n)
-            elif bool(p.grad.any()):
-                (cut_grads if n in cut else reached).add(n)
-
-    out = _timed_steps("train-swin", step, batches, TRAIN_LAUNCHES,
-                       lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"}, record_grads)
-    bad = sorted(non_finite | (set(params) - set(cut) - reached))
-    if bad:
-        raise AssertionError(f"[train-swin] {len(bad)} parameters outside the cut without a "
-                             f"finite gradient in every step and a nonzero one in some step: "
-                             f"{bad[:8]}")
-    # weight decay moves every cut parameter but the zero-initialized biases
-    stuck = sorted(cut_grads | {n for n, before in cut.items()
-                                if bool(before.any()) and torch.equal(params[n], before)})
-    if stuck:
-        raise AssertionError(f"[train-swin] cut parameters with a gradient, or not moved by "
-                             f"weight decay: {stuck[:8]}")
+    # a block whose branch drop path removes from both samples takes no
+    # gradient in that step: every parameter must be reached in some step
+    out = _cut_and_decayed("train-swin", model, step, batches, TRAIN_LAUNCHES,
+                           lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"}, SWIN_CUT)
     paths.launches["train-swin"] = out["launches"]
     paths.frame_ms["train-swin"] = out["step_ms"]
-    log(f"[train-swin] {len(cut)} cut parameters: zero gradient, the nonzero ones moved by "
-        f"weight decay")
     return out
 
 
@@ -1714,12 +1769,13 @@ def _segments(pred, cfg) -> tuple:
                             cfg.num_thing_classes)
 
 
-def _serve_images(path: str, model, cfg, decode, paths: Paths) -> tuple[list, dict]:
-    """IMAGE_COUNT seeded images of IMAGE_HW through `model` and `decode(rpn_out,
+def _serve_images(path: str, model, cfg, decode, paths: Paths, hw=IMAGE_HW,
+                  count: int = IMAGE_COUNT) -> tuple[list, dict]:
+    """`count` seeded images of `hw` through `model` and `decode(rpn_out,
     stage_outs) -> host result`, each timed with a synchronize: 4 launches
     of each mask kernel an image; median ms, peak memory."""
     images = [torch.from_numpy(f).to(model.rpn_head.init_kernels.device)
-              for f in _frames(IMAGE_HW, IMAGE_COUNT)]
+              for f in _frames(hw, count)]
 
     def run(i):
         with torch.no_grad():
@@ -1729,13 +1785,27 @@ def _serve_images(path: str, model, cfg, decode, paths: Paths) -> tuple[list, di
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    results = paths.drive(path, run, list(range(IMAGE_COUNT)), per_item=IMAGE_LAUNCHES)
+    results = paths.drive(path, run, list(range(count)), per_item=IMAGE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     ms = paths.frame_ms[path]
     med = statistics.median(ms[1:])
-    log(f"[{path}] median {med:.2f} ms an image over images 1..{IMAGE_COUNT - 1}; peak memory "
+    log(f"[{path}] median {med:.2f} ms an image over images 1..{count - 1}; peak memory "
         f"{peak / 2**30:.3f} GiB ({peak} bytes)")
     return results, dict(median_ms=med, image_ms=ms, peak_bytes=peak, images=images)
+
+
+def _check_segments(path: str, results, hw) -> None:
+    """Host panoptic results: id maps of `hw` whose ids are the segments'."""
+    for i, (pan, infos) in enumerate(results):
+        if pan.shape != hw:
+            raise AssertionError(f"[{path}] image {i}: id map of shape {pan.shape}")
+        ids = {s["id"] for s in infos}
+        if set(np.unique(pan).tolist()) - {0} != ids:
+            raise AssertionError(f"[{path}] image {i}: segments {infos} vs ids in the map")
+        if not all(np.isfinite(s.get("score", 0.0)) for s in infos):
+            raise AssertionError(f"[{path}] image {i}: non-finite scores")
+    log(f"[{path}] image 0: {len(results[0][1])} segments "
+        f"({sum(s['isthing'] for s in results[0][1])} things)")
 
 
 def phase_image_pan(device, paths: Paths) -> dict:
@@ -1754,16 +1824,7 @@ def phase_image_pan(device, paths: Paths) -> dict:
         "image-pan", model, cfg,
         lambda rpn, stages: _segments(panoptic_decode(rpn, stages, cfg, out_hw=IMAGE_HW), cfg),
         paths)
-    for i, (pan, infos) in enumerate(results):
-        if pan.shape != IMAGE_HW:
-            raise AssertionError(f"[image-pan] image {i}: id map of shape {pan.shape}")
-        ids = {s["id"] for s in infos}
-        if set(np.unique(pan).tolist()) - {0} != ids:
-            raise AssertionError(f"[image-pan] image {i}: segments {infos} vs ids in the map")
-        if not all(np.isfinite(s.get("score", 0.0)) for s in infos):
-            raise AssertionError(f"[image-pan] image {i}: non-finite scores")
-    log(f"[image-pan] image 0: {len(results[0][1])} segments "
-        f"({sum(s['isthing'] for s in results[0][1])} things)")
+    _check_segments("image-pan", results, IMAGE_HW)
     del model
     return out
 
@@ -1935,6 +1996,91 @@ def phase_image_train(device, paths: Paths) -> dict:
     return out
 
 
+def _image_card_vs_cpu(device, cfg, tag: str, train: bool, worst: dict) -> dict | None:
+    """A check configuration of the image K-Net (`train_check.
+    image_check_model`, weights from `train_check.image_margin_seed`), card
+    against CPU: the forward and the decode (panoptic, or instance without
+    stuff rows); with `train`, one train step with the CPU replaying the
+    card's ReLU decisions. Updates `worst`; returns the card's launches of
+    the forward and the step (None without `train`)."""
+    from video_knet_tpu_torch.models import knet as tk
+    from video_knet_tpu_torch.tools import train_check
+    from video_knet_tpu_torch.train.image import make_synthetic_batch
+
+    instance = cfg.num_stuff_classes == 0
+    seed, margin = train_check.image_margin_seed(cfg, CHECK_HW)
+    runs, pattern = [], []
+    for dev in (device, torch.device("cpu")):
+        model = train_check.image_check_model(cfg, seed, dev)
+        batch = make_synthetic_batch(cfg, 1, CHECK_HW, seed=0, device=dev)
+        _reset_counts()
+        with torch.no_grad():
+            outs = model(batch.img)
+            if instance:
+                pred = tk.instance_decode(*outs, cfg, out_hw=CHECK_HW)
+                dec = dict(labels=pred.labels.cpu(), scores=pred.scores.cpu(),
+                           masks=pred.masks.cpu())
+            else:
+                pred = tk.panoptic_decode(*outs, cfg, out_hw=CHECK_HW)
+                dec = {f: getattr(pred.result, f).cpu() for f in pred.result._fields}
+        fwd = _counts()
+        run = dict(outs=_leaf_tensors(outs), dec=dec, fwd=fwd)
+        if train:
+            _reset_counts()
+            # the CPU's step (the second run) follows the card's ReLU decisions
+            with train_check.relu_pattern(pattern, replay=bool(runs)) as relus:
+                rpn_out, stage_outs = model(batch.img)
+            losses = tk.knet_loss(rpn_out, stage_outs, batch.gt, cfg)
+            sum(losses.values()).backward()
+            run["train"] = _counts()
+            costs = tk.branch_assignment_costs(rpn_out, stage_outs, batch.gt, cfg)
+            run.update(g2p=[a.cpu() for a in tk.solve_assignments(costs, batch.gt.valid)[0]],
+                       losses={k: float(v.detach()) for k, v in losses.items()},
+                       grads=_grads(model))
+        runs.append(run)
+    g, c = runs  # the card's run, the CPU's
+    if {k: g["fwd"][k] for k in KERNELS} != IMAGE_LAUNCHES:
+        raise AssertionError(f"[{tag}] forward launches {g['fwd']}")
+    err = max(float((g["outs"][k] - w).abs().max() / max(float(w.abs().max()), 1e-6))
+              for k, w in c["outs"].items())
+    worst["outputs"] = max(worst["outputs"], err)
+    if set(g["outs"]) != set(c["outs"]) or not err <= TOL_IMAGE_CHECK:
+        raise AssertionError(f"[{tag}] forward outputs differ: {err}")
+    for f, want in c["dec"].items():
+        got = g["dec"][f]
+        if want.is_floating_point():
+            rel = float((got - want).abs().max() / max(float(want.abs().max()), 1e-6))
+            if not rel <= TOL_IMAGE_CHECK:
+                raise AssertionError(f"[{tag}] decoded {f}: {rel}")
+        elif not torch.equal(got, want):
+            raise AssertionError(f"[{tag}] decoded {f} differ")
+    log(f"[{tag}] weight seed {seed}, margin {margin:.2e}: {len(c['outs'])} forward outputs "
+        f"within {err:.2e} relative; decode integers equal")
+    if not train:
+        return None
+    if g["train"] != IMAGE_TRAIN_LAUNCHES:
+        raise AssertionError(f"[{tag}] train launches {g['train']}")
+    if not all(torch.equal(a, b) for a, b in zip(g["g2p"], c["g2p"])):
+        raise AssertionError(f"[{tag}] card and CPU assignments differ")
+    worst["losses"] = max(worst["losses"], max(abs(g["losses"][k] - v) / max(abs(v), 1e-6)
+                                               for k, v in c["losses"].items()))
+    if set(g["losses"]) != set(c["losses"]) or not worst["losses"] <= 1e-4:
+        raise AssertionError(f"[{tag}] losses differ: {worst['losses']}")
+    for k, want in c["grads"].items():
+        scale = float(want.abs().max())
+        if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
+            scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
+        err = float((g["grads"][k] - want).abs().max())
+        worst["grads"] = max(worst["grads"], err / max(scale, 1e-12))
+        if not err <= 1e-3 * max(scale, 1e-12):
+            raise AssertionError(f"[{tag}] gradient of {k}: {err} vs scale {scale}")
+    log(f"[{tag}] train step: {len(c['g2p'])} assignment sets equal, losses within "
+        f"{worst['losses']:.2e} relative (limit 1e-4), gradients within {worst['grads']:.2e} "
+        f"of each leaf's scale (limit 1e-3), the CPU on the card's decisions at "
+        f"{relus['calls']} ReLUs ({relus['differ']} elements decided otherwise)")
+    return {k: g["fwd"][k] + g["train"][k] for k in g["train"]}
+
+
 def phase_image_check(device, paths: Paths) -> dict:
     """The tiny image config (`train_check.image_check_cfg`: MiT-b0,
     64-channel heads, the MSDeformAttn neck with one encoder layer; panoptic
@@ -1944,85 +2090,15 @@ def phase_image_check(device, paths: Paths) -> dict:
     `ms_deform_attn_core` alone at the COCO deformable shape, card fp32
     against CPU fp32 and fp64."""
     from video_knet_tpu_torch.config import KNetConfig
-    from video_knet_tpu_torch.models import knet as tk
     from video_knet_tpu_torch.tools import train_check
-    from video_knet_tpu_torch.train.image import make_synthetic_batch
 
     worst = {"outputs": 0.0, "losses": 0.0, "grads": 0.0}
     for instance in (False, True):
         cfg = train_check.image_check_cfg(KNetConfig(), instance=instance)
-        seed, margin = train_check.image_margin_seed(cfg, CHECK_HW)
         tag = "instance" if instance else "panoptic"
-        runs, pattern = [], []
-        for dev in (device, torch.device("cpu")):
-            model = train_check.image_check_model(cfg, seed, dev)
-            batch = make_synthetic_batch(cfg, 1, CHECK_HW, seed=0, device=dev)
-            _reset_counts()
-            with torch.no_grad():
-                outs = model(batch.img)
-                if instance:
-                    pred = tk.instance_decode(*outs, cfg, out_hw=CHECK_HW)
-                    dec = dict(labels=pred.labels.cpu(), scores=pred.scores.cpu(),
-                               masks=pred.masks.cpu())
-                else:
-                    pred = tk.panoptic_decode(*outs, cfg, out_hw=CHECK_HW)
-                    dec = {f: getattr(pred.result, f).cpu() for f in pred.result._fields}
-            fwd = _counts()
-            run = dict(outs=_leaf_tensors(outs), dec=dec, fwd=fwd)
-            if not instance:
-                _reset_counts()
-                # the CPU's step (the second run) follows the card's ReLU decisions
-                with train_check.relu_pattern(pattern, replay=bool(runs)) as relus:
-                    rpn_out, stage_outs = model(batch.img)
-                losses = tk.knet_loss(rpn_out, stage_outs, batch.gt, cfg)
-                sum(losses.values()).backward()
-                run["train"] = _counts()
-                costs = tk.branch_assignment_costs(rpn_out, stage_outs, batch.gt, cfg)
-                run.update(g2p=[a.cpu() for a in tk.solve_assignments(costs, batch.gt.valid)[0]],
-                           losses={k: float(v.detach()) for k, v in losses.items()},
-                           grads=_grads(model))
-            runs.append(run)
-        g, c = runs  # the card's run, the CPU's
-        if {k: g["fwd"][k] for k in KERNELS} != IMAGE_LAUNCHES:
-            raise AssertionError(f"[image-check] {tag} forward launches {g['fwd']}")
-        err = max(float((g["outs"][k] - w).abs().max() / max(float(w.abs().max()), 1e-6))
-                  for k, w in c["outs"].items())
-        worst["outputs"] = max(worst["outputs"], err)
-        if set(g["outs"]) != set(c["outs"]) or not err <= TOL_IMAGE_CHECK:
-            raise AssertionError(f"[image-check] {tag} forward outputs differ: {err}")
-        for f, want in c["dec"].items():
-            got = g["dec"][f]
-            if want.is_floating_point():
-                rel = float((got - want).abs().max() / max(float(want.abs().max()), 1e-6))
-                if not rel <= TOL_IMAGE_CHECK:
-                    raise AssertionError(f"[image-check] {tag} decoded {f}: {rel}")
-            elif not torch.equal(got, want):
-                raise AssertionError(f"[image-check] {tag} decoded {f} differ")
-        log(f"[image-check] {tag} (weight seed {seed}, margin {margin:.2e}): {len(c['outs'])} "
-            f"forward outputs within {err:.2e} relative; decode integers equal")
-        if instance:
-            continue
-        if g["train"] != IMAGE_TRAIN_LAUNCHES:
-            raise AssertionError(f"[image-check] train launches {g['train']}")
-        paths.launches["image-check"] = {k: g["fwd"][k] + g["train"][k] for k in g["train"]}
-        if not all(torch.equal(a, b) for a, b in zip(g["g2p"], c["g2p"])):
-            raise AssertionError("[image-check] card and CPU assignments differ")
-        worst["losses"] = max(abs(g["losses"][k] - v) / max(abs(v), 1e-6)
-                              for k, v in c["losses"].items())
-        if set(g["losses"]) != set(c["losses"]) or not worst["losses"] <= 1e-4:
-            raise AssertionError(f"[image-check] losses differ: {worst['losses']}")
-        for k, want in c["grads"].items():
-            scale = float(want.abs().max())
-            if k.endswith("key.bias"):  # zero up to rounding: softmax ignores it
-                scale = float(c["grads"][k[:-len("bias")] + "weight"].abs().max())
-            err = float((g["grads"][k] - want).abs().max())
-            worst["grads"] = max(worst["grads"], err / max(scale, 1e-12))
-            if not err <= 1e-3 * max(scale, 1e-12):
-                raise AssertionError(f"[image-check] gradient of {k}: {err} vs scale {scale}")
-        log(f"[image-check] train step: {len(c['g2p'])} assignment sets equal, losses within "
-            f"{worst['losses']:.2e} relative (limit 1e-4), gradients within {worst['grads']:.2e} "
-            f"of each leaf's scale (limit 1e-3), the CPU on the card's decisions at "
-            f"{relus['calls']} ReLUs ({relus['differ']} elements decided otherwise)")
+        launches = _image_card_vs_cpu(device, cfg, f"image-check {tag}", not instance, worst)
+        if launches is not None:
+            paths.launches["image-check"] = launches
     worst["sampling"] = _sampling_vs_cpu(device)
     return worst
 
@@ -4247,6 +4323,293 @@ def phase_train_cli_dp(device, paths: Paths, root: str, tmp: str) -> dict:
                 steps=steps, imgs_per_sec=[r["imgs_per_sec"] for r in got])
 
 
+@torch.no_grad()
+def _unsaturate_fusion(rfp, img) -> list[float]:
+    """Scale each RFP fusion conv so that its output has unit spread on the
+    levels of `img`'s second pass: random backbone weights give levels in
+    the thousands, whose fusion sigmoid saturates to exactly 0 or 1 in fp32
+    and passes no gradient. Returns the scales."""
+    levels = []
+    hook = rfp.fpn.register_forward_hook(lambda m, a, out: levels.append(out))
+    rfp(img)
+    hook.remove()
+    scales = []
+    for i, new in enumerate(levels[1][:4]):
+        conv = getattr(rfp, f"fusion_weight{i}")
+        scale = 1.0 / max(float((conv(new) - conv.bias).std()), 1e-12)
+        conv.weight.mul_(scale)
+        scales.append(scale)
+    return scales
+
+
+def phase_rfp(device, paths: Paths, name: str, tag: str) -> dict:
+    """An RFP preset of the image K-Net (no neck: the recursive feature
+    pyramid is the backbone's output) at 384x1248, seeded random weights with
+    the zero-initialized leaves (`rfp_conv`, SAC's `weight_diff`) drawn
+    nonzero and the fusion convs scaled to unit spread (`_unsaturate_fusion`),
+    score gate at zero: RFP_IMAGES images through the forward,
+    `panoptic_decode` and `segments_to_host` (4 / 4 launches an image), then
+    RFP_TRAIN_STEPS steps of `train/image.py:train_step` at B=RFP_TRAIN_B
+    (4 / 4 / 1 launches a step, warmup off so that weight decay shows in
+    fp32): every parameter takes a nonzero gradient (each `rfp_conv`,
+    `fusion_weight`, SAC's `weight_diff`, context convs and switch among
+    them) but the DetectoRS stem and layer1, which take none and move by
+    weight decay alone, as the reference's optimizer decays its
+    stop-gradient leaves."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.models.knet import KNet, panoptic_decode
+    from video_knet_tpu_torch.models.rfp import RFP
+    from video_knet_tpu_torch.tools.train_check import draw_zero_init_leaves
+    from video_knet_tpu_torch.train.image import make_synthetic_batch, train_step
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, test=dataclasses.replace(cfg.test, instance_score_thr=0.0))
+    model = KNet(cfg, generator=torch.Generator().manual_seed(RFP_SEED), device=device)
+    if model.neck is not None or not isinstance(model.backbone, RFP):
+        raise AssertionError(f"[{tag}] not an RFP backbone without a neck")
+    drawn = draw_zero_init_leaves(model, torch.Generator().manual_seed(RFP_SEED))
+    first = torch.from_numpy(_frames(RFP_HW, 1)[0]).to(device)
+    scales = _unsaturate_fusion(model.backbone, first)
+    log(f"[{tag}] fusion convs scaled by {[f'{x:.3g}' for x in scales]} to unit spread")
+    n_params = sum(p.numel() for p in model.parameters())
+    results, serve = _serve_images(
+        tag, model, cfg,
+        lambda rpn, stages: _segments(panoptic_decode(rpn, stages, cfg, out_hw=RFP_HW), cfg),
+        paths, RFP_HW, RFP_IMAGES)
+    _check_segments(tag, results, RFP_HW)
+    del serve["images"]
+
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000,
+                                                     warmup_iters=0))
+    batches = [make_synthetic_batch(cfg, RFP_TRAIN_B, RFP_HW, seed=i, device=device)
+               for i in range(RFP_TRAIN_STEPS)]
+    detectors = cfg.backbone.startswith("detectors")
+    leaves = {k: sum(1 for n, _ in model.named_parameters() if k in n) for k in RFP_LEAVES}
+    if not all(leaves[k] for k in (RFP_LEAVES if detectors else RFP_LEAVES[:2])):
+        raise AssertionError(f"[{tag}] RFP leaves missing: {leaves}")
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    train = _cut_and_decayed(f"{tag}-train", model, step, batches, IMAGE_TRAIN_LAUNCHES,
+                             lambda keys: keys == IMAGE_LOSS_KEYS | {"total_loss"},
+                             RFP_CUT if detectors else ())
+    paths.launches[f"{tag}-train"] = train["launches"]
+    paths.frame_ms[f"{tag}-train"] = train["step_ms"]
+    log(f"[{tag}] {n_params} parameters, {len(drawn)} zero-initialized leaves drawn; the RFP "
+        f"leaves by kind, each with a nonzero gradient: {json.dumps(leaves)}")
+    del model, state
+    return dict(serve=serve, train=train, params=n_params)
+
+
+def _dcn_record(dcn, x) -> dict:
+    """`DeformConv2d` (plain PyTorch gathers) on `x`: device time of its
+    forward and of its sampling alone, beside one `F.grid_sample` call over
+    the same taps and the bound of each."""
+    import torch.nn.functional as F
+
+    from video_knet_tpu_torch.models.deform_conv import dcn_sample_points
+    from video_knet_tpu_torch.tools.kernel_timing import device_ms
+
+    b, h, w, c = x.shape
+    f = dcn.weight.shape[-1]
+    taps = dcn.weight.shape[0]
+    with torch.no_grad():
+        ys, xs = dcn_sample_points(dcn.offset_conv(x), dcn.kernel_size)
+        # the same taps in grid_sample's normalized pixel-centre coordinates
+        grid = torch.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1], dim=-1)
+        grid = grid.reshape(b, h, w * taps, 2)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+
+        def library():
+            return F.grid_sample(xn, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+        got = dcn.sample(x)
+        lib = library().reshape(b, c, h, w, taps).permute(0, 2, 3, 4, 1)
+        lib_err = float((lib - got).abs().max() / got.abs().max())
+        ms = device_ms(lambda: dcn(x))
+        sample_ms = device_ms(lambda: dcn.sample(x))
+        lib_ms = device_ms(library)
+    hw = b * h * w
+    # bytes: the input, the weights and the output once; operations: the
+    # offset conv and the contraction (2 a product) and per sampled value
+    # the three lerps (2 mul + 1 add each) and the validity multiplies (4)
+    io = 4 * (x.numel() + sum(p.numel() for p in dcn.parameters()) + hw * f)
+    conv_flops = 2 * hw * taps * c * (2 * taps + f)
+    sample_flops = 10 * hw * taps * c
+    sample_io = 4 * (x.numel() + hw * taps * 2 + hw * taps * c)
+
+    def bound(n_bytes, flops):
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / OPS_PEAK["fp32"][1] * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    fwd_bound, fwd_by = bound(io, conv_flops + sample_flops)
+    s_bound, s_by = bound(sample_io, sample_flops)
+    rec = dict(name="deform_conv", route="plain torch (index gathers + one matmul)",
+               source="video_knet_tpu_torch/models/deform_conv.py",
+               replaces="video_knet_tpu/models/deform_conv.py:22 DeformConv2d (no Pallas)",
+               shape=[b, h, w, c, f], ms=ms, bound_ms=fwd_bound, bound_by=fwd_by,
+               sample_ms=sample_ms, sample_bound_ms=s_bound, sample_bound_by=s_by,
+               library_ms=lib_ms, library="F.grid_sample over the taps",
+               library_rel_err=lib_err)
+    log(f"[dcn] DeformConv2d at {b}x{h}x{w}x{c} -> {f}: forward {ms * 1e3:.2f} us (bound "
+        f"{fwd_bound * 1e3:.2f} us, {fwd_by}); its sampling {sample_ms * 1e3:.2f} us (bound "
+        f"{s_bound * 1e3:.2f} us, {s_by}), F.grid_sample over the same taps {lib_ms * 1e3:.2f} "
+        f"us (agrees within {lib_err:.1e})")
+    return rec
+
+
+def phase_upernet_align(device, paths: Paths) -> dict:
+    """Video K-Net R-50 with the SFNet aligned head as the init head's
+    localization FPN (`rpn.fpn_type='upernet_align'`), seeded random
+    weights with DCN's offsets drawn nonzero, score gates at zero:
+    ALIGN_FRAMES frames of 384x1248 on the device tracker (4 / 4 launches a
+    frame); ALIGN_TRAIN_STEPS `train_step`s at B=1 (7 / 7 / 1 a step): the
+    aligned head, `dcn_out` and the aux convs take nonzero gradients, the
+    head's BatchNorm statistics (running averages, as the reference's) do
+    not move; then `DeformConv2d` alone at its 48x156x256 shape."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.models.sfnet import UperNetAlignHead
+    from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
+    from video_knet_tpu_torch.tools.profile_serving import smoke_config, smoke_model
+    from video_knet_tpu_torch.tools.train_check import draw_zero_init_leaves
+    from video_knet_tpu_torch.train.optim import make_optimizer
+    from video_knet_tpu_torch.train.train_state import create_train_state
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch, train_step
+
+    base = VideoKNetConfig()
+    cfg = smoke_config(dataclasses.replace(
+        base, rpn=dataclasses.replace(base.rpn, fpn_type="upernet_align")))
+    model = smoke_model(cfg, device)
+    head = model.rpn_head.localization_fpn
+    if not isinstance(head, UperNetAlignHead):
+        raise AssertionError("[upernet-align] the localization FPN is not the aligned head")
+    draw_zero_init_leaves(model, torch.Generator().manual_seed(ALIGN_SEED))
+    pipe = VPSInferencePipeline(model, cfg, SERVE_HW, device=device)
+    frames = [torch.from_numpy(f).to(device) for f in _frames(SERVE_HW, ALIGN_FRAMES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = paths.drive("upernet-align", lambda i: pipe.run_frame(frames[i], is_first=(i == 0)),
+                      list(range(ALIGN_FRAMES)))
+    serve_peak = torch.cuda.max_memory_allocated()
+    _check_maps("upernet-align", res, SERVE_HW)
+    if not torch.isfinite(pipe.prev_obj_feats).all():
+        raise AssertionError("[upernet-align] non-finite carried kernels")
+    ms = paths.frame_ms["upernet-align"]
+    serve = dict(median_ms=statistics.median(ms[1:]), peak_bytes=serve_peak)
+    log(f"[upernet-align] segments per frame {[len(r.segments_info) for r in res]}; peak "
+        f"memory {serve_peak} bytes")
+
+    state = create_train_state(model, make_optimizer(model, steps_per_epoch=1000))
+    batches = [make_synthetic_batch(cfg, 1, TRAIN_HW, seed=i, device=device)
+               for i in range(ALIGN_TRAIN_STEPS)]
+    frozen, trainable = _frozen_split("upernet-align-train", model)
+    stats = {n: b.detach().clone() for n, b in head.named_buffers()}
+
+    def step(batch):
+        nonlocal state
+        state, losses = train_step(state, batch)
+        return losses
+
+    train = _timed_steps("upernet-align-train", step, batches, TRAIN_LAUNCHES,
+                         lambda keys: keys == TRAIN_LOSS_KEYS | {"total_loss"})
+    _check_trained("upernet-align-train", model, frozen, trainable)
+    moved = [n for n, b in head.named_buffers() if not torch.equal(b, stats[n])]
+    if moved or not stats:
+        raise AssertionError(f"[upernet-align-train] the aligned head's BatchNorm statistics "
+                             f"moved: {moved}")
+    head_grads = {k: sum(1 for n, p in head.named_parameters() if n.startswith(k)
+                         and float(p.grad.norm()) > 0) for k in ("align", "dcn_out", "aux_conv")}
+    log(f"[upernet-align-train] the aligned head's parameters with a nonzero gradient "
+        f"{json.dumps(head_grads)}; its {len(stats)} BatchNorm buffers unchanged")
+    paths.launches["upernet-align-train"] = train["launches"]
+    paths.frame_ms["upernet-align-train"] = train["step_ms"]
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(*DCN_SHAPE).astype(np.float32))
+    dcn = _dcn_record(head.dcn_out, x.to(device))
+    del model, state, pipe
+    return dict(serve=serve, train=train, dcn=dcn)
+
+
+def _modules_vs_cpu(device) -> dict:
+    """`UperNetAlignHead` v1 and v2 on random levels of the R-50 FPN at
+    384x1248, `STDCNet` (813) on a 384x1248 image and `KernelUpdateHead` at
+    K=3 at the R-50 stage shape (117 kernels of 9 taps, 48x156, C=256; mask
+    logits kept 0.01 from the pooling threshold), seeded weights with the
+    zero-initialized leaves drawn: card against CPU, each output within
+    TOL_IMAGE_CHECK of its scale."""
+    import copy
+
+    from video_knet_tpu_torch.config import KernelUpdateHeadConfig
+    from video_knet_tpu_torch.models.kernel_update_head import KernelUpdateHead
+    from video_knet_tpu_torch.models.layers import init_parameters
+    from video_knet_tpu_torch.models.sfnet import STDCNet, UperNetAlignHead
+    from video_knet_tpu_torch.tools.train_check import draw_zero_init_leaves
+
+    rng = np.random.RandomState(SEED)
+    h, w = SERVE_HW
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    levels = [rand(1, h // s, w // s, 256) for s in (4, 8, 16, 32)]
+    logits = rand(1, 117, h // 8, w // 8) * 3
+    logits = torch.where(logits >= 0, logits.clamp(min=1e-2), logits.clamp(max=-1e-2))
+    cases = [("upernet-v1", UperNetAlignHead(align_type="v1"), (levels,)),
+             ("upernet-v2", UperNetAlignHead(align_type="v2"), (levels,)),
+             ("stdc813", STDCNet(layers=(2, 2, 2)), (rand(1, h, w, 3),)),
+             ("kernel-update-k3", KernelUpdateHead(KernelUpdateHeadConfig(conv_kernel_size=3)),
+              (rand(1, h // 8, w // 8, 256), rand(1, 117, 9, 256) * 0.5, logits))]
+    worst = {}
+    for i, (tag, cpu, args) in enumerate(cases):
+        gen = torch.Generator().manual_seed(i)
+        init_parameters(cpu, gen)
+        draw_zero_init_leaves(cpu, gen)
+        cpu.eval()
+        card = copy.deepcopy(cpu).to(device)
+
+        def on(dev, a):
+            return [on(dev, v) for v in a] if isinstance(a, list) else a.to(dev)
+
+        with torch.no_grad():
+            want = _leaf_tensors(cpu(*args))
+            got = _leaf_tensors(card(*on(device, list(args))))
+        err = max(float((got[k].cpu() - v).abs().max() / max(float(v.abs().max()), 1e-6))
+                  for k, v in want.items())
+        worst[tag] = err
+        if set(got) != set(want) or not err <= TOL_IMAGE_CHECK:
+            raise AssertionError(f"[models-check] {tag}: card vs CPU {err}")
+    log(f"[models-check] modules card vs CPU, worst relative: {json.dumps(worst)}")
+    return worst
+
+
+def phase_models_check(device, paths: Paths) -> dict:
+    """The image K-Net's check configuration (`train_check.image_check_cfg`,
+    64-channel heads) over `detectors_r50` and over `swin_t_rfp`, card
+    against CPU at 64x96 (weights from `image_margin_seed`, the
+    zero-initialized leaves drawn): forward outputs and the panoptic decode;
+    one DetectoRS train step, the CPU replaying the card's ReLU decisions;
+    then the aligned head, STDC and the K=3 stage alone (`_modules_vs_cpu`)."""
+    from video_knet_tpu_torch.config import KNetConfig
+    from video_knet_tpu_torch.tools import train_check
+
+    worst = {"outputs": 0.0, "losses": 0.0, "grads": 0.0}
+    for backbone in ("detectors_r50", "swin_t_rfp"):
+        cfg = dataclasses.replace(train_check.image_check_cfg(KNetConfig(), deformable=False),
+                                  backbone=backbone)
+        train = backbone == "detectors_r50"
+        launches = _image_card_vs_cpu(device, cfg, f"models-check {backbone}", train, worst)
+        if train:
+            paths.launches["models-check"] = launches
+    worst["modules"] = _modules_vs_cpu(device)
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4338,6 +4701,14 @@ def main() -> int:
             phase_s[tag] = time.perf_counter() - t1
         (train_cli, train_vis_cli, train_image_cli, flops, live_bn, train_dp,
          cli_dp) = new_s.values()
+    models = {}
+    for tag, run in (("rfp-detectors", lambda: phase_rfp(device, paths, *RFP_PRESETS[0])),
+                     ("rfp-swin", lambda: phase_rfp(device, paths, *RFP_PRESETS[1])),
+                     ("upernet-align", lambda: phase_upernet_align(device, paths)),
+                     ("models-check", lambda: phase_models_check(device, paths))):
+        t1 = time.perf_counter()
+        models[tag] = run()
+        phase_s[tag] = time.perf_counter() - t1
     hrec["vis_data"] = vis_data["hungarian"]
     phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
@@ -4347,7 +4718,7 @@ def main() -> int:
                               "roi-gt-box", "track-check", "import-ref", "score", "ckpt",
                               "data-train", "eval-hook", "cli-", "tta", "train-cli",
                               "train-vis-cli", "train-image-cli", "train-live-bn",
-                              "train-dp"))
+                              "train-dp", "rfp-", "upernet-align", "models-check"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -4435,8 +4806,22 @@ def main() -> int:
     log(f"[train-cli-dp] torchrun 2 ranks {cli_dp['dp_s']:.1f} s, one process "
         f"{cli_dp['one_s']:.1f} s (median step {cli_dp['one_ms']:.2f} ms); worst "
         f"{json.dumps(cli_dp['diffs'])}; steps {json.dumps(cli_dp['steps'])} ({card})")
-    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI and data-parallel "
-        f"phases, {sum(phase_s.values()):.1f} s together ({card})")
+    for tag in ("rfp-detectors", "rfp-swin"):
+        rec = models[tag]
+        log(f"[{tag}] {rec['params']} parameters; median {rec['serve']['median_ms']:.2f} ms a "
+            f"384x1248 image (forward + panoptic_decode + segments_to_host), peak memory "
+            f"{rec['serve']['peak_bytes']} bytes; median step {rec['train']['median_ms']:.2f} ms "
+            f"(B={RFP_TRAIN_B}), peak memory {rec['train']['peak_bytes']} bytes, host syncs a "
+            f"step {rec['train']['syncs']} ({card})")
+    align = models["upernet-align"]
+    log(f"[upernet-align] median frame {align['serve']['median_ms']:.2f} ms (device tracker, "
+        f"384x1248), peak memory {align['serve']['peak_bytes']} bytes; median step "
+        f"{align['train']['median_ms']:.2f} ms, peak memory {align['train']['peak_bytes']} bytes, "
+        f"host syncs a step {align['train']['syncs']} ({card})")
+    log(f"[dcn] {json.dumps(align['dcn'])} ({card})")
+    log(f"[models-check] worst card-vs-CPU: {json.dumps(models['models-check'])}")
+    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI, data-parallel and "
+        f"last model modules' phases, {sum(phase_s.values()):.1f} s together ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

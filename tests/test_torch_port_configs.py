@@ -26,6 +26,7 @@ from video_knet_tpu_torch import config as tc
 from video_knet_tpu_torch import config_vis as tc_vis
 from video_knet_tpu_torch import configs as tconfigs
 from video_knet_tpu_torch.models.backbones import build_backbone
+from video_knet_tpu_torch.models.rfp import RFP
 from video_knet_tpu_torch.models.knet import KNet
 from video_knet_tpu_torch.models.msdeform_decoder import MSDeformAttnPixelDecoder
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
@@ -36,8 +37,7 @@ torch.set_num_threads(1)  # one intra-op thread a worker, as tests/torch_port_co
 
 VIS = sorted(k for k, f in jconfigs.CONFIGS.items() if isinstance(f(), VISConfig))
 NON_VIS = sorted(set(jconfigs.CONFIGS) - set(VIS))
-# the presets VideoKNet does not build: the image ones (KNet builds them,
-# but for RFP / DetectoRS, E1)
+# the presets VideoKNet does not build: the image ones (KNet builds them)
 UNPORTED = sorted(k for k in NON_VIS if not isinstance(jconfigs.get_config(k),
                                                        jc.VideoKNetConfig))
 TRACK_HEAD_PRESETS = {"video_knet_kitti_step_fuse_track": "query_fuse",
@@ -104,18 +104,18 @@ def test_unknown_config_raises():
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_preset_raises_at_model_construction(name):
     """VideoKNet raises for each; an image preset builds KNet on the CPU
-    instead (with the neck its config names), but for the RFP / DetectoRS
-    backbones, which raise naming E1."""
+    instead, with the neck its config names, or none over the RFP /
+    DetectoRS backbones, whose output is the pyramid
+    (`tests/test_torch_port_rfp.py` holds their trees to JAX's)."""
     cfg = tconfigs.get_config(name)
     with pytest.raises(NotImplementedError, match="models.knet.KNet"):
         VideoKNet(cfg, device="cpu")
-    if cfg.backbone in ("detectors_r50", "swin_b_rfp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP E1"):
-            KNet(cfg, device="cpu")
-        return
     model = KNet(cfg, device="cpu")
-    deformable = cfg.neck_type == "msdeform_pixel_decoder"
-    assert isinstance(model.neck, MSDeformAttnPixelDecoder) == deformable
+    if cfg.backbone in ("detectors_r50", "swin_b_rfp"):
+        assert model.neck is None and isinstance(model.backbone, RFP)
+    else:
+        deformable = cfg.neck_type == "msdeform_pixel_decoder"
+        assert isinstance(model.neck, MSDeformAttnPixelDecoder) == deformable
     assert model.rpn_head.conv_seg.weight.shape[0] == cfg.num_classes
     assert model.roi_head.num_stages == cfg.num_stages == 3
 
@@ -149,6 +149,15 @@ def test_build_backbone_names():
     assert r101.out_channels == (256, 512, 1024, 2048)
     assert sum(1 for n, _ in r101.named_children() if n.startswith("layer3_")) == 23
     assert build_backbone("swin_tiny").out_channels == (96, 192, 384, 768)
-    for name in ("resnet18", "swin_b_rfp", "detectors_r50", "swin_huge"):
-        with pytest.raises(NotImplementedError):
+    for name, inner in (("swin_b_rfp", "base"), ("detectors_r50", None),
+                        ("swin_t_rfp", "tiny"), ("detectors_r101", None)):
+        rfp = build_backbone(name)
+        assert isinstance(rfp, RFP) and rfp.out_channels == (256,) * 4
+        if inner is None:
+            assert sum(1 for n, _ in rfp.bb.named_children() if n.startswith("layer3_")) == (
+                23 if name.endswith("101") else 6)
+        else:
+            assert rfp.bb.out_channels[0] == {"base": 128, "tiny": 96}[inner]
+    for name in ("resnet18", "swin_huge"):
+        with pytest.raises(ValueError, match="unknown backbone"):
             build_backbone(name)

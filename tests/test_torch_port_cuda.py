@@ -832,3 +832,62 @@ def test_bf16_kernel_boundary_on_the_card(dev):
     assert abs(t16 - t32) <= 0.05 * t32, (t16, t32)
     for k, p in model.named_parameters():
         assert p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32), k
+
+
+def test_deform_conv_on_the_card_matches_the_cpu(dev):
+    """`DeformConv2d` (plain PyTorch gathers, as the reference's XLA ones)
+    at the aligned head's shape at 384x1248 (48x156, C=256), offsets drawn
+    nonzero: the card's output within 1e-4 of the CPU's. The gathers agree
+    exactly on the same points; the offset conv's 1.5e-6 relative rounding
+    (offsets up to 5.6 pixels) moves the taps, ~1e-5 of the output's scale
+    on an H100."""
+    from video_knet_tpu_torch.models.deform_conv import DeformConv2d
+    from video_knet_tpu_torch.models.layers import init_parameters
+    from video_knet_tpu_torch.tools.train_check import draw_zero_init_leaves
+
+    g = torch.Generator().manual_seed(0)
+    cpu = DeformConv2d(256, 256)
+    init_parameters(cpu, g)
+    draw_zero_init_leaves(cpu, g)
+    x = _rand(np.random.RandomState(0), (1, 48, 156, 256), torch.device("cpu"))
+    card = DeformConv2d(256, 256).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        _close(card(x.to(dev)).cpu(), cpu(x), rel=1e-4)
+
+
+def test_k3_assemble_on_the_card_matches_the_cpu(dev):
+    """The K=3 dynamic conv (one cuDNN grouped convolution, batch folded
+    into the groups) at B=2, N=117, 48x156, C=256 on the card against the
+    CPU's."""
+    from video_knet_tpu_torch.models.kernel_update_head import assemble_masks
+
+    rng = np.random.RandomState(1)
+    kernels = _rand(rng, (2, 117, 9, 256), torch.device("cpu"), 0.05)
+    x = _rand(rng, (2, 48, 156, 256), torch.device("cpu"))
+    _close(assemble_masks(kernels.to(dev), x.to(dev), 3).cpu(), assemble_masks(kernels, x, 3))
+
+
+def test_saconv_gradients_on_the_card_match_the_cpu(dev):
+    """SAC's gradients (its 5x5 average pool, both dilated convs, the
+    context convs and the switch) on the card against the CPU's, within
+    1e-4 of each leaf's scale: PyTorch 2.11's CUDA backward of `avg_pool2d`
+    on a channels-last view is wrong (a relative error of ~1 in the input
+    gradient), so SAC pools a contiguous NCHW copy."""
+    from video_knet_tpu_torch.models.layers import init_parameters
+    from video_knet_tpu_torch.models.rfp import SAConv
+    from video_knet_tpu_torch.tools.train_check import draw_zero_init_leaves
+
+    g = torch.Generator().manual_seed(0)
+    cpu = SAConv(64, 64, 2)
+    init_parameters(cpu, g)
+    draw_zero_init_leaves(cpu, g)
+    card = SAConv(64, 64, 2).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(2)
+    x = _rand(rng, (1, 16, 24, 64), torch.device("cpu"))
+    cot = _rand(rng, (1, 8, 12, 64), torch.device("cpu"))
+    (cpu(x) * cot).sum().backward()
+    (card(x.to(dev)) * cot.to(dev)).sum().backward()
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        _close(q.grad.cpu(), p.grad, rel=1e-4)

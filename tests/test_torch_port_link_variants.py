@@ -90,5 +90,7 @@ def test_unknown_and_unported_variants_raise():
         KernelUpdateHead(cfg, with_previous=True, previous_type="attn")
     with pytest.raises(ValueError):
         KernelUpdateHead(cfg, with_previous=True, previous_link="link_ffn")
-    with pytest.raises(NotImplementedError):
-        KernelUpdateHead(dataclasses.replace(cfg, conv_kernel_size=3))
+    # K=3 builds (tests/test_torch_port_sfnet.py holds it to JAX): the kernel
+    # attention runs on the 9 taps flattened
+    k3 = KernelUpdateHead(dataclasses.replace(cfg, conv_kernel_size=3))
+    assert k3.attention_norm.normalized_shape == (9 * cfg.in_channels,)

@@ -175,8 +175,22 @@ def test_entry_points_default_to_cuda():
     dict(backbone="detectors_r50"), dict(backbone="resnet18"),
 ])
 def test_unported_model_options_raise(change):
-    with pytest.raises(NotImplementedError):
-        VideoKNet(dataclasses.replace(tc.VideoKNetConfig(), **change), device="cpu")
+    """Once unported, now as JAX's: the RFP backbones build (no neck); K=3
+    builds and its forward fails at the first stage's mask assembly, as
+    JAX's does (tests/test_torch_port_sfnet.py); an unknown backbone
+    raises."""
+    cfg = dataclasses.replace(tc.VideoKNetConfig(), **change)
+    if cfg.backbone == "resnet18":
+        with pytest.raises(ValueError, match="unknown backbone"):
+            VideoKNet(cfg, device="cpu")
+        return
+    model = VideoKNet(cfg, device="cpu")
+    if cfg.head.conv_kernel_size == 3:
+        with pytest.raises(ValueError, match="cannot reshape kernels"), torch.no_grad():
+            model.run_branch(torch.zeros(1, 64, 96, 3))
+    else:
+        assert model.neck is None
+        assert model.rpn_head.localization_fpn.l0_conv0.Conv_0.weight.shape[1] == 256
 
 
 def test_unported_serving_options_raise(golden_setup):
@@ -187,17 +201,17 @@ def test_unported_serving_options_raise(golden_setup):
         VPSInferencePipeline(model, cfg, HW, tracker_type="deep_sort", device="cpu")
     with pytest.raises(ValueError, match="tracker_type"):
         MultiStreamVPSPipeline(model, cfg, HW, 2, tracker_type="bytetrack", device="cpu")
-    # the aligned SFNet head is not ported (ROADMAP E2b); the MSDeformAttn
-    # neck, once the unported neck here, is (tests/test_torch_port_image.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP E2b"):
-        VideoKNet(dataclasses.replace(cfg, rpn=dataclasses.replace(
-            cfg.rpn, fpn_type="upernet_align")), device="cpu")
+    # the aligned SFNet head, once unported here, builds
+    # (tests/test_torch_port_sfnet.py holds it to JAX)
+    aligned = VideoKNet(dataclasses.replace(cfg, rpn=dataclasses.replace(
+        cfg.rpn, fpn_type="upernet_align")), device="cpu")
+    assert type(aligned.rpn_head.localization_fpn).__name__ == "UperNetAlignHead"
 
 
 # the modules of the later slices (training, Swin, VIS, image, the trackers
 # and track heads, scoring, data, TTA and the CLIs, the VIS / COCO data and
-# the VIS CLIs, the train CLIs and their utilities, data parallelism), which
-# the guard must find and import
+# the VIS CLIs, the train CLIs and their utilities, data parallelism, the
+# last model modules), which the guard must find and import
 TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernels.hungarian",
                        "train.optim", "train.train_state", "train.vps", "train.demo_train",
                        "tools.train_check", "models.swin", "configs", "utils.torch_import",
@@ -219,7 +233,8 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "tools.data_check", "tools.train_vps", "tools.train_vis",
                        "tools.train_image", "tools.get_flops", "utils.preemption",
                        "utils.profiling", "utils.visualizer", "utils.precision", "parallel",
-                       "parallel.mesh", "parallel.distributed", "tools.dp_check")
+                       "parallel.mesh", "parallel.distributed", "tools.dp_check",
+                       "models.rfp", "models.sfnet", "models.deform_conv")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

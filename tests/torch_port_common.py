@@ -22,6 +22,7 @@ import sys
 import types
 from unittest import mock
 
+import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +36,12 @@ from video_knet_tpu.models.knet import branch_assignment_costs
 from video_knet_tpu.models.swin import SwinTransformer as JSwin
 from video_knet_tpu.utils import checkpoint as jck
 from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
-from video_knet_tpu_torch.tools.train_check import NECK_LAYERS, image_check_cfg
+from video_knet_tpu_torch.models.layers import init_parameters
+from video_knet_tpu_torch.tools.train_check import (
+    NECK_LAYERS,
+    draw_zero_init_leaves,
+    image_check_cfg,
+)
 from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
 from video_knet_tpu_torch.utils.convert import load_flax_variables, state_dict_to_flax
 
@@ -74,6 +80,45 @@ def perturb_norms(variables, seed: int = 0):
 def port_of(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load flax variables into a port module (strict) and set eval mode."""
     return load_flax_variables(module, variables).eval()
+
+
+def flax_tree(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> the nested variables tree."""
+    return traverse_util.unflatten_dict({tuple(k.split("/")): v for k, v in flat.items()})
+
+
+def jax_tree_shapes(jmod, *args) -> dict:
+    """{"collection/path/leaf": shape} of `jax.eval_shape` of JAX's init."""
+    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0), *args)
+    return {"/".join(k): tuple(v.shape)
+            for k, v in traverse_util.flatten_dict(flax.core.unfreeze(shapes)).items()}
+
+
+def shared_weights(module: torch.nn.Module, jmod, *args, seed: int = 0):
+    """The port's seeded init of `module`, with the leaves the reference
+    initializes at zero drawn nonzero (`train_check.draw_zero_init_leaves`)
+    and the norms perturbed (`perturb_norms`), loaded into `module` and
+    returned as flax variables; their tree is held against JAX's init's
+    (`jax_tree_shapes` of `jmod` on `args`)."""
+    g = torch.Generator().manual_seed(seed)
+    init_parameters(module, g)
+    draw_zero_init_leaves(module, g)
+    flat = state_dict_to_flax(module, module.state_dict())
+    assert {k: v.shape for k, v in flat.items()} == jax_tree_shapes(jmod, *args)
+    variables = perturb_norms(flax_tree(flat), seed)
+    port_of(module, variables)
+    return variables
+
+
+def jit_apply(jmod, variables, *args, **kwargs):
+    """JAX's forward, jitted: one compile costs less than op-by-op dispatch
+    compiling each primitive."""
+    return jax.jit(lambda v, *a: jmod.apply(v, *a, **kwargs))(variables, *args)
+
+
+def seeded_inputs(seed: int, *shapes) -> list[np.ndarray]:
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*s).astype(np.float32) for s in shapes]
 
 
 def assert_rel_close(got, want, rel: float, what: str = "") -> None:

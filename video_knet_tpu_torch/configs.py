@@ -8,9 +8,9 @@ returns the config. The image presets (`KNetConfig`) build
 RoI GT-box preset's `roi_gt_box`) and the VIS presets
 `models/vis/knet_vis.py:KNetVIS`, the deformable ones with the MSDeformAttn
 pixel decoder as their neck. The UniTrack preset serves with
-`tracker_type='unitrack'` (`models/video/inference.py`). What the port
-cannot build yet raises `NotImplementedError` where the model is built,
-naming its ROADMAP item: the RFP / DetectoRS backbones (E1).
+`tracker_type='unitrack'` (`models/video/inference.py`). The two RFP /
+DetectoRS image presets build `KNet` over `models/rfp.py:RFP`, with no
+neck.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Backbone + neck factory: ResNet-50/101, MiT (b0-b5) and Swin
+"""Backbone + neck factory: ResNet-50/101, MiT (b0-b5), Swin
 (tiny/small/base/large), each with the FPN or the MSDeformAttn pixel
-decoder."""
+decoder, and the DetectoRS / RFP recursive backbones, whose output is
+already the 4-level 256-wide pyramid (no neck)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,17 @@ from torch import nn
 from video_knet_tpu_torch.models.mit import MixVisionTransformer
 from video_knet_tpu_torch.models.msdeform_decoder import MSDeformAttnPixelDecoder
 from video_knet_tpu_torch.models.resnet import FPN, RESNET_STAGE_BLOCKS, ResNet
+from video_knet_tpu_torch.models.rfp import RFP, rfp_backbone_name
 from video_knet_tpu_torch.models.swin import SWIN_PRESETS, SwinTransformer
+
+# backbones whose output is already the pyramid (the recursive feature
+# pyramid is their neck): models skip the separate neck for these
+PYRAMID_BACKBONES = ("detectors_r50", "detectors_r101", "swin_b_rfp",
+                     "swin_base_rfp", "swin_t_rfp", "swin_tiny_rfp")
+
+
+def backbone_is_pyramid(name: str) -> bool:
+    return name in PYRAMID_BACKBONES
 
 
 def build_backbone(name: str, frozen_stages: int = -1, drop_path_rate: float = 0.0,
@@ -17,8 +28,11 @@ def build_backbone(name: str, frozen_stages: int = -1, drop_path_rate: float = 0
     """The backbone module; its four stage widths are `out_channels`.
     `frozen_stages` applies to ResNet and Swin (MiT ignores it, as in the
     reference); `drop_path_rate` is Swin's stochastic depth; `norm_eval`
-    is ResNet's (False: live BatchNorm in training mode). The reference's
+    is ResNet's (False: live BatchNorm in training mode). The RFP
+    backbones ignore all three, as the reference's do. The reference's
     `train` flag is the module's training mode."""
+    if backbone_is_pyramid(name):
+        return RFP(backbone=rfp_backbone_name(name))
     depths = {f"resnet{d}": d for d in RESNET_STAGE_BLOCKS}
     if name in depths:
         return ResNet(depth=depths[name], frozen_stages=frozen_stages, norm_eval=norm_eval)
@@ -27,15 +41,29 @@ def build_backbone(name: str, frozen_stages: int = -1, drop_path_rate: float = 0
     if name.startswith("swin_") and name[len("swin_"):] in SWIN_PRESETS:
         return SwinTransformer(preset=name[len("swin_"):], frozen_stages=frozen_stages,
                                drop_path_rate=drop_path_rate)
-    raise NotImplementedError(
-        f"backbone {name!r} is not ported yet (ROADMAP E1: RFP / DetectoRS)")
+    raise ValueError(f"unknown backbone {name!r}")
 
 
-def build_neck(neck_type: str, backbone: nn.Module) -> nn.Module:
+def build_neck(neck_type: str, backbone: nn.Module) -> nn.Module | None:
     """The neck over `backbone`'s stage outputs (flax's FPN infers its input
-    widths; the port reads them from the backbone)."""
+    widths; the port reads them from the backbone), or None when the
+    backbone's output is already the pyramid (RFP)."""
+    if isinstance(backbone, RFP):
+        return None
     if neck_type == "fpn":
         return FPN(in_channels=backbone.out_channels)
     if neck_type == "msdeform_pixel_decoder":
         return MSDeformAttnPixelDecoder(in_channels=backbone.out_channels)
     raise ValueError(f"unknown neck_type {neck_type!r}")
+
+
+def pyramid_width(backbone: nn.Module, neck: nn.Module | None) -> int:
+    """The width of the levels the heads take: the neck's, or the RFP's."""
+    return backbone.out_channels[0] if neck is None else neck.out_channels
+
+
+def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generator=None):
+    """The pyramid of `img`: the backbone's stage outputs through the neck,
+    if there is one."""
+    feats = backbone(img, generator)
+    return feats if neck is None else neck(feats)

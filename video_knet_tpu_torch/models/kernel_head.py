@@ -1,8 +1,9 @@
 """ConvKernelHead: the kernel-init ("RPN") head, inference forward.
 
-Counterpart of `video_knet_tpu/models/kernel_head.py`. The init-mask
-contraction runs the CUDA kernel K2 (no sigmoid) and the proposal pooling
-runs K1 on the card.
+Counterpart of `video_knet_tpu/models/kernel_head.py`. The localization
+FPN is the Semantic-FPN or, with `fpn_type='upernet_align'`, the SFNet
+aligned head (`models/sfnet.py`). The init-mask contraction runs the CUDA
+kernel K2 (no sigmoid) and the proposal pooling runs K1 on the card.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 from video_knet_tpu_torch.config import ConvKernelHeadConfig
 from video_knet_tpu_torch.models.layers import Conv2d, ConvNormAct
 from video_knet_tpu_torch.models.semantic_fpn import SemanticFPN
+from video_knet_tpu_torch.models.sfnet import UperNetAlignHead
 from video_knet_tpu_torch.ops.kernels.mask_ops import fused_assemble
 from video_knet_tpu_torch.ops.mask_pool import mask_pool
 
@@ -35,18 +37,23 @@ class ConvKernelHead(nn.Module):
 
     def __init__(self, cfg: ConvKernelHeadConfig, in_channels: int = 256):
         super().__init__()
-        if cfg.fpn_type != "semantic_fpn":
-            raise NotImplementedError(
-                f"fpn_type={cfg.fpn_type!r} is not ported yet (ROADMAP E2b)")
         self.cfg = cfg
-        self.localization_fpn = SemanticFPN(
-            in_channels=in_channels,
-            feat_channels=cfg.fpn_feat_channels,
-            out_channels=cfg.out_channels,
-            upsample_times=cfg.fpn_upsample_times,
-            with_positional_encoding=cfg.fpn_positional_encoding,
-            num_aux_convs=cfg.fpn_num_aux_convs,
-        )
+        if cfg.fpn_type == "upernet_align":
+            self.localization_fpn = UperNetAlignHead(
+                in_channels=in_channels,
+                out_channels=cfg.out_channels,
+                num_aux_convs=max(cfg.fpn_num_aux_convs, 1),
+                with_positional_encoding=cfg.fpn_positional_encoding,
+            )
+        else:
+            self.localization_fpn = SemanticFPN(
+                in_channels=in_channels,
+                feat_channels=cfg.fpn_feat_channels,
+                out_channels=cfg.out_channels,
+                upsample_times=cfg.fpn_upsample_times,
+                with_positional_encoding=cfg.fpn_positional_encoding,
+                num_aux_convs=cfg.fpn_num_aux_convs,
+            )
         for i in range(cfg.num_loc_convs):
             self.add_module(f"loc_conv{i}", ConvNormAct(cfg.out_channels, cfg.out_channels, 1))
         for i in range(cfg.num_seg_convs):
@@ -60,7 +67,8 @@ class ConvKernelHead(nn.Module):
 
     def forward(self, feats: list[torch.Tensor], num_frames: int | None = None) -> RPNOutputs:
         """`num_frames` set: clip inputs [B*T, ...], and the localization FPN
-        takes the temporal positional encoding."""
+        takes the temporal positional encoding (the aligned head has none,
+        and raises ValueError, as the reference does)."""
         cfg = self.cfg
         loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
         for i in range(cfg.num_loc_convs):

@@ -7,7 +7,8 @@ Counterpart of `video_knet_tpu/models/kernel_update_head.py`:
  4. FFN + LN
  5. cls branch (MLP -> fc_cls) and mask branch (MLP -> fc_mask)
  6. new masks = dynamic conv of the kernels against the features
-    (K=1: the contraction of CUDA kernel K2, no sigmoid)
+    (K=1: the contraction of CUDA kernel K2, no sigmoid; K>1: a grouped
+    convolution, `assemble_masks`)
 
 The video variant (`with_previous`) links the stage to the previous
 frame's kernels, two ways:
@@ -24,6 +25,7 @@ frame's kernels, two ways:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.config import KernelUpdateHeadConfig
@@ -34,6 +36,7 @@ from video_knet_tpu_torch.models.layers import (
     Conv2d,
     MultiHeadAttention,
     resize_mask_bilinear,
+    same_padding,
 )
 from video_knet_tpu_torch.ops.kernels.mask_ops import fused_assemble
 from video_knet_tpu_torch.ops.mask_pool import mask_pool
@@ -43,16 +46,39 @@ PREVIOUS_TYPES = ("ffn", "update", "update_obj")
 PREVIOUS_LINKS = (None, "link_atten", "update_dynamic_cov")
 
 
+def check_kernel_taps(kernels: torch.Tensor, kernel_size: int) -> None:
+    """Raise unless kernels [B, N, G, C] carry G = K*K taps: the reference
+    reshapes them to [B, N, K, K, C] and fails there otherwise (its init
+    head always gives one tap, so a whole model at K > 1 fails)."""
+    b, n, g, c = kernels.shape
+    if g != kernel_size * kernel_size:
+        raise ValueError(
+            f"cannot reshape kernels of shape {tuple(kernels.shape)} into shape "
+            f"{(b, n, kernel_size, kernel_size, c)} (conv_kernel_size={kernel_size})")
+
+
 def assemble_masks(kernels: torch.Tensor, x: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """Dynamic conv of per-image kernels against features.
 
-    kernels [B, N, K*K, C]; x [B, H, W, C] -> [B, N, H, W] logits."""
-    if kernel_size != 1:
-        raise NotImplementedError(
-            "conv_kernel_size > 1 (grouped dynamic conv) is not ported yet (ROADMAP E4)")
-    # in the inputs' dtype, as JAX's einsum gives it (bf16 training)
-    return fused_assemble(kernels[:, :, 0, :].contiguous(), x.contiguous()).to(
-        torch.promote_types(kernels.dtype, x.dtype))
+    kernels [B, N, K*K, C]; x [B, H, W, C] -> [B, N, H, W] logits, in the
+    inputs' dtype, as JAX's einsum / convolution gives it (bf16 training).
+    K = 1 is the contraction of K2. K > 1 is one grouped convolution with
+    the batch folded into the groups, as the reference does it: [1, B*C,
+    H, W] against [B*N, C, K, K], groups=B, "SAME" at stride 1, output
+    channel b*N + n (cuDNN on the card; the reference's is an XLA
+    convolution, not a Pallas kernel)."""
+    dtype = torch.promote_types(kernels.dtype, x.dtype)
+    if kernel_size == 1:
+        return fused_assemble(kernels[:, :, 0, :].contiguous(), x.contiguous()).to(dtype)
+    check_kernel_taps(kernels, kernel_size)
+    b, n, _, c = kernels.shape
+    h, w = x.shape[1:3]
+    k = kernel_size
+    lhs = x.to(dtype).permute(0, 3, 1, 2).reshape(1, b * c, h, w)
+    rhs = kernels.to(dtype).reshape(b, n, k, k, c).permute(0, 1, 4, 2, 3).reshape(b * n, c, k, k)
+    (t, bo), (l, r) = same_padding(h, k, 1), same_padding(w, k, 1)
+    out = F.conv2d(F.pad(lhs, (l, r, t, bo)), rhs, groups=b)  # [1, B*N, H, W]
+    return out.reshape(b, n, h, w)
 
 
 class KernelUpdateHead(nn.Module):
@@ -63,20 +89,19 @@ class KernelUpdateHead(nn.Module):
             raise ValueError(f"previous_type={previous_type!r}")
         if previous_link not in PREVIOUS_LINKS:
             raise ValueError(f"previous_link={previous_link!r}")
-        if cfg.conv_kernel_size != 1:
-            raise NotImplementedError(
-                "conv_kernel_size > 1 (grouped dynamic conv) is not ported yet (ROADMAP E4)")
         self.cfg = cfg
         self.with_previous = with_previous
         self.previous_type = previous_type
         self.previous_link = previous_link if with_previous else None
         c = cfg.in_channels
+        # the kernel attention and the cross links run on the K*K taps flattened
+        self.flat_width = cfg.conv_kernel_size ** 2 * c
         if cfg.feat_transform:
             self.feat_transform = Conv2d(c, c, 1)
         u = cfg.updator
         self.kernel_update_conv = KernelUpdator(u.in_channels, u.feat_channels, u.out_channels)
-        self.attention = MultiHeadAttention(c, cfg.num_heads)
-        self.attention_norm = nn.LayerNorm(c, eps=1e-5)
+        self.attention = MultiHeadAttention(self.flat_width, cfg.num_heads)
+        self.attention_norm = nn.LayerNorm(self.flat_width, eps=1e-5)
         if cfg.with_ffn:
             self.ffn = FFN(c, cfg.feedforward_channels, c)
             self.ffn_norm = nn.LayerNorm(c, eps=1e-5)
@@ -96,9 +121,9 @@ class KernelUpdateHead(nn.Module):
         self.fc_mask = nn.Linear(c, cfg.out_channels)
 
     def _add_cross_link(self, name: str) -> None:
-        c = self.cfg.in_channels
-        self.add_module(f"attention_{name}", MultiHeadAttention(c, self.cfg.num_heads))
-        self.add_module(f"attention_{name}_norm", nn.LayerNorm(c, eps=1e-5))
+        c, flat = self.cfg.in_channels, self.flat_width
+        self.add_module(f"attention_{name}", MultiHeadAttention(flat, self.cfg.num_heads))
+        self.add_module(f"attention_{name}_norm", nn.LayerNorm(flat, eps=1e-5))
         self.add_module(f"link_ffn_{name}", FFN(c, self.cfg.feedforward_channels, c))
         self.add_module(f"link_ffn_{name}_norm", nn.LayerNorm(c, eps=1e-5))
 
@@ -122,6 +147,9 @@ class KernelUpdateHead(nn.Module):
         obj_feat [B, N, K*K, C], obj_feat_track or None)."""
         cfg = self.cfg
         b, n = proposal_feat.shape[:2]
+        # the reference fails at its mask assembly; the port's attention is
+        # sized for K*K taps, so it checks before it runs
+        check_kernel_taps(proposal_feat, cfg.conv_kernel_size)
         if cfg.feat_transform:
             x = self.feat_transform(x)
         h, w, c = x.shape[1:]

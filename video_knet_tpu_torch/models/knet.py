@@ -2,7 +2,8 @@
 
 Counterpart of `video_knet_tpu/models/knet.py`:
 - `KNet` (`:29-53`): backbone, neck (the FPN or the MSDeformAttn pixel
-  decoder), the init head `rpn_head` and the stage loop `roi_head`, with
+  decoder; none over an RFP backbone, whose output is the pyramid), the
+  init head `rpn_head` and the stage loop `roi_head`, with
   flax's module names; the image model every release Video K-Net is
   pretrained as (Cityscapes-STEP) and K-Net's own COCO panoptic and
   instance models.
@@ -28,7 +29,12 @@ import torch
 from torch import nn
 
 from video_knet_tpu_torch.config import KNetConfig
-from video_knet_tpu_torch.models.backbones import build_backbone, build_neck
+from video_knet_tpu_torch.models.backbones import (
+    backbone_and_neck,
+    build_backbone,
+    build_neck,
+    pyramid_width,
+)
 from video_knet_tpu_torch.models.kernel_head import ConvKernelHead, RPNOutputs
 from video_knet_tpu_torch.models.kernel_iter_head import (
     KernelIterHead,
@@ -80,7 +86,8 @@ class KNet(nn.Module):
         # parameters no loss reaches (data parallelism has DDP look for them)
         self.leaves_parameters_unused = getattr(self.backbone, "leaves_parameters_unused", False)
         self.neck = build_neck(cfg.neck_type, self.backbone)
-        self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
+        self.rpn_head = ConvKernelHead(cfg.rpn,
+                                      in_channels=pyramid_width(self.backbone, self.neck))
         self.roi_head = KernelIterHead(cfg.head, num_stages=cfg.num_stages)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -92,7 +99,7 @@ class KNet(nn.Module):
                 ) -> tuple[RPNOutputs, list[StageOutput]]:
         """img [B, H, W, 3] normalized. `generator` draws the backbone's
         stochastic depth (training); None turns it off."""
-        rpn_out = self.rpn_head(self.neck(self.backbone(img, generator)))
+        rpn_out = self.rpn_head(backbone_and_neck(self.backbone, self.neck, img, generator))
         return rpn_out, self.roi_head(rpn_out.x_feats, rpn_out.proposal_feats,
                                       rpn_out.mask_preds)
 

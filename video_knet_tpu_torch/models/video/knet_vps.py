@@ -35,7 +35,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.config import VideoKNetConfig
-from video_knet_tpu_torch.models.backbones import build_backbone, build_neck
+from video_knet_tpu_torch.models.backbones import (
+    backbone_and_neck,
+    build_backbone,
+    build_neck,
+    pyramid_width,
+)
 from video_knet_tpu_torch.models.kernel_head import ConvKernelHead, RPNOutputs
 from video_knet_tpu_torch.models.kernel_iter_head import StageOutput, upscale_masks
 from video_knet_tpu_torch.models.kernel_update_head import KernelUpdateHead
@@ -129,7 +134,8 @@ class VideoKNet(nn.Module):
             getattr(self.backbone, "leaves_parameters_unused", False)
             or (cfg.track_head_type == "roi_gt_box" and cfg.link_previous))
         self.neck = build_neck(cfg.neck_type, self.backbone)
-        self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
+        self.rpn_head = ConvKernelHead(cfg.rpn,
+                                      in_channels=pyramid_width(self.backbone, self.neck))
         self.num_stages = cfg.num_stages
         for s in range(cfg.num_stages):
             self.add_module(f"mask_head_{s}", KernelUpdateHead(
@@ -160,7 +166,7 @@ class VideoKNet(nn.Module):
                      generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """`generator` draws the backbone's stochastic depth (training); None
         turns it off. Backbones without one ignore it."""
-        return self.neck(self.backbone(img, generator))
+        return backbone_and_neck(self.backbone, self.neck, img, generator)
 
     def _stages(self, rpn_out: RPNOutputs, previous_obj_feats: torch.Tensor | None):
         outs = []

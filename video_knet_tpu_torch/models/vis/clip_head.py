@@ -73,13 +73,12 @@ def clip_mask_pool(mask_logits: torch.Tensor, x: torch.Tensor, hard_thr: float) 
 
 
 class ClipKernelUpdateHead(nn.Module):
-    """One clip stage; `per_frame=True`: kernels carry a T axis, no cls."""
+    """One clip stage; `per_frame=True`: kernels carry a T axis, no cls.
+    The reference's clip stage never reads `conv_kernel_size`: its masks
+    are always the K=1 contraction, and so are these."""
 
     def __init__(self, cfg: KernelUpdateHeadConfig, per_frame: bool = False):
         super().__init__()
-        if cfg.conv_kernel_size != 1:
-            raise NotImplementedError(
-                "conv_kernel_size > 1 (grouped dynamic conv) is not ported yet (ROADMAP E4)")
         self.cfg = cfg
         self.per_frame = per_frame
         c = cfg.in_channels

@@ -33,7 +33,12 @@ import torch
 from torch import nn
 
 from video_knet_tpu_torch.config_vis import VISConfig
-from video_knet_tpu_torch.models.backbones import build_backbone, build_neck
+from video_knet_tpu_torch.models.backbones import (
+    backbone_and_neck,
+    build_backbone,
+    build_neck,
+    pyramid_width,
+)
 from video_knet_tpu_torch.models.kernel_head import ConvKernelHead, RPNOutputs
 from video_knet_tpu_torch.models.kernel_iter_head import (
     KernelIterHead,
@@ -112,10 +117,11 @@ class KNetVIS(nn.Module):
         self.leaves_parameters_unused = getattr(self.backbone, "leaves_parameters_unused", False)
         self.neck = build_neck(cfg.neck_type, self.backbone)
         volume = cfg.kernel_head_mode == "volume"
+        width = pyramid_width(self.backbone, self.neck)
         if volume:
-            self.rpn_head = ClipVolumeKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
+            self.rpn_head = ClipVolumeKernelHead(cfg.rpn, in_channels=width)
         else:
-            self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=self.neck.out_channels)
+            self.rpn_head = ConvKernelHead(cfg.rpn, in_channels=width)
             self.roi_head = KernelIterHead(cfg.head, num_stages=cfg.num_stages)
         self.tracker = ClipKernelHead(
             cfg.head, num_stages=cfg.tracker_num_stages,
@@ -133,7 +139,8 @@ class KNetVIS(nn.Module):
         depth (training); None turns it off."""
         cfg = self.cfg
         b, t = clip.shape[:2]
-        fpn = self.neck(self.backbone(clip.reshape(b * t, *clip.shape[2:]), generator))
+        fpn = backbone_and_neck(self.backbone, self.neck,
+                                clip.reshape(b * t, *clip.shape[2:]), generator)
         if cfg.kernel_head_mode == "volume":
             vol = self.rpn_head(fpn, num_frames=t)
             clip_outs = self.tracker(vol.x_feats, None, vol.tube_mask_preds,

@@ -30,13 +30,12 @@ class VolumeRPNOutputs(NamedTuple):
 
 
 class ClipVolumeKernelHead(nn.Module):
-    """`in_channels` is the neck's output width."""
+    """`in_channels` is the neck's output width. The localization FPN is
+    always the Semantic-FPN: the reference's volume head never reads
+    `fpn_type`."""
 
     def __init__(self, cfg: ConvKernelHeadConfig, in_channels: int = 256):
         super().__init__()
-        if cfg.fpn_type != "semantic_fpn":
-            raise NotImplementedError(
-                f"fpn_type={cfg.fpn_type!r} is not ported yet (ROADMAP E2b)")
         self.cfg = cfg
         self.localization_fpn = SemanticFPN(
             in_channels=in_channels,

@@ -1,8 +1,9 @@
 """Gather-based bilinear sampling, RoIAlign and the multi-scale deformable
 attention core.
 
-Counterpart of `video_knet_tpu/ops/sampling.py` (`bilinear_sample`,
-`roi_align`, `ms_deform_attn_core`): the four corner gathers with zero padding outside
+Counterpart of `video_knet_tpu/ops/sampling.py` (`bilinear_sample`, and
+`bilinear_sample_batch` for its vmap over a batch, `roi_align`,
+`ms_deform_attn_core`): the four corner gathers with zero padding outside
 the map, in the reference's arithmetic order (`x * w - 0.5` in fp32, the
 top and bottom lerps, then the vertical one). The reference clips the
 indices and multiplies by the validity mask; torch indexing raises on an
@@ -28,6 +29,14 @@ def bilinear_sample(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> t
     outside the map -> [..., C]."""
     h, w, c = feat.shape
     return _bilinear_flat(feat.reshape(h * w, c), h, w, ys, xs, None)
+
+
+def bilinear_sample_batch(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """`bilinear_sample` of each image of a batch (the reference vmaps it):
+    feat [B, H, W, C], ys / xs [B, ...] -> [B, ..., C]."""
+    b, h, w, c = feat.shape
+    base = (torch.arange(b, device=feat.device) * (h * w)).reshape(b, *(1,) * (ys.dim() - 1))
+    return _bilinear_flat(feat.reshape(b * h * w, c), h, w, ys, xs, base)
 
 
 def _bilinear_flat(flat: torch.Tensor, h: int, w: int, ys: torch.Tensor, xs: torch.Tensor,

@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 
 import numpy as np
 import torch
@@ -51,12 +52,14 @@ from video_knet_tpu_torch.config import KNetConfig, VideoKNetConfig
 from video_knet_tpu_torch.config_vis import VISConfig
 from video_knet_tpu_torch.models.kernel_head import RPNOutputs
 from video_knet_tpu_torch.models.knet import KNet, top_k
-from video_knet_tpu_torch.models.layers import resize_mask_bilinear
+from video_knet_tpu_torch.models.layers import BatchNorm, resize_mask_bilinear
+from video_knet_tpu_torch.models.rfp import RFP
 from video_knet_tpu_torch.models.video.knet_vps import BranchOutput, VideoKNet
 from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS, VISOutputs
 from video_knet_tpu_torch.train import image as train_image
 from video_knet_tpu_torch.train import vis as train_vis
 from video_knet_tpu_torch.train.vps import make_synthetic_batch
+from video_knet_tpu_torch.utils.device import resolve_device
 
 MARGIN = 1e-4  # logits; ~10x the card's forward error at the threshold
 VIS_MARGIN = 2e-5  # of a tensor's largest magnitude; ~4x the card's relative forward error
@@ -251,6 +254,27 @@ def image_margin_seed(cfg: KNetConfig, hw: tuple[int, int]) -> tuple[int, float]
     return _first_seed(margin_of, VIS_MARGIN)
 
 
+# the leaves the reference initializes at zero, which keep a path invisible
+# at init: the RFP feedback convs, SAC's atrous delta, DCN's offsets
+ZERO_INIT_LEAF = re.compile(r"(rfp_conv\d*\.weight|weight_diff|offset_conv\.(weight|bias))$")
+
+
+@torch.no_grad()
+def draw_zero_init_leaves(model: torch.nn.Module, generator: torch.Generator) -> list[str]:
+    """Draw every `ZERO_INIT_LEAF` of `model` from N(0, 1 / fan_in) (a
+    bias: N(0, 1), so DCN's offsets reach a pixel or two, some taps off the
+    map), so that a check sees those paths; returns their names.
+    `generator` lives on the CPU; the draws are copied to the parameters'
+    device."""
+    names = []
+    for name, p in model.named_parameters():
+        if ZERO_INIT_LEAF.search(name):
+            fan_in = p[0].numel() if p.dim() > 1 else 1
+            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+            names.append(name)
+    return names
+
+
 @contextlib.contextmanager
 def relu_pattern(pattern: list, replay: bool = False):
     """Within the block, every `torch.nn.functional.relu` call appends its
@@ -369,8 +393,46 @@ def image_check_cfg(base, *, instance: bool = False, deformable: bool = True):
 
 def image_check_model(cfg: KNetConfig, seed: int, device) -> KNet:
     """`KNet(cfg)` with weights from `seed`, its deformable encoder (if any)
-    cut to `NECK_LAYERS`."""
-    return shallow_neck(KNet(cfg, generator=torch.Generator().manual_seed(seed), device=device))
+    cut to `NECK_LAYERS`, the leaves the reference initializes at zero (an
+    RFP backbone's, an aligned head's DCN) drawn from `seed` too. Over an
+    RFP backbone the BatchNorm statistics are calibrated on the CPU
+    (`calibrate_batch_norms` on a 64x96 image drawn from `seed`), so that
+    every device gets the same weights."""
+    model = shallow_neck(KNet(cfg, generator=torch.Generator().manual_seed(seed), device="cpu"))
+    draw_zero_init_leaves(model, torch.Generator().manual_seed(seed))
+    if isinstance(model.backbone, RFP):
+        img = torch.randn(1, 64, 96, 3, generator=torch.Generator().manual_seed(seed))
+        calibrate_batch_norms(model, img)
+    return model.to(resolve_device(device))
+
+
+@torch.no_grad()
+def calibrate_batch_norms(model: torch.nn.Module, img: torch.Tensor) -> int:
+    """Set every BatchNorm's running statistics to the statistics of its
+    input at its first call in `model(img)` (biased variance), in forward
+    order: random weights then give activations of about unit spread, as
+    trained ones do. A random DetectoRS ResNet otherwise gives levels in
+    the thousands, whose fp32 rounding the heads' GroupNorms magnify (on an
+    H100, a card-vs-CPU gap of 2.4e-4 of the outputs' scale at 64x96,
+    against ~1e-5 in the levels). Returns the number calibrated."""
+    seen = set()
+
+    def pre(m, args):
+        if m in seen:
+            return
+        seen.add(m)
+        x = args[0].double()
+        m.running_mean.copy_(x.mean(dim=(0, 1, 2)))
+        m.running_var.copy_(x.var(dim=(0, 1, 2), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        model(img)
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(seen)
 
 
 def vis_near_ties(card_model: KNetVIS, cpu_model: KNetVIS, cfg: VISConfig, ds,

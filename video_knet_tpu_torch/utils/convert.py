@@ -6,6 +6,10 @@ takes) or the flat `{"params/a/b/kernel": array}` layout of
 mirror the flax names, so each flax path maps onto one torch key:
 
   params/<path>/kernel   4-D conv HWIO           -> <path>.weight  OIHW
+                         (SAC's own kernel too; its weight_diff likewise
+                         -> <path>.weight_diff OIHW)
+                         3-D deformable conv [k*k, C, F] -> <path>.weight as is
+                         (known by its module: `load_flax_variables`)
                          2-D Dense [in, out]     -> <path>.weight  [out, in]
                          3-D MHA query/key/value [D, H, hd] -> [H*hd, D]
                          3-D MHA out [H, hd, D]             -> [D, H*hd]
@@ -15,7 +19,8 @@ mirror the flax names, so each flax path maps onto one torch key:
   batch_stats/<path>/mean, var                   -> <path>.running_mean, running_var
 
 The stuff kernels need no entry: the port reads them from `conv_seg.weight`
-as the JAX head does. Swin's stages are scanned in flax, so every leaf under
+as the JAX head does. Swin's stages are scanned in flax (the RFP Swin's
+are not: its blocks are `stage{s}_block{b}`), so every leaf under
 a `stage{s}_pairs` path carries a leading pair axis; it is unstacked into
 `stage{s}_pairs.{k}.` before any layout rule sees the leaf (a stacked Dense
 kernel would look like an MHA projection). Loading is strict: every flax
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from video_knet_tpu_torch.models.deform_conv import DeformConv2d
 from video_knet_tpu_torch.models.layers import (
     BatchNorm,
     Conv2d,
@@ -43,6 +49,7 @@ from video_knet_tpu_torch.models.layers import (
     GroupNorm,
     MultiHeadAttention,
 )
+from video_knet_tpu_torch.models.rfp import SAConv
 
 _NORMS = (nn.LayerNorm, FastVarianceLayerNorm, GroupNorm, BatchNorm)
 _SCANNED = re.compile(r"stage\d+_pairs")  # flax nn.scan over Swin block pairs
@@ -64,7 +71,8 @@ def flatten_variables(variables) -> dict[str, np.ndarray]:
     return flat
 
 
-def _convert_leaf(collection: str, path: list[str], leaf: str, v: np.ndarray):
+def _convert_leaf(collection: str, path: list[str], leaf: str, v: np.ndarray,
+                  dcn: bool = False):
     key_path = ".".join(path)
 
     def key(name: str) -> str:
@@ -77,8 +85,12 @@ def _convert_leaf(collection: str, path: list[str], leaf: str, v: np.ndarray):
         return key(names[leaf]), v
     if collection != "params":
         raise KeyError(f"unknown variable collection {collection!r}")
+    if leaf == "weight_diff":  # SAC's atrous delta, HWIO like its kernel
+        return key(leaf), v.transpose(3, 2, 0, 1)
     if leaf == "kernel":
-        if v.ndim == 4:
+        if v.ndim == 3 and dcn:
+            pass  # a deformable conv's [k*k, C, F], kept as is
+        elif v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)
         elif v.ndim == 2:
             v = v.T
@@ -104,12 +116,21 @@ def _unstack(path: list[str], v: np.ndarray):
     return [(path, v)]
 
 
-def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
+def _is_dcn(module: nn.Module | None, path: list[str]) -> bool:
+    try:
+        return isinstance(module.get_submodule(".".join(path)), DeformConv2d)
+    except AttributeError:  # no module, or no such path (strict loading reports it)
+        return False
+
+
+def flax_to_state_dict(variables, module: nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """`module`, when given, names the deformable convs, whose 3-D kernel
+    is kept as is (without it, a 3-D kernel is an MHA projection's)."""
     out: dict[str, torch.Tensor] = {}
     for name, stacked in flatten_variables(variables).items():
         collection, *stacked_path, leaf = name.split("/")
         for path, v in _unstack(stacked_path, stacked):
-            key, arr = _convert_leaf(collection, path, leaf, v)
+            key, arr = _convert_leaf(collection, path, leaf, v, _is_dcn(module, path))
             if key in out:
                 raise KeyError(f"two flax leaves map onto {key}")
             out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))  # owned copy
@@ -118,7 +139,7 @@ def flax_to_state_dict(variables) -> dict[str, torch.Tensor]:
 
 def load_flax_variables(module: nn.Module, variables) -> nn.Module:
     """Fill every parameter and buffer of `module` from flax variables (strict)."""
-    sd = flax_to_state_dict(variables)
+    sd = flax_to_state_dict(variables, module)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     unexpected = sorted(set(sd) - set(own))
@@ -147,8 +168,12 @@ def _flax_key(module: nn.Module, name: str) -> tuple[str, str, str]:
     rule = ""
     if leaf == "weight" and isinstance(owner, _NORMS):
         leaf = "scale"
-    elif leaf == "weight" and isinstance(owner, Conv2d):
+    elif leaf == "weight" and isinstance(owner, (Conv2d, SAConv)):
         leaf, rule = "kernel", "conv"
+    elif leaf == "weight_diff":
+        rule = "conv"
+    elif leaf == "weight" and isinstance(owner, DeformConv2d):
+        leaf = "kernel"
     elif leaf == "weight" and mha:
         leaf, rule = "kernel", "mha_out" if owner_path.endswith("out") else "mha_in"
     elif leaf == "weight" and isinstance(owner, nn.Linear):

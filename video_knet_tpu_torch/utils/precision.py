@@ -174,7 +174,8 @@ def bf16_forward(model: nn.Module, method: str, *args, **kwargs):
 @contextlib.contextmanager
 def layer_dtypes(model: nn.Module, parts: tuple[str, ...] = ("backbone", "neck")):
     """Inside: {layer name: set of output dtypes} of the convolutions and
-    dense layers under `model.<part>` for each part, filled as they run."""
+    dense layers under `model.<part>` for each part the model has (an RFP
+    backbone has no neck), filled as they run."""
     from video_knet_tpu_torch.models.layers import Conv2d
 
     seen: dict[str, set] = {}
@@ -183,7 +184,8 @@ def layer_dtypes(model: nn.Module, parts: tuple[str, ...] = ("backbone", "neck")
         return lambda mod, inputs, out: seen.setdefault(name, set()).add(out.dtype)
 
     handles = [mod.register_forward_hook(record(f"{part}.{name}"))
-               for part in parts for name, mod in getattr(model, part).named_modules()
+               for part in parts if getattr(model, part) is not None
+               for name, mod in getattr(model, part).named_modules()
                if isinstance(mod, (nn.Conv2d, nn.Linear, Conv2d))]
     try:
         yield seen
