@@ -322,11 +322,28 @@ Phases, each raising on failure (the process then exits non-zero):
                over the same taps (the `[dcn]` line)
  53. models-check  card against CPU at 64x96: the image K-Net's check heads
                over `detectors_r50` (forward, decode, one train step with the
-               CPU replaying the card's ReLU decisions) and `swin_t_rfp`
+               CPU replaying the card's ReLU decisions, under deterministic
+               algorithms) and `swin_t_rfp`
                (forward, decode); `UperNetAlignHead` v1 and v2 and STDCNet-813
                at 384x1248, `KernelUpdateHead` at K=3 at the R-50 stage shape
                (1e-4 of each output's scale)
- 54. kernel-shapes  K1 and K2 against their plain versions at every shape a
+ 54. train-model-axis  the mesh's `model` axis (`parallel/model_axis.py`)
+               on a 1x2 mesh of gloo ranks sharing the card, against the
+               one-process step on the card: `video_knet_kitti_step_r50` at
+               384x1248, global B=1, each rank's backbone and FPN on a band
+               of 192 rows (halo rows from the other band), and
+               `video_knet_vis_r50_ytvis2019` on 1x5x360x640 clips, the
+               frames split 3 + 2; 3 steps of each, then a live-BN step of
+               each: every step's losses within 1e-4 (1e-2 at a step
+               whose hard decisions the split takes apart, printed), the
+               presets' first step's gradient within 1e-3 (ReLU decisions
+               replayed on each rank's share; the live step's printed), the
+               live statistics within 1e-5, each rank's
+               backbone input its share, 7 / 7 / 1 launches a step on each
+               rank; per rank: step ms, peak memory beside the one-process
+               run's, the bytes a step it hands to the collectives (ranks
+               on one card: not a scaling figure)
+ 55. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
 Every VPS serving phase resets the launch counts just before it drives its
@@ -536,6 +553,30 @@ CLI_DP_B = 4  # 2 images a rank
 # up to ~1% (an H100 read 8.4e-3); the total loss, summed over every
 # proposal, is held to the first limit.
 TOL_CLI_DP_LOSS = (1e-3, 1e-2)
+# train-model-axis: the mesh's `model` axis over gloo ranks sharing the card
+MODEL_AXIS_N = 2  # a 1x2 mesh: 384 rows in 2 bands of 192 (6 x 32); 5 frames as 3 + 2
+MODEL_AXIS_STEPS = 3
+MODEL_AXIS_SEED = 0
+# each rank against the one-process step on the card: every step's losses,
+# relative; the presets' first step's gradient (the ranks replaying the
+# one-process run's ReLU decisions on their band or frames), each parameter
+# against `_grad_scale`; the live-BN step's statistics, each leaf against
+# its largest magnitude. The live-BN step's gradient is printed, not held:
+# its one-pass variance, E[x^2] - mean^2 summed band by band, moves the
+# forward ~30x more than the frozen step's rounding does (772 ReLU inputs
+# on the other side of 0 against 24, an H100's first run), enough to move
+# hard decisions that are not replayed (K1's binarization, the Hungarian
+# assignment); that run read 1.7e-3 across the backbone's leaves
+# A step whose forward the split takes hard decisions apart in (K1's
+# binarization, a Hungarian assignment: `dp_check.step_decisions`, the
+# ranks' rounding differing from the whole convolutions') holds its losses
+# to the looser limit, printed beside the count: one pixel binarized
+# otherwise in an early stage moves the kernels of the next and cascades
+# (an H100 read 432 elements apart and 2.2e-4 of s1_loss_mask at a VIS
+# preset's third step, the weights random)
+TOL_MODEL_AXIS = {"loss": 1e-4, "grads": 1e-3, "stats": 1e-5}
+TOL_MODEL_AXIS_LIVE = {"loss": 1e-4, "stats": 1e-5}
+TOL_MODEL_AXIS_SPLIT_LOSS = 1e-2
 # the CUDA kernels of K1 (binarize, partial sums) and K2 that a profiler trace must name
 RFP_HW = (384, 1248)
 RFP_IMAGES = 5
@@ -4087,15 +4128,15 @@ def phase_train_live_bn(device, paths: Paths, train_ms: float) -> dict:
 
 
 def _check_ranks(path: str, what: str, ranks: list, one: dict, expected: dict,
-                 replayed: bool = True) -> dict:
+                 replayed: bool = True, tol: dict = TOL_LIVE_BN) -> dict:
     """Each rank against the one-process run: the worst differences of the
     losses, the first step's gradient summed over the ranks and the final
-    statistics, held to `TOL_LIVE_BN`; the ranks' states bit-equal, each
-    rank's launches a step `expected`. Without the ReLU decisions replayed
-    (`replayed=False`) the gradient is printed, not held, and so are the
-    losses after LOSS_STEPS: from the second step the runs' weights differ
-    by rounding, which a near-tie decision can turn into a discrete change
-    (train-cli-dp's steps)."""
+    statistics, held to `tol` (what it has no limit for is printed); the
+    ranks' states bit-equal, each rank's launches a step `expected`.
+    Without the ReLU decisions replayed (`replayed=False`) the gradient is
+    printed, not held, and so are the losses after LOSS_STEPS: from the
+    second step the runs' weights differ by rounding, which a near-tie
+    decision can turn into a discrete change (train-cli-dp's steps)."""
     worst = {"loss": 0.0, "grads": 0.0, "stats": 0.0, "later_loss": 0.0}
     leaf = ""
     n = len(one["losses"]) if replayed else LOSS_STEPS
@@ -4113,11 +4154,14 @@ def _check_ranks(path: str, what: str, ranks: list, one: dict, expected: dict,
               if any(not torch.equal(v, r["state"][k]) for r in ranks[1:])]
     if differ:
         raise AssertionError(f"[{path}] the ranks' states differ: {differ[:8]}")
-    hold = ("loss", "grads", "stats") if replayed else ("loss", "stats")
-    _hold(path, what, {k: worst[k] for k in hold}, TOL_LIVE_BN)
+    hold = tuple(k for k in (("loss", "grads", "stats") if replayed else ("loss", "stats"))
+                 if k in tol)
     log(f"[{path}] {what}: the gradient's worst at {leaf}"
         + ("" if replayed else f"; not held (no ReLU replay at this size): gradient "
-           f"{worst['grads']:.3e}, losses of steps {n + 1}.. {worst['later_loss']:.3e}"))
+           f"{worst['grads']:.3e}, losses of steps {n + 1}.. {worst['later_loss']:.3e}")
+        + ("" if not replayed or "grads" in hold else f"; the gradient not held: "
+           f"{worst['grads']:.3e}"))
+    _hold(path, what, {k: worst[k] for k in hold}, tol)
     return worst
 
 
@@ -4321,6 +4365,102 @@ def phase_train_cli_dp(device, paths: Paths, root: str, tmp: str) -> dict:
         f"{one['median_ms']:.2f} ms, both on the card at once)")
     return dict(dp_s=dp_s, one_s=one["seconds"], one_ms=one["median_ms"], diffs=diffs,
                 steps=steps, imgs_per_sec=[r["imgs_per_sec"] for r in got])
+
+
+def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
+    """The mesh's `model` axis on MODEL_AXIS_N gloo ranks sharing the card
+    (a 1 x MODEL_AXIS_N mesh, `tools/dp_check.py`), against the one-process
+    step on the card: VPS `video_knet_kitti_step_r50` at 384x1248, global
+    B=1, the image rows in bands (`parallel/model_axis.py`), and VIS
+    `video_knet_vis_r50_ytvis2019` on 1x5x360x640 clips, the frames split
+    3 + 2; MODEL_AXIS_STEPS steps of each preset, then one step of each
+    with live BatchNorm (`norm_eval=False`). Every step's losses (the
+    presets' beside the hard decisions the split takes apart, which loosen
+    that step's limit), the presets' first step's gradient (the ranks
+    replaying the one-process run's ReLU decisions on their band or frames)
+    and the live statistics within TOL_MODEL_AXIS; each rank's backbone
+    input its share; 7 / 7 / 1
+    launches a step on each rank. Per rank: step ms, peak memory beside the
+    one-process run's, the bytes it hands to the collectives a step."""
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.parallel.mesh import DataMesh
+    from video_knet_tpu_torch.parallel.model_axis import frame_counts
+    from video_knet_tpu_torch.tools import dp_check
+    from video_knet_tpu_torch.train import vis as tvis
+    from video_knet_tpu_torch.train import vps as tvps
+
+    vps, vis = get_config("video_knet_kitti_step_r50"), get_config("video_knet_vis_r50_ytvis2019")
+    if vis.num_frames != VIS_FRAMES:
+        raise AssertionError("[train-model-axis] not the VIS preset's clip length")
+    specs, expected, shares = {}, {}, {}
+    b, (h, w) = 1, TRAIN_HW
+    for tag, cfg, make, hw, launches, share in (
+            ("vps", vps, tvps, TRAIN_HW, TRAIN_LAUNCHES,
+             [(2 * b, h // MODEL_AXIS_N, w, 3)] * MODEL_AXIS_N),
+            ("vis", vis, tvis, VIS_HW, VIS_TRAIN_LAUNCHES,
+             [(b * c, *VIS_HW, 3) for c in frame_counts(VIS_FRAMES, MODEL_AXIS_N)])):
+        batches = [make.make_synthetic_batch(cfg, b, hw, seed=i, device="cpu")
+                   for i in range(MODEL_AXIS_STEPS)]
+        specs[tag] = dict(kind=tag, cfg=cfg, seed=MODEL_AXIS_SEED, batches=batches,
+                          decisions=True)
+        specs[f"{tag}-live"] = dict(kind=tag, cfg=dataclasses.replace(cfg, norm_eval=False),
+                                    seed=MODEL_AXIS_SEED, batches=batches[:1], decisions=True)
+        for t in (tag, f"{tag}-live"):
+            expected[t], shares[t] = launches, [[x] for x in share]
+    one = {}
+    for tag, spec in specs.items():  # here, before the ranks start, recording the ReLUs
+        relus: list = []
+        one[tag] = _uncounted(lambda: dp_check.train_steps(
+            DataMesh(), device, {**spec, "record_steps": 1}, record=relus))
+        one[tag]["relus"] = relus
+    t0 = time.perf_counter()
+    ranks = dp_check.run_ranks(
+        MODEL_AXIS_N, [{**spec, "n_model": MODEL_AXIS_N, "relus": one[tag].pop("relus")}
+                       for tag, spec in specs.items()], os.path.join(tmp, "model_axis"),
+        device=device.type, backend="gloo", threads=_rank_threads(MODEL_AXIS_N))
+    launch_s = time.perf_counter() - t0
+    out = {"launch_s": launch_s}
+    for i, (tag, spec) in enumerate(specs.items()):
+        per_rank = [r[i] for r in ranks]
+        if not all(r["replayed"] == [True] for r in per_rank):
+            raise AssertionError(f"[train-model-axis] {tag}: a rank did not replay every ReLU "
+                                 f"decision of the first step")
+        tol = TOL_MODEL_AXIS_LIVE if tag.endswith("live") else TOL_MODEL_AXIS
+        flips = []
+        if spec.get("decisions"):  # losses held step by step, beside the decisions
+            tol = {k: v for k, v in tol.items() if k != "loss"}
+            flips = [sum(int((a != b).sum()) for a, b in zip(x, y))
+                     for x, y in zip(one[tag]["decisions"], per_rank[0]["decisions"])]
+            for k, w in enumerate(one[tag]["losses"]):
+                gaps = {key: max(abs(r["losses"][k][key] - w[key]) for r in per_rank)
+                        / max(abs(w[key]), 1e-6) for key in w}
+                worst_key = max(gaps, key=gaps.get)
+                limit = TOL_MODEL_AXIS_SPLIT_LOSS if flips[k] else TOL_MODEL_AXIS["loss"]
+                log(f"[train-model-axis] {tag} step {k + 1}: losses within "
+                    f"{gaps[worst_key]:.3e} ({worst_key}); hard decisions the split takes "
+                    f"apart {flips[k]}; held to {limit:g}")
+                if not gaps[worst_key] <= limit:
+                    raise AssertionError(f"[train-model-axis] {tag} step {k + 1}: "
+                                         f"{worst_key} {gaps[worst_key]:.3e} beyond {limit:g}")
+        got = [r["inputs"] for r in per_rank]
+        if got != shares[tag]:
+            raise AssertionError(f"[train-model-axis] {tag}: the ranks' backbone inputs {got}, "
+                                 f"expected their shares {shares[tag]}")
+        worst = _check_ranks("train-model-axis", f"{tag}: {MODEL_AXIS_N} gloo ranks (1x"
+                             f"{MODEL_AXIS_N} mesh) vs one process, {len(spec['batches'])} "
+                             f"step(s)", per_rank, one[tag], expected[tag], tol=tol)
+        out[tag] = dict(
+            worst=worst, inputs=got, one_ms=one[tag]["ms"], one_peak=one[tag]["peak_bytes"],
+            rank_ms=[r["ms"] for r in per_rank], rank_peak=[r["peak_bytes"] for r in per_rank],
+            comm=per_rank[0]["comm"], launches=per_rank[0]["launches"], apart=flips)
+        log(f"[train-model-axis] {tag}: step ms one process {json.dumps(one[tag]['ms'])}, ranks "
+            f"{json.dumps(out[tag]['rank_ms'])}; peak memory one process "
+            f"{one[tag]['peak_bytes']} bytes, ranks {out[tag]['rank_peak']}; bytes a rank hands "
+            f"to the collectives a step {json.dumps(out[tag]['comm'])}; launches a step on "
+            f"rank 0 {json.dumps(per_rank[0]['launches'])}")
+    paths.launches["train-model-axis"] = {
+        k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
+    return out
 
 
 @torch.no_grad()
@@ -4593,8 +4733,9 @@ def phase_models_check(device, paths: Paths) -> dict:
     64-channel heads) over `detectors_r50` and over `swin_t_rfp`, card
     against CPU at 64x96 (weights from `image_margin_seed`, the
     zero-initialized leaves drawn): forward outputs and the panoptic decode;
-    one DetectoRS train step, the CPU replaying the card's ReLU decisions;
-    then the aligned head, STDC and the K=3 stage alone (`_modules_vs_cpu`)."""
+    one DetectoRS train step under deterministic algorithms, the CPU
+    replaying the card's ReLU decisions; then the aligned head, STDC and
+    the K=3 stage alone (`_modules_vs_cpu`)."""
     from video_knet_tpu_torch.config import KNetConfig
     from video_knet_tpu_torch.tools import train_check
 
@@ -4603,7 +4744,17 @@ def phase_models_check(device, paths: Paths) -> dict:
         cfg = dataclasses.replace(train_check.image_check_cfg(KNetConfig(), deformable=False),
                                   backbone=backbone)
         train = backbone == "detectors_r50"
-        launches = _image_card_vs_cpu(device, cfg, f"models-check {backbone}", train, worst)
+        # The DetectoRS step's backward sums some gradients with atomics in no
+        # fixed order, and its SAC switch biases sum signed terms over the
+        # pixels to ~1/10 of their weights' gradients, so that noise alone
+        # moved one 1.09e-3 to 1.48e-3 of its scale over three runs of one
+        # process on an H100; with deterministic algorithms it read 9.28e-4
+        # every run. The step is compared under them, as `ckpt`'s is.
+        torch.use_deterministic_algorithms(train)
+        try:
+            launches = _image_card_vs_cpu(device, cfg, f"models-check {backbone}", train, worst)
+        finally:
+            torch.use_deterministic_algorithms(False)
         if train:
             paths.launches["models-check"] = launches
     worst["modules"] = _modules_vs_cpu(device)
@@ -4709,6 +4860,10 @@ def main() -> int:
         t1 = time.perf_counter()
         models[tag] = run()
         phase_s[tag] = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        model_axis = phase_train_model_axis(device, paths, tmp)
+        phase_s["train-model-axis"] = time.perf_counter() - t1
     hrec["vis_data"] = vis_data["hungarian"]
     phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
@@ -4718,7 +4873,8 @@ def main() -> int:
                               "roi-gt-box", "track-check", "import-ref", "score", "ckpt",
                               "data-train", "eval-hook", "cli-", "tta", "train-cli",
                               "train-vis-cli", "train-image-cli", "train-live-bn",
-                              "train-dp", "rfp-", "upernet-align", "models-check"))
+                              "train-dp", "rfp-", "upernet-align", "models-check",
+                              "train-model-axis"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -4820,8 +4976,17 @@ def main() -> int:
         f"host syncs a step {align['train']['syncs']} ({card})")
     log(f"[dcn] {json.dumps(align['dcn'])} ({card})")
     log(f"[models-check] worst card-vs-CPU: {json.dumps(models['models-check'])}")
-    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI, data-parallel and "
-        f"last model modules' phases, {sum(phase_s.values()):.1f} s together ({card})")
+    for tag in ("vps", "vis", "vps-live", "vis-live"):
+        rec = model_axis[tag]
+        log(f"[train-model-axis] {tag}: 1x{MODEL_AXIS_N} mesh of gloo ranks sharing the card, "
+            f"step ms {json.dumps(rec['rank_ms'])} (one process {json.dumps(rec['one_ms'])}); "
+            f"peak memory a rank {rec['rank_peak']} bytes against {rec['one_peak']} in one "
+            f"process; bytes a rank hands to the collectives a step {json.dumps(rec['comm'])}; "
+            f"worst vs one process {json.dumps(rec['worst'])}; hard decisions the split "
+            f"takes apart a step {rec['apart']} ({card})")
+    log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI, data-parallel, "
+        f"last model modules' and model-axis phases, {sum(phase_s.values()):.1f} s together "
+        f"({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

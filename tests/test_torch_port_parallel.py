@@ -73,13 +73,15 @@ import jax
 import numpy as np
 import pytest
 import torch
-from flax import traverse_util
 from torch_port_common import (
     _collect,
     _spawn,
     _tiny_image_cfg,
     jax_relu_decisions,
-    perturb_norms,
+    no_positives,
+    perturbed_variables,
+    rel_err,
+    weight_of,
 )
 
 import video_knet_tpu.config as jconfig
@@ -135,13 +137,6 @@ ONE_STAGE = dict(num_stages=1, assign_stages=1, stage_loss_weights=(1.0,))
 CLI_TREE_FRAMES = 8  # one sequence: two steps an epoch at a global batch of 4
 
 
-def _variables(module, seed: int):
-    """The module's weights as a flax tree, norms and statistics perturbed
-    off their init values."""
-    tree = traverse_util.unflatten_dict(state_dict_to_flax(module, module.state_dict()), sep="/")
-    return perturb_norms(tree, seed=seed)
-
-
 def _batch_np(batch) -> tuple:
     return (batch.img.numpy(), batch.ref_img.numpy(), [x.numpy() for x in batch.gt],
             [x.numpy() for x in batch.ref_gt])
@@ -161,18 +156,6 @@ def _vis_cfgs():
     return out
 
 
-def _no_positives(gt: PanopticGT, row: int) -> PanopticGT:
-    """`gt` with image `row` empty: no thing, no stuff."""
-    out = [x.clone() for x in gt]
-    masks, labels, valid, ids, sem, sem_valid = out
-    masks[row] = 0
-    valid[row] = False
-    ids[row] = -1
-    sem[row] = 0
-    sem_valid[row] = False
-    return PanopticGT(*out)
-
-
 def _cases(vps_weights: dict) -> dict:
     """The data-parallel cases; the R-50 live-BN VPS case starts from
     `vps_weights` (the JAX check's), its two steps on seed 0's batch (seed
@@ -190,14 +173,14 @@ def _cases(vps_weights: dict) -> dict:
         for s in seeds:
             b = tvps.make_synthetic_batch(cfg, 2, HW, seed=s, device="cpu")
             if empty:
-                b = b._replace(gt=_no_positives(b.gt, 1), ref_gt=_no_positives(b.ref_gt, 1))
+                b = b._replace(gt=no_positives(b.gt, 1), ref_gt=no_positives(b.ref_gt, 1))
             out.append(b)
         return out
 
     images = []
     for s in (0, 1):
         b = timage.make_synthetic_batch(image, 2, HW, seed=s, device="cpu")
-        images.append(b._replace(gt=_no_positives(b.gt, 1)))
+        images.append(b._replace(gt=no_positives(b.gt, 1)))
     return {
         "vps_live_bn": dict(kind="vps", cfg=r50, seed=0, weights=vps_weights,
                             batches=[tvps.make_synthetic_batch(r50, 2, HW, seed=0,
@@ -232,7 +215,7 @@ def runs(tmp_path_factory):
         # the VPS step first: its JAX compile is the longest job
         jcfg, tcfg = (mod.VideoKNetConfig(max_insts=4, norm_eval=False, **ONE_STAGE)
                       for mod in (jconfig, tconfig))
-        vps_vars = _variables(VideoKNet(tcfg, generator=torch.Generator().manual_seed(0),
+        vps_vars = perturbed_variables(VideoKNet(tcfg, generator=torch.Generator().manual_seed(0),
                                         device="cpu"), seed=1)
         vps_model = load_flax_variables(VideoKNet(tcfg, device="cpu"), vps_vars)
         vps_weights = {k: v.clone() for k, v in vps_model.state_dict().items()}
@@ -242,14 +225,14 @@ def runs(tmp_path_factory):
             batches=[_batch_np(b) for b in cases["vps_live_bn"]["batches"]]), nice=0, devices=2)
         jobs["vps"] = vps_job
         resnet = ResNet(depth=50, frozen_stages=1, norm_eval=False)
-        bn_vars = _variables(_init_resnet(resnet), seed=3)
+        bn_vars = perturbed_variables(_init_resnet(resnet), seed=3)
         x = rng.randn(2, *HW, 3).astype(np.float32)
         cot = [rng.randn(2, HW[0] // s, HW[1] // s, c).astype(np.float32)
                for s, c in zip((4, 8, 16, 32), resnet.out_channels)]
         jobs["bn"] = _spawn(root, "live_bn_resnet", dict(
             job="live_bn_resnet", variables=bn_vars, x=x, cotangents=cot), nice=5)
         vis_j, vis_t = _vis_cfgs()
-        vis_vars = _variables(KNetVIS(vis_t, generator=torch.Generator().manual_seed(4),
+        vis_vars = perturbed_variables(KNetVIS(vis_t, generator=torch.Generator().manual_seed(4),
                                       device="cpu"), seed=5)
         vis_batch = tvis.make_synthetic_batch(vis_t, 2, HW, seed=0, device="cpu")
         jobs["vis"] = _spawn(root, "vis_live_bn", dict(
@@ -382,27 +365,13 @@ def _port_vis(cfg, variables, batch) -> dict:
                 stats=state_dict_to_flax(model, model.state_dict()))
 
 
-def _weight_of(leaf: str) -> str:
-    """The leaf whose largest magnitude scales `leaf`'s gradient tolerance:
-    its own, but an attention key's bias takes its kernel's (the bias's true
-    gradient is zero: softmax over the keys ignores a shift that is equal
-    for every key, so both packages hold rounding noise there)."""
-    if leaf.endswith("/key/bias"):
-        return leaf[:-len("bias")] + "kernel"
-    return leaf
-
-
-def _rel(got, want) -> float:
-    return float(np.abs(np.asarray(got) - want).max()) / max(float(np.abs(want).max()), 1e-12)
-
-
 # ------------------------------------------------------------------ ResNet, live BN
 
 
 def test_live_bn_outputs_match_jax(runs):
     r = runs["bn_port"]
     for got, want in zip(r["outs"], r["want"]["outs"]):
-        assert _rel(got, want) <= OUT_REL
+        assert rel_err(got, want) <= OUT_REL
 
 
 def test_live_bn_gradients_match_jax(runs):
@@ -428,7 +397,7 @@ def test_live_bn_statistics_match_jax(runs):
     got = {k: v for k, v in r["stats"].items() if k.startswith("batch_stats/")}
     assert set(got) == set(want)
     for k, w in want.items():
-        assert _rel(got[k], w) <= STATS_REL, k
+        assert rel_err(got[k], w) <= STATS_REL, k
         frozen = k.startswith(tuple("batch_stats/" + f for f in FROZEN))
         old = r["before"][k]
         assert (got[k].tobytes() == old.tobytes()) == frozen, k
@@ -461,13 +430,13 @@ def test_vps_step_matches_jax_sharded_step(runs, run):
                                            for n, p in model.named_parameters()})
         moved = 0
         for k, w in want["grads"].items():
-            scale = float(np.abs(want["grads"][_weight_of(k)]).max())
+            scale = float(np.abs(want["grads"][weight_of(k)]).max())
             assert float(np.abs(grads[k] - w).max()) <= GRAD_REL * max(scale, 1e-12), k
             moved += float(np.abs(w).max()) > 0
         assert moved > len(want["grads"]) // 2
         got = state_dict_to_flax(model, res["state"])
         for k, w in want["batch_stats"].items():
-            assert _rel(got[k], w) <= STATS_REL, k
+            assert rel_err(got[k], w) <= STATS_REL, k
         start = flatten_variables(runs["vps_vars"])
         moved = [k for k in want["batch_stats"] if not np.array_equal(got[k], start[k])]
         assert moved and not any(k.startswith(tuple("batch_stats/backbone/" + f for f in FROZEN))
@@ -486,7 +455,7 @@ def test_vis_live_bn_loss_and_statistics_match_jax(runs):
         assert abs(losses[k] - w) <= LOSS_REL * max(abs(w), 1e-6), (k, losses[k], w)
     assert abs(total - want["total"]) <= LOSS_REL * abs(want["total"])
     for k, w in want["batch_stats"].items():
-        assert _rel(got["stats"][k], w) <= STATS_REL, k
+        assert rel_err(got["stats"][k], w) <= STATS_REL, k
 
 
 # ------------------------------------------------------------------ ranks vs one process
@@ -581,15 +550,23 @@ def test_shard_batch_takes_the_rows_jax_gives_each_device(world):
 
 
 def test_mesh_raises_where_jax_cannot_place_the_batch():
+    """A batch that does not split over the data axis raises; a mesh that
+    does not cover the world raises (one process: world 1); a 2-D mesh
+    places rank r where JAX's `make_mesh` puts device r."""
     with pytest.raises(ValueError, match="does not split"):
         tmesh.shard_batch(DataMesh(0, 3), torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="F7b"):
+    with pytest.raises(ValueError, match="n_model=2"):
         tmesh.make_mesh(n_model=2)
-    with pytest.raises(NotImplementedError, match="F7b"):
+    with pytest.raises(ValueError, match="n_model=2"):
         tdist.global_mesh(n_model=2)
     with pytest.raises(ValueError, match="n_data=2"):
         tmesh.make_mesh(n_data=2)
     assert tmesh.make_mesh() == DataMesh() == tdist.global_mesh()
+    jm = jmesh.make_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
+    for r, dev in enumerate(jax.devices()[:4]):
+        mesh = DataMesh(r, 4, n_model=2)
+        assert jm.devices[mesh.data_index, mesh.model_index] == dev
+        assert (mesh.n_data, mesh.n_model) == (jm.shape["data"], jm.shape["model"])
 
 
 def test_allgather_results_orders_as_jax_does(runs, monkeypatch):

@@ -223,8 +223,9 @@ def test_schedule_matches_optax_schedule():
 
 def test_unported_train_options_raise():
     """`norm_eval=False` (live BatchNorm) is ported; `bf16_train` with it
-    raises JAX's ValueError, `bf16_train` alone is ported, and a mesh with a
-    `model` axis (spatial sharding) raises (ROADMAP F7b)."""
+    raises JAX's ValueError, `bf16_train` alone is ported, and a mesh whose
+    `n_data * n_model` is not the world size raises (the `model` axis
+    itself is ported: `tests/test_torch_port_model_axis.py`)."""
     from video_knet_tpu_torch.parallel.mesh import make_mesh
 
     model = VideoKNet(tc.VideoKNetConfig(max_insts=4), device="cpu")
@@ -233,8 +234,10 @@ def test_unported_train_options_raise():
         tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, bf16_train=True,
                                                          norm_eval=False))
     tvps.make_vps_loss_fn(model, dataclasses.replace(model.cfg, bf16_train=True))
-    with pytest.raises(NotImplementedError, match="F7b"):
+    with pytest.raises(ValueError, match="does not cover"):
         make_mesh(n_model=2)
+    with pytest.raises(ValueError, match="does not cover"):
+        make_mesh(n_data=2, n_model=1)
 
 
 def test_image_step_raises_for_live_bn_as_jax_does():

@@ -353,13 +353,20 @@ def test_train_step_moves_the_weights(frame):
 
 def test_unported_train_options_raise(frame):
     """`norm_eval=False` is ported; `bf16_train` with it raises JAX's
-    ValueError; clip parallelism over the frames (the mesh's `model` axis)
-    raises (ROADMAP F7b)."""
+    ValueError; clip parallelism over the frames comes from the mesh, as
+    JAX's step reads it (the `clip_parallel` keyword is gone), and a clip
+    shorter than the mesh's `model` axis raises."""
+    from video_knet_tpu_torch.parallel.mesh import DataMesh
+
     model, cfg = frame["model"], frame["cfg"]
     tv.make_vis_loss_fn(model, dataclasses.replace(cfg, norm_eval=False))
     with pytest.raises(ValueError, match="norm_eval=True"):
         tv.make_vis_loss_fn(model, dataclasses.replace(cfg, bf16_train=True, norm_eval=False))
     tv.make_vis_loss_fn(model, dataclasses.replace(cfg, bf16_train=True))  # ported
     state = create_train_state(model, toptim.make_optimizer(model, 1000))
-    with pytest.raises(NotImplementedError, match="F7b"):
+    with pytest.raises(TypeError, match="clip_parallel"):
         tv.train_step(state, frame["batch"], clip_parallel=2)
+    t = frame["batch"].clip.shape[1]
+    state.mesh = DataMesh(0, t + 1, n_model=t + 1)
+    with pytest.raises(ValueError, match=f"a clip of {t} frames does not split"):
+        tv.train_step(state, frame["batch"])

@@ -77,6 +77,28 @@ def perturb_norms(variables, seed: int = 0):
     return traverse_util.unflatten_dict(out)
 
 
+def perturbed_variables(module: torch.nn.Module, seed: int):
+    """The port module's weights as a flax tree, norms and statistics
+    perturbed off their init values (`perturb_norms`)."""
+    tree = traverse_util.unflatten_dict(state_dict_to_flax(module, module.state_dict()), sep="/")
+    return perturb_norms(tree, seed=seed)
+
+
+def weight_of(leaf: str) -> str:
+    """The flax leaf whose largest magnitude scales `leaf`'s gradient
+    tolerance: its own, but an attention key's bias takes its kernel's (the
+    bias's true gradient is zero: softmax over the keys ignores a shift that
+    is equal for every key, so both packages hold rounding noise there)."""
+    if leaf.endswith("/key/bias"):
+        return leaf[:-len("bias")] + "kernel"
+    return leaf
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float(np.abs(np.asarray(got) - want).max()) / max(float(np.abs(want).max()), 1e-12)
+
+
 def port_of(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load flax variables into a port module (strict) and set eval mode."""
     return load_flax_variables(module, variables).eval()
@@ -182,13 +204,9 @@ def jax_pre_relu(mdl, method: str) -> bool:
     return method == "__call__" and _pre_relu(owner, mdl.name)
 
 
-def jax_relu_decisions(intermediates, model: torch.nn.Module, run) -> list:
-    """JAX's ReLU decisions, from the ReLU inputs captured with
-    `jax_pre_relu`, in the order the port calls its ReLUs during `run()`
-    (forward hooks on the port's ReLU inputs), for
-    `train_check.relu_pattern(..., replay=True)`; each replayed call checks
-    its shape. A module called several times (the VPS stages on the ref and
-    the key branch) takes JAX's calls in their order."""
+def relu_call_order(model: torch.nn.Module, run) -> list:
+    """The names of the port's ReLU-input modules in the order `run()`
+    calls them (forward hooks), a module called several times once a call."""
     order, hooks = [], []
     for name, m in model.named_modules():
         owner = type(model.get_submodule(name.rpartition(".")[0])).__name__ if name else ""
@@ -199,6 +217,18 @@ def jax_relu_decisions(intermediates, model: torch.nn.Module, run) -> list:
     finally:
         for h in hooks:
             h.remove()
+    return order
+
+
+def jax_relu_decisions(intermediates, model: torch.nn.Module, run, order=None) -> list:
+    """JAX's ReLU decisions, from the ReLU inputs captured with
+    `jax_pre_relu`, in the order the port calls its ReLUs during `run()`
+    (or `order`, `relu_call_order`'s), for
+    `train_check.relu_pattern(..., replay=True)`; each replayed call checks
+    its shape. A module called several times (the VPS stages on the ref and
+    the key branch) takes JAX's calls in their order."""
+    if order is None:
+        order = relu_call_order(model, run)
     flat = traverse_util.flatten_dict(intermediates, sep="/")
     seen: dict[str, int] = {}
     out = []
@@ -338,13 +368,36 @@ JOBS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_jax_
 JOB_TIMEOUT_S = 900
 
 
-def _spawn(tmp: str, tag: str, spec: dict, nice: int = 10, devices: int = 1):
+def no_positives(gt, row: int):
+    """A port `PanopticGT` with image `row` empty: no thing, no stuff."""
+    out = [x.clone() for x in gt]
+    masks, labels, valid, ids, sem, sem_valid = out
+    masks[row] = 0
+    valid[row] = False
+    ids[row] = -1
+    sem[row] = 0
+    sem_valid[row] = False
+    return type(gt)(*out)
+
+
+def _send_spec(tmp: str, tag: str, spec: dict) -> None:
+    """The job `tag`'s spec, written whole at once (the job may be waiting
+    for it)."""
+    spec_path = os.path.join(tmp, f"{tag}.spec")
+    with open(spec_path + ".tmp", "wb") as f:
+        pickle.dump(spec, f)
+    os.replace(spec_path + ".tmp", spec_path)
+
+
+def _spawn(tmp: str, tag: str, spec: dict | None, nice: int = 10, devices: int = 1):
     """`tests/torch_port_jax_jobs.py` on `spec` in a process of its own,
     JAX on `devices` virtual CPU devices, at `nice` (the longest job goes
-    first for the cores): (the process, its result file)."""
-    spec_path, out = os.path.join(tmp, f"{tag}.spec"), os.path.join(tmp, f"{tag}.out")
-    with open(spec_path, "wb") as f:
-        pickle.dump(spec, f)
+    first for the cores): (the process, its result file). With `spec`
+    None the job imports and waits for `_send_spec`."""
+    out = os.path.join(tmp, f"{tag}.out")
+    spec_path = os.path.join(tmp, f"{tag}.spec")
+    if spec is not None:
+        _send_spec(tmp, tag, spec)
     flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
              if "xla_force_host_platform_device_count" not in f]
     if devices > 1:

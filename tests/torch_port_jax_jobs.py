@@ -1,5 +1,6 @@
-"""JAX-side jobs of `tests/test_torch_port_train_cli.py`, each run in a
-process of its own (`python tests/torch_port_jax_jobs.py SPEC OUT`).
+"""JAX-side jobs of the port's test files, each run in a process of its
+own (`python tests/torch_port_jax_jobs.py SPEC OUT`; a SPEC not there yet
+is waited for, the job's imports done meanwhile).
 
 Tracing a JAX train step holds the GIL for tens of seconds, so JAX jobs
 in threads of the test process run one after another; in processes they
@@ -24,9 +25,12 @@ Jobs:
 - `direct_vis`: the VIS fp32 and bf16 losses on a given clip.
 - `live_bn_resnet`: ResNet-50 in train mode with `norm_eval=False` (live
   BatchNorm): outputs, gradients, new batch statistics, ReLU decisions.
-- `sharded_vps`: `make_sharded_train_step` on a two-device `data` mesh
-  (the job's process gets two virtual CPU devices), a few steps: losses,
-  ReLU decisions, the first step's gradient, final state.
+- `sharded_vps`: `make_sharded_train_step` on a 2 x `n_model` mesh of
+  virtual CPU devices (`n_model` 1: the `data` axis alone; 2: the image
+  height sharded over `model` too), a few steps: losses, ReLU decisions,
+  the first step's gradient, final state.
+- `sharded_vis`: `make_sharded_vis_train_step` alike (with a `model` axis,
+  the clip's frames sharded over it).
 - `vis_live_bn`: the VIS loss with live BatchNorm and its new statistics.
 """
 
@@ -223,47 +227,50 @@ def live_bn_resnet(variables, x, cotangents) -> dict:
                 relus=signs)
 
 
-def sharded_vps(cfg, variables, batches) -> dict:
-    """JAX's `make_sharded_train_step` on a two-device `data` mesh, one step
-    a global batch (numpy fields of `VPSBatch`), the optimizer of its CLI
-    (`make_optimizer(params, 1000, frozen_stages=...)`); the state put on
-    the mesh first, so the step compiles once. The model is seen through a
-    proxy that captures its ReLU inputs (`jax_pre_relu`) and the optimizer
-    through one whose update hands its gradient to the host, both with
-    `jax.debug.callback`. Returns each step's losses and ReLU decisions
-    (the inputs' signs), the first step's gradient, and the final
+def _capturing(model, relus: list):
+    """`model` as a train loss function calls it (`apply` with `mutable`
+    a list or False), with its ReLU inputs' signs (`jax_pre_relu`) handed to
+    the host through `jax.debug.callback` into `relus`."""
+    import jax
+    import numpy as np
+
+    from torch_port_common import jax_pre_relu
+
+    class Capturing:
+        train = model.train
+
+        def apply(self, variables, *args, mutable, **kwargs):
+            out, upd = model.apply(variables, *args, mutable=[*(mutable or []), "intermediates"],
+                                   capture_intermediates=jax_pre_relu, **kwargs)
+            upd = dict(upd)
+            signs = jax.tree_util.tree_map(lambda v: v > 0, upd.pop("intermediates"))
+            jax.debug.callback(
+                lambda s: relus.append(jax.tree_util.tree_map(np.asarray, s)), signs)
+            return (out, upd) if mutable else out
+
+    return Capturing()
+
+
+def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap) -> dict:
+    """`make_step(model, cfg, tx, mesh)` of the given model on a 2 x
+    `n_model` mesh, one step a global batch (`wrap(batch)` -> the step's
+    arguments), the optimizer of the CLIs (`make_optimizer(params, 1000,
+    frozen_stages=...)`); the state put on the mesh first, so the step
+    compiles once. The optimizer is seen through a proxy whose update
+    hands its gradient to the host. Returns each step's losses and ReLU
+    decisions (the inputs' signs), the first step's gradient, and the final
     parameters and batch statistics."""
     import jax
-    import jax.numpy as jnp
     import numpy as np
     import optax
 
-    import video_knet_tpu.train.vps as jtvps
-    from torch_port_common import jax_pre_relu
-    from video_knet_tpu.models.video.knet_vps import VideoKNet
-    from video_knet_tpu.ops.targets import PanopticGT
     from video_knet_tpu.parallel.mesh import make_mesh, replicated, shard_batch
     from video_knet_tpu.train.optim import make_optimizer
     from video_knet_tpu.train.train_state import create_train_state
 
     host = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     grads, relus = [], []
-    model = VideoKNet(cfg, train=True)
-
-    class Capturing:
-        """`model` as the loss function calls it, with its ReLU inputs'
-        signs handed to the host."""
-        train = model.train
-
-        def apply(self, variables, *args, mutable, **kwargs):
-            out, upd = model.apply(variables, *args, mutable=[*mutable, "intermediates"],
-                                   capture_intermediates=jax_pre_relu, **kwargs)
-            upd = dict(upd)
-            signs = jax.tree_util.tree_map(lambda v: v > 0, upd.pop("intermediates"))
-            jax.debug.callback(lambda s: relus.append(host(s)), signs)
-            return out, upd
-
-    mesh = make_mesh(n_data=2, n_model=1, devices=jax.devices()[:2])
+    mesh = make_mesh(n_data=2, n_model=n_model, devices=jax.devices()[:2 * n_model])
     tx = make_optimizer(variables["params"], 1000, frozen_stages=cfg.frozen_stages)
 
     def update(g, opt_state, params=None):
@@ -272,20 +279,56 @@ def sharded_vps(cfg, variables, batches) -> dict:
 
     keeping = optax.GradientTransformation(tx.init, update)
     state = jax.device_put(create_train_state(variables, keeping), replicated(mesh))
-    step = jtvps.make_sharded_train_step(Capturing(), cfg, keeping, mesh)
+    step = make_step(relus, keeping, mesh)
     losses = []
-    for img, ref_img, gt, ref_gt in batches:
-        batch = jtvps.VPSBatch(jnp.asarray(img), jnp.asarray(ref_img),
-                               PanopticGT(*map(jnp.asarray, gt)),
-                               PanopticGT(*map(jnp.asarray, ref_gt)))
+    for batch in batches:
         with mesh:
-            state, out = step(state, shard_batch(mesh, batch))
+            state, out = step(state, *shard_batch(mesh, wrap(batch)))
         losses.append({k: float(v) for k, v in out.items()})
     jax.effects_barrier()
     assert len(grads) == len(relus) == len(batches), (len(grads), len(relus))
     return dict(losses=losses, relus=relus, grads=_flat({"params": grads[0]}),
                 params=_flat({"params": state.params}),
                 batch_stats=_flat({"batch_stats": state.batch_stats}))
+
+
+def sharded_vps(cfg, variables, batches, n_model: int = 1) -> dict:
+    """JAX's `make_sharded_train_step` (`_sharded_run`) on global batches
+    given as numpy fields of `VPSBatch`."""
+    import jax.numpy as jnp
+
+    import video_knet_tpu.train.vps as jtvps
+    from video_knet_tpu.models.video.knet_vps import VideoKNet
+    from video_knet_tpu.ops.targets import PanopticGT
+
+    model = VideoKNet(cfg, train=True)
+
+    def wrap(batch):
+        img, ref_img, gt, ref_gt = batch
+        return (jtvps.VPSBatch(jnp.asarray(img), jnp.asarray(ref_img),
+                               PanopticGT(*map(jnp.asarray, gt)),
+                               PanopticGT(*map(jnp.asarray, ref_gt))),)
+
+    return _sharded_run(lambda relus, tx, mesh: jtvps.make_sharded_train_step(
+        _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model, wrap)
+
+
+def sharded_vis(cfg, variables, batches, n_model: int = 1) -> dict:
+    """JAX's `make_sharded_vis_train_step` (`_sharded_run`) on global
+    batches given as (clip, ClipGT fields) in numpy."""
+    import jax.numpy as jnp
+
+    import video_knet_tpu.train.vis as jtvis
+    from video_knet_tpu.models.vis.knet_vis import ClipGT, KNetVIS
+
+    model = KNetVIS(cfg, train=True)
+
+    def wrap(batch):
+        clip, gt = batch
+        return jnp.asarray(clip), ClipGT(*map(jnp.asarray, gt))
+
+    return _sharded_run(lambda relus, tx, mesh: jtvis.make_sharded_vis_train_step(
+        _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model, wrap)
 
 
 def vis_live_bn(cfg, variables, clip, gt) -> dict:
@@ -310,11 +353,22 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(HERE))
     _setup_jax()
     spec_path, out_path = sys.argv[1:3]
+    if not os.path.exists(spec_path):  # the test is still making it: import meanwhile
+        import time
+
+        import video_knet_tpu.train.vis  # noqa: F401
+        import video_knet_tpu.train.vps  # noqa: F401
+
+        deadline = time.monotonic() + 600
+        while not os.path.exists(spec_path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{spec_path} never appeared")
+            time.sleep(0.05)
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
     result = {"cli": cli, "direct_vps": direct_vps, "direct_vis": direct_vis,
               "live_bn_resnet": live_bn_resnet, "sharded_vps": sharded_vps,
-              "vis_live_bn": vis_live_bn}[spec.pop("job")](**spec)
+              "sharded_vis": sharded_vis, "vis_live_bn": vis_live_bn}[spec.pop("job")](**spec)
     with open(out_path + ".tmp", "wb") as f:
         pickle.dump(result, f)
     os.replace(out_path + ".tmp", out_path)

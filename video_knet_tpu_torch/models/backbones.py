@@ -12,6 +12,14 @@ from video_knet_tpu_torch.models.msdeform_decoder import MSDeformAttnPixelDecode
 from video_knet_tpu_torch.models.resnet import FPN, RESNET_STAGE_BLOCKS, ResNet
 from video_knet_tpu_torch.models.rfp import RFP, rfp_backbone_name
 from video_knet_tpu_torch.models.swin import SWIN_PRESETS, SwinTransformer
+from video_knet_tpu_torch.parallel.mesh import share_rows
+from video_knet_tpu_torch.parallel.model_axis import (
+    active_split,
+    band_rows,
+    frame_rows,
+    gather_shares,
+    running_share,
+)
 
 # backbones whose output is already the pyramid (the recursive feature
 # pyramid is their neck): models skip the separate neck for these
@@ -62,8 +70,38 @@ def pyramid_width(backbone: nn.Module, neck: nn.Module | None) -> int:
     return backbone.out_channels[0] if neck is None else neck.out_channels
 
 
-def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generator=None):
-    """The pyramid of `img`: the backbone's stage outputs through the neck,
-    if there is one."""
+def _pyramid(backbone: nn.Module, neck: nn.Module | None, img, generator):
     feats = backbone(img, generator)
     return feats if neck is None else neck(feats)
+
+
+def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generator=None,
+                      frames: int | None = None):
+    """The pyramid of `img`: the backbone's stage outputs through the neck,
+    if there is one. `frames`: `img` holds clips of that many frames, in
+    b*T + t order.
+
+    Under a split of the mesh's `model` axis (`parallel/model_axis.py`)
+    the backbone and the neck run on this rank's share of `img` (its band
+    of rows, or its frames of each clip), and the levels are gathered over
+    the `model` group into `img`'s order. The band split runs ResNet + FPN
+    only."""
+    split = active_split()
+    if split is None:
+        return _pyramid(backbone, neck, img, generator)
+    if split.kind == "rows":
+        if type(backbone) is not ResNet or type(neck) is not FPN:
+            raise NotImplementedError(
+                f"the band split of the mesh's `model` axis runs ResNet + FPN only, not "
+                f"{type(backbone).__name__} + {type(neck).__name__} (ROADMAP F7c)")
+        rows = band_rows(img.shape[1], split)
+        with running_share(split, lambda t: t[:, band_rows(t.shape[1], split, stride=1)]):
+            share = _pyramid(backbone, neck, img[:, rows], generator)
+        return gather_shares(share, split)
+    if frames is None:
+        raise ValueError("the frame split needs the clip length (`frames`)")
+    clips = img.shape[0] // frames
+    rows = frame_rows(clips, frames, split)
+    with running_share(split, lambda t: t[rows.to(t.device)]), share_rows(img.shape[0], rows):
+        share = _pyramid(backbone, neck, img[rows.to(img.device)], generator)
+    return gather_shares(share, split, clips=clips, frames=frames)

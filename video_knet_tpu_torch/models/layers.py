@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.parallel.mesh import active_mesh, sum_with_grad
+from video_knet_tpu_torch.parallel.model_axis import halo, in_band
 
 # ---------------------------------------------------------------- XLA helpers
 
@@ -98,7 +99,10 @@ def _result_dtype(*ts: torch.Tensor) -> torch.dtype:
 class Conv2d(nn.Module):
     """flax `nn.Conv` on NHWC: weight OIHW, "SAME" padding as XLA pads it
     (or explicit symmetric `padding`); `groups` is flax's
-    `feature_group_count`."""
+    `feature_group_count`. On a band of the image's rows (the band split of
+    the mesh's `model` axis, `parallel/model_axis.py`) it pads the rows as
+    the whole image's convolution does: the rows its window reaches past
+    the band come from the neighbouring bands."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: str | int = "SAME", bias: bool = True, groups: int = 1):
@@ -114,6 +118,9 @@ class Conv2d(nn.Module):
         k = self.weight.shape[-1]
         if k == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+        band = in_band()
+        if band is not None:
+            return self._banded(x, band)
         y = x.permute(0, 3, 1, 2)
         if self.padding == "SAME":
             (t, b), (l, r) = (same_padding(s, k, self.stride) for s in y.shape[-2:])
@@ -127,6 +134,34 @@ class Conv2d(nn.Module):
         y = F.conv2d(y, self.weight, self.bias, stride=self.stride, padding=pad,
                      groups=self.groups)
         return y.permute(0, 2, 3, 1)
+
+    def _banded(self, x: torch.Tensor, band) -> torch.Tensor:
+        """The rows of the whole image's output that this band of `x` owns:
+        the top `lo` and the bottom k - stride - lo halo rows (lo: the
+        whole image's top padding) from the neighbours, the columns padded
+        as usual."""
+        k, s = self.weight.shape[-1], self.stride
+        if self.padding == "SAME":
+            lo = same_padding(x.shape[1] * band.count, k, s)[0]
+            left, right = same_padding(x.shape[2], k, s)
+        else:
+            lo = left = right = self.padding
+        y = halo(x, lo, max(k - s - lo, 0), 0.0, band).permute(0, 3, 1, 2)
+        if left != right:
+            y, left = F.pad(y, (left, right, 0, 0)), 0
+        y = F.conv2d(y, self.weight, self.bias, stride=s, padding=(0, left), groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """ResNet's stem pool on NHWC: 3x3, stride 2, padding 1 (-inf); on a
+    band of the image's rows the row above the band comes from the
+    neighbouring band."""
+    band = in_band()
+    if band is None:
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+    y = halo(x, 1, 0, float("-inf"), band).permute(0, 3, 1, 2)
+    return F.max_pool2d(y, 3, stride=2, padding=(0, 1)).permute(0, 2, 3, 1)
 
 
 class GroupNorm(nn.Module):

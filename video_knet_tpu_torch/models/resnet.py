@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_knet_tpu_torch.models.layers import BatchNorm, Conv2d, resize_nearest
+from video_knet_tpu_torch.models.layers import BatchNorm, Conv2d, max_pool_3x3_s2, resize_nearest
 
 RESNET_STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -82,7 +82,7 @@ class ResNet(nn.Module):
                 generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """`generator` is ignored: ResNet has no stochastic depth."""
         y = F.relu(self.bn1(self.conv1(x)))
-        y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+        y = max_pool_3x3_s2(y)
         if self.frozen_stages >= 0:
             y = y.detach()
         outs = []

@@ -140,7 +140,7 @@ class KNetVIS(nn.Module):
         cfg = self.cfg
         b, t = clip.shape[:2]
         fpn = backbone_and_neck(self.backbone, self.neck,
-                                clip.reshape(b * t, *clip.shape[2:]), generator)
+                                clip.reshape(b * t, *clip.shape[2:]), generator, frames=t)
         if cfg.kernel_head_mode == "volume":
             vol = self.rpn_head(fpn, num_frames=t)
             clip_outs = self.tracker(vol.x_feats, None, vol.tube_mask_preds,

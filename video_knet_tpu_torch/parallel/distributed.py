@@ -1,4 +1,4 @@
-"""Process-group setup for data parallelism over every visible GPU, and
+"""Process-group setup for training over every visible GPU, and
 cross-process result aggregation.
 
 Counterpart of `video_knet_tpu/parallel/distributed.py`, which joins every
@@ -6,14 +6,15 @@ host into one JAX runtime and aggregates eval results through a shared
 tmpdir. The port runs one process a GPU: `torchrun --nproc_per_node=N`
 starts them and sets RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
 MASTER_ADDR and MASTER_PORT; `initialize` joins them into one process group
-and returns this rank's device, and `global_mesh` is the `data` mesh over
-all of them (`parallel/mesh.py`).
+and returns this rank's device, and `global_mesh` is the `data` x `model`
+mesh over all of them (`parallel/mesh.py`).
 
 Backend: NCCL when each rank has a GPU of its own, gloo on the CPU. Ranks
 that share a GPU (more local ranks than cards) raise unless the caller
 names gloo: NCCL refuses two ranks on one device, and nothing falls back
 silently. With NCCL a second, gloo, group carries host-side agreement (the
-preemption flag, barriers), so that it never waits on the card.
+preemption flag, barriers), so that it never waits on the card; the
+mesh's `data` and `model` subgroups take the world's backend.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import pickle
 import torch
 import torch.distributed as dist
 
-from video_knet_tpu_torch.parallel.mesh import DataMesh, make_mesh
+from video_knet_tpu_torch.parallel.mesh import DataMesh, forget_groups, make_mesh
 
 _HOST_GROUP = None
 
@@ -77,8 +78,8 @@ def host_group():
 
 
 def global_mesh(n_model: int = 1) -> DataMesh:
-    """The `data` mesh over every rank of every host (`n_model > 1`, the
-    model axis, is ROADMAP F7b)."""
+    """The mesh over every rank of every host: `n_model` ranks on the
+    `model` axis, the rest on `data` (JAX's `global_mesh`)."""
     return make_mesh(n_model=n_model)
 
 
@@ -128,3 +129,4 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    forget_groups()

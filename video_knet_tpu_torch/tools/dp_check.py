@@ -1,4 +1,5 @@
-"""Data-parallel checks: R ranks at B/R each against one process at B.
+"""Mesh checks: R ranks (D data indices at B/D each, n_model ranks on the
+`model` axis of each) against one process at B.
 
 `run_ranks(world, specs, tmp)` starts `world` processes of this module
 (the environment torchrun gives its workers: RANK, WORLD_SIZE, LOCAL_RANK,
@@ -9,34 +10,46 @@ results; it returns, rank by rank, the list of results (one a spec). A
 spec {"kind": "gather", "items"} instead runs
 `parallel/distributed.py:allgather_results` on rank r's `items[r]`, and
 {"kind": "any_rank", "flags"} `any_rank` on rank r's `flags[r]` (the
-preemption flag's agreement), and {"kind": "replicated"} `mesh.replicated`
-on a module filled with rank + 1. `launch(world, argv, tmp)` starts
-any module's command line that way (the train CLIs under a file:// init).
+preemption flag's agreement), {"kind": "replicated"} `mesh.replicated`
+on a module filled with rank + 1, and {"kind": "pyramid"} ResNet + FPN's
+`backbone_and_neck` under the band split (`pyramid_share`).
+`launch(world, argv, tmp)` starts any module's command line that way (the
+train CLIs under a file:// init).
 `train_steps(mesh, device, spec)` in one process is the reference;
 `run_reference(specs, tmp)` runs it for each spec in a process of its own
 (the CPU, no process group), recording the ReLU decisions for the ranks
 to replay.
 
 A spec: {"kind": "vps" | "vis" | "image", "cfg", "seed" (the weights'
-init), "weights" (optional: a state dict loaded over it),
+init), "n_model" (optional: ranks on the mesh's `model` axis, 1 by
+default), "weights" (optional: a state dict loaded over it),
 "batches" (global batches of CPU tensors, one a step), "opt" (keyword
 arguments of `make_optimizer`), "ddp" (optional, one rank only: "plain"
 runs the one-process step in the rank's process, "none" the step over the
 mesh without DistributedDataParallel (its collectives only), "find_unused"
 DDP walking the autograd graph for unused parameters whatever the model;
 by default the step as the port runs it), "timing" (optional: a rank
-writes only the losses, milliseconds and launches back), "relus" (optional:
-per step, the one-process step's ReLU decisions over the global batch,
-recorded by `train_steps(..., record=)`, which each rank replays on its
-rows so that a ReLU input within rounding of zero cannot send the two
-backwards down different sides of its kink)}. A result: the per-step loss
-dicts, the first step's gradients before the clip, the model's final
-parameters and buffers (CPU tensors), each step's milliseconds (host
-clock, the device synchronized around the step) and its kernel launches
-(the wrappers' counts, set to 0 before the steps), the trainable
-parameters' names and the model's `leaves_parameters_unused`; with "relus", whether
-each step replayed every decision and how many elements its own decisions
-would have sent the other way.
+writes only the losses, milliseconds and launches back), "record_steps"
+(optional: `train_steps(..., record=)` records that many first steps'
+ReLU decisions), "decisions" (optional: before each step, the hard
+decisions of its forward, `step_decisions`), "relus" (optional: for the
+first steps, the one-process step's ReLU decisions over the global batch,
+recorded by `train_steps(..., record=)`, or the path of a file that
+`write_relus` writes them to later, which each rank replays on its rows,
+band or frames (`rank_rows`, `model_axis.local_share`) so that a ReLU
+input within rounding of zero cannot send the two backwards down
+different sides of its kink)}. A result: the per-step loss dicts, the
+first step's gradients before the clip, the model's final parameters and
+buffers (CPU tensors), each step's milliseconds (host clock, the device
+synchronized around the step), its kernel launches (the wrappers' counts,
+set to 0 before the steps) and the bytes this rank handed to the `model`
+axis's collectives (`model_axis.BYTES`), the shapes the backbone took in
+the first step, each step's decisions (with "decisions"), the peak device
+memory from the model's creation to the last step, above what was
+allocated before (CUDA; 0 on the CPU), the trainable parameters' names
+and the model's `leaves_parameters_unused`; with "relus", whether each
+replayed step replayed every decision and how many elements its own
+decisions would have sent the other way.
 
 Run as a worker: `python -m video_knet_tpu_torch.tools.dp_check SPEC OUT_DIR`,
 or as the reference: `... dp_check --reference SPEC OUT`. `... dp_check --cli
@@ -59,6 +72,7 @@ import time
 
 import torch
 
+from video_knet_tpu_torch.parallel import model_axis
 from video_knet_tpu_torch.parallel.mesh import DataMesh, batch_sharding, shard_batch
 
 
@@ -80,10 +94,44 @@ def _model_and_step(kind: str, cfg, seed: int, device):
     return KNet(cfg, generator=gen, device=device), train_step
 
 
+SPLITS = {"vps": "rows", "vis": "frames"}  # the step's split over the `model` axis
+
+
+def step_decisions(kind: str, model, batch) -> list[torch.Tensor]:
+    """The hard decisions a train step's forward takes on `batch` (no
+    gradient; in training mode, as the step runs, with BatchNorm's running
+    statistics put back after it): every hard-threshold mask pool's
+    binarization (`train_check.vps_decisions` / `vis_decisions`) and every
+    Hungarian assignment, on the host."""
+    import math
+
+    from video_knet_tpu_torch.models.knet import solve_lanes
+    from video_knet_tpu_torch.models.vis.knet_vis import knet_vis_costs
+    from video_knet_tpu_torch.tools.train_check import vis_decisions, vps_decisions
+
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    model.train()
+    try:
+        with torch.no_grad():
+            if kind == "vps":
+                masks, assigned = vps_decisions(model, batch)
+            else:
+                outs = model(batch.clip)
+                masks = [x > math.log(thr / (1 - thr)) for x, thr in
+                         vis_decisions(outs, model.cfg).values()]
+                assigned = solve_lanes(*knet_vis_costs(outs, batch.gt, model.cfg))[0]
+    finally:
+        model.eval()
+        model.load_state_dict(buffers, strict=False)
+    return [t.cpu() for t in (*masks, *assigned)]
+
+
 def rank_rows(decision: torch.Tensor, mesh: DataMesh, batch_size: int, kind: str) -> torch.Tensor:
-    """This rank's rows of a tensor of the global batch: VPS's backbone,
-    neck and init head see [ref; key], two slices of the global batch
-    (`mesh.batch_blocks`); everything else is batch-major."""
+    """This rank's data index's rows of a tensor of the global batch: VPS's
+    backbone, neck and init head see [ref; key], two slices of the global
+    batch (`mesh.batch_blocks`); everything else is batch-major. Within the
+    backbone and the neck, `model_axis.local_share` then cuts them to this
+    rank's band or frames."""
     n = decision.shape[0]
     blocks = 2 if kind == "vps" and n == 2 * batch_size else 1
     per = n // blocks
@@ -141,6 +189,14 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
     from video_knet_tpu_torch.train.train_state import create_train_state
 
     kind = spec["kind"]
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        from video_knet_tpu_torch.utils.device import set_fp32_numerics
+
+        set_fp32_numerics()  # before any forward, the decisions' too
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     model, step = _model_and_step(kind, spec["cfg"], spec["seed"], device)
     if "weights" in spec:
         model.load_state_dict(spec["weights"], strict=True)
@@ -155,39 +211,94 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
         optimizer_step()
 
     state.optimizer.step = keep_first_grads
-    losses, replayed, differ, ms, launches = [], [], [], [], []
-    cuda = torch.device(device).type == "cuda"
+    if isinstance(spec.get("relus"), str):  # a file the caller writes while the model builds
+        spec = {**spec, "relus": _wait_for(spec["relus"])}
+    losses, replayed, differ, ms, launches, comm, inputs, decided = [], [], [], [], [], [], [], []
+    in_first = []  # non-empty while the first step runs
+    hook = model.backbone.register_forward_pre_hook(
+        lambda _, args: inputs.append(tuple(args[0].shape)) if in_first else None)
     reset_counts()
     for i, batch in enumerate(spec["batches"]):
         b = batch[0].shape[0]
         local = _to(shard_batch(mesh, batch), device)
+        if spec.get("decisions"):
+            from video_knet_tpu_torch.parallel.mesh import data_parallel
+
+            with data_parallel(mesh), model_axis.model_split(mesh, SPLITS[kind]):
+                decided.append(step_decisions(kind, model, local))
         relus = spec.get("relus")
         if cuda:
             torch.cuda.synchronize()
+        model_axis.reset_bytes()
+        in_first[:] = [True] if i == 0 else []
         start, t0 = counts(), time.perf_counter()
-        if record is not None:
+        if record is not None and i < spec.get("record_steps", len(spec["batches"])):
             record.append([])
             with relu_pattern(record[-1]):
                 state, out = step(state, local)
-        elif relus is None:
+        elif relus is None or i >= len(relus):
             state, out = step(state, local)
         else:
-            pattern = [rank_rows(d, mesh, b, kind) for d in relus[i]]
+            # mapped as each ReLU runs: inside the backbone, to this rank's share
+            pattern = (model_axis.local_share(rank_rows(d, mesh, b, kind)) for d in relus[i])
             with relu_pattern(pattern, replay=True) as stats:
                 state, out = step(state, local)
-            replayed.append(stats["calls"] == len(pattern))
+            replayed.append(stats["calls"] == len(relus[i]))
             differ.append(stats["differ"])
         if cuda:
             torch.cuda.synchronize()
+        in_first.clear()
         ms.append((time.perf_counter() - t0) * 1e3)
         end = counts()
         launches.append({k: end[k] - start[k] for k in end})
+        comm.append(dict(model_axis.BYTES))
         losses.append({k: float(v) for k, v in out.items()})
+    hook.remove()
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     return dict(losses=losses, grads=first, state=sd, replayed=replayed, differ=differ, ms=ms,
-                launches=launches,
+                launches=launches, comm=comm, inputs=inputs, decisions=decided,
+                peak_bytes=torch.cuda.max_memory_allocated() - base if cuda else 0,
                 trainable=[n for n, p in model.named_parameters() if p.requires_grad],
                 declares_unused=getattr(model, "leaves_parameters_unused", False))
+
+
+def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
+    """ResNet + FPN (`spec["depth"]`, `spec["weights"]`: their state dicts,
+    eval mode) through `backbone_and_neck` under the band split of `mesh`'s
+    `model` axis, on this rank's data index's rows of `spec["img"]` (one
+    data index), replaying the one-process forward's ReLU decisions
+    `spec["relus"]` if given, and backward from `spec["cotangents"]` (one a
+    level, over n_model: the heads of a step run replicated on the model
+    ranks). Returns the gathered levels, the image's and the parameters'
+    gradients from this rank, the shape the backbone took and the bytes
+    handed to the collectives."""
+    from video_knet_tpu_torch.models.backbones import backbone_and_neck
+    from video_knet_tpu_torch.models.resnet import FPN, ResNet
+    from video_knet_tpu_torch.parallel.mesh import data_parallel
+    from video_knet_tpu_torch.tools.train_check import relu_pattern
+    from video_knet_tpu_torch.utils.device import set_fp32_numerics
+
+    set_fp32_numerics()
+    backbone = ResNet(depth=spec["depth"]).to(device).eval()
+    neck = FPN(in_channels=backbone.out_channels).to(device).eval()
+    backbone.load_state_dict(spec["weights"][0])
+    neck.load_state_dict(spec["weights"][1])
+    img = shard_batch(mesh, spec["img"]).to(device).requires_grad_(True)
+    inputs = []
+    backbone.register_forward_pre_hook(lambda _, args: inputs.append(tuple(args[0].shape)))
+    model_axis.reset_bytes()
+    relus = spec.get("relus")
+    replay = (contextlib.nullcontext() if relus is None else
+              relu_pattern((model_axis.local_share(d) for d in relus), replay=True))
+    with data_parallel(mesh), model_axis.model_split(mesh, "rows"), replay:
+        levels = backbone_and_neck(backbone, neck, img)
+    sum((lv * shard_batch(mesh, c).to(device)).sum() / mesh.n_model
+        for lv, c in zip(levels, spec["cotangents"])).backward()
+    grads = {f"{tag}.{n}": p.grad.detach().cpu() for tag, m in (("backbone", backbone),
+                                                                 ("neck", neck))
+             for n, p in m.named_parameters()}
+    return dict(levels=[lv.detach().cpu() for lv in levels], grad_img=img.grad.detach().cpu(),
+                grads=grads, inputs=inputs, comm=dict(model_axis.BYTES))
 
 
 def reset_counts() -> None:
@@ -216,15 +327,19 @@ def _rank_env(rank: int, world: int, threads: int = 1) -> dict:
 
 
 def launch(world: int, argv: list[str], tmp: str, timeout: float = 600.0,
-           threads: int = 1) -> list[str]:
+           threads: int = 1, nice: int = 0, while_running=None) -> list[str]:
     """`python -m <argv>` in `world` processes with torchrun's rank
-    environment; returns each rank's output (standard output and errors).
+    environment, at `nice`; `while_running()`, if given, runs once they
+    have started. Returns each rank's output (standard output and errors).
     Raises if any rank fails."""
     procs = [subprocess.Popen([sys.executable, "-m", *argv], env=_rank_env(r, world, threads),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              preexec_fn=(lambda: os.nice(nice)) if nice else None)
              for r in range(world)]
     outs = []
     try:
+        if while_running is not None:
+            while_running()
         for p in procs:
             outs.append(p.communicate(timeout=timeout)[0])
     finally:
@@ -239,10 +354,13 @@ def launch(world: int, argv: list[str], tmp: str, timeout: float = 600.0,
 
 
 def run_ranks(world: int, specs: list[dict], tmp: str, timeout: float = 600.0,
-              device: str = "cpu", backend: str | None = None, threads: int = 1) -> list[list]:
+              device: str = "cpu", backend: str | None = None, threads: int = 1,
+              nice: int = 0, while_running=None) -> list[list]:
     """Each spec over `world` ranks joined through a file:// store in `tmp`
-    (see the module doc), `threads` intra-op threads a rank: rank by rank,
-    the list of the specs' results."""
+    (see the module doc), `threads` intra-op threads a rank, at `nice`;
+    `while_running()`, if given, runs once they have started (it may write
+    the files a spec's "relus" name). Rank by rank, the list of the specs'
+    results."""
     os.makedirs(tmp, exist_ok=True)
     spec_path, store = os.path.join(tmp, "dp_spec.pkl"), os.path.join(tmp, "dp_store")
     if os.path.exists(store):  # a file store is good for one group only
@@ -252,7 +370,7 @@ def run_ranks(world: int, specs: list[dict], tmp: str, timeout: float = 600.0,
                          init="file://" + os.path.abspath(store)), f)
     try:
         launch(world, ["video_knet_tpu_torch.tools.dp_check", spec_path, tmp], tmp, timeout,
-               threads)
+               threads, nice, while_running)
     finally:
         os.remove(spec_path)
     out = []
@@ -264,11 +382,29 @@ def run_ranks(world: int, specs: list[dict], tmp: str, timeout: float = 600.0,
     return out
 
 
+def write_relus(path: str, relus: list) -> None:
+    """ReLU decisions for a spec's "relus" path, written whole at once."""
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(relus, f)
+    os.replace(path + ".tmp", path)
+
+
+def _wait_for(path: str, timeout: float = 600.0):
+    """The pickle at `path`, once it exists."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
 def run_reference(specs: list[dict], tmp: str, timeout: float = 600.0,
-                  threads: int = 1) -> list[tuple]:
-    """`train_steps` of each spec in one process of its own on the CPU: a
-    list of (its result, the ReLU decisions it recorded, or replayed where
-    the spec gives them)."""
+                  threads: int = 1, nice: int = 0) -> list[tuple]:
+    """`train_steps` of each spec in one process of its own on the CPU, at
+    `nice`: a list of (its result, the ReLU decisions it recorded, or
+    replayed where the spec gives them)."""
     os.makedirs(tmp, exist_ok=True)
     spec_path, out = os.path.join(tmp, "ref_spec.pkl"), os.path.join(tmp, "ref_out.pkl")
     with open(spec_path, "wb") as f:
@@ -276,7 +412,8 @@ def run_reference(specs: list[dict], tmp: str, timeout: float = 600.0,
     env = {**_rank_env(0, 1, threads), "WORLD_SIZE": ""}
     proc = subprocess.run([sys.executable, "-m", "video_knet_tpu_torch.tools.dp_check",
                            "--reference", spec_path, out], env=env, capture_output=True,
-                          text=True, timeout=timeout)
+                          text=True, timeout=timeout,
+                          preexec_fn=(lambda: os.nice(nice)) if nice else None)
     os.remove(spec_path)
     if proc.returncode != 0:
         raise RuntimeError(f"reference run exited {proc.returncode}:\n{proc.stdout[-2000:]}"
@@ -319,6 +456,9 @@ def _worker(spec_path: str, out_dir: str) -> None:
                     spec["items"][mesh.rank], os.path.join(out_dir, "gather")))
             elif spec["kind"] == "any_rank":
                 results.append(distributed.any_rank(spec["flags"][mesh.rank]))
+            elif spec["kind"] == "pyramid":
+                results.append(pyramid_share(distributed.global_mesh(spec["n_model"]), device,
+                                             spec))
             elif spec["kind"] == "replicated":
                 from video_knet_tpu_torch.parallel.mesh import replicated
 
@@ -329,8 +469,9 @@ def _worker(spec_path: str, out_dir: str) -> None:
                 results.append(replicated(mesh, module).state_dict())
             else:
                 variant = spec.get("ddp", "ddp")
-                on = DataMesh() if variant == "plain" else mesh
-                with ddp_variant(variant, mesh):
+                on = (DataMesh() if variant == "plain"
+                      else distributed.global_mesh(spec.get("n_model", 1)))
+                with ddp_variant(variant, on):
                     res = train_steps(on, device, spec)
                 if spec.get("timing"):
                     res = {k: res[k] for k in ("losses", "ms", "launches")}

@@ -7,8 +7,9 @@ the YouTube-VIS 2019 config (KNetTrack clip training) over a COCO-VID json
 mesh, a JSON record every `--log-interval` steps and a checkpoint a epoch
 in `work_dir/ckpt/step_{epoch}`. Under torchrun `--batch-size` is the
 global batch and each rank loads and trains its clips of it, as
-`tools/train_vps.py` does; rank 0 alone prints and checkpoints. The
-reference's clip parallelism over the mesh's `model` axis is ROADMAP F7b.
+`tools/train_vps.py` does; rank 0 alone prints and checkpoints. As the
+reference's, its mesh has no `model` axis (`make_mesh()`); clip
+parallelism is `train/vis.py:train_step` over a mesh with one.
 
 Usage:
   python -m video_knet_tpu_torch.tools.train_vis --ann-file train.json \\

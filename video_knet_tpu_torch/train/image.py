@@ -83,7 +83,8 @@ def make_image_loss_fn(model: KNet, cfg: KNetConfig, apply=None):
 def train_step(state: TrainState, batch: ImageBatch, generator: torch.Generator | None = None):
     """One image train step on the model's device -> (state, loss dict with
     `total_loss`, as device tensors). Over a data mesh `batch` is this
-    rank's rows and the losses are the global batch's.
+    rank's rows and the losses are the global batch's. JAX's image step has
+    no `model` axis: a mesh with ranks on one raises.
 
     With `backbone_drop_path_rate` > 0 (the Swin presets) the stochastic
     depth draws from `generator`, by default one on the batch's device

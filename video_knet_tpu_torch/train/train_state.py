@@ -6,13 +6,19 @@ mesh): one step holds the forward, the losses, the backward, the per-group
 clip and the AdamW update. Nothing in it waits on the host: the loss dict
 comes back as device tensors.
 
-Over a data mesh of several ranks (`parallel/mesh.py`) each rank runs its
-rows of the global batch through the model under DistributedDataParallel:
-the loss normalizers and BatchNorm's statistics span the global batch
-(`mesh.data_parallel`), so each rank's loss is its share of the global
-loss, and a comm hook sums the gradients over the ranks (DDP would average
-them), so the per-group clip and AdamW see the global gradient on every
-rank, as optax does. The loss dict is the global value on every rank.
+Over a mesh of several ranks (`parallel/mesh.py`) each rank runs its data
+index's rows of the global batch through the model under
+DistributedDataParallel: the loss normalizers and BatchNorm's statistics
+span the global batch (`mesh.data_parallel`), so each data index's loss is
+its share of the global loss, and a comm hook sums the gradients over the
+ranks (DDP would average them), so the per-group clip and AdamW see the
+global gradient on every rank, as optax does. With `n_model` ranks on the
+mesh's `model` axis the step splits the backbone and the neck over them
+(`parallel/model_axis.py`: the VPS step's image rows, the VIS step's
+frames) and runs the heads replicated, so each rank's loss is its data
+index's share over `n_model`: the summed gradient counts the replicated
+heads once and sums the backbone and the neck over their shares. The loss
+dict is the global value on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 from video_knet_tpu_torch.parallel.mesh import DataMesh, data_parallel
+from video_knet_tpu_torch.parallel.model_axis import model_split
 from video_knet_tpu_torch.train.optim import Optimizer
 from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
@@ -103,8 +110,9 @@ def train_forward(state: TrainState, fn: Callable) -> Callable:
 
 
 def global_losses(mesh: DataMesh | None, losses: dict) -> dict:
-    """Each rank's share of every loss summed over the ranks: the global
-    loss dict on every rank (one all-reduce; as is in one process)."""
+    """Each rank's share of every loss (its data index's over `n_model`)
+    summed over the ranks: the global loss dict on every rank (one
+    all-reduce; as is in one process)."""
     if mesh is None or not mesh.distributed:
         return losses
     flat = torch.stack(list(losses.values()))
@@ -112,22 +120,31 @@ def global_losses(mesh: DataMesh | None, losses: dict) -> dict:
     return dict(zip(losses, flat.unbind()))
 
 
-def make_train_step(make_loss_fn: Callable[..., Callable]):
+def make_train_step(make_loss_fn: Callable[..., Callable], split: str | None = None):
     """make_loss_fn(state) -> loss_fn(batch, *args) -> (total, loss_dict).
     Returns train_step(state, batch, *args) -> (state, loss_dict with
-    `total_loss`), detached; `batch` is this rank's rows.
+    `total_loss`), detached; `batch` is this rank's data index's rows.
+    `split` ("rows" or "frames") is how the backbone's batch splits over
+    the mesh's `model` axis; a step without one takes no mesh with a
+    `model` axis.
 
     The model runs in training mode for the step (flax's `train=True`:
     live BatchNorm where `norm_eval=False` and `ura_for` allow) and is back
     in eval mode after it, as serving and the eval hook expect."""
 
     def train_step(state: TrainState, batch, *args):
-        model = state.model
+        model, mesh = state.model, state.mesh
+        n_model = mesh.n_model if mesh is not None and mesh.distributed else 1
+        if n_model > 1 and split is None:
+            raise ValueError(f"this step has no `model` axis; the mesh has {n_model} ranks on it")
         state.optimizer.zero_grad()
         model.train()
         try:
-            with data_parallel(state.mesh):
+            with data_parallel(mesh), model_split(mesh, split):
                 total, losses = make_loss_fn(state)(batch, *args)
+                if n_model > 1:  # the heads run replicated on the model ranks
+                    total = total / n_model
+                    losses = {k: v / n_model for k, v in losses.items()}
                 total.backward()
         finally:
             model.eval()
@@ -135,6 +152,6 @@ def make_train_step(make_loss_fn: Callable[..., Callable]):
         state.step += 1
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
-        return state, global_losses(state.mesh, out)
+        return state, global_losses(mesh, out)
 
     return train_step

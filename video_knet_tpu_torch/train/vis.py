@@ -2,12 +2,13 @@
 clip train step, on one device or data-parallel.
 
 Counterpart of `video_knet_tpu/train/vis.py`: the KNetVIS clip forward,
-`knet_vis_loss`, the backward and the AdamW update; over a data mesh it is
-`make_sharded_vis_train_step` on a `data`-only mesh
-(`train/train_state.py`). Scope: fp32, or a bf16 forward with `bf16_train`
-(as `train/vps.py`); BatchNorm on its running statistics, or live with
-`norm_eval=False` (fp32; statistics over the B*T frames). The reference's
-clip parallelism over frames (the mesh's `model` axis) is ROADMAP F7b.
+`knet_vis_loss`, the backward and the AdamW update; over a mesh it is
+`make_sharded_vis_train_step` (`train/train_state.py`): the clips over
+`data`, and with ranks on the mesh's `model` axis each clip's frames split
+over them for the backbone and the neck (clip parallelism,
+`parallel/model_axis.py`). Scope: fp32, or a bf16 forward with
+`bf16_train` (as `train/vps.py`); BatchNorm on its running statistics, or
+live with `norm_eval=False` (fp32; statistics over the B*T frames).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from video_knet_tpu_torch.config_vis import VISConfig
 from video_knet_tpu_torch.models.vis.knet_vis import ClipGT, KNetVIS, knet_vis_loss
+from video_knet_tpu_torch.parallel.model_axis import frame_counts
 from video_knet_tpu_torch.train.train_state import (
     TrainState,
     check_train_config,
@@ -105,23 +107,22 @@ def make_vis_loss_fn(model: KNetVIS, cfg: VISConfig, apply=None):
     return loss_fn
 
 
-def train_step(state: TrainState, batch: VISBatch, generator: torch.Generator | None = None,
-               *, clip_parallel: int = 1):
+def train_step(state: TrainState, batch: VISBatch, generator: torch.Generator | None = None):
     """One VIS train step on the model's device -> (state, loss dict with
-    `total_loss`, as device tensors). Over a data mesh `batch` is this
-    rank's clips of the global batch and the losses are the global batch's.
+    `total_loss`, as device tensors). Over a mesh `batch` is this rank's
+    data index's clips of the global batch and the losses are the global
+    batch's; as JAX's step reads clip parallelism from its mesh, the
+    mesh's `model` axis splits each clip's frames (contiguous, T=5 over 2
+    ranks: 3 + 2) for the backbone and the neck.
 
     With `backbone_drop_path_rate` > 0 (the Swin-B config) the stochastic
     depth draws from `generator`, by default one on the batch's device
-    seeded with the step count (over a mesh, the global batch's draws).
-    `clip_parallel` > 1, the reference's frame sharding over its mesh's
-    `model` axis, raises (ROADMAP F7b)."""
-    if clip_parallel != 1:
-        raise NotImplementedError(
-            "clip parallelism over the frames (the mesh's `model` axis) is not ported yet "
-            "(ROADMAP F7b)")
+    seeded with the step count (over a mesh, the global batch's draws)."""
     cfg = state.model.cfg
+    if state.mesh is not None:
+        frame_counts(batch.clip.shape[1], state.mesh.n_model)  # raises if the clip is short
     if generator is None and cfg.backbone_drop_path_rate > 0:
         generator = torch.Generator(device=batch.clip.device).manual_seed(state.step)
     return make_train_step(lambda st: make_vis_loss_fn(
-        st.model, cfg, train_forward(st, vis_train_forward)))(state, batch, generator)
+        st.model, cfg, train_forward(st, vis_train_forward)), split="frames")(
+            state, batch, generator)

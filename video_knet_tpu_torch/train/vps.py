@@ -4,13 +4,14 @@ the train step, on one device or data-parallel.
 Counterpart of `video_knet_tpu/train/vps.py` (the reference's
 `VideoKNetQuansiEmbedFCJointTrain.forward_train` under its trainer): the
 joint key + ref forward, every loss, the backward and the AdamW update;
-over a data mesh (`TrainState.mesh`) it is `make_sharded_train_step` on a
-`data`-only mesh (`train/train_state.py`). Scope: fp32, or a bf16 forward
-with `bf16_train` (fp32 masters, optimizer state, gradients and loss
-math); BatchNorm on its running statistics, or live with
+over a mesh (`TrainState.mesh`) it is `make_sharded_train_step`
+(`train/train_state.py`): the batch over `data`, and with ranks on the
+mesh's `model` axis the image rows of ResNet + FPN split into bands over
+them (JAX's `constrain`; `parallel/model_axis.py`). Scope: fp32, or a
+bf16 forward with `bf16_train` (fp32 masters, optimizer state, gradients
+and loss math); BatchNorm on its running statistics, or live with
 `norm_eval=False` (fp32; statistics over the 2B images of [ref; key],
-updated once a step). The mesh's `model` axis (spatial sharding) is
-ROADMAP F7b.
+updated once a step).
 """
 
 from __future__ import annotations
@@ -122,9 +123,11 @@ def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig, apply=None):
 
 def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | None = None):
     """One VPS train step on the model's device -> (state, loss dict with
-    `total_loss`, as device tensors). Over a data mesh `batch` is this
-    rank's rows of the global batch (`parallel/mesh.py:shard_batch`) and
-    the losses are the global batch's.
+    `total_loss`, as device tensors). Over a mesh `batch` is this rank's
+    data index's rows of the global batch (`parallel/mesh.py:shard_batch`)
+    and the losses are the global batch's; the `model` axis splits the
+    backbone and the neck into bands of the image rows, whose height must
+    split into whole multiples of 32 rows a rank.
 
     With `backbone_drop_path_rate` > 0 (the Swin configs) the stochastic
     depth draws from `generator`, by default one on the batch's device
@@ -135,4 +138,5 @@ def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | 
     if generator is None and cfg.backbone_drop_path_rate > 0:
         generator = torch.Generator(device=batch.img.device).manual_seed(state.step)
     return make_train_step(lambda st: make_vps_loss_fn(
-        st.model, cfg, train_forward(st, vps_train_forward)))(state, batch, generator)
+        st.model, cfg, train_forward(st, vps_train_forward)), split="rows")(
+            state, batch, generator)
