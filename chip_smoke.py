@@ -343,7 +343,17 @@ Phases, each raising on failure (the process then exits non-zero):
                rank; per rank: step ms, peak memory beside the one-process
                run's, the bytes a step it hands to the collectives (ranks
                on one card: not a scaling figure)
- 55. kernel-shapes  K1 and K2 against their plain versions at every shape a
+ 55. train-model-axis-swin  the band split of Swin and MiT on the same
+               mesh, held as phase 54 holds its presets: Swin-B VIP-Seg
+               (`video_knet_vipseg_swin_b`) at 736x1280, B=1, drop path 0.3,
+               bands of 384 + 352 rows (12 + 11 stride-32 rows; each block
+               takes the rows of the windows that meet its band, the shifted
+               windows' ring across the map's bottom edge), 2 steps; MiT-b0
+               under the default VPS config at 384x1248 in bands of 192
+               rows (the reduced keys and values all-gathered each block),
+               1 step; per rank: step ms, peak memory beside the one-process
+               run's, the halo, ring and gather bytes a step
+ 56. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
 Every VPS serving phase resets the launch counts just before it drives its
@@ -358,6 +368,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -556,6 +567,8 @@ TOL_CLI_DP_LOSS = (1e-3, 1e-2)
 # train-model-axis: the mesh's `model` axis over gloo ranks sharing the card
 MODEL_AXIS_N = 2  # a 1x2 mesh: 384 rows in 2 bands of 192 (6 x 32); 5 frames as 3 + 2
 MODEL_AXIS_STEPS = 3
+MODEL_AXIS_SWIN_STEPS = 2  # train-model-axis-swin: Swin-B VIP-Seg steps at 736x1280
+MODEL_AXIS_SWIN_BANDS = (384, 352)  # 736 rows: 23 at stride 32, split 12 + 11
 MODEL_AXIS_SEED = 0
 # each rank against the one-process step on the card: every step's losses,
 # relative; the presets' first step's gradient (the ranks replaying the
@@ -4383,9 +4396,7 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     launches a step on each rank. Per rank: step ms, peak memory beside the
     one-process run's, the bytes it hands to the collectives a step."""
     from video_knet_tpu_torch.configs import get_config
-    from video_knet_tpu_torch.parallel.mesh import DataMesh
     from video_knet_tpu_torch.parallel.model_axis import frame_counts
-    from video_knet_tpu_torch.tools import dp_check
     from video_knet_tpu_torch.train import vis as tvis
     from video_knet_tpu_torch.train import vps as tvps
 
@@ -4407,23 +4418,41 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
                                     seed=MODEL_AXIS_SEED, batches=batches[:1], decisions=True)
         for t in (tag, f"{tag}-live"):
             expected[t], shares[t] = launches, [[x] for x in share]
+    out = _model_axis_runs("train-model-axis", device, tmp, specs, expected, shares)
+    paths.launches["train-model-axis"] = {
+        k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
+    return out
+
+
+def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
+                     shares: dict) -> dict:
+    """Each spec's one-process run on the card (recording the first step's
+    ReLU decisions; its memory freed before the ranks start), then all of
+    them over MODEL_AXIS_N gloo ranks sharing the card, each rank replaying
+    the decisions on its rows, band or frames; every rank held against the
+    one-process run as `phase_train_model_axis` says. {tag: its record}."""
+    from video_knet_tpu_torch.parallel.mesh import DataMesh
+    from video_knet_tpu_torch.tools import dp_check
+
     one = {}
     for tag, spec in specs.items():  # here, before the ranks start, recording the ReLUs
         relus: list = []
         one[tag] = _uncounted(lambda: dp_check.train_steps(
             DataMesh(), device, {**spec, "record_steps": 1}, record=relus))
         one[tag]["relus"] = relus
+        if device.type == "cuda":  # the ranks share the card
+            gc.collect()
+            torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = dp_check.run_ranks(
         MODEL_AXIS_N, [{**spec, "n_model": MODEL_AXIS_N, "relus": one[tag].pop("relus")}
-                       for tag, spec in specs.items()], os.path.join(tmp, "model_axis"),
+                       for tag, spec in specs.items()], os.path.join(tmp, path),
         device=device.type, backend="gloo", threads=_rank_threads(MODEL_AXIS_N))
-    launch_s = time.perf_counter() - t0
-    out = {"launch_s": launch_s}
+    out = {"launch_s": time.perf_counter() - t0}
     for i, (tag, spec) in enumerate(specs.items()):
         per_rank = [r[i] for r in ranks]
         if not all(r["replayed"] == [True] for r in per_rank):
-            raise AssertionError(f"[train-model-axis] {tag}: a rank did not replay every ReLU "
+            raise AssertionError(f"[{path}] {tag}: a rank did not replay every ReLU "
                                  f"decision of the first step")
         tol = TOL_MODEL_AXIS_LIVE if tag.endswith("live") else TOL_MODEL_AXIS
         flips = []
@@ -4436,29 +4465,67 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
                         / max(abs(w[key]), 1e-6) for key in w}
                 worst_key = max(gaps, key=gaps.get)
                 limit = TOL_MODEL_AXIS_SPLIT_LOSS if flips[k] else TOL_MODEL_AXIS["loss"]
-                log(f"[train-model-axis] {tag} step {k + 1}: losses within "
+                log(f"[{path}] {tag} step {k + 1}: losses within "
                     f"{gaps[worst_key]:.3e} ({worst_key}); hard decisions the split takes "
                     f"apart {flips[k]}; held to {limit:g}")
                 if not gaps[worst_key] <= limit:
-                    raise AssertionError(f"[train-model-axis] {tag} step {k + 1}: "
+                    raise AssertionError(f"[{path}] {tag} step {k + 1}: "
                                          f"{worst_key} {gaps[worst_key]:.3e} beyond {limit:g}")
         got = [r["inputs"] for r in per_rank]
         if got != shares[tag]:
-            raise AssertionError(f"[train-model-axis] {tag}: the ranks' backbone inputs {got}, "
+            raise AssertionError(f"[{path}] {tag}: the ranks' backbone inputs {got}, "
                                  f"expected their shares {shares[tag]}")
-        worst = _check_ranks("train-model-axis", f"{tag}: {MODEL_AXIS_N} gloo ranks (1x"
+        worst = _check_ranks(path, f"{tag}: {MODEL_AXIS_N} gloo ranks (1x"
                              f"{MODEL_AXIS_N} mesh) vs one process, {len(spec['batches'])} "
                              f"step(s)", per_rank, one[tag], expected[tag], tol=tol)
         out[tag] = dict(
             worst=worst, inputs=got, one_ms=one[tag]["ms"], one_peak=one[tag]["peak_bytes"],
             rank_ms=[r["ms"] for r in per_rank], rank_peak=[r["peak_bytes"] for r in per_rank],
-            comm=per_rank[0]["comm"], launches=per_rank[0]["launches"], apart=flips)
-        log(f"[train-model-axis] {tag}: step ms one process {json.dumps(one[tag]['ms'])}, ranks "
+            comm=[r["comm"] for r in per_rank], launches=per_rank[0]["launches"], apart=flips)
+        log(f"[{path}] {tag}: step ms one process {json.dumps(one[tag]['ms'])}, ranks "
             f"{json.dumps(out[tag]['rank_ms'])}; peak memory one process "
-            f"{one[tag]['peak_bytes']} bytes, ranks {out[tag]['rank_peak']}; bytes a rank hands "
-            f"to the collectives a step {json.dumps(out[tag]['comm'])}; launches a step on "
+            f"{one[tag]['peak_bytes']} bytes, ranks {out[tag]['rank_peak']}; bytes each rank "
+            f"hands to the collectives a step {json.dumps(out[tag]['comm'])}; launches a step on "
             f"rank 0 {json.dumps(per_rank[0]['launches'])}")
-    paths.launches["train-model-axis"] = {
+    return out
+
+
+def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
+    """The band split of Swin and MiT on MODEL_AXIS_N gloo ranks sharing
+    the card, against the one-process step on the card, as
+    `phase_train_model_axis` holds it: Swin-B VIP-Seg
+    (`video_knet_vipseg_swin_b`) at 736x1280, global B=1, drop path 0.3
+    drawn from the step-seeded generator, the image's 23 stride-32 rows in
+    bands of 12 + 11 (384 + 352 rows), MODEL_AXIS_SWIN_STEPS steps; MiT-b0
+    under the default VPS config at 384x1248 in bands of 192 rows, one
+    step. 7 / 7 / 1 launches a step on each rank."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.configs import get_config
+    from video_knet_tpu_torch.train.vps import make_synthetic_batch
+
+    swin = get_config("video_knet_vipseg_swin_b")
+    if swin.backbone != "swin_base" or swin.backbone_drop_path_rate != 0.3:
+        raise AssertionError("[train-model-axis-swin] not the Swin-B preset's drop path")
+    specs, shares = {}, {}
+    for tag, cfg, hw, steps, bands in (
+            ("swin-b", swin, SWIN_VIPSEG_HW, MODEL_AXIS_SWIN_STEPS, MODEL_AXIS_SWIN_BANDS),
+            ("mit-b0", dataclasses.replace(VideoKNetConfig(), backbone="mit_b0"), TRAIN_HW, 1,
+             (TRAIN_HW[0] // MODEL_AXIS_N,) * MODEL_AXIS_N)):
+        specs[tag] = dict(kind="vps", cfg=cfg, seed=MODEL_AXIS_SEED, decisions=True, batches=[
+            make_synthetic_batch(cfg, 1, hw, seed=i, device="cpu") for i in range(steps)])
+        shares[tag] = [[(2, rows, hw[1], 3)] for rows in bands]
+    out = _model_axis_runs("train-model-axis-swin", device, tmp, specs,
+                           {tag: TRAIN_LAUNCHES for tag in specs}, shares)
+    for tag in specs:
+        if not all(c["halo"] > 0 and c["gather"] > 0 for r in out[tag]["comm"] for c in r):
+            raise AssertionError(f"[train-model-axis-swin] {tag}: a rank exchanged no halo or "
+                                 f"gathered nothing: {out[tag]['comm']}")
+    # stage 3's 46 rows pad to 49: its shifted windows' last one joins row 45
+    # to rows 0-2, across the bands
+    if not all(c["ring"] > 0 for r in out["swin-b"]["comm"] for c in r):
+        raise AssertionError(f"[train-model-axis-swin] swin-b: no ring exchange "
+                             f"{out['swin-b']['comm']}")
+    paths.launches["train-model-axis-swin"] = {
         k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
     return out
 
@@ -4864,6 +4931,9 @@ def main() -> int:
         t1 = time.perf_counter()
         model_axis = phase_train_model_axis(device, paths, tmp)
         phase_s["train-model-axis"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        model_axis.update(phase_train_model_axis_swin(device, paths, tmp))
+        phase_s["train-model-axis-swin"] = time.perf_counter() - t1
     hrec["vis_data"] = vis_data["hungarian"]
     phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
@@ -4976,14 +5046,15 @@ def main() -> int:
         f"host syncs a step {align['train']['syncs']} ({card})")
     log(f"[dcn] {json.dumps(align['dcn'])} ({card})")
     log(f"[models-check] worst card-vs-CPU: {json.dumps(models['models-check'])}")
-    for tag in ("vps", "vis", "vps-live", "vis-live"):
+    for tag in ("vps", "vis", "vps-live", "vis-live", "swin-b", "mit-b0"):
         rec = model_axis[tag]
-        log(f"[train-model-axis] {tag}: 1x{MODEL_AXIS_N} mesh of gloo ranks sharing the card, "
+        path = "train-model-axis-swin" if tag in ("swin-b", "mit-b0") else "train-model-axis"
+        log(f"[{path}] {tag}: 1x{MODEL_AXIS_N} mesh of gloo ranks sharing the card, "
             f"step ms {json.dumps(rec['rank_ms'])} (one process {json.dumps(rec['one_ms'])}); "
             f"peak memory a rank {rec['rank_peak']} bytes against {rec['one_peak']} in one "
-            f"process; bytes a rank hands to the collectives a step {json.dumps(rec['comm'])}; "
-            f"worst vs one process {json.dumps(rec['worst'])}; hard decisions the split "
-            f"takes apart a step {rec['apart']} ({card})")
+            f"process; bytes each rank hands to the collectives a step "
+            f"{json.dumps(rec['comm'])}; worst vs one process {json.dumps(rec['worst'])}; hard "
+            f"decisions the split takes apart a step {rec['apart']} ({card})")
     log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI, data-parallel, "
         f"last model modules' and model-axis phases, {sum(phase_s.values()):.1f} s together "
         f"({card})")

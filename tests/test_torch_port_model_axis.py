@@ -180,23 +180,35 @@ def _halo_case(n_model: int, hw) -> tuple[dict, dict]:
     cot = [torch.from_numpy(rng.randn(1, hw[0] // s, hw[1] // s, 256).astype(np.float32))
            for s in (4, 8, 16, 32)]
     whole = _whole_pyramid(backbone, neck, img, cot)
-    spec = dict(kind="pyramid", n_model=n_model, depth=50, img=img, cotangents=cot,
+    spec = dict(kind="pyramid", n_model=n_model, backbone="resnet50", img=img, cotangents=cot,
                 weights=(backbone.state_dict(), neck.state_dict()), relus=whole["relus"])
     return spec, whole
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_jobs(tmp_path_factory):
+    """JAX's two jobs, started with the file: they import (and later trace
+    and compile, the longest work here) while the tests that need no run
+    go first; then `runs` sends their specs."""
+    root = str(tmp_path_factory.mktemp("model_axis"))
+    jobs = {tag: _spawn(root, f"model_axis_{tag}", None, nice=0, devices=4)
+            for tag in ("vps", "vis")}
+    yield root, jobs
+    for proc, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(jax_jobs):
     """JAX's two sharded steps in processes of their own, then the port's
     ranks replaying their ReLU decisions; meanwhile the Swin frame split
     (its one-process run, then its ranks) and the band splits, each in
     processes of their own, and here the whole pyramids."""
-    root = str(tmp_path_factory.mktemp("model_axis"))
+    root, jobs = jax_jobs
+    jobs = dict(jobs)  # `jax_then_ranks` pops each job it collects
     pool = concurrent.futures.ThreadPoolExecutor(6)
-    # the JAX jobs first, importing while their specs are made: their
-    # compiles are the longest
-    jobs = {tag: _spawn(root, f"model_axis_{tag}", None, nice=0, devices=4)
-            for tag in ("vps", "vis")}
     try:
         jcfg, tcfg = (mod.VideoKNetConfig(max_insts=4, norm_eval=False, **ONE_STAGE)
                       for mod in (jconfig, tconfig))
@@ -266,10 +278,112 @@ def runs(tmp_path_factory):
         return out
     finally:
         pool.shutdown(wait=True)
-        for proc, _ in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+
+
+# ------------------------------------------------------------------ no run needed
+
+
+def test_frame_split_keeps_each_frames_drop_path_draw():
+    """Under the frame split each rank's draws are its frames' rows of the
+    draws one process makes for the global batch."""
+    clips, t = 2, 5
+    full = torch.rand((2 * clips * t,), generator=torch.Generator().manual_seed(0))
+    for d in range(2):
+        for m, frames in enumerate(((0, 1, 2), (3, 4))):
+            split = model_axis.Split("frames", None, m, 2)
+            rows = model_axis.frame_rows(clips, t, split)
+            with tmesh.share_rows(clips * t, rows), \
+                    mock.patch.object(tmesh, "_ACTIVE") as active:
+                active.get.return_value = DataMesh(2 * d + m, 4, object(), 2)
+                got = tmesh.batch_uniform(len(rows), torch.Generator().manual_seed(0), "cpu")
+            want = full[[d * clips * t + b * t + f for b in range(clips) for f in frames]]
+            assert torch.equal(got, want)
+
+
+def _fake_split(kind: str, count: int = 2):
+    """A split context with no process group: what raises, raises before
+    any collective."""
+    return model_axis._SPLIT.set(model_axis.Split(kind, None, 0, count))
+
+
+def test_band_split_raises_for_a_height_that_does_not_split():
+    """Bands may be uneven (96 rows over 2: 64 + 32), but a height that is
+    not a whole multiple of 32 rows is left to ROADMAP F7d."""
+    backbone, neck = _uninitialized_pyramid()
+    token = _fake_split("rows")
+    try:
+        with pytest.raises(NotImplementedError, match="not 80 .*F7d"):
+            backbone_and_neck(backbone, neck, torch.zeros(1, 80, 64, 3))
+    finally:
+        model_axis._SPLIT.reset(token)
+
+
+@pytest.mark.parametrize("backbone,neck", [("resnet50", "msdeform_pixel_decoder"),
+                                           ("detectors_r50", "fpn")])
+def test_band_split_raises_for_other_backbones_naming_f7c(backbone, neck):
+    """What F7c left of the band split (Swin and MiT run on bands since:
+    `tests/test_torch_port_model_axis_swin.py`) now stands in ROADMAP F7d."""
+    bb = build_backbone(backbone)
+    nk = build_neck(neck, bb)
+    token = _fake_split("rows")
+    try:
+        with pytest.raises(NotImplementedError, match="F7d"):
+            backbone_and_neck(bb, nk, torch.zeros(1, 64, 64, 3))
+    finally:
+        model_axis._SPLIT.reset(token)
+
+
+def test_frame_split_needs_the_clip_length():
+    backbone, neck = _uninitialized_pyramid()
+    token = _fake_split("frames")
+    try:
+        with pytest.raises(ValueError, match="clip length"):
+            backbone_and_neck(backbone, neck, torch.zeros(2, 64, 64, 3))
+    finally:
+        model_axis._SPLIT.reset(token)
+    assert model_axis.frame_counts(5, 2) == [3, 2] and model_axis.frame_counts(4, 4) == [1] * 4
+    with pytest.raises(ValueError, match="a clip of 2 frames does not split over 3"):
+        model_axis.frame_counts(2, 3)
+
+
+# ------------------------------------------------------------------ the mesh
+
+
+@pytest.mark.parametrize("n_data,n_model", [(1, 2), (2, 2), (4, 2)])
+def test_mesh_layout_and_shards_match_jax(n_data, n_model):
+    """Rank r's (data, model) place is device r's in JAX's `make_mesh`, and
+    its rows of every batch leaf are the shard JAX puts on that device
+    (replicated over `model`)."""
+    world = n_data * n_model
+    devices = jax.devices()[:world]
+    jm = jmesh.make_mesh(n_data=n_data, n_model=n_model, devices=devices)
+    rng = np.random.RandomState(world)
+    batch = (rng.randn(2 * n_data, 3, 2).astype(np.float32),
+             rng.randn(2 * n_data, 5).astype(np.float32))
+    want = jax.tree_util.tree_leaves(jmesh.shard_batch(jm, batch))
+    for r, dev in enumerate(devices):
+        mesh = DataMesh(r, world, n_model=n_model)
+        assert jm.devices[mesh.data_index, mesh.model_index] == dev
+        got = jax.tree_util.tree_leaves(tmesh.shard_batch(mesh, batch))
+        for g, w in zip(got, want):
+            shard = next(s for s in w.addressable_shards if s.device == dev)
+            np.testing.assert_array_equal(g, np.asarray(shard.data))
+
+
+def test_steps_without_a_model_axis_refuse_a_mesh_with_one():
+    """JAX's image step has no `model` axis, so the port's refuses a mesh
+    with one (before it runs anything: the model stands in by its config);
+    a mesh needs `n_model` to divide the world."""
+    from torch_port_common import _tiny_image_cfg
+
+    cfg = dataclasses.replace(_tiny_image_cfg(tconfig.KNetConfig()), **ONE_STAGE)
+    state = create_train_state(types.SimpleNamespace(cfg=cfg), None,
+                               DataMesh(0, 2, object(), n_model=2))
+    batch = timage.make_synthetic_batch(cfg, 1, HW, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="no `model` axis"):
+        timage.train_step(state, batch)
+    with pytest.raises(ValueError, match="does not divide"):
+        DataMesh(0, 3, n_model=2)
 
 
 # ------------------------------------------------------------------ against JAX
@@ -360,23 +474,6 @@ def test_uneven_frames_with_drop_path_equal_one_process(runs):
             assert float((r["state"][k] - v).abs().max()) <= 1e-6, k
 
 
-def test_frame_split_keeps_each_frames_drop_path_draw():
-    """Under the frame split each rank's draws are its frames' rows of the
-    draws one process makes for the global batch."""
-    clips, t = 2, 5
-    full = torch.rand((2 * clips * t,), generator=torch.Generator().manual_seed(0))
-    for d in range(2):
-        for m, frames in enumerate(((0, 1, 2), (3, 4))):
-            split = model_axis.Split("frames", None, m, 2)
-            rows = model_axis.frame_rows(clips, t, split)
-            with tmesh.share_rows(clips * t, rows), \
-                    mock.patch.object(tmesh, "_ACTIVE") as active:
-                active.get.return_value = DataMesh(2 * d + m, 4, object(), 2)
-                got = tmesh.batch_uniform(len(rows), torch.Generator().manual_seed(0), "cpu")
-            want = full[[d * clips * t + b * t + f for b in range(clips) for f in frames]]
-            assert torch.equal(got, want)
-
-
 # ------------------------------------------------------------------ the band split alone
 
 
@@ -396,86 +493,3 @@ def test_band_split_matches_the_whole_forward(runs, case):
     # each rank's backbone took its band, not the image
     assert [r["inputs"] for r in ranks] == [[(1, hw[0] // n_model, hw[1], 3)]] * n_model
     assert all(r["comm"]["halo"] > 0 and r["comm"]["gather"] > 0 for r in ranks)
-
-
-def _fake_split(kind: str, count: int = 2):
-    """A split context with no process group: what raises, raises before
-    any collective."""
-    return model_axis._SPLIT.set(model_axis.Split(kind, None, 0, count))
-
-
-def test_band_split_raises_for_a_height_that_does_not_split():
-    backbone, neck = _uninitialized_pyramid()
-    token = _fake_split("rows")
-    try:
-        with pytest.raises(ValueError, match="96 image rows do not split into 2 bands"):
-            backbone_and_neck(backbone, neck, torch.zeros(1, 96, 64, 3))
-    finally:
-        model_axis._SPLIT.reset(token)
-
-
-@pytest.mark.parametrize("backbone,neck", [("mit_b0", "fpn"), ("swin_tiny", "fpn"),
-                                           ("resnet50", "msdeform_pixel_decoder"),
-                                           ("detectors_r50", "fpn")])
-def test_band_split_raises_for_other_backbones_naming_f7c(backbone, neck):
-    bb = build_backbone(backbone)
-    nk = build_neck(neck, bb)
-    token = _fake_split("rows")
-    try:
-        with pytest.raises(NotImplementedError, match="F7c"):
-            backbone_and_neck(bb, nk, torch.zeros(1, 64, 64, 3))
-    finally:
-        model_axis._SPLIT.reset(token)
-
-
-def test_frame_split_needs_the_clip_length():
-    backbone, neck = _uninitialized_pyramid()
-    token = _fake_split("frames")
-    try:
-        with pytest.raises(ValueError, match="clip length"):
-            backbone_and_neck(backbone, neck, torch.zeros(2, 64, 64, 3))
-    finally:
-        model_axis._SPLIT.reset(token)
-    assert model_axis.frame_counts(5, 2) == [3, 2] and model_axis.frame_counts(4, 4) == [1] * 4
-    with pytest.raises(ValueError, match="a clip of 2 frames does not split over 3"):
-        model_axis.frame_counts(2, 3)
-
-
-# ------------------------------------------------------------------ the mesh
-
-
-@pytest.mark.parametrize("n_data,n_model", [(1, 2), (2, 2), (4, 2)])
-def test_mesh_layout_and_shards_match_jax(n_data, n_model):
-    """Rank r's (data, model) place is device r's in JAX's `make_mesh`, and
-    its rows of every batch leaf are the shard JAX puts on that device
-    (replicated over `model`)."""
-    world = n_data * n_model
-    devices = jax.devices()[:world]
-    jm = jmesh.make_mesh(n_data=n_data, n_model=n_model, devices=devices)
-    rng = np.random.RandomState(world)
-    batch = (rng.randn(2 * n_data, 3, 2).astype(np.float32),
-             rng.randn(2 * n_data, 5).astype(np.float32))
-    want = jax.tree_util.tree_leaves(jmesh.shard_batch(jm, batch))
-    for r, dev in enumerate(devices):
-        mesh = DataMesh(r, world, n_model=n_model)
-        assert jm.devices[mesh.data_index, mesh.model_index] == dev
-        got = jax.tree_util.tree_leaves(tmesh.shard_batch(mesh, batch))
-        for g, w in zip(got, want):
-            shard = next(s for s in w.addressable_shards if s.device == dev)
-            np.testing.assert_array_equal(g, np.asarray(shard.data))
-
-
-def test_steps_without_a_model_axis_refuse_a_mesh_with_one():
-    """JAX's image step has no `model` axis, so the port's refuses a mesh
-    with one (before it runs anything: the model stands in by its config);
-    a mesh needs `n_model` to divide the world."""
-    from torch_port_common import _tiny_image_cfg
-
-    cfg = dataclasses.replace(_tiny_image_cfg(tconfig.KNetConfig()), **ONE_STAGE)
-    state = create_train_state(types.SimpleNamespace(cfg=cfg), None,
-                               DataMesh(0, 2, object(), n_model=2))
-    batch = timage.make_synthetic_batch(cfg, 1, HW, seed=0, device="cpu")
-    with pytest.raises(ValueError, match="no `model` axis"):
-        timage.train_step(state, batch)
-    with pytest.raises(ValueError, match="does not divide"):
-        DataMesh(0, 3, n_model=2)

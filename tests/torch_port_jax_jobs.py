@@ -25,10 +25,10 @@ Jobs:
 - `direct_vis`: the VIS fp32 and bf16 losses on a given clip.
 - `live_bn_resnet`: ResNet-50 in train mode with `norm_eval=False` (live
   BatchNorm): outputs, gradients, new batch statistics, ReLU decisions.
-- `sharded_vps`: `make_sharded_train_step` on a 2 x `n_model` mesh of
-  virtual CPU devices (`n_model` 1: the `data` axis alone; 2: the image
-  height sharded over `model` too), a few steps: losses, ReLU decisions,
-  the first step's gradient, final state.
+- `sharded_vps`: `make_sharded_train_step` on an `n_data` (2 by default)
+  x `n_model` mesh of virtual CPU devices (`n_model` 1: the `data` axis
+  alone; 2: the image height sharded over `model` too), a few steps:
+  losses, ReLU decisions, the first step's gradient, final state.
 - `sharded_vis`: `make_sharded_vis_train_step` alike (with a `model` axis,
   the clip's frames sharded over it).
 - `vis_live_bn`: the VIS loss with live BatchNorm and its new statistics.
@@ -251,12 +251,13 @@ def _capturing(model, relus: list):
     return Capturing()
 
 
-def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap) -> dict:
-    """`make_step(model, cfg, tx, mesh)` of the given model on a 2 x
+def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap,
+                 n_data: int = 2) -> dict:
+    """`make_step(model, cfg, tx, mesh)` of the given model on an `n_data` x
     `n_model` mesh, one step a global batch (`wrap(batch)` -> the step's
     arguments), the optimizer of the CLIs (`make_optimizer(params, 1000,
-    frozen_stages=...)`); the state put on the mesh first, so the step
-    compiles once. The optimizer is seen through a proxy whose update
+    frozen_stages=...)`); the state made on the mesh (one jitted init), so
+    the step compiles once. The optimizer is seen through a proxy whose update
     hands its gradient to the host. Returns each step's losses and ReLU
     decisions (the inputs' signs), the first step's gradient, and the final
     parameters and batch statistics."""
@@ -270,7 +271,7 @@ def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap) -> dict
 
     host = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     grads, relus = [], []
-    mesh = make_mesh(n_data=2, n_model=n_model, devices=jax.devices()[:2 * n_model])
+    mesh = make_mesh(n_data=n_data, n_model=n_model, devices=jax.devices()[:n_data * n_model])
     tx = make_optimizer(variables["params"], 1000, frozen_stages=cfg.frozen_stages)
 
     def update(g, opt_state, params=None):
@@ -278,7 +279,10 @@ def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap) -> dict
         return tx.update(g, opt_state, params)
 
     keeping = optax.GradientTransformation(tx.init, update)
-    state = jax.device_put(create_train_state(variables, keeping), replicated(mesh))
+    # one compiled init on the mesh (~1.7 s for Swin-tiny VPS) instead of
+    # optax's eager one, a dispatch a leaf (~5 s); the same values
+    state = jax.jit(lambda v: create_train_state(v, keeping),
+                    out_shardings=replicated(mesh))(variables)
     step = make_step(relus, keeping, mesh)
     losses = []
     for batch in batches:
@@ -292,9 +296,9 @@ def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap) -> dict
                 batch_stats=_flat({"batch_stats": state.batch_stats}))
 
 
-def sharded_vps(cfg, variables, batches, n_model: int = 1) -> dict:
+def sharded_vps(cfg, variables, batches, n_model: int = 1, n_data: int = 2) -> dict:
     """JAX's `make_sharded_train_step` (`_sharded_run`) on global batches
-    given as numpy fields of `VPSBatch`."""
+    given as numpy fields of `VPSBatch`, on an `n_data` x `n_model` mesh."""
     import jax.numpy as jnp
 
     import video_knet_tpu.train.vps as jtvps
@@ -310,7 +314,8 @@ def sharded_vps(cfg, variables, batches, n_model: int = 1) -> dict:
                                PanopticGT(*map(jnp.asarray, ref_gt))),)
 
     return _sharded_run(lambda relus, tx, mesh: jtvps.make_sharded_train_step(
-        _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model, wrap)
+        _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model, wrap,
+        n_data)
 
 
 def sharded_vis(cfg, variables, batches, n_model: int = 1) -> dict:

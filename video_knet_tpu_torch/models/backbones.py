@@ -5,6 +5,8 @@ already the 4-level 256-wide pyramid (no neck)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 from torch import nn
 
 from video_knet_tpu_torch.models.mit import MixVisionTransformer
@@ -16,6 +18,7 @@ from video_knet_tpu_torch.parallel.mesh import share_rows
 from video_knet_tpu_torch.parallel.model_axis import (
     active_split,
     band_rows,
+    band_units,
     frame_rows,
     gather_shares,
     running_share,
@@ -25,6 +28,10 @@ from video_knet_tpu_torch.parallel.model_axis import (
 # pyramid is their neck): models skip the separate neck for these
 PYRAMID_BACKBONES = ("detectors_r50", "detectors_r101", "swin_b_rfp",
                      "swin_base_rfp", "swin_t_rfp", "swin_tiny_rfp")
+
+
+# backbones whose layers run on a band of the image rows (the band split)
+BANDED_BACKBONES = (ResNet, SwinTransformer, MixVisionTransformer)
 
 
 def backbone_is_pyramid(name: str) -> bool:
@@ -84,20 +91,20 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     Under a split of the mesh's `model` axis (`parallel/model_axis.py`)
     the backbone and the neck run on this rank's share of `img` (its band
     of rows, or its frames of each clip), and the levels are gathered over
-    the `model` group into `img`'s order. The band split runs ResNet + FPN
-    only."""
+    the `model` group into `img`'s order. The band split runs ResNet, Swin
+    and MiT with the FPN, at heights that are whole multiples of 32."""
     split = active_split()
     if split is None:
         return _pyramid(backbone, neck, img, generator)
     if split.kind == "rows":
-        if type(backbone) is not ResNet or type(neck) is not FPN:
+        if type(backbone) not in BANDED_BACKBONES or type(neck) is not FPN:
             raise NotImplementedError(
-                f"the band split of the mesh's `model` axis runs ResNet + FPN only, not "
-                f"{type(backbone).__name__} + {type(neck).__name__} (ROADMAP F7c)")
-        rows = band_rows(img.shape[1], split)
-        with running_share(split, lambda t: t[:, band_rows(t.shape[1], split, stride=1)]):
-            share = _pyramid(backbone, neck, img[:, rows], generator)
-        return gather_shares(share, split)
+                f"the band split of the mesh's `model` axis runs ResNet, Swin and MiT with the "
+                f"FPN, not {type(backbone).__name__} + {type(neck).__name__} (ROADMAP F7d)")
+        band = dataclasses.replace(split, units=tuple(band_units(img.shape[1], split.count)))
+        with running_share(band, lambda t: t[:, band_rows(t.shape[1], band)]):
+            share = _pyramid(backbone, neck, img[:, band_rows(img.shape[1], band)], generator)
+        return gather_shares(share, band)
     if frames is None:
         raise ValueError("the frame split needs the clip length (`frames`)")
     clips = img.shape[0] // frames

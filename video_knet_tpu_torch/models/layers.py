@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.parallel.mesh import active_mesh, sum_with_grad
-from video_knet_tpu_torch.parallel.model_axis import halo, in_band
+from video_knet_tpu_torch.parallel.model_axis import halo, in_band, level_height
 
 # ---------------------------------------------------------------- XLA helpers
 
@@ -136,13 +136,13 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
     def _banded(self, x: torch.Tensor, band) -> torch.Tensor:
-        """The rows of the whole image's output that this band of `x` owns:
+        """The rows of the whole level's output that this band of `x` owns:
         the top `lo` and the bottom k - stride - lo halo rows (lo: the
-        whole image's top padding) from the neighbours, the columns padded
+        whole level's top padding) from the other bands, the columns padded
         as usual."""
         k, s = self.weight.shape[-1], self.stride
         if self.padding == "SAME":
-            lo = same_padding(x.shape[1] * band.count, k, s)[0]
+            lo = same_padding(level_height(x.shape[1]), k, s)[0]
             left, right = same_padding(x.shape[2], k, s)
         else:
             lo = left = right = self.padding
@@ -155,8 +155,8 @@ class Conv2d(nn.Module):
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """ResNet's stem pool on NHWC: 3x3, stride 2, padding 1 (-inf); on a
-    band of the image's rows the row above the band comes from the
-    neighbouring band."""
+    band of the image's rows the row above the band comes from the band
+    above."""
     band = in_band()
     if band is None:
         return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)

@@ -10,6 +10,11 @@ Numerics follow flax: every LayerNorm uses flax's fast variance; eps is
 (r x r, stride r) pads "SAME" like every flax conv here, so a stage whose
 H or W is not a multiple of r is padded, not cropped. Attention is plain
 fp32 einsum + softmax, as in the reference.
+
+On a band of the image rows (the band split of the mesh's `model` axis,
+`parallel/model_axis.py`) the patch embeds and the Mix-FFN's depthwise conv
+take their halos through `Conv2d`, and each block all-gathers its reduced
+keys' and values' input over the `model` group in row order.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.models.layers import Conv2d, FastVarianceLayerNorm
+from video_knet_tpu_torch.parallel.model_axis import whole_map
 
 MIT_PRESETS = {
     # embed_dims, depths
@@ -51,9 +57,14 @@ class EfficientAttention(nn.Module):
         h, w = hw
         nh = self.num_heads
         q = self.q(x).reshape(b, n, nh, c // nh)
-        kv_in = x
+        # on a band of the rows each rank reduces its own rows (a band starts
+        # on a whole stride-32 row, so no r x r window straddles its edge),
+        # then the keys and values come from the whole reduced map
+        kv_in = x.reshape(b, h, w, c)
         if self.sr_ratio > 1:
-            kv_in = self.sr(x.reshape(b, h, w, c)).reshape(b, -1, c)
+            kv_in = self.sr(kv_in)
+        kv_in = whole_map(kv_in).reshape(b, -1, c)
+        if self.sr_ratio > 1:
             kv_in = self.sr_norm(kv_in)
         kv = self.kv(kv_in).reshape(b, -1, 2, nh, c // nh)
         k, v = kv[:, :, 0], kv[:, :, 1]

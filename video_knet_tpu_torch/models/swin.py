@@ -21,7 +21,21 @@ Numerics follow the reference:
 - the MLP's GELU is exact.
 
 Stochastic depth (training) draws one keep mask per sample from the
-`generator` the caller passes; without one it is off. `frozen_stages` cuts
+`generator` the caller passes; without one it is off.
+
+On a band of the image rows (the band split of the mesh's `model` axis,
+`parallel/model_axis.py`) every block follows the whole map's global
+coordinates: the padding to a window multiple, whether a stage shifts and
+its -100 mask come from the whole map's size; a block takes the rows of
+every window that meets its band from the other bands (`window_plan`,
+`fetch_rows`: up to ws - 1 rows above and below, past the neighbouring
+band where bands are shorter than a window, and for the shifted windows
+the ring that joins the map's last rows to its first ws // 2), attends
+over those windows with their rows of the mask, and keeps its own rows.
+The column roll stays local; the norms, MLPs and patch merging are per
+token or pair rows inside a band; the absolute position embedding is
+resized to the whole map and cut to the band; the drop-path draws are the
+data index's on every `model` rank. `frozen_stages` cuts
 the gradient where the reference's `stop_gradient` does (after the patch
 embed when >= 0, after stage s's downsample when >= s + 1) but leaves
 `requires_grad` on: the reference's optimizer mask knows only ResNet's
@@ -30,12 +44,22 @@ names, so those parameters still take weight decay there, and here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.models.layers import Conv2d, FastVarianceLayerNorm, resize_bilinear
 from video_knet_tpu_torch.parallel.mesh import batch_uniform
+from video_knet_tpu_torch.parallel.model_axis import (
+    band_rows,
+    fetch_rows,
+    in_band,
+    index_on,
+    level_bands,
+    level_height,
+)
 
 SWIN_PRESETS = {
     # embed_dim, depths, num_heads
@@ -80,6 +104,30 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int, device=None) -> torch.T
     same = wins[:, None, :] == wins[:, :, None]
     zero = torch.zeros((), device=device)
     return torch.where(same, zero, zero - 100.0)
+
+
+@functools.lru_cache(maxsize=1024)
+def window_plan(bands: tuple, hp: int, ws: int, shift: int) -> tuple:
+    """Which windows each band attends over, for a block on a map padded to
+    `hp` rows and split into `bands` (each rank's (first, end) rows).
+    Window k holds rows (k * ws + shift + t) % hp, t < ws, of the unrolled
+    map; rows past the real map are the padding. For each rank, in four
+    tuples: the rows of every window that meets its band, window after
+    window; those of them in a window that wraps from the map's bottom to
+    its top (the ring); the windows' indices; the positions of the band's
+    own rows among the rows."""
+    def rows_of(k: int) -> list[int]:
+        return [(k * ws + shift + t) % hp for t in range(ws)]
+
+    need, ring, wins, own = [], [], [], []
+    for a, b in bands:
+        ks = [k for k in range(hp // ws) if any(a <= r < b for r in rows_of(k))]
+        rows = [r for k in ks for r in rows_of(k)]
+        need.append(tuple(rows))
+        ring.append(frozenset(r for k in ks if (k + 1) * ws + shift > hp for r in rows_of(k)))
+        wins.append(tuple(ks))
+        own.append(tuple(rows.index(r) for r in range(a, b)))
+    return tuple(need), tuple(ring), tuple(wins), tuple(own)
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
@@ -148,20 +196,52 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None,
                 generator: torch.Generator | None) -> torch.Tensor:
         """x [B, H, W, C]; `mask` given: the shifted block (shift ws // 2)."""
-        b, h, w, c = x.shape
+        band = in_band()
+        y = self.norm1(x)
+        y = self._windows(y, mask) if band is None else self._band_windows(y, mask, band)
+        x = x + drop_path(y, self.drop_path, generator)
+        z = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="none"))
+        return x + drop_path(z, self.drop_path, generator)
+
+    def _windows(self, y: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """The (shifted) window attention of the normed map `y`."""
+        b, h, w, c = y.shape
         ws = self.window_size
         pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
         hp, wp = h + pad_h, w + pad_w
         shift = ws // 2 if mask is not None else 0
-        y = F.pad(self.norm1(x), (0, 0, 0, pad_w, 0, pad_h))
+        y = F.pad(y, (0, 0, 0, pad_w, 0, pad_h))
         if shift:
             y = torch.roll(y, (-shift, -shift), dims=(1, 2))
         y = window_reverse(self.attn(window_partition(y, ws), mask), ws, hp, wp)
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + drop_path(y[:, :h, :w], self.drop_path, generator)
-        z = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="none"))
-        return x + drop_path(z, self.drop_path, generator)
+        return y[:, :h, :w]
+
+    def _band_windows(self, y: torch.Tensor, mask: torch.Tensor | None, band) -> torch.Tensor:
+        """`_windows` of the whole map at this band's rows of `y`: the rows
+        of every window that meets the band (`window_plan`, global
+        coordinates) from the other bands, the attention over those
+        windows with their rows of the whole map's `mask`, the band's own
+        rows kept."""
+        w = y.shape[2]
+        ws = self.window_size
+        bands = tuple(level_bands(y.shape[1], band))
+        hp = -(-bands[-1][1] // ws) * ws
+        pad_w = (ws - w % ws) % ws
+        shift = ws // 2 if mask is not None else 0
+        need, ring, wins, own = window_plan(bands, hp, ws, shift)
+        y = fetch_rows(F.pad(y, (0, 0, 0, pad_w)), need, band, ring=ring)
+        if shift:
+            y = torch.roll(y, -shift, dims=2)
+        mine = wins[band.index]
+        if mask is not None:
+            n = mask.shape[-1]
+            mask = mask.view(hp // ws, -1, n, n)[index_on(mine, mask.device)].reshape(-1, n, n)
+        y = window_reverse(self.attn(window_partition(y, ws), mask), ws, len(mine) * ws, w + pad_w)
+        if shift:
+            y = torch.roll(y, shift, dims=2)
+        return y[:, :, :w].index_select(1, index_on(own[band.index], y.device))
 
 
 class SwinBlockPair(nn.Module):
@@ -183,6 +263,9 @@ class PatchMerging(nn.Module):
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # on a band of the rows every band but the last has an even height
+        # (it starts and ends on a whole stride-32 row), so only the last
+        # pads an odd map's bottom row, as the whole map does
         h, w = x.shape[1:3]
         x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
@@ -239,14 +322,18 @@ class SwinTransformer(nn.Module):
                 generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """x [B, H, W, 3]; `generator` turns stochastic depth on (training)."""
         ws = self.window_size
+        band = in_band()
         x = self.patch_norm(self.patch_embed(x))
-        if self.ape:
-            x = x + resize_bilinear(self.absolute_pos_embed, tuple(x.shape[1:3]))
+        if self.ape:  # resized to the whole map, then cut to the band
+            h = level_height(x.shape[1])
+            pos = resize_bilinear(self.absolute_pos_embed, (h, x.shape[2]))
+            x = x + (pos if band is None else pos[:, band_rows(h, band)])
         if self.frozen_stages >= 0:
             x = x.detach()
         outs = []
         for s in range(len(self.depths)):
-            hp, wp = (-(-n // ws) * ws for n in x.shape[1:3])
+            # the whole map's padded size, on a band too
+            hp, wp = (-(-n // ws) * ws for n in (level_height(x.shape[1]), x.shape[2]))
             # one mask a stage, shared by its shifted blocks
             mask = shift_attn_mask(hp, wp, ws, ws // 2, x.device) if min(hp, wp) > ws else None
             for pair in getattr(self, f"stage{s}_pairs"):

@@ -11,13 +11,20 @@ exchanges and the gathers. The port does it by hand. The train steps open
 the backbone and the neck on this rank's share of its data index's rows:
 - "frames": contiguous frames of each clip (T=5 over 2 ranks: 3 + 2), for
   every backbone and neck (frames are independent);
-- "rows": a band of H / n_model image rows, for ResNet + FPN. Bands are
-  whole multiples of the backbone's total stride (`STRIDE`), so every
-  level's band starts on a whole row and the FPN's nearest 2x top-down
-  resize is local. Inside the band (`in_band`), each convolution and the
-  stem's max-pool take the rows their window reaches past the band from the
-  neighbouring ranks (`halo`); zero (-inf for the pool) padding applies only
-  at the image's global top and bottom.
+- "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN.
+  The image's H / 32 stride-32 rows split as frames do (`band_units`: the
+  first bands one more where the count does not divide; 736 rows over 2:
+  12 + 11, bands of 384 and 352 rows), so at every level a band starts on
+  a whole row, its rows are the same multiple of its units on every rank
+  (`level_bands`), 2x2 patch merging pairs the right rows and the FPN's
+  nearest 2x top-down resize is local. Inside the band (`in_band`) the
+  layers that reach across rows take the rows they lack from the other
+  bands (`fetch_rows`): each convolution and the stem's max-pool a halo
+  (`halo`; zero, or -inf for the pool, only past the image's global top and
+  bottom), each Swin block the rows of every window that meets its band
+  (`models/swin.py`: a halo, and for the shifted windows the ring that
+  joins the map's last rows to its first), each MiT block the whole
+  spatially reduced keys and values (`whole_map`).
 `gather_shares` then all-gathers the pyramid over the `model` group, back
 into the data index's order; its backward sums each share's gradient over
 the group and keeps this rank's. Everything after the neck (the kernel
@@ -29,13 +36,16 @@ shares.
 
 The collectives are all_gather and all_reduce, which gloo runs on CUDA
 tensors too (ranks sharing a card). `BYTES` counts what this rank hands to
-them, forward and backward.
+them, forward and backward: "halo" the rows lent to or returned from other
+bands, "ring" those of them that a shifted Swin window takes across the
+map's bottom edge to its top, "gather" the pyramid's and MiT's gathers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -45,10 +55,10 @@ import torch.nn.functional as F
 
 from video_knet_tpu_torch.parallel.mesh import DataMesh
 
-STRIDE = 32  # ResNet + FPN's total stride: a band is a whole multiple of it
+STRIDE = 32  # the backbones' total stride: a band is a whole number of its rows
 KINDS = ("rows", "frames")
 
-BYTES = {"halo": 0, "gather": 0}
+BYTES = {"halo": 0, "ring": 0, "gather": 0}
 
 
 def reset_bytes() -> None:
@@ -59,12 +69,15 @@ def reset_bytes() -> None:
 @dataclass(frozen=True)
 class Split:
     """The step's split over the `model` axis: `kind` ("rows" or
-    "frames"), the `model` group, this rank's index on it and the count."""
+    "frames"), the `model` group, this rank's index on it and the count;
+    while the backbone runs on a band, `units`: each rank's stride-32 rows
+    of the image."""
 
     kind: str
     group: Any
     index: int
     count: int
+    units: tuple[int, ...] = ()
 
 
 _SPLIT: contextvars.ContextVar[Split | None] = contextvars.ContextVar(
@@ -96,8 +109,9 @@ def active_split() -> Split | None:
 
 
 def in_band() -> Split | None:
-    """The band split while the backbone and the neck run on a band, else
-    None: the layers that reach across rows exchange halos then."""
+    """The band split (with its `units`) while the backbone and the neck
+    run on a band, else None: the layers that reach across rows exchange
+    them then."""
     return _BAND.get()
 
 
@@ -121,15 +135,56 @@ def running_share(split: Split, select: Callable):
         _SHARE.reset(tokens[1])
 
 
-def band_rows(h: int, split: Split, stride: int = STRIDE) -> slice:
-    """This rank's band of `h` rows (of the image, or with `stride=1` of a
-    level inside the backbone). Raises when `h` does not split into
-    `split.count` bands of whole multiples of `stride` rows."""
-    if h % (stride * split.count):
-        raise ValueError(f"{h} image rows do not split into {split.count} bands of whole "
-                         f"multiples of {stride} rows (the backbone's total stride)")
-    per = h // split.count
-    return slice(split.index * per, (split.index + 1) * per)
+def _shares(n: int, count: int) -> list[int]:
+    """`n` split into `count` contiguous shares, the first ones one more
+    where `count` does not divide `n`."""
+    return [n // count + (i < n % count) for i in range(count)]
+
+
+def band_units(h: int, count: int) -> list[int]:
+    """Each band's stride-32 rows of an image of `h` rows over `count`
+    ranks (736 over 2: 12 + 11). Raises for a height that is not a whole
+    multiple of 32 rows and for fewer stride-32 rows than bands."""
+    if h % STRIDE:
+        raise NotImplementedError(
+            f"the band split takes heights that are whole multiples of {STRIDE} rows (the "
+            f"backbones' total stride), not {h} (ROADMAP F7d)")
+    if h // STRIDE < count:
+        raise ValueError(f"{h} image rows ({h // STRIDE} at stride {STRIDE}) do not split "
+                         f"into {count} bands")
+    return _shares(h // STRIDE, count)
+
+
+def _edges(units: tuple[int, ...], per_unit: int) -> list[tuple[int, int]]:
+    ends = [per_unit * sum(units[:i + 1]) for i in range(len(units))]
+    return list(zip([0, *ends[:-1]], ends))
+
+
+def band_rows(h: int, band: Split) -> slice:
+    """This rank's band of a level of `h` rows in all (the image, or a
+    level inside the backbone)."""
+    total = sum(band.units)
+    if h % total:
+        raise ValueError(f"a level of {h} rows does not split into the bands {band.units}")
+    start, stop = _edges(band.units, h // total)[band.index]
+    return slice(start, stop)
+
+
+def level_bands(rows: int, band: Split) -> list[tuple[int, int]]:
+    """Every rank's (first, end) rows, in the level's global rows, at the
+    level where this rank's band has `rows` rows; the level's height is
+    the last end."""
+    mine = band.units[band.index]
+    if rows % mine:
+        raise ValueError(f"a band of {rows} rows is not a level of the bands {band.units}")
+    return _edges(band.units, rows // mine)
+
+
+def level_height(rows: int) -> int:
+    """The global height of the level where this rank's band has `rows`
+    rows; `rows` itself outside a band."""
+    band = in_band()
+    return rows if band is None else level_bands(rows, band)[-1][1]
 
 
 def frame_counts(t: int, count: int) -> list[int]:
@@ -137,7 +192,7 @@ def frame_counts(t: int, count: int) -> list[int]:
     first ranks one more where `t` does not divide (5 over 2: 3 + 2)."""
     if t < count:
         raise ValueError(f"a clip of {t} frames does not split over {count} model ranks")
-    return [t // count + (i < t % count) for i in range(count)]
+    return _shares(t, count)
 
 
 def frame_rows(clips: int, t: int, split: Split) -> torch.Tensor:
@@ -152,105 +207,207 @@ def frame_rows(clips: int, t: int, split: Split) -> torch.Tensor:
 # ------------------------------------------------------------ collectives
 
 
-def _all_gather(x: torch.Tensor, split: Split, what: str) -> list[torch.Tensor]:
+def _all_gather(x: torch.Tensor, split: Split, what: str | None = None) -> list[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(split.count)]
     torch.distributed.all_gather(parts, x, group=split.group)
-    BYTES[what] += x.numel() * x.element_size()
+    if what is not None:
+        BYTES[what] += x.numel() * x.element_size()
     return parts
+
+
+@dataclass(frozen=True)
+class _Plan:
+    """Where each row of `fetch_rows`' output comes from, for this rank:
+    `source[p]` indexes [own rows, the fill row, every rank's lent rows
+    (each padded to `lend_len`)]; `lend` are the own rows this rank lends
+    (`lend_ring` of them to a ring); `borrowed` the output positions it
+    borrows (`borrowed_ring` of them through a ring) and `returned[j]` the
+    (position in rank j's borrowed rows, own row) pairs whose gradient
+    comes back from rank j."""
+
+    source: tuple[int, ...]
+    lend: tuple[int, ...]
+    lend_len: int
+    lend_ring: int
+    own: tuple[tuple[int, int], ...]
+    borrowed: tuple[int, ...]
+    borrowed_len: int
+    borrowed_ring: int
+    returned: tuple[tuple[tuple[int, int], ...], ...]
+
+
+@functools.lru_cache(maxsize=1024)  # a plan a block or conv geometry
+def _plan(need: tuple, ring: tuple, bands: tuple, me: int) -> _Plan:
+    h = bands[-1][1]
+
+    def owner(g: int) -> int | None:
+        if not 0 <= g < h:
+            return None
+        return next(j for j, (a, b) in enumerate(bands) if a <= g < b)
+
+    lent = [sorted({g for j, rows in enumerate(need) if j != i for g in rows
+                    if owner(g) == i}) for i in range(len(bands))]
+    lend_len = max(len(rows) for rows in lent)
+    rows_here = bands[me][1] - bands[me][0]
+    source = []
+    for g in need[me]:
+        j = owner(g)
+        if j is None:
+            source.append(rows_here)
+        elif j == me:
+            source.append(g - bands[me][0])
+        else:
+            source.append(rows_here + 1 + j * lend_len + lent[j].index(g))
+    borrowed = [[p for p, g in enumerate(rows) if owner(g) not in (None, i)]
+                for i, rows in enumerate(need)]
+    returned = tuple(
+        tuple((q, need[j][p] - bands[me][0]) for q, p in enumerate(borrowed[j])
+              if owner(need[j][p]) == me) if j != me else ()
+        for j in range(len(bands)))
+    return _Plan(
+        source=tuple(source), lend=tuple(g - bands[me][0] for g in lent[me]),
+        lend_len=lend_len,
+        lend_ring=sum(any(g in ring[j] for j in range(len(bands)) if j != me) for g in lent[me]),
+        own=tuple((p, g - bands[me][0]) for p, g in enumerate(need[me]) if owner(g) == me),
+        borrowed=tuple(borrowed[me]), borrowed_len=max(len(b) for b in borrowed),
+        borrowed_ring=sum(need[me][p] in ring[me] for p in borrowed[me]), returned=returned)
+
+
+def fetch_rows(x: torch.Tensor, need: tuple, split: Split, fill: float = 0.0,
+               ring: tuple | None = None) -> torch.Tensor:
+    """The rows `need[split.index]` (global rows of the level of NHWC band
+    `x`; rows past the level's top or bottom are `fill`) of the whole
+    level, in that order. `need` holds every rank's rows (all ranks call
+    this together with the same `need`); `ring[j]`, if given, the rows rank
+    j takes through a ring (counted apart in `BYTES`). The backward adds
+    each borrowed row's gradient to the rank that owns the row."""
+    bands = tuple(level_bands(x.shape[1], split))
+    ring = tuple(frozenset() for _ in need) if ring is None else ring
+    return _Fetch.apply(x, _plan(tuple(need), tuple(ring), bands, split.index), fill, split)
+
+
+def _count(rows: int, ring_rows: int, row_bytes: int) -> None:
+    BYTES["ring"] += ring_rows * row_bytes
+    BYTES["halo"] += (rows - ring_rows) * row_bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def index_on(rows: tuple, device: torch.device) -> torch.Tensor:
+    """`rows` as an index tensor on `device`, made once (the plans repeat
+    every step)."""
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
+class _Fetch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan: _Plan, fill, split):
+        ctx.plan, ctx.split, ctx.rows = plan, split, x.shape[1]
+        b, _, w, c = x.shape
+        pieces = [x, x.new_full((b, 1, w, c), fill)]
+        if plan.lend_len:
+            mine = x.index_select(1, index_on(plan.lend, x.device))
+            mine = F.pad(mine, (0, 0, 0, 0, 0, plan.lend_len - len(plan.lend)))
+            pieces += _all_gather(mine, split)
+            _count(plan.lend_len, plan.lend_ring, b * w * c * x.element_size())
+        return torch.cat(pieces, 1).index_select(1, index_on(plan.source, x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, split = ctx.plan, ctx.split
+        b, _, w, c = g.shape
+        gx = g.new_zeros((b, ctx.rows, w, c))
+        if plan.own:
+            pos, rows = zip(*plan.own)
+            gx.index_add_(1, index_on(rows, g.device), g.index_select(1, index_on(pos, g.device)))
+        if plan.borrowed_len:
+            mine = g.index_select(1, index_on(plan.borrowed, g.device))
+            mine = F.pad(mine, (0, 0, 0, 0, 0, plan.borrowed_len - len(plan.borrowed)))
+            parts = _all_gather(mine, split)
+            _count(plan.borrowed_len, plan.borrowed_ring, b * w * c * g.element_size())
+            for j, pairs in enumerate(plan.returned):
+                if pairs:
+                    pos, rows = zip(*pairs)
+                    gx.index_add_(1, index_on(rows, g.device),
+                                  parts[j].index_select(1, index_on(pos, g.device)))
+        return gx, None, None, None
 
 
 def halo(x: torch.Tensor, top: int, bottom: int, fill: float, split: Split) -> torch.Tensor:
     """NHWC band `x` with `top` rows above it and `bottom` below it: the
-    neighbouring bands' edge rows, or `fill` past the image's global top
-    and bottom. The backward adds each halo row's gradient to the rank
-    that owns the row."""
+    other bands' rows, or `fill` past the level's global top and bottom."""
     if top == 0 and bottom == 0:
         return x
-    if x.shape[1] < max(top, bottom):
-        raise ValueError(f"a band of {x.shape[1]} rows cannot lend a halo of {max(top, bottom)}")
-    return _Halo.apply(x, top, bottom, fill, split)
+    need = tuple(tuple(range(a - top, b + bottom)) for a, b in level_bands(x.shape[1], split))
+    return fetch_rows(x, need, split, fill)
 
 
-class _Halo(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, top, bottom, fill, split):
-        ctx.top, ctx.bottom, ctx.split = top, bottom, split
-        rows = x.shape[1]
-        # this rank's first `bottom` rows (the band above takes them) and its
-        # last `top` rows (the band below takes them)
-        parts = _all_gather(torch.cat([x[:, :bottom], x[:, rows - top:]], dim=1), split, "halo")
-        i, n = split.index, split.count
-        b, _, w, c = x.shape
-        above = parts[i - 1][:, bottom:] if i > 0 else x.new_full((b, top, w, c), fill)
-        below = parts[i + 1][:, :bottom] if i < n - 1 else x.new_full((b, bottom, w, c), fill)
-        return torch.cat([above, x, below], dim=1)
-
-    @staticmethod
-    def backward(ctx, g):
-        top, bottom, split = ctx.top, ctx.bottom, ctx.split
-        rows = g.shape[1] - top - bottom
-        parts = _all_gather(torch.cat([g[:, :top], g[:, top + rows:]], dim=1), split, "halo")
-        gx = g[:, top:top + rows].clone()
-        i, n = split.index, split.count
-        if i < n - 1 and top:  # the band below's top halo is this band's last rows
-            gx[:, rows - top:] += parts[i + 1][:, :top]
-        if i > 0 and bottom:  # the band above's bottom halo is this band's first rows
-            gx[:, :bottom] += parts[i - 1][:, top:]
-        return gx, None, None, None, None
+def whole_map(t: torch.Tensor) -> torch.Tensor:
+    """NHWC `t`, a band of a level, gathered over the `model` group into the
+    whole level (the backward keeps this rank's rows of the gradient summed
+    over the group); `t` itself outside a band."""
+    band = in_band()
+    return t if band is None else gather_shares([t], band)[0]
 
 
 def gather_shares(shares: list[torch.Tensor], split: Split, clips: int | None = None,
                   frames: int | None = None) -> list[torch.Tensor]:
     """Each level of this rank's pyramid share gathered over the `model`
-    group into the data index's order: bands stacked along the rows, or
-    (`clips`, `frames`) each clip's frames back in b*T + t order."""
-    counts = None if frames is None else tuple(frame_counts(frames, split.count))
+    group into the data index's order: bands (`split.units`) stacked along
+    the rows, or (`clips`, `frames`) each clip's frames back in b*T + t
+    order."""
+    counts = split.units if frames is None else tuple(frame_counts(frames, split.count))
     return list(_Gather.apply(split, clips, counts, *shares))
 
 
+def _layout(s: torch.Tensor, clips: int | None) -> tuple[int, int, tuple]:
+    """A share as (lead, along, rest): [B, rows, W, C] of a band, or
+    [clips * frames, ...] of a clip's frames."""
+    if clips is None:
+        return s.shape[0], s.shape[1], tuple(s.shape[2:])
+    return clips, s.shape[0] // clips, tuple(s.shape[1:])
+
+
 class _Gather(torch.autograd.Function):
+    """Each rank's share of each level is `counts[rank]` times the level's
+    unit (rows per stride-32 row, or 1 frame) along its second axis; the
+    shares are padded to the longest for the all_gather."""
+
     @staticmethod
     def forward(ctx, split, clips, counts, *shares):
-        ctx.split, ctx.clips, ctx.counts = split, clips, counts
+        levels = []
+        for s in shares:
+            lead, along, rest = _layout(s, clips)
+            unit = along // counts[split.index]
+            levels.append((lead, [c * unit for c in counts], rest))
+        size = [sum(lead * n[j] * math.prod(rest) for lead, n, rest in levels)
+                for j in range(split.count)]
         flat = torch.cat([s.reshape(-1) for s in shares])
-        if counts is None:  # bands: equal shares
-            parts = _all_gather(flat, split, "gather")
-            out, off = [], 0
-            for s in shares:
-                out.append(torch.cat([p[off:off + s.numel()].view(s.shape) for p in parts], 1))
-                off += s.numel()
-            ctx.full = [o.shape for o in out]
-            return tuple(out)
-        per_frame = [math.prod(s.shape[1:]) for s in shares]
-        longest = clips * max(counts) * sum(per_frame)
-        parts = _all_gather(F.pad(flat, (0, longest - flat.numel())), split, "gather")
-        out = []
-        for level, s in enumerate(shares):
+        parts = _all_gather(F.pad(flat, (0, max(size) - flat.numel())), split, "gather")
+        out, offs = [], [0] * split.count
+        for s, (lead, n, rest) in zip(shares, levels):
             pieces = []
-            for p, c in zip(parts, counts):
-                off = clips * c * sum(per_frame[:level])
-                pieces.append(p[off:off + clips * c * per_frame[level]].view(
-                    clips, c, *s.shape[1:]))
-            out.append(torch.cat(pieces, 1).reshape(clips * sum(counts), *s.shape[1:]))
+            for j, p in enumerate(parts):
+                pieces.append(p[offs[j]:offs[j] + lead * n[j] * math.prod(rest)].view(
+                    lead, n[j], *rest))
+                offs[j] += lead * n[j] * math.prod(rest)
+            whole = torch.cat(pieces, 1)
+            out.append(whole if clips is None else whole.reshape(-1, *rest))
+        ctx.split, ctx.clips, ctx.levels = split, clips, levels
         ctx.full = [o.shape for o in out]
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
-        split, clips, counts = ctx.split, ctx.clips, ctx.counts
+        split = ctx.split
         flat = torch.cat([g.reshape(-1) for g in grads])
         torch.distributed.all_reduce(flat, group=split.group)
         BYTES["gather"] += flat.numel() * flat.element_size()
         out, off = [], 0
-        for shape in ctx.full:
-            g = flat[off:off + math.prod(shape)].view(shape)
+        for shape, (lead, n, rest) in zip(ctx.full, ctx.levels):
+            g = flat[off:off + math.prod(shape)].view(lead, sum(n), *rest)
             off += math.prod(shape)
-            if counts is None:
-                per = shape[1] // split.count
-                out.append(g[:, split.index * per:(split.index + 1) * per])
-            else:
-                t0 = sum(counts[:split.index])
-                mine = g.view(clips, sum(counts), *shape[1:])[:, t0:t0 + counts[split.index]]
-                out.append(mine.reshape(-1, *shape[1:]))
+            start = sum(n[:split.index])
+            mine = g[:, start:start + n[split.index]]
+            out.append(mine if ctx.clips is None else mine.reshape(-1, *rest))
         return (None, None, None, *out)

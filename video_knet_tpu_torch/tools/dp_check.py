@@ -11,8 +11,8 @@ spec {"kind": "gather", "items"} instead runs
 `parallel/distributed.py:allgather_results` on rank r's `items[r]`, and
 {"kind": "any_rank", "flags"} `any_rank` on rank r's `flags[r]` (the
 preemption flag's agreement), {"kind": "replicated"} `mesh.replicated`
-on a module filled with rank + 1, and {"kind": "pyramid"} ResNet + FPN's
-`backbone_and_neck` under the band split (`pyramid_share`).
+on a module filled with rank + 1, and {"kind": "pyramid"} a backbone +
+FPN's `backbone_and_neck` under the band split (`pyramid_share`).
 `launch(world, argv, tmp)` starts any module's command line that way (the
 train CLIs under a file:// init).
 `train_steps(mesh, device, spec)` in one process is the reference;
@@ -62,6 +62,7 @@ rank's kernel launches as `LAUNCHES rank=R {...}` at the end.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import os
@@ -194,6 +195,8 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
         from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
         set_fp32_numerics()  # before any forward, the decisions' too
+        # an earlier run's garbage, freed during this run, would hide its peak
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -263,8 +266,9 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
 
 
 def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
-    """ResNet + FPN (`spec["depth"]`, `spec["weights"]`: their state dicts,
-    eval mode) through `backbone_and_neck` under the band split of `mesh`'s
+    """The backbone `spec["backbone"]` (a `build_backbone` name: ResNet,
+    Swin or MiT) with the FPN (`spec["weights"]`: their state dicts, eval
+    mode) through `backbone_and_neck` under the band split of `mesh`'s
     `model` axis, on this rank's data index's rows of `spec["img"]` (one
     data index), replaying the one-process forward's ReLU decisions
     `spec["relus"]` if given, and backward from `spec["cotangents"]` (one a
@@ -272,15 +276,18 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     ranks). Returns the gathered levels, the image's and the parameters'
     gradients from this rank, the shape the backbone took and the bytes
     handed to the collectives."""
-    from video_knet_tpu_torch.models.backbones import backbone_and_neck
-    from video_knet_tpu_torch.models.resnet import FPN, ResNet
+    from video_knet_tpu_torch.models.backbones import (
+        backbone_and_neck,
+        build_backbone,
+        build_neck,
+    )
     from video_knet_tpu_torch.parallel.mesh import data_parallel
     from video_knet_tpu_torch.tools.train_check import relu_pattern
     from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
     set_fp32_numerics()
-    backbone = ResNet(depth=spec["depth"]).to(device).eval()
-    neck = FPN(in_channels=backbone.out_channels).to(device).eval()
+    backbone = build_backbone(spec["backbone"]).to(device).eval()
+    neck = build_neck("fpn", backbone).to(device).eval()
     backbone.load_state_dict(spec["weights"][0])
     neck.load_state_dict(spec["weights"][1])
     img = shard_batch(mesh, spec["img"]).to(device).requires_grad_(True)

@@ -6,8 +6,9 @@ Counterpart of `video_knet_tpu/train/vps.py` (the reference's
 joint key + ref forward, every loss, the backward and the AdamW update;
 over a mesh (`TrainState.mesh`) it is `make_sharded_train_step`
 (`train/train_state.py`): the batch over `data`, and with ranks on the
-mesh's `model` axis the image rows of ResNet + FPN split into bands over
-them (JAX's `constrain`; `parallel/model_axis.py`). Scope: fp32, or a
+mesh's `model` axis the image rows of the backbone (ResNet, Swin or MiT)
+and the FPN split into bands over them (JAX's `constrain`;
+`parallel/model_axis.py`). Scope: fp32, or a
 bf16 forward with `bf16_train` (fp32 masters, optimizer state, gradients
 and loss math); BatchNorm on its running statistics, or live with
 `norm_eval=False` (fp32; statistics over the 2B images of [ref; key],
@@ -127,7 +128,8 @@ def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | 
     data index's rows of the global batch (`parallel/mesh.py:shard_batch`)
     and the losses are the global batch's; the `model` axis splits the
     backbone and the neck into bands of the image rows, whose height must
-    split into whole multiples of 32 rows a rank.
+    be a whole multiple of 32 rows, at least 32 a rank (the bands' stride-32
+    rows differ by at most one).
 
     With `backbone_drop_path_rate` > 0 (the Swin configs) the stochastic
     depth draws from `generator`, by default one on the batch's device
