@@ -590,6 +590,11 @@ MODEL_AXIS_SEED = 0
 TOL_MODEL_AXIS = {"loss": 1e-4, "grads": 1e-3, "stats": 1e-5}
 TOL_MODEL_AXIS_LIVE = {"loss": 1e-4, "stats": 1e-5}
 TOL_MODEL_AXIS_SPLIT_LOSS = 1e-2
+# a rank's peak memory over the one-process step's, at most: the lowest
+# shares a rank reached on an H100 while the heads ran whole on it behind
+# the pyramid's gather (R-50 81.1-94.5%, Swin-B VIP-Seg 72.7-74.9%;
+# PERF.md); the heads and the loss block on the band take them lower
+MODEL_AXIS_PEAK_SHARE = {"vps": 0.811, "vps-live": 0.811, "swin-b": 0.727}
 # the CUDA kernels of K1 (binarize, partial sums) and K2 that a profiler trace must name
 RFP_HW = (384, 1248)
 RFP_IMAGES = 5
@@ -723,6 +728,10 @@ def phase_kernels(device) -> list[dict]:
     # gives them
     shapes += [(VIS_DATA_B * VIS_FRAMES, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256),
                (VIS_CLI_CLIP, 8, 23, 40, 64), (2 * LIVE_BN_B, 100, h, w, 256)]
+    # the band split's shapes (train-model-axis, -swin): each rank's band of
+    # the stride-8 map, the stages at B=1 and the init head over [ref; key]
+    shapes += [(b, n, rows, ww, 256) for rows, ww in _band_maps()
+               for b, n in ((1, 117 if ww == w else SWIN_VIPSEG_KERNELS), (2, 100))]
     err_pool, err_asm = _hold_kernels(gen, device, shapes)
     # tie case: a logit of exactly 0 has sigmoid 0.5, which is not > 0.5
     logits = _logits(gen, (1, 100, 37, 61), device)
@@ -777,6 +786,14 @@ def phase_kernels(device) -> list[dict]:
                                            IMAGE_TRAIN_HW[1] // 8, 256, err_pool, err_asm,
                                            b=IMAGE_TRAIN_B)):
         rec["image_train"] = {k: tr[k] for k in TIMED_KEYS}
+    # the band split's stage shapes: R-50 KITTI-STEP's band of 24 of the 48
+    # stride-8 rows (384x1248 over 2), Swin-B VIP-Seg's 48 and 44 of 92
+    # (736x1280: 12 + 11 stride-32 rows)
+    for (rows, ww), key in zip(_band_maps(), ("band_r50", "band_swin_b_0", "band_swin_b_1")):
+        n = 117 if ww == w else SWIN_VIPSEG_KERNELS
+        for rec, bd in zip(recs, _time_kernels(gen, device, n, rows, ww, 256, err_pool,
+                                               err_asm)):
+            rec[key] = {k: bd[k] for k in TIMED_KEYS}
     # the live-BN train step's shapes at B=2 (train-live-bn): the stages'
     # 100 + 17 kernels at B=2, the init head's 100 over [ref; key] at B=4
     for key, b, n in (("train_b2_stage", LIVE_BN_B, 117), ("train_b2_init", 2 * LIVE_BN_B, 100)):
@@ -784,6 +801,18 @@ def phase_kernels(device) -> list[dict]:
                                                b=b)):
             rec[key] = {k: tb[k] for k in TIMED_KEYS}
     return recs
+
+
+def _band_maps() -> list[tuple[int, int]]:
+    """(rows, columns) of each rank's band of the stride-8 map under the
+    band split: R-50 at TRAIN_HW's (one, both ranks alike), then Swin-B
+    VIP-Seg's rank 0 and rank 1."""
+    from video_knet_tpu_torch.parallel.model_axis import band_units
+
+    r50 = band_units(TRAIN_HW[0], MODEL_AXIS_N)
+    swin = band_units(SWIN_VIPSEG_HW[0], MODEL_AXIS_N)
+    return ([(4 * r50[0], TRAIN_HW[1] // 8)]
+            + [(4 * u, SWIN_VIPSEG_HW[1] // 8) for u in swin])
 
 
 TIMED_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4419,6 +4448,14 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
         for t in (tag, f"{tag}-live"):
             expected[t], shares[t] = launches, [[x] for x in share]
     out = _model_axis_runs("train-model-axis", device, tmp, specs, expected, shares)
+    # the band split gathers nothing (its heads and losses run on the band,
+    # their sums reduced over the group); the frame split gathers the pyramid
+    for tag in specs:
+        comm = [c for r in out[tag]["comm"] for c in r]
+        ok = (all(c["gather"] == 0 and c["reduce"] > 0 and c["halo"] > 0 for c in comm)
+              if tag.startswith("vps") else all(c["gather"] > 0 for c in comm))
+        if not ok:
+            raise AssertionError(f"[train-model-axis] {tag}: bytes by kind {comm}")
     paths.launches["train-model-axis"] = {
         k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
     return out
@@ -4449,8 +4486,13 @@ def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
                        for tag, spec in specs.items()], os.path.join(tmp, path),
         device=device.type, backend="gloo", threads=_rank_threads(MODEL_AXIS_N))
     out = {"launch_s": time.perf_counter() - t0}
+    from video_knet_tpu_torch.ops.kernels import mask_ops as mo
+
     for i, (tag, spec) in enumerate(specs.items()):
         per_rank = [r[i] for r in ranks]
+        for r in per_rank:  # the ranks' launch shapes, for kernel-shapes to hold
+            for k, shapes in r["shapes"].items():
+                mo.SHAPES[k].update(shapes)
         if not all(r["replayed"] == [True] for r in per_rank):
             raise AssertionError(f"[{path}] {tag}: a rank did not replay every ReLU "
                                  f"decision of the first step")
@@ -4478,10 +4520,22 @@ def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
         worst = _check_ranks(path, f"{tag}: {MODEL_AXIS_N} gloo ranks (1x"
                              f"{MODEL_AXIS_N} mesh) vs one process, {len(spec['batches'])} "
                              f"step(s)", per_rank, one[tag], expected[tag], tol=tol)
+        one_peak = one[tag]["peak_bytes"]
         out[tag] = dict(
-            worst=worst, inputs=got, one_ms=one[tag]["ms"], one_peak=one[tag]["peak_bytes"],
+            worst=worst, inputs=got, one_ms=one[tag]["ms"], one_peak=one_peak,
             rank_ms=[r["ms"] for r in per_rank], rank_peak=[r["peak_bytes"] for r in per_rank],
+            peak_share=[r["peak_bytes"] / one_peak if one_peak else None for r in per_rank],
             comm=[r["comm"] for r in per_rank], launches=per_rank[0]["launches"], apart=flips)
+        for m, r in enumerate(per_rank):
+            share = out[tag]["peak_share"][m]
+            limit = MODEL_AXIS_PEAK_SHARE.get(tag)
+            log(f"[{path}] {tag} rank {m}: peak {r['peak_bytes']} bytes, "
+                f"{'n/a' if share is None else f'{100 * share:.1f}%'} of the one-process "
+                f"step's {one_peak}{'' if limit is None else f' (below {100 * limit:.1f}%)'}; "
+                f"bytes a step by kind {json.dumps(r['comm'])}")
+            if limit is not None and share is not None and not share < limit:
+                raise AssertionError(f"[{path}] {tag} rank {m}: peak {share:.3f} of one "
+                                     f"process's, not below {limit}")
         log(f"[{path}] {tag}: step ms one process {json.dumps(one[tag]['ms'])}, ranks "
             f"{json.dumps(out[tag]['rank_ms'])}; peak memory one process "
             f"{one[tag]['peak_bytes']} bytes, ranks {out[tag]['rank_peak']}; bytes each rank "
@@ -4516,10 +4570,12 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
         shares[tag] = [[(2, rows, hw[1], 3)] for rows in bands]
     out = _model_axis_runs("train-model-axis-swin", device, tmp, specs,
                            {tag: TRAIN_LAUNCHES for tag in specs}, shares)
+    # Swin-B gathers nothing; MiT-b0 gathers its spatially reduced keys
     for tag in specs:
-        if not all(c["halo"] > 0 and c["gather"] > 0 for r in out[tag]["comm"] for c in r):
-            raise AssertionError(f"[train-model-axis-swin] {tag}: a rank exchanged no halo or "
-                                 f"gathered nothing: {out[tag]['comm']}")
+        if not all(c["halo"] > 0 and c["reduce"] > 0 and (c["gather"] > 0) == (tag == "mit-b0")
+                   for r in out[tag]["comm"] for c in r):
+            raise AssertionError(f"[train-model-axis-swin] {tag}: bytes by kind "
+                                 f"{out[tag]['comm']}")
     # stage 3's 46 rows pad to 49: its shifted windows' last one joins row 45
     # to rows 0-2, across the bands
     if not all(c["ring"] > 0 for r in out["swin-b"]["comm"] for c in r):
@@ -5052,7 +5108,7 @@ def main() -> int:
         log(f"[{path}] {tag}: 1x{MODEL_AXIS_N} mesh of gloo ranks sharing the card, "
             f"step ms {json.dumps(rec['rank_ms'])} (one process {json.dumps(rec['one_ms'])}); "
             f"peak memory a rank {rec['rank_peak']} bytes against {rec['one_peak']} in one "
-            f"process; bytes each rank hands to the collectives a step "
+            f"process ({json.dumps(rec['peak_share'])} of it); bytes each rank hands to the collectives a step "
             f"{json.dumps(rec['comm'])}; worst vs one process {json.dumps(rec['worst'])}; hard "
             f"decisions the split takes apart a step {rec['apart']} ({card})")
     log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI, data-parallel, "

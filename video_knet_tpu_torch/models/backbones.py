@@ -5,8 +5,6 @@ already the 4-level 256-wide pyramid (no neck)."""
 
 from __future__ import annotations
 
-import dataclasses
-
 from torch import nn
 
 from video_knet_tpu_torch.models.mit import MixVisionTransformer
@@ -17,10 +15,10 @@ from video_knet_tpu_torch.models.swin import SWIN_PRESETS, SwinTransformer
 from video_knet_tpu_torch.parallel.mesh import share_rows
 from video_knet_tpu_torch.parallel.model_axis import (
     active_split,
-    band_rows,
-    band_units,
     frame_rows,
     gather_shares,
+    hold_band,
+    image_band,
     running_share,
 )
 
@@ -89,10 +87,13 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     b*T + t order.
 
     Under a split of the mesh's `model` axis (`parallel/model_axis.py`)
-    the backbone and the neck run on this rank's share of `img` (its band
-    of rows, or its frames of each clip), and the levels are gathered over
-    the `model` group into `img`'s order. The band split runs ResNet, Swin
-    and MiT with the FPN, at heights that are whole multiples of 32."""
+    the backbone and the neck run on this rank's share of `img`. The frame
+    split gathers the levels over the `model` group into `img`'s order. The
+    band split (ResNet, Swin and MiT with the FPN, at heights that are
+    whole multiples of 32) returns this rank's band of each level, and the
+    band stays active for the heads and the losses (`model_axis.in_band`);
+    a consumer that needs the whole map gathers it (`model_axis.whole_map`).
+    """
     split = active_split()
     if split is None:
         return _pyramid(backbone, neck, img, generator)
@@ -101,10 +102,11 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
             raise NotImplementedError(
                 f"the band split of the mesh's `model` axis runs ResNet, Swin and MiT with the "
                 f"FPN, not {type(backbone).__name__} + {type(neck).__name__} (ROADMAP F7d)")
-        band = dataclasses.replace(split, units=tuple(band_units(img.shape[1], split.count)))
-        with running_share(band, lambda t: t[:, band_rows(t.shape[1], band)]):
-            share = _pyramid(backbone, neck, img[:, band_rows(img.shape[1], band)], generator)
-        return gather_shares(share, band)
+        band, select = image_band(split, img.shape[1])
+        with running_share(band, select):
+            share = _pyramid(backbone, neck, select(img), generator)
+        hold_band(band, select)
+        return share
     if frames is None:
         raise ValueError("the frame split needs the clip length (`frames`)")
     clips = img.shape[0] // frames

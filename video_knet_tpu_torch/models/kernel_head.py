@@ -4,6 +4,13 @@ Counterpart of `video_knet_tpu/models/kernel_head.py`. The localization
 FPN is the Semantic-FPN or, with `fpn_type='upernet_align'`, the SFNet
 aligned head (`models/sfnet.py`). The init-mask contraction runs the CUDA
 kernel K2 (no sigmoid) and the proposal pooling runs K1 on the card.
+
+On a band of the image rows (the band split of the mesh's `model` axis)
+the head runs on the band's pyramid: the Semantic-FPN and the 1x1 convs on
+its rows, K2's init masks and the stuff logits on the band, K1's pooled
+features summed over the `model` group (`ops/mask_pool.py`). The aligned
+head, whose flow warps reach anywhere in the map, runs on the gathered
+pyramid instead, and its outputs are cut to the band.
 """
 
 from __future__ import annotations
@@ -19,6 +26,13 @@ from video_knet_tpu_torch.models.semantic_fpn import SemanticFPN
 from video_knet_tpu_torch.models.sfnet import UperNetAlignHead
 from video_knet_tpu_torch.ops.kernels.mask_ops import fused_assemble
 from video_knet_tpu_torch.ops.mask_pool import mask_pool
+from video_knet_tpu_torch.parallel.model_axis import (
+    band_share,
+    band_slice,
+    in_band,
+    off_band,
+    whole_map,
+)
 
 
 class RPNOutputs(NamedTuple):
@@ -70,11 +84,18 @@ class ConvKernelHead(nn.Module):
         takes the temporal positional encoding (the aligned head has none,
         and raises ValueError, as the reference does)."""
         cfg = self.cfg
-        loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
-        for i in range(cfg.num_loc_convs):
-            loc_feats = getattr(self, f"loc_conv{i}")(loc_feats)
-        for i in range(cfg.num_seg_convs):
-            semantic_feats = getattr(self, f"seg_conv{i}")(semantic_feats)
+        if cfg.fpn_type == "upernet_align" and in_band() is not None:
+            whole = [whole_map(f) for f in feats]
+            with off_band():
+                out = self(whole, num_frames)
+            return out._replace(**{k: band_slice(getattr(out, k), d) for k, d in (
+                ("x_feats", 1), ("mask_preds", 2), ("seg_preds", 1), ("thing_mask_preds", 2))})
+        with band_share():  # a ReLU decision replayed on a band is cut to it
+            loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
+            for i in range(cfg.num_loc_convs):
+                loc_feats = getattr(self, f"loc_conv{i}")(loc_feats)
+            for i in range(cfg.num_seg_convs):
+                semantic_feats = getattr(self, f"seg_conv{i}")(semantic_feats)
 
         b = loc_feats.shape[0]
         loc_feats = loc_feats.contiguous()

@@ -27,6 +27,9 @@ class StageOutput(NamedTuple):
 
 
 def upscale_masks(mask_preds: torch.Tensor, stride: int) -> torch.Tensor:
+    """[..., H, W] -> [..., H * stride, W * stride], bilinear; on a band of
+    the image rows with its neighbour rows, as the whole map's
+    (`models/layers.py:resize_mask_bilinear`)."""
     if stride <= 1:
         return mask_preds
     h, w = mask_preds.shape[-2:]

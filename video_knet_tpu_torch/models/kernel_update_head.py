@@ -10,6 +10,11 @@ Counterpart of `video_knet_tpu/models/kernel_update_head.py`:
     (K=1: the contraction of CUDA kernel K2, no sigmoid; K>1: a grouped
     convolution, `assemble_masks`)
 
+On a band of the image rows (the band split of the mesh's `model` axis)
+steps 1 and 6 (K=1) and the 1x1 `feat_transform` run on the band (K1's
+partial sums summed over the `model` group, `ops/mask_pool.py`);
+everything on the N x C kernels runs replicated.
+
 The video variant (`with_previous`) links the stage to the previous
 frame's kernels, two ways:
 - `previous_link` rewrites the INPUT proposal kernels before step 2, so it

@@ -19,6 +19,14 @@ Counterpart of `video_knet_tpu/models/knet.py`:
   one row per stuff class, sigmoid, optional rescale, joint-argmax merge.
   `panoptic_decode_batch` decodes each image of a batch in turn and stacks
   the results (the reference vmaps the same function).
+
+Under the band split of the mesh's `model` axis (`parallel/model_axis.py`)
+the loss block takes this rank's band of the predictions and of the GT:
+the costs and losses sum over the band's pixels and then over the `model`
+group (`ops/hungarian.py`, `ops/losses.py`), and every pixel count of a
+normalizer is summed over the group before the `data` axis (`_pixels`);
+counts of positives and of matched rows are the same on every `model` rank
+and sum over `data` only.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from video_knet_tpu_torch.ops.targets import (
     pred_of_gt_from,
 )
 from video_knet_tpu_torch.parallel.mesh import global_sum
+from video_knet_tpu_torch.parallel.model_axis import level_height, model_count
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 from video_knet_tpu_torch.utils.tree import tree_stack
 
@@ -164,23 +173,30 @@ def solve_assignments(costs: list[torch.Tensor], valid: torch.Tensor):
     return solve_lanes(costs, [valid] * len(costs))
 
 
+def _pixels(count: torch.Tensor) -> torch.Tensor:
+    """A count of pixels (no gradient) over the global batch's whole maps:
+    summed over the bands (`model`), then over `data`."""
+    return global_sum(model_count(count))
+
+
 def _rank_loss_batched(scaled_masks: torch.Tensor, rank_target: torch.Tensor,
                        weight: float) -> torch.Tensor:
     """CE over the N mask logits of each pixel, ignore 255, averaged over the
     global batch's labelled pixels."""
     return L.softmax_cross_entropy(scaled_masks.movedim(1, -1), rank_target, ignore_index=255,
                                    loss_weight=weight,
-                                   avg_factor=global_sum((rank_target != 255).float().sum()))
+                                   avg_factor=_pixels((rank_target != 255).float().sum()))
 
 
 def mask_losses(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor, mask_weight: float,
                 dice_weight: float, names) -> dict[str, torch.Tensor]:
-    """Mask BCE and dice of rows pred / tgt [P, ...] weighted by w [P], each
+    """Mask BCE and dice of rows pred / tgt [P, H, W] weighted by w [P], each
     averaged over the global batch's weights (BCE's broadcast over a row's
-    elements)."""
+    elements: the whole map's, on a band)."""
     rows = global_sum(w.sum())
+    pixels = level_height(pred.shape[1]) * pred[0, 0].numel()
     return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight,
-                                             avg_factor=rows * pred[0].numel()),
+                                             avg_factor=rows * pixels),
             names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight, avg_factor=rows)}
 
 
@@ -214,14 +230,14 @@ def rpn_loss(rpn_out, gt: PanopticGT, cfg: KNetConfig,
                                  (h * r.feat_downsample_stride, w * r.feat_downsample_stride))
     if r.seg_use_sigmoid:
         flat_t = seg_targets.reshape(-1)
-        num_dense_pos = torch.clamp(global_sum((flat_t < c).float().sum()), min=1.0)
+        num_dense_pos = torch.clamp(_pixels((flat_t < c).float().sum()), min=1.0)
         losses["loss_rpn_seg"] = L.sigmoid_focal_loss(
             seg_scaled.reshape(-1, c), flat_t, num_classes=c, loss_weight=r.loss_seg_weight,
-            avg_factor=num_dense_pos)
+            avg_factor=num_dense_pos, over_pixels=True)
     else:
         losses["loss_rpn_seg"] = L.softmax_cross_entropy(
             seg_scaled, seg_targets, ignore_index=c, loss_weight=r.loss_seg_weight,
-            avg_factor=global_sum((seg_targets != c).float().sum()))
+            avg_factor=_pixels((seg_targets != c).float().sum()))
     return losses
 
 

@@ -11,6 +11,12 @@ defaults differ:
 - `resize_bilinear` / `resize_mask_bilinear`: `jax.image.resize(..., "linear")`
   antialiases when it shrinks, which torch matches only with `antialias=True`.
 
+On a band of the image rows (the band split of the mesh's `model` axis,
+`parallel/model_axis.py`) the layers that reach across rows compute what
+the whole map's do on the band's rows: convolutions and pools take halos,
+bilinear upsampling the neighbour rows, GroupNorm the whole map's
+statistics.
+
 Submodules carry the flax module names (`Dense_0`, `LayerNorm_0`, ...), so
 `utils/convert.py` maps a flax variables tree onto `state_dict` keys by path.
 """
@@ -24,7 +30,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from video_knet_tpu_torch.parallel.mesh import active_mesh, sum_with_grad
-from video_knet_tpu_torch.parallel.model_axis import halo, in_band, level_height
+from video_knet_tpu_torch.parallel.model_axis import (
+    band_slice,
+    halo,
+    in_band,
+    level_height,
+    model_sum,
+    neighbour_rows,
+)
 
 # ---------------------------------------------------------------- XLA helpers
 
@@ -60,20 +73,55 @@ def _interp_bilinear(x_nchw: torch.Tensor, out_hw: tuple[int, int]) -> torch.Ten
     return y.to(x_nchw.dtype)
 
 
+def _banded_rows(x: torch.Tensor, out_hw: tuple[int, int], band) -> torch.Tensor:
+    """The bilinear resize of NHWC band `x` as the whole map's resize gives
+    this band's rows: an upsampling by a whole factor r of the rows (not
+    shrinking the columns), run on the band with its neighbour rows, whose
+    output rows are then cut to r times the band's. Each kept output row
+    takes the whole map's source rows and weights (clamped only at the
+    global top and bottom), so the result is the whole map's, bit for bit."""
+    h, w = x.shape[1:3]
+    if out_hw[0] % h or out_hw[1] < w:
+        raise NotImplementedError(
+            f"on a band of the image rows a bilinear resize upsamples by a whole factor, not "
+            f"{h}x{w} -> {tuple(out_hw)}")
+    r = out_hw[0] // h
+    if r == 1:
+        return _resize_nhwc(x, out_hw)
+    y, top = neighbour_rows(x, band)
+    return _resize_nhwc(y, (r * y.shape[1], out_hw[1]))[:, r * top:r * (top + h)]
+
+
+def _resize_nhwc(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    return _interp_bilinear(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of NHWC features (align_corners=False)."""
     if tuple(x.shape[1:3]) == tuple(out_hw):
         return x
-    return _interp_bilinear(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+    band = in_band()
+    if band is not None:
+        return _banded_rows(x, out_hw, band)
+    return _resize_nhwc(x, out_hw)
 
 
 def resize_mask_bilinear(m: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of [..., H, W] mask stacks."""
+    """Bilinear resize of [..., H, W] mask stacks, as NHWC features of one
+    image with a channel a mask: PyTorch's channels-last kernel gives every
+    output pixel the same arithmetic whatever the map's height, where its
+    NCHW kernel on the CPU switches between two orders of operations with
+    the size (a band's rows would round otherwise than the whole map's).
+    At least 4 channels: fewer take the NCHW kernel."""
     if tuple(m.shape[-2:]) == tuple(out_hw):
         return m
     lead = m.shape[:-2]
-    y = _interp_bilinear(m.reshape(1, -1, *m.shape[-2:]), out_hw)
-    return y.reshape(*lead, *out_hw)
+    x = m.reshape(-1, *m.shape[-2:]).permute(1, 2, 0)[None]
+    n = x.shape[-1]
+    x = F.pad(x, (0, max(4 - n, 0))).contiguous()
+    band = in_band()
+    y = _resize_nhwc(x, out_hw) if band is None else _banded_rows(x, out_hw, band)
+    return y[0, ..., :n].permute(2, 0, 1).reshape(*lead, *out_hw)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -168,7 +216,9 @@ class GroupNorm(nn.Module):
     """flax `nn.GroupNorm(use_fast_variance=False)` on NHWC: two-pass
     variance, eps 1e-5. As in flax, a bf16 input's statistics and
     normalization are computed in fp32 and the result takes the dtype of
-    the input and parameters."""
+    the input and parameters. On a band the statistics are the whole
+    map's: the bands' sums for the mean, then their sums of squared
+    deviations from it, each summed over the `model` group."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -180,9 +230,15 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
         g = _fp32(x).reshape(b, -1, self.num_groups, c // self.num_groups)
-        mean = g.mean(dim=(1, 3), keepdim=True)
-        d = g - mean
-        var = (d * d).mean(dim=(1, 3), keepdim=True)
+        if in_band() is None:
+            mean = g.mean(dim=(1, 3), keepdim=True)
+            d = g - mean
+            var = (d * d).mean(dim=(1, 3), keepdim=True)
+        else:
+            count = level_height(x.shape[1]) * x.shape[2] * g.shape[3]
+            mean = model_sum(g.sum(dim=(1, 3), keepdim=True)) / count
+            d = g - mean
+            var = model_sum((d * d).sum(dim=(1, 3), keepdim=True)) / count
         y = (d * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return (y * self.weight + self.bias).to(_result_dtype(x, self.weight, self.bias))
 
@@ -339,6 +395,15 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 128,
     pos_x = torch.stack([pos_x[:, :, 0::2].sin(), pos_x[:, :, 1::2].cos()], dim=3).reshape(h, w, -1)
     pos_y = torch.stack([pos_y[:, :, 0::2].sin(), pos_y[:, :, 1::2].cos()], dim=3).reshape(h, w, -1)
     return torch.cat([pos_y, pos_x], dim=-1)
+
+
+def band_positional_encoding(h: int, w: int, num_feats: int = 128,
+                             device=None) -> torch.Tensor:
+    """`sine_positional_encoding` of a level whose band (or whole map,
+    outside the band split) has `h` rows: the whole level's code, at the
+    band's global rows."""
+    pe = sine_positional_encoding(level_height(h), w, num_feats, device=device)
+    return band_slice(pe, 0)
 
 
 def sine_positional_encoding_3d(t: int, h: int, w: int, num_feats: int = 128,

@@ -6,6 +6,12 @@ heads give the 'thing' and 'stuff' branch features. Called with
 `num_frames` (clip inputs [B*T, H, W, C], frames contiguous per video), the
 last level's positional encoding gains the temporal term
 (`sine_positional_encoding_3d`); the weights are the same either way.
+
+On a band of the image rows (the band split of the mesh's `model` axis)
+the 3x3 convolutions take halos, the stride-2 one pads at the level's
+global height, the upsamplings take the neighbour rows, the GroupNorms the
+whole map's statistics (`models/layers.py`), and the positional encoding
+is the whole level's at the band's rows.
 """
 
 from __future__ import annotations
@@ -15,8 +21,8 @@ from torch import nn
 
 from video_knet_tpu_torch.models.layers import (
     ConvNormAct,
+    band_positional_encoding,
     resize_bilinear,
-    sine_positional_encoding,
     sine_positional_encoding_3d,
     upsample2x,
 )
@@ -50,7 +56,7 @@ class SemanticFPN(nn.Module):
             if i == self.end_level and self.with_positional_encoding:
                 h, w, c = x.shape[1:]
                 if num_frames is None:
-                    x = x + sine_positional_encoding(h, w, c // 2, device=x.device)[None]
+                    x = x + band_positional_encoding(h, w, c // 2, device=x.device)[None]
                 else:
                     pe = sine_positional_encoding_3d(num_frames, h, w, c // 2, device=x.device)
                     x = x + pe.repeat(x.shape[0] // num_frames, 1, 1, 1)

@@ -59,6 +59,7 @@ from video_knet_tpu_torch.parallel.model_axis import (
     index_on,
     level_bands,
     level_height,
+    off_band,
 )
 
 SWIN_PRESETS = {
@@ -326,7 +327,8 @@ class SwinTransformer(nn.Module):
         x = self.patch_norm(self.patch_embed(x))
         if self.ape:  # resized to the whole map, then cut to the band
             h = level_height(x.shape[1])
-            pos = resize_bilinear(self.absolute_pos_embed, (h, x.shape[2]))
+            with off_band():  # the embedding is the whole map's
+                pos = resize_bilinear(self.absolute_pos_embed, (h, x.shape[2]))
             x = x + (pos if band is None else pos[:, band_rows(h, band)])
         if self.frozen_stages >= 0:
             x = x.detach()

@@ -24,6 +24,13 @@ link their last stage to the ref branch's final kernels (not detached).
 Test: per frame the carried state is the previous frame's final kernels.
 Linking is always computed (against zeros on a first frame) and `is_first`
 selects the unlinked kernels for tracking, as the reference does.
+
+Under the band split of the mesh's `model` axis (`parallel/model_axis.py`)
+the train forward runs the heads on this rank's band of the image rows and
+`video_knet_costs` / `video_knet_loss` take the GT's band
+(`ops/targets.py:gt_band`); the kernel embeddings work on kernels only,
+and the RoI / GT-box head, whose boxes reach anywhere in the map, RoIAligns
+the whole fused map (`model_axis.whole_map`) at the whole GT's boxes.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from video_knet_tpu_torch.models.video.roi_track_head import (
 from video_knet_tpu_torch.ops import losses as L
 from video_knet_tpu_torch.ops.targets import PanopticGT, gather_rows
 from video_knet_tpu_torch.parallel.mesh import batch_blocks, global_mean
+from video_knet_tpu_torch.parallel.model_axis import off_band, whole_map
 from video_knet_tpu_torch.utils.device import resolve_device
 
 
@@ -231,9 +239,12 @@ class VideoKNet(nn.Module):
         """RoIAlign track embeddings at mask-derived boxes. masks [B, M, h, w]
         (GT slots at train time, sigmoid mask probabilities at test time);
         the boxes are in mask pixels, rescaled to `x_feats` by the width
-        ratio."""
+        ratio. On a band, `x_feats` is gathered into the whole map and
+        `masks` are whole."""
+        x_feats = whole_map(x_feats)
         boxes = torch.stack([masks_to_boxes(m) for m in masks])
-        return self.roi_track_head(x_feats, boxes, x_feats.shape[2] / masks.shape[-1])
+        with off_band():
+            return self.roi_track_head(x_feats, boxes, x_feats.shape[2] / masks.shape[-1])
 
     def embed(self, kernels: torch.Tensor) -> torch.Tensor:
         """Track embeddings from kernel vectors [..., K*K, C] (tap 0)."""

@@ -12,6 +12,11 @@ Rectangular problems (N predictions x G ground truths, G <= N) are solved
 transposed, [G, N], so the sequential depth is G augmentations; invalid GT
 rows get an all-zero cost row (their matches add the same constant to every
 assignment) and are masked out afterwards.
+
+On a band of the image rows (the band split of the mesh's `model` axis)
+the mask costs' sums over pixels are the band's, summed over the `model`
+group before the ratios (`parallel/model_axis.py:model_sum`), so that the
+solve, replicated, sees the whole map's costs.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from video_knet_tpu_torch.ops.kernels.hungarian import solve as hungarian
+from video_knet_tpu_torch.parallel.model_axis import level_height, model_sum
 
 
 def gt_rows(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
@@ -69,23 +75,21 @@ def dice_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *, weight: floa
     [..., N, H, W] logits x [..., M, H, W] -> [..., N, M]."""
     p = _flat(torch.clamp(torch.sigmoid(mask_logits.float()), 0.001, 1.0))
     t = _flat(gt_masks)
-    a = p @ t.transpose(-1, -2)
-    b = (p * p).sum(-1) + eps
-    c = (t * t).sum(-1) + eps
-    d = (2.0 * a) / (b[..., :, None] + c[..., None, :])
+    a, b, c = model_sum(p @ t.transpose(-1, -2), (p * p).sum(-1), (t * t).sum(-1))
+    d = (2.0 * a) / ((b + eps)[..., :, None] + (c + eps)[..., None, :])
     return weight * (-d)
 
 
 def mask_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *,
               weight: float = 1.0, area: int | None = None) -> torch.Tensor:
     """MaskCost(pred_act=True), sigmoid clamped to [0.01, 1]:
-    -(positive agreement + negative agreement) / area, the area HW unless
-    given."""
-    hw = mask_logits.shape[-1] * mask_logits.shape[-2] if area is None else area
+    -(positive agreement + negative agreement) / area, the area HW (the
+    whole map's, on a band) unless given."""
+    hw = mask_logits.shape[-1] * level_height(mask_logits.shape[-2]) if area is None else area
     p = _flat(torch.clamp(torch.sigmoid(mask_logits.float()), 0.01, 1.0))
     t = _flat(gt_masks)
-    pos = p @ t.transpose(-1, -2)
-    neg = hw - p.sum(-1)[..., :, None] - t.sum(-1)[..., None, :] + pos
+    pos, p_sum, t_sum = model_sum(p @ t.transpose(-1, -2), p.sum(-1), t.sum(-1))
+    neg = hw - p_sum[..., :, None] - t_sum[..., None, :] + pos
     return weight * (-(pos + neg) / hw)
 
 

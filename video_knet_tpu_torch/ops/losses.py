@@ -5,12 +5,23 @@ Counterpart of `video_knet_tpu/ops/losses.py`, function for function:
 dice, sigmoid focal, mask BCE, softmax CE with ignore_index, the
 multi-positive CE and L2 auxiliary loss of the tracker, the rank CE. "Mean
 over positives" is sum(loss * w) / max(sum(w), eps) throughout.
+
+On a band of the image rows (the band split of the mesh's `model` axis)
+the losses over pixels take the band's pixels: the dice loss sums its
+three per-row sums over the `model` group before the ratio, and the pixel
+means (mask BCE, the softmax CE of the rank and semantic losses, the
+semantic sigmoid focal loss with `over_pixels`) sum each band's partial
+sum there over a normalizer of the whole map (`parallel/model_axis.py:
+model_sum`, `model_count`); the default normalizers count the whole map's
+pixels. Every rank of the `model` group then holds the whole loss.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from video_knet_tpu_torch.parallel.model_axis import in_band, model_count, model_sum
 
 _EPS = 1e-12
 _NEG = torch.finfo(torch.float32).min
@@ -35,6 +46,20 @@ def _weighted_mean(loss: torch.Tensor, weight: torch.Tensor | None,
     return loss.sum() / _at_least_eps(avg_factor)
 
 
+def _pixel_mean(loss: torch.Tensor, weight: torch.Tensor | None, avg_factor=None) -> torch.Tensor:
+    """`_weighted_mean` of a loss over pixels: on a band, the band's partial
+    sum summed over the `model` group, the default normalizer the whole
+    map's."""
+    if in_band() is None:
+        return _weighted_mean(loss, weight, avg_factor)
+    if weight is not None:
+        loss = loss * weight
+    if avg_factor is None:
+        avg_factor = model_count(loss.new_tensor(float(loss.numel())) if weight is None
+                                 else weight.sum())
+    return model_sum(loss.sum()) / _at_least_eps(avg_factor)
+
+
 def dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
               weight: torch.Tensor | None = None, *, eps: float = 1e-3,
               loss_weight: float = 1.0, avg_factor=None) -> torch.Tensor:
@@ -42,10 +67,8 @@ def dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
     (sum(p^2) + eps + sum(t^2) + eps) on sigmoid probabilities."""
     p = torch.sigmoid(pred_logits.float()).reshape(pred_logits.shape[0], -1)
     t = target.float().reshape(target.shape[0], -1)
-    a = (p * t).sum(1)
-    b = (p * p).sum(1) + eps
-    c = (t * t).sum(1) + eps
-    d = (2.0 * a) / (b + c)
+    a, b, c = model_sum((p * t).sum(1), (p * p).sum(1), (t * t).sum(1))
+    d = (2.0 * a) / ((b + eps) + (c + eps))
     return loss_weight * _weighted_mean(1.0 - d, weight, avg_factor)
 
 
@@ -62,10 +85,11 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
                        label_weights: torch.Tensor | None = None, *, num_classes: int,
                        gamma: float = 2.0, alpha: float = 0.25, loss_weight: float = 1.0,
-                       avg_factor=None) -> torch.Tensor:
+                       avg_factor=None, over_pixels: bool = False) -> torch.Tensor:
     """logits [P, C]; labels [P] in [0, num_classes] (num_classes = background);
     label_weights [P] or [P, C]. avg_factor defaults to the positive count,
-    at least 1."""
+    at least 1. `over_pixels`: P are pixels (the semantic loss), summed
+    over the bands on a band."""
     logits = logits.float()
     one_hot = _one_hot(labels, num_classes)
     p = torch.sigmoid(logits)
@@ -76,10 +100,13 @@ def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
         if label_weights.dim() == 1:
             label_weights = label_weights[:, None]
         loss = loss * label_weights
+    total = loss.sum()
     if avg_factor is None:
-        pos = (labels >= 0) & (labels < num_classes)
-        avg_factor = torch.clamp(pos.float().sum(), min=1.0)
-    return loss_weight * loss.sum() / _at_least_eps(avg_factor)
+        pos = ((labels >= 0) & (labels < num_classes)).float().sum()
+        avg_factor = torch.clamp(model_count(pos) if over_pixels else pos, min=1.0)
+    if over_pixels:
+        total = model_sum(total)
+    return loss_weight * total / _at_least_eps(avg_factor)
 
 
 def binary_cross_entropy(pred_logits: torch.Tensor, target: torch.Tensor,
@@ -91,18 +118,19 @@ def binary_cross_entropy(pred_logits: torch.Tensor, target: torch.Tensor,
     w = None
     if weight is not None:
         w = weight.reshape(*weight.shape, *(1,) * (loss.dim() - weight.dim())).expand(loss.shape)
-    return loss_weight * _weighted_mean(loss, w, avg_factor)
+    return loss_weight * _pixel_mean(loss, w, avg_factor)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *, ignore_index: int,
                           loss_weight: float = 1.0, avg_factor=None) -> torch.Tensor:
-    """logits [..., C]; labels [...]: the mean over non-ignored entries."""
+    """logits [..., C]; labels [...] (pixels): the mean over non-ignored
+    entries."""
     logits = logits.float()
     valid = (labels != ignore_index).float()
     safe = torch.where(labels == ignore_index, torch.zeros_like(labels), labels)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    return loss_weight * _weighted_mean(nll, valid, avg_factor)
+    return loss_weight * _pixel_mean(nll, valid, avg_factor)
 
 
 def multi_pos_cross_entropy(sim: torch.Tensor, targets: torch.Tensor,

@@ -7,6 +7,9 @@ fixed slots with validity masks, and every target is a batched tensor op
 Conventions: G thing-instance slots, S stuff classes, N proposals,
 N_tot = N + S rows; labels [0, num_thing) are things, [num_thing,
 num_classes) stuff, num_classes the background.
+
+The target builders are per pixel, so under the band split of the mesh's
+`model` axis they run on the GT's band (`gt_band`) as on the whole map.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from video_knet_tpu_torch.parallel.model_axis import band_slice
 
 
 class PanopticGT(NamedTuple):
@@ -25,6 +30,13 @@ class PanopticGT(NamedTuple):
     instance_ids: torch.Tensor  # [B, G] int32 (-1 where invalid)
     sem_masks: torch.Tensor  # [B, S, H, W] float stuff class masks
     sem_valid: torch.Tensor  # [B, S] bool (stuff class present)
+
+
+def gt_band(gt: PanopticGT) -> PanopticGT:
+    """The GT's masks cut to this rank's band of the rows under the band
+    split of the mesh's `model` axis (where JAX's sharded step constrains
+    them); `gt` itself otherwise."""
+    return gt._replace(masks=band_slice(gt.masks, -2), sem_masks=band_slice(gt.sem_masks, -2))
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

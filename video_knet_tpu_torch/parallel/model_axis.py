@@ -1,53 +1,69 @@
 """The mesh's `model` axis: the frame split (VIS clip parallelism) and the
-band split (VPS spatial sharding over the image rows) of the backbone and
-the neck.
+band split (VPS spatial sharding over the image rows).
 
 Counterpart of the `model` axis of JAX's sharded steps:
 `video_knet_tpu/train/vis.py:make_sharded_vis_train_step` shards the clip's
 frame axis over `model`, and `train/vps.py:make_sharded_train_step` the
 image height (its `constrain`); XLA then splits the work and adds the halo
-exchanges and the gathers. The port does it by hand. The train steps open
-`model_split(mesh, kind)`, and `models/backbones.py:backbone_and_neck` runs
-the backbone and the neck on this rank's share of its data index's rows:
+exchanges, the gathers and the partial-sum all-reduces. The port does it by
+hand. The train steps open `model_split(mesh, kind)`, and
+`models/backbones.py:backbone_and_neck` runs the backbone and the neck on
+this rank's share of its data index's rows:
 - "frames": contiguous frames of each clip (T=5 over 2 ranks: 3 + 2), for
-  every backbone and neck (frames are independent);
+  every backbone and neck (frames are independent). `gather_shares` then
+  all-gathers the pyramid over the `model` group, back into the data
+  index's order (its backward sums each share's gradient over the group
+  and keeps this rank's), and the heads run whole on every rank;
 - "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN.
   The image's H / 32 stride-32 rows split as frames do (`band_units`: the
   first bands one more where the count does not divide; 736 rows over 2:
   12 + 11, bands of 384 and 352 rows), so at every level a band starts on
   a whole row, its rows are the same multiple of its units on every rank
   (`level_bands`), 2x2 patch merging pairs the right rows and the FPN's
-  nearest 2x top-down resize is local. Inside the band (`in_band`) the
-  layers that reach across rows take the rows they lack from the other
-  bands (`fetch_rows`): each convolution and the stem's max-pool a halo
-  (`halo`; zero, or -inf for the pool, only past the image's global top and
-  bottom), each Swin block the rows of every window that meets its band
-  (`models/swin.py`: a halo, and for the shifted windows the ring that
-  joins the map's last rows to its first), each MiT block the whole
-  spatially reduced keys and values (`whole_map`).
-`gather_shares` then all-gathers the pyramid over the `model` group, back
-into the data index's order; its backward sums each share's gradient over
-the group and keeps this rank's. Everything after the neck (the kernel
-heads, the assignment, the losses) runs replicated on the `model` ranks of
-one data index, so each rank's loss is its data index's share over n_model
-(`train/train_state.py`): the gradient summed over the world then counts
-the replicated heads once and sums the backbone and the neck over the
-shares.
+  nearest 2x top-down resize is local. The band stays active (`in_band`)
+  past the neck, through the heads and the loss block, until the split
+  closes: nothing gathers the pyramid. The layers that reach across rows
+  take the rows they lack from the other bands (`fetch_rows`): each
+  convolution and the stem's max-pool a halo (`halo`; zero, or -inf for
+  the pool, only past the image's global top and bottom), each bilinear
+  upsampling one neighbour row on either side (none past the global edges,
+  where the resize clamps as on the whole map), each Swin block the rows of
+  every window that meets its band (`models/swin.py`: a halo, and for the
+  shifted windows the ring that joins the map's last rows to its first),
+  each MiT block the whole spatially reduced keys and values
+  (`whole_map`), and the aligned head and the RoI track head, whose warps
+  and boxes reach anywhere, the whole pyramid and the whole fused map.
+  Every sum over pixels is a band's partial sum, summed over the `model`
+  group before it is used (`model_sum`: GroupNorm's statistics, K1's
+  pooled features, the Hungarian costs' and the dice loss's sums, the
+  pixel losses), and every pixel count a normalizer takes is summed there
+  too (`model_count`).
+
+The loss share: each rank's loss is its data index's loss over n_model
+(`train/train_state.py`). Under the frame split the heads run replicated;
+under the band split every value that reaches the loss from a band goes
+through a `model_sum`, so every rank of a data index holds the same loss as
+well. `model_sum`'s backward sums the incoming gradients over the group, so
+each band's partial sum takes the whole loss's gradient (n_model ranks each
+handing it 1 / n_model), and the gradient DDP sums over the world counts
+each replicated head once and sums the backbone, the neck and the heads'
+per-pixel layers over their bands.
 
 The collectives are all_gather and all_reduce, which gloo runs on CUDA
 tensors too (ranks sharing a card). `BYTES` counts what this rank hands to
 them, forward and backward: "halo" the rows lent to or returned from other
 bands, "ring" those of them that a shifted Swin window takes across the
-map's bottom edge to its top, "gather" the pyramid's and MiT's gathers.
+map's bottom edge to its top, "gather" the frame split's pyramid and the
+band split's `whole_map`s, "reduce" the band split's sums over the group.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
 import math
-from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
@@ -58,7 +74,7 @@ from video_knet_tpu_torch.parallel.mesh import DataMesh
 STRIDE = 32  # the backbones' total stride: a band is a whole number of its rows
 KINDS = ("rows", "frames")
 
-BYTES = {"halo": 0, "ring": 0, "gather": 0}
+BYTES = {"halo": 0, "ring": 0, "gather": 0, "reduce": 0}
 
 
 def reset_bytes() -> None:
@@ -66,7 +82,7 @@ def reset_bytes() -> None:
         BYTES[k] = 0
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class Split:
     """The step's split over the `model` axis: `kind` ("rows" or
     "frames"), the `model` group, this rank's index on it and the count;
@@ -85,23 +101,28 @@ _SPLIT: contextvars.ContextVar[Split | None] = contextvars.ContextVar(
 _BAND: contextvars.ContextVar[Split | None] = contextvars.ContextVar("vknet_band", default=None)
 _SHARE: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
     "vknet_share", default=None)
+# under the band split: [band, select] once the backbone has run on a band
+_HELD: contextvars.ContextVar[list | None] = contextvars.ContextVar("vknet_held", default=None)
+_OFF: contextvars.ContextVar[bool] = contextvars.ContextVar("vknet_off_band", default=False)
 
 
 @contextlib.contextmanager
 def model_split(mesh: DataMesh | None, kind: str | None):
     """While active, `backbone_and_neck` splits its batch over `mesh`'s
     `model` axis as `kind` says (nothing for no kind, with one rank on the
-    axis or without a process group)."""
+    axis or without a process group); under the band split the band it
+    takes stays active until the context closes."""
     if kind not in (None, *KINDS):
         raise ValueError(f"split kind {kind!r}, not one of {KINDS}")
     split = None
     if kind is not None and mesh is not None and mesh.distributed and mesh.n_model > 1:
         split = Split(kind, mesh.model_group, mesh.model_index, mesh.n_model)
-    token = _SPLIT.set(split)
+    tokens = (_SPLIT.set(split), _HELD.set([] if kind == "rows" else None))
     try:
         yield
     finally:
-        _SPLIT.reset(token)
+        _SPLIT.reset(tokens[0])
+        _HELD.reset(tokens[1])
 
 
 def active_split() -> Split | None:
@@ -109,17 +130,46 @@ def active_split() -> Split | None:
 
 
 def in_band() -> Split | None:
-    """The band split (with its `units`) while the backbone and the neck
-    run on a band, else None: the layers that reach across rows exchange
-    them then."""
-    return _BAND.get()
+    """The band split (with its `units`) while the model runs on a band of
+    the image rows: from the backbone on, until `model_split` closes
+    (outside `off_band`); else None. The layers that reach across rows
+    exchange them then, and the sums over pixels sum over the `model`
+    group."""
+    if _OFF.get():
+        return None
+    band = _BAND.get()
+    if band is not None:
+        return band
+    held = _HELD.get()
+    return held[0] if held else None
+
+
+def hold_band(band: Split, select: Callable) -> None:
+    """Keep `band` active past the backbone and the neck (`in_band`), with
+    `select` the cut of a whole batch to it (`band_share`)."""
+    held = _HELD.get()
+    if held is None:
+        raise RuntimeError("a band is held only inside model_split(mesh, 'rows')")
+    held[:] = [band, select]
+
+
+@contextlib.contextmanager
+def off_band():
+    """While active, the model runs as on the whole map: for a module fed a
+    whole map under the band split (the RoI track head, Swin's absolute
+    position embedding)."""
+    token = _OFF.set(True)
+    try:
+        yield
+    finally:
+        _OFF.reset(token)
 
 
 def local_share(t: torch.Tensor) -> torch.Tensor:
     """`t`, laid out as the backbone's batch of this rank's data index, cut
-    to this rank's share while the backbone and the neck run on a share;
-    `t` itself elsewhere (a ReLU decision replayed on a rank,
-    `tools/dp_check.py`)."""
+    to this rank's share while the backbone and the neck run on a share, or
+    the heads' per-pixel layers on a band (`band_share`); `t` itself
+    elsewhere (a ReLU decision replayed on a rank, `tools/dp_check.py`)."""
     select = _SHARE.get()
     return t if select is None else select(t)
 
@@ -133,6 +183,30 @@ def running_share(split: Split, select: Callable):
     finally:
         _BAND.reset(tokens[0])
         _SHARE.reset(tokens[1])
+
+
+@contextlib.contextmanager
+def band_share():
+    """Around the heads' per-pixel layers (the kernel head's convolutions):
+    `local_share` cuts a whole batch to the held band there, as it does in
+    the backbone (nothing outside the band split)."""
+    held = _HELD.get()
+    if not held or _OFF.get():
+        yield
+        return
+    with running_share(*held):
+        yield
+
+
+def band_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`t`, laid out over the image rows (or a level's) along `dim`, cut to
+    this rank's band of them while a band is active; `t` itself otherwise
+    (the GT masks, a positional encoding made for the whole level)."""
+    band = in_band()
+    if band is None:
+        return t
+    rows = band_rows(t.shape[dim], band)
+    return t.narrow(dim, rows.start, rows.stop - rows.start)
 
 
 def _shares(n: int, count: int) -> list[int]:
@@ -153,6 +227,14 @@ def band_units(h: int, count: int) -> list[int]:
         raise ValueError(f"{h} image rows ({h // STRIDE} at stride {STRIDE}) do not split "
                          f"into {count} bands")
     return _shares(h // STRIDE, count)
+
+
+def image_band(split: Split, h: int) -> tuple[Split, Callable]:
+    """This rank's band of an image of `h` rows under the band split
+    `split` (with its `units`), and the cut of a batch laid out over the
+    rows of any level to it."""
+    band = dataclasses.replace(split, units=tuple(band_units(h, split.count)))
+    return band, lambda t: t[:, band_rows(t.shape[1], band)]
 
 
 def _edges(units: tuple[int, ...], per_unit: int) -> list[tuple[int, int]]:
@@ -216,7 +298,7 @@ def _all_gather(x: torch.Tensor, split: Split, what: str | None = None) -> list[
     return parts
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class _Plan:
     """Where each row of `fetch_rows`' output comes from, for this rank:
     `source[p]` indexes [own rows, the fill row, every rank's lent rows
@@ -342,10 +424,68 @@ def halo(x: torch.Tensor, top: int, bottom: int, fill: float, split: Split) -> t
     return fetch_rows(x, need, split, fill)
 
 
+def neighbour_rows(x: torch.Tensor, band: Split) -> tuple[torch.Tensor, int]:
+    """NHWC band `x` with the row above it and the row below it from the
+    neighbouring bands, none past the level's global top or bottom: (the
+    rows, the rows added on top). What a bilinear resize of the band needs
+    to give each output row the whole map's arithmetic."""
+    bands = level_bands(x.shape[1], band)
+    h = bands[-1][1]
+    need = tuple(tuple(range(max(a - 1, 0), min(b + 1, h))) for a, b in bands)
+    return fetch_rows(x, need, band), int(bands[band.index][0] > 0)
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, flat):
+        ctx.group = group
+        out = flat.clone()
+        torch.distributed.all_reduce(out, group=group)
+        BYTES["reduce"] += out.numel() * out.element_size()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        BYTES["reduce"] += g.numel() * g.element_size()
+        return None, g
+
+
+def model_sum(*ts: torch.Tensor):
+    """Each of `ts` (a band's partial sums over its pixels) summed over the
+    `model` group in one all_reduce, whose backward sums the gradients over
+    the group too (as `parallel/mesh.py:sum_with_grad` does over the
+    world); the tensor for one, a tuple for several. The identity outside
+    a band."""
+    band = in_band()
+    if band is not None:
+        dtype = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+        flat = _ModelSum.apply(band.group, torch.cat([t.reshape(-1).to(dtype) for t in ts]))
+        ts = tuple(part.view(t.shape).to(t.dtype) for part, t in
+                   zip(flat.split([t.numel() for t in ts]), ts))
+    return ts[0] if len(ts) == 1 else ts
+
+
+def model_count(x: torch.Tensor) -> torch.Tensor:
+    """A count over a band's pixels (no gradient) summed over the `model`
+    group: a loss normalizer's share of the whole map. The identity outside
+    a band."""
+    band = in_band()
+    if band is None:
+        return x
+    out = x.detach().clone()
+    torch.distributed.all_reduce(out, group=band.group)
+    BYTES["reduce"] += out.numel() * out.element_size()
+    return out
+
+
 def whole_map(t: torch.Tensor) -> torch.Tensor:
     """NHWC `t`, a band of a level, gathered over the `model` group into the
     whole level (the backward keeps this rank's rows of the gradient summed
-    over the group); `t` itself outside a band."""
+    over the group); `t` itself outside a band. For a consumer whose reach
+    is the whole map: MiT's reduced keys, the aligned head's warps, the
+    RoI head's boxes."""
     band = in_band()
     return t if band is None else gather_shares([t], band)[0]
 

@@ -12,7 +12,8 @@ spec {"kind": "gather", "items"} instead runs
 {"kind": "any_rank", "flags"} `any_rank` on rank r's `flags[r]` (the
 preemption flag's agreement), {"kind": "replicated"} `mesh.replicated`
 on a module filled with rank + 1, and {"kind": "pyramid"} a backbone +
-FPN's `backbone_and_neck` under the band split (`pyramid_share`).
+FPN's `backbone_and_neck` under the band split (`pyramid_share`), and
+{"kind": "band_pieces"} the heads' banded layers and sums (`band_pieces`).
 `launch(world, argv, tmp)` starts any module's command line that way (the
 train CLIs under a file:// init).
 `train_steps(mesh, device, spec)` in one process is the reference;
@@ -44,8 +45,9 @@ buffers (CPU tensors), each step's milliseconds (host clock, the device
 synchronized around the step), its kernel launches (the wrappers' counts,
 set to 0 before the steps) and the bytes this rank handed to the `model`
 axis's collectives (`model_axis.BYTES`), the shapes the backbone took in
-the first step, each step's decisions (with "decisions"), the peak device
-memory from the model's creation to the last step, above what was
+the first step, each step's decisions (with "decisions"), every (B, N, H,
+W, C) at which this process launched the mask kernels (`mask_ops.SHAPES`),
+the peak device memory from the model's creation to the last step, above what was
 allocated before (CUDA; 0 on the CPU), the trainable parameters' names
 and the model's `leaves_parameters_unused`; with "relus", whether each
 replayed step replayed every decision and how many elements its own
@@ -102,8 +104,9 @@ def step_decisions(kind: str, model, batch) -> list[torch.Tensor]:
     """The hard decisions a train step's forward takes on `batch` (no
     gradient; in training mode, as the step runs, with BatchNorm's running
     statistics put back after it): every hard-threshold mask pool's
-    binarization (`train_check.vps_decisions` / `vis_decisions`) and every
-    Hungarian assignment, on the host."""
+    binarization (`train_check.vps_decisions` / `vis_decisions`; under the
+    band split gathered into the whole map's rows) and every Hungarian
+    assignment, on the host."""
     import math
 
     from video_knet_tpu_torch.models.knet import solve_lanes
@@ -116,6 +119,7 @@ def step_decisions(kind: str, model, batch) -> list[torch.Tensor]:
         with torch.no_grad():
             if kind == "vps":
                 masks, assigned = vps_decisions(model, batch)
+                masks = [_whole_rows(m) for m in masks]
             else:
                 outs = model(batch.clip)
                 masks = [x > math.log(thr / (1 - thr)) for x, thr in
@@ -125,6 +129,14 @@ def step_decisions(kind: str, model, batch) -> list[torch.Tensor]:
         model.eval()
         model.load_state_dict(buffers, strict=False)
     return [t.cpu() for t in (*masks, *assigned)]
+
+
+def _whole_rows(t: torch.Tensor) -> torch.Tensor:
+    """[B, N, h, w] decisions of a band gathered into the whole map's rows
+    (`t` itself outside a band)."""
+    b, n, h, w = t.shape
+    whole = model_axis.whole_map(t.reshape(b * n, h, w, 1).float())
+    return whole.reshape(b, n, -1, w) > 0.5
 
 
 def rank_rows(decision: torch.Tensor, mesh: DataMesh, batch_size: int, kind: str) -> torch.Tensor:
@@ -258,8 +270,11 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
         losses.append({k: float(v) for k, v in out.items()})
     hook.remove()
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    from video_knet_tpu_torch.ops.kernels import mask_ops
+
     return dict(losses=losses, grads=first, state=sd, replayed=replayed, differ=differ, ms=ms,
                 launches=launches, comm=comm, inputs=inputs, decisions=decided,
+                shapes={k: sorted(v) for k, v in mask_ops.SHAPES.items()},
                 peak_bytes=torch.cuda.max_memory_allocated() - base if cuda else 0,
                 trainable=[n for n, p in model.named_parameters() if p.requires_grad],
                 declares_unused=getattr(model, "leaves_parameters_unused", False))
@@ -271,11 +286,11 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     mode) through `backbone_and_neck` under the band split of `mesh`'s
     `model` axis, on this rank's data index's rows of `spec["img"]` (one
     data index), replaying the one-process forward's ReLU decisions
-    `spec["relus"]` if given, and backward from `spec["cotangents"]` (one a
-    level, over n_model: the heads of a step run replicated on the model
-    ranks). Returns the gathered levels, the image's and the parameters'
-    gradients from this rank, the shape the backbone took and the bytes
-    handed to the collectives."""
+    `spec["relus"]` if given, and backward from this rank's band of
+    `spec["cotangents"]` (one a level). Returns this rank's band of each
+    level (no gather) and its (first, end) rows, the image's and the
+    parameters' gradients from this rank, the shape the backbone took and
+    the bytes handed to the collectives."""
     from video_knet_tpu_torch.models.backbones import (
         backbone_and_neck,
         build_backbone,
@@ -299,13 +314,134 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
               relu_pattern((model_axis.local_share(d) for d in relus), replay=True))
     with data_parallel(mesh), model_axis.model_split(mesh, "rows"), replay:
         levels = backbone_and_neck(backbone, neck, img)
-    sum((lv * shard_batch(mesh, c).to(device)).sum() / mesh.n_model
-        for lv, c in zip(levels, spec["cotangents"])).backward()
+        cots = [model_axis.band_slice(shard_batch(mesh, c), 1).to(device)
+                for c in spec["cotangents"]]
+        rows = [model_axis.band_rows(c.shape[1], model_axis.in_band())
+                for c in spec["cotangents"]]
+    sum((lv * c).sum() for lv, c in zip(levels, cots)).backward()
     grads = {f"{tag}.{n}": p.grad.detach().cpu() for tag, m in (("backbone", backbone),
                                                                  ("neck", neck))
              for n, p in m.named_parameters()}
-    return dict(levels=[lv.detach().cpu() for lv in levels], grad_img=img.grad.detach().cpu(),
-                grads=grads, inputs=inputs, comm=dict(model_axis.BYTES))
+    return dict(levels=[lv.detach().cpu() for lv in levels], rows=[(r.start, r.stop) for r in rows],
+                grad_img=img.grad.detach().cpu(), grads=grads, inputs=inputs,
+                comm=dict(model_axis.BYTES))
+
+
+def _band_of(t: torch.Tensor, dim: int, device, grad: bool = False) -> torch.Tensor:
+    """This rank's band of whole-map tensor `t` along `dim`, on `device`."""
+    out = model_axis.band_slice(t, dim).to(device).clone()
+    return out.requires_grad_(True) if grad else out
+
+
+def _piece_results(inp: dict, device) -> dict:
+    """The heads' banded layers and sums on this rank's band of `inp`'s
+    whole-map tensors (in one process: the whole map), each as (how the
+    ranks' results make the whole map's: "rows:D" stacked along dim D,
+    "same" equal on every rank, "sum" summed over the ranks; the result).
+    A replicated output's cotangent counts 1 / n_model on each rank, as a
+    step's loss share does."""
+    from video_knet_tpu_torch.models import knet
+    from video_knet_tpu_torch.models.kernel_iter_head import upscale_masks
+    from video_knet_tpu_torch.models.layers import (
+        GroupNorm,
+        band_positional_encoding,
+        resize_bilinear,
+        upsample2x,
+    )
+    from video_knet_tpu_torch.ops import hungarian as hung
+    from video_knet_tpu_torch.ops import losses as L
+    from video_knet_tpu_torch.ops.mask_pool import mask_pool
+
+    band = model_axis.in_band()
+    share = 1.0 / (1 if band is None else band.count)
+    out = {}
+
+    def banded(name, fn, x, cot, dim, rows_dim=1):
+        xb = _band_of(x, rows_dim, device, grad=True)
+        y = fn(xb)
+        (y * _band_of(cot, dim, device)).sum().backward()
+        out[name] = (f"rows:{dim}", y.detach().cpu())
+        out[f"{name}.grad"] = (f"rows:{rows_dim}", xb.grad.cpu())
+
+    gn = GroupNorm(inp["gn_x"].shape[-1]).to(device)
+    with torch.no_grad():
+        gn.weight.copy_(inp["gn_weight"])
+        gn.bias.copy_(inp["gn_bias"])
+    banded("group_norm", gn, inp["gn_x"], inp["gn_cot"], 1)
+    out["group_norm.weight_grad"] = ("sum", gn.weight.grad.cpu())
+    out["group_norm.bias_grad"] = ("sum", gn.bias.grad.cpu())
+    banded("upsample2x", upsample2x, inp["up_x"], inp["up_cot"], 1)
+    banded("resize_bilinear", lambda x: resize_bilinear(x, (4 * x.shape[1], 4 * x.shape[2])),
+           inp["seg_x"], inp["seg_cot"], 1)
+    banded("upscale_masks", lambda m: upscale_masks(m, 4), inp["masks"], inp["masks_cot"], 2,
+           rows_dim=2)
+    h, w, c = inp["pe_hwc"]
+    rows = slice(0, h) if band is None else model_axis.band_rows(h, band)
+    out["positional_encoding"] = ("rows:0", band_positional_encoding(
+        rows.stop - rows.start, w, c // 2, device=device).cpu())
+    # K1's partial sums over the band, summed over the `model` group
+    feats = _band_of(inp["pool_feats"], 1, device, grad=True)
+    pooled = mask_pool(_band_of(inp["pool_logits"], 2, device), feats)
+    (pooled * inp["pool_cot"].to(device) * share).sum().backward()
+    out["mask_pool"] = ("same", pooled.detach().cpu())
+    out["mask_pool.grad"] = ("rows:1", feats.grad.cpu())
+    # the dice loss (its gradient too) and the Hungarian mask costs
+    pred = _band_of(inp["pred"], 1, device, grad=True)
+    tgt, wts = _band_of(inp["tgt"], 1, device), inp["w"].to(device)
+    dice = L.dice_loss(pred, tgt, wts, loss_weight=4.0, avg_factor=wts.sum())
+    (dice * share).backward()
+    out["dice_loss"] = ("same", dice.detach().cpu())
+    out["dice_loss.grad"] = ("rows:1", pred.grad.cpu())
+    logits, gt = _band_of(inp["cost_logits"], 2, device), _band_of(inp["cost_gt"], 2, device)
+    out["dice_cost"] = ("same", hung.dice_cost(logits, gt).cpu())
+    out["mask_cost"] = ("same", hung.mask_cost(logits, gt).cpu())
+    # every pixel-count normalizer of the loss block
+    pred = pred.detach()
+    seg, labels = _band_of(inp["seg_logits"], 1, device), _band_of(inp["seg_labels"], 1, device)
+    rank_t = _band_of(inp["rank_target"], 1, device)
+    c = seg.shape[-1]
+    out.update({k: ("same", v.detach().cpu()) for k, v in {
+        "bce_default": L.binary_cross_entropy(pred, tgt, wts),
+        "softmax_ce_default": L.softmax_cross_entropy(seg, labels, ignore_index=c),
+        "focal_over_pixels": L.sigmoid_focal_loss(seg.reshape(-1, c), labels.reshape(-1),
+                                                  num_classes=c, over_pixels=True),
+        "rank_loss": knet._rank_loss_batched(_band_of(inp["rank_logits"], 2, device), rank_t,
+                                             0.1),
+        "pixels": knet._pixels((labels != c).float().sum()),
+        **knet.mask_losses(pred, tgt, wts, 1.0, 4.0, ("mask_bce", "mask_dice")),
+    }.items()})
+    return out
+
+
+def band_pieces(mesh: DataMesh, device, spec: dict) -> dict:
+    """`_piece_results` on this rank's band of an image of `spec["height"]`
+    rows under the band split of `mesh`'s `model` axis (one data index; the
+    band held as after the backbone), and the Semantic-FPN and the kernel
+    head (`spec["head"]`: its config and state dict, eval mode) on the band
+    of `spec["levels"]`, the pyramid. In one process: the whole map."""
+    from video_knet_tpu_torch.models.kernel_head import ConvKernelHead
+    from video_knet_tpu_torch.parallel.mesh import data_parallel
+
+    model_axis.reset_bytes()
+    with data_parallel(mesh), model_axis.model_split(mesh, "rows"):
+        split = model_axis.active_split()
+        if split is not None:
+            model_axis.hold_band(*model_axis.image_band(split, spec["height"]))
+        out = _piece_results(spec["inputs"], device)
+        cfg, weights = spec["head"]
+        head = ConvKernelHead(cfg, in_channels=spec["levels"][0].shape[-1]).to(device).eval()
+        head.load_state_dict(weights)
+        levels = [_band_of(x, 1, device) for x in spec["levels"]]
+        with torch.no_grad():
+            fpn = head.localization_fpn(levels)
+            rpn = head(levels)
+    out.update({f"fpn.{i}": ("rows:1", x.cpu()) for i, x in enumerate(fpn)})
+    for name, dim in (("proposal_feats", None), ("x_feats", 1), ("mask_preds", 2),
+                      ("seg_preds", 1), ("thing_mask_preds", 2)):
+        out[f"head.{name}"] = ("same" if dim is None else f"rows:{dim}",
+                               getattr(rpn, name).cpu())
+    out["comm"] = dict(model_axis.BYTES)
+    return out
 
 
 def reset_counts() -> None:
@@ -466,6 +602,9 @@ def _worker(spec_path: str, out_dir: str) -> None:
             elif spec["kind"] == "pyramid":
                 results.append(pyramid_share(distributed.global_mesh(spec["n_model"]), device,
                                              spec))
+            elif spec["kind"] == "band_pieces":
+                results.append(band_pieces(distributed.global_mesh(spec["n_model"]), device,
+                                           spec))
             elif spec["kind"] == "replicated":
                 from video_knet_tpu_torch.parallel.mesh import replicated
 

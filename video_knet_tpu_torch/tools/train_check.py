@@ -109,8 +109,10 @@ def vps_decisions(model: VideoKNet, batch) -> tuple[list, list]:
     at `head.hard_mask_thr`, in both branches; every assignment of the
     step's Hungarian problems, `video_knet_costs` solved as the loss solves
     them). Two batch splits that decide alike give equal tensors once the
-    splits' are stacked."""
+    splits' are stacked. Under the band split the masks are the band's and
+    the costs the whole map's."""
     from video_knet_tpu_torch.models.video.knet_vps import solve_lanes, video_knet_costs
+    from video_knet_tpu_torch.ops.targets import gt_band
 
     cfg = model.cfg
     t_stage = math.log(cfg.head.hard_mask_thr / (1 - cfg.head.hard_mask_thr))
@@ -122,7 +124,8 @@ def vps_decisions(model: VideoKNet, batch) -> tuple[list, list]:
             out.append(branch.rpn_out.thing_mask_preds > 0)
             out += [x > t_stage for x in _stage_inputs(branch.rpn_out.mask_preds,
                                                         branch.stage_outs)]
-        gt_of_pred, _ = solve_lanes(*video_knet_costs(key, ref, batch.gt, batch.ref_gt, cfg))
+        gt_of_pred, _ = solve_lanes(*video_knet_costs(key, ref, gt_band(batch.gt),
+                                                      gt_band(batch.ref_gt), cfg))
     return out, list(gt_of_pred)
 
 

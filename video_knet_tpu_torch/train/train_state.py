@@ -13,12 +13,21 @@ span the global batch (`mesh.data_parallel`), so each data index's loss is
 its share of the global loss, and a comm hook sums the gradients over the
 ranks (DDP would average them), so the per-group clip and AdamW see the
 global gradient on every rank, as optax does. With `n_model` ranks on the
-mesh's `model` axis the step splits the backbone and the neck over them
-(`parallel/model_axis.py`: the VPS step's image rows, the VIS step's
-frames) and runs the heads replicated, so each rank's loss is its data
-index's share over `n_model`: the summed gradient counts the replicated
-heads once and sums the backbone and the neck over their shares. The loss
-dict is the global value on every rank.
+mesh's `model` axis the step splits the model over them
+(`parallel/model_axis.py`): the VIS step the backbone's frames, its heads
+replicated; the VPS step its image rows, the backbone, the neck, the heads
+and the loss block on each rank's band, every sum over pixels summed over
+the `model` group by `model_sum`, whose backward sums the gradients over
+the group too. Either way every `model` rank of a data index holds that
+index's whole loss L_d, and takes L_d / n_model as its loss. Why each
+parameter then gets its gradient once: a replicated parameter p takes
+(1/n_model) dL_d/dp on each rank, n_model times over the world; a band's
+partial sum s_m, inside a `model_sum` S = sum_m s_m, takes sum over the
+ranks of (1/n_model) dL_d/dS = dL_d/dS on its own rank m, so that the
+world's sum over m of dL_d/dS ds_m/dp is dL_d/dp, for the per-pixel
+parameters and for the kernels a band's pixels use alike
+(`tests/test_torch_port_model_axis_heads.py` holds it). The loss dict is
+the global value on every rank.
 """
 
 from __future__ import annotations
@@ -142,7 +151,7 @@ def make_train_step(make_loss_fn: Callable[..., Callable], split: str | None = N
         try:
             with data_parallel(mesh), model_split(mesh, split):
                 total, losses = make_loss_fn(state)(batch, *args)
-                if n_model > 1:  # the heads run replicated on the model ranks
+                if n_model > 1:  # each model rank holds its data index's whole loss
                     total = total / n_model
                     losses = {k: v / n_model for k, v in losses.items()}
                 total.backward()

@@ -6,9 +6,10 @@ Counterpart of `video_knet_tpu/train/vps.py` (the reference's
 joint key + ref forward, every loss, the backward and the AdamW update;
 over a mesh (`TrainState.mesh`) it is `make_sharded_train_step`
 (`train/train_state.py`): the batch over `data`, and with ranks on the
-mesh's `model` axis the image rows of the backbone (ResNet, Swin or MiT)
-and the FPN split into bands over them (JAX's `constrain`;
-`parallel/model_axis.py`). Scope: fp32, or a
+mesh's `model` axis the image rows split into bands over them (JAX's
+`constrain`; `parallel/model_axis.py`): the backbone (ResNet, Swin or MiT),
+the FPN, the heads and the loss block run on each rank's band, and each
+rank takes its band of the GT masks. Scope: fp32, or a
 bf16 forward with `bf16_train` (fp32 masters, optimizer state, gradients
 and loss math); BatchNorm on its running statistics, or live with
 `norm_eval=False` (fp32; statistics over the 2B images of [ref; key],
@@ -25,7 +26,7 @@ import torch
 
 from video_knet_tpu_torch.config import KNetConfig, VideoKNetConfig
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet, video_knet_loss
-from video_knet_tpu_torch.ops.targets import PanopticGT
+from video_knet_tpu_torch.ops.targets import PanopticGT, gt_band
 from video_knet_tpu_torch.train.train_state import (
     TrainState,
     check_train_config,
@@ -116,7 +117,9 @@ def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig, apply=None):
                     if cfg.track_head_type == "roi_gt_box" else ())
         key, ref, key_emb, ref_emb = apply(cfg.bf16_train, batch.img, batch.ref_img,
                                            generator, *gt_masks)
-        losses = video_knet_loss((key, ref), (key_emb, ref_emb), batch.gt, batch.ref_gt, cfg)
+        # under the band split the forward ran on a band: the GT's band too
+        losses = video_knet_loss((key, ref), (key_emb, ref_emb), gt_band(batch.gt),
+                                 gt_band(batch.ref_gt), cfg)
         return sum(losses.values()), losses
 
     return loss_fn
@@ -127,7 +130,7 @@ def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | 
     `total_loss`, as device tensors). Over a mesh `batch` is this rank's
     data index's rows of the global batch (`parallel/mesh.py:shard_batch`)
     and the losses are the global batch's; the `model` axis splits the
-    backbone and the neck into bands of the image rows, whose height must
+    model and its losses into bands of the image rows, whose height must
     be a whole multiple of 32 rows, at least 32 a rank (the bands' stride-32
     rows differ by at most one).
 
