@@ -23,8 +23,10 @@ Phases, each raising on failure (the process then exits non-zero):
                `test_whole_video`'s (B*T=8), `vis-data-train`'s (B*T=10)
                and `vis-cli-tiny`'s (B*T=8, N=8, 23x40, C=64), at COCO
                panoptic's (N=153, 100x168), at the image train step's (B=8,
-               N=117, 64x128) and at the live-BN train step's (B=2, N=117 and
-               B=4, N=100, 48x156) the same
+               N=117, 64x128), at the live-BN train step's (B=2, N=117 and
+               B=4, N=100, 48x156), at the band split's (phases 54-55) and
+               at the frame split's (a VIS rank's B*T_r = 3 and 2 frames,
+               N=100, 45x80: `vis_frames_3`, `vis_frames_2`) the same
   4. serve     Video K-Net R-50 (default config, seeded random weights)
                serves 8 frames of 384x1248 through VPSInferencePipeline with
                the tracker on the device
@@ -333,16 +335,23 @@ Phases, each raising on failure (the process then exits non-zero):
                384x1248, global B=1, each rank's backbone and FPN on a band
                of 192 rows (halo rows from the other band), and
                `video_knet_vis_r50_ytvis2019` on 1x5x360x640 clips, the
-               frames split 3 + 2; 3 steps of each, then a live-BN step of
-               each: every step's losses within 1e-4 (1e-2 at a step
+               frames split 3 + 2 from the backbone to the losses (the
+               heads on each rank's frames, the merge's per-frame kernels
+               gathered); 3 steps of each, then a live-BN step of each, and
+               one step of `video_knet_vis_volume_r50_ytvis2019` on the
+               same clips: every step's losses within 1e-4 (1e-2 at a step
                whose hard decisions the split takes apart, printed), the
                presets' first step's gradient within 1e-3 (ReLU decisions
-               replayed on each rank's share; the live step's printed), the
+               and mask-pool binarizations replayed on each rank's share;
+               the live step's printed), the
                live statistics within 1e-5, each rank's
                backbone input its share, 7 / 7 / 1 launches a step on each
-               rank; per rank: step ms, peak memory beside the one-process
-               run's, the bytes a step it hands to the collectives (ranks
-               on one card: not a scaling figure)
+               rank (4 / 4 / 1 in volume mode); per rank: step ms, peak
+               memory beside the one-process run's (each VPS and VIS rank
+               below `MODEL_AXIS_PEAK_SHARE`), the bytes a step it hands to
+               the collectives (the VIS ranks' gather below 1% of the
+               pyramid gather the frame split made before its heads ran on
+               frames) (ranks on one card: not a scaling figure)
  55. train-model-axis-swin  the band split of Swin and MiT on the same
                mesh, held as phase 54 holds its presets: Swin-B VIP-Seg
                (`video_knet_vipseg_swin_b`) at 736x1280, B=1, drop path 0.3,
@@ -443,6 +452,7 @@ VIS_SEED = 0  # VIS weights; vis-check takes tools/train_check.py:vis_margin_see
 VIS_LAUNCHES = {"mask_pool": 7, "assemble": 7}
 VIS_VOLUME_LAUNCHES = {"mask_pool": 4, "assemble": 4}
 VIS_TRAIN_LAUNCHES = {**VIS_LAUNCHES, "hungarian": 1}
+VIS_VOLUME_TRAIN_LAUNCHES = {**VIS_VOLUME_LAUNCHES, "hungarian": 1}
 VIS_TRAIN_STEPS = 3
 TOL_VIS_CHECK = 1e-4  # card vs CPU, relative to each output's scale
 # the image slice: the JAX tools' COCO test size (tools/test_coco_instance.py:30)
@@ -572,8 +582,11 @@ MODEL_AXIS_SWIN_BANDS = (384, 352)  # 736 rows: 23 at stride 32, split 12 + 11
 MODEL_AXIS_SEED = 0
 # each rank against the one-process step on the card: every step's losses,
 # relative; the presets' first step's gradient (the ranks replaying the
-# one-process run's ReLU decisions on their band or frames), each parameter
-# against `_grad_scale`; the live-BN step's statistics, each leaf against
+# one-process run's ReLU decisions and K1 binarizations on their band or
+# frames: an H100 took 9 pixels of a VIS step's pools apart under the
+# frame split, and one moved a clip stage's gradient by 1.3e-3 of its
+# scale), each parameter against `_grad_scale`; the live-BN step's
+# statistics, each leaf against
 # its largest magnitude. The live-BN step's gradient is printed, not held:
 # its one-pass variance, E[x^2] - mean^2 summed band by band, moves the
 # forward ~30x more than the frozen step's rounding does (772 ReLU inputs
@@ -592,9 +605,15 @@ TOL_MODEL_AXIS_LIVE = {"loss": 1e-4, "stats": 1e-5}
 TOL_MODEL_AXIS_SPLIT_LOSS = 1e-2
 # a rank's peak memory over the one-process step's, at most: the lowest
 # shares a rank reached on an H100 while the heads ran whole on it behind
-# the pyramid's gather (R-50 81.1-94.5%, Swin-B VIP-Seg 72.7-74.9%;
-# PERF.md); the heads and the loss block on the band take them lower
-MODEL_AXIS_PEAK_SHARE = {"vps": 0.811, "vps-live": 0.811, "swin-b": 0.727}
+# the pyramid's gather (VPS R-50 81.1-94.5%, Swin-B VIP-Seg 72.7-74.9%,
+# VIS R-50 81.9-90.0% and 80.9-94.2% live; PERF.md); the heads and the
+# loss block on the band or on the rank's frames take them lower
+MODEL_AXIS_PEAK_SHARE = {"vps": 0.811, "vps-live": 0.811, "swin-b": 0.727,
+                         "vis": 0.819, "vis-live": 0.809}
+# a VIS rank's gather a step, below this share of the pyramid gather the
+# frame split made while the heads ran whole (156,958,720 bytes a rank a
+# step at 1x5x360x640: its 3 frames' levels forward, the clip's 5 back)
+MODEL_AXIS_VIS_GATHER_SHARE = 0.01
 # the CUDA kernels of K1 (binarize, partial sums) and K2 that a profiler trace must name
 RFP_HW = (384, 1248)
 RFP_IMAGES = 5
@@ -732,6 +751,9 @@ def phase_kernels(device) -> list[dict]:
     # the stride-8 map, the stages at B=1 and the init head over [ref; key]
     shapes += [(b, n, rows, ww, 256) for rows, ww in _band_maps()
                for b, n in ((1, 117 if ww == w else SWIN_VIPSEG_KERNELS), (2, 100))]
+    # the frame split's shapes (train-model-axis): each VIS rank's B*T_r
+    # frames of the 1x5 clip, 3 and 2, 100 proposals over 45x80
+    shapes += [(b, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256) for b in _rank_frames()]
     err_pool, err_asm = _hold_kernels(gen, device, shapes)
     # tie case: a logit of exactly 0 has sigmoid 0.5, which is not > 0.5
     logits = _logits(gen, (1, 100, 37, 61), device)
@@ -794,6 +816,12 @@ def phase_kernels(device) -> list[dict]:
         for rec, bd in zip(recs, _time_kernels(gen, device, n, rows, ww, 256, err_pool,
                                                err_asm)):
             rec[key] = {k: bd[k] for k in TIMED_KEYS}
+    # the frame split's stage shapes: each VIS rank's 3 and 2 frames of the
+    # 1x5 clip (train-model-axis), 100 proposals over 45x80
+    for b in _rank_frames():
+        for rec, fr in zip(recs, _time_kernels(gen, device, 100, VIS_HW[0] // 8,
+                                               VIS_HW[1] // 8, 256, err_pool, err_asm, b=b)):
+            rec[f"vis_frames_{b}"] = {k: fr[k] for k in TIMED_KEYS}
     # the live-BN train step's shapes at B=2 (train-live-bn): the stages'
     # 100 + 17 kernels at B=2, the init head's 100 over [ref; key] at B=4
     for key, b, n in (("train_b2_stage", LIVE_BN_B, 117), ("train_b2_init", 2 * LIVE_BN_B, 100)):
@@ -801,6 +829,14 @@ def phase_kernels(device) -> list[dict]:
                                                b=b)):
             rec[key] = {k: tb[k] for k in TIMED_KEYS}
     return recs
+
+
+def _rank_frames() -> list[int]:
+    """B*T_r, each VIS rank's frames of a 1 x VIS_FRAMES clip under the
+    frame split over MODEL_AXIS_N ranks (3 and 2), each once."""
+    from video_knet_tpu_torch.parallel.model_axis import frame_counts
+
+    return sorted(set(frame_counts(VIS_FRAMES, MODEL_AXIS_N)), reverse=True)
 
 
 def _band_maps() -> list[tuple[int, int]]:
@@ -4415,15 +4451,21 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     step on the card: VPS `video_knet_kitti_step_r50` at 384x1248, global
     B=1, the image rows in bands (`parallel/model_axis.py`), and VIS
     `video_knet_vis_r50_ytvis2019` on 1x5x360x640 clips, the frames split
-    3 + 2; MODEL_AXIS_STEPS steps of each preset, then one step of each
-    with live BatchNorm (`norm_eval=False`). Every step's losses (the
+    3 + 2 from the backbone to the losses; MODEL_AXIS_STEPS steps of each
+    preset, then one step of each with live BatchNorm (`norm_eval=False`),
+    and one step of the VIS volume preset on the same clips. Every step's
+    losses (the
     presets' beside the hard decisions the split takes apart, which loosen
     that step's limit), the presets' first step's gradient (the ranks
-    replaying the one-process run's ReLU decisions on their band or frames)
-    and the live statistics within TOL_MODEL_AXIS; each rank's backbone
+    replaying the one-process run's ReLU decisions and mask-pool
+    binarizations on their band or frames) and the live statistics within
+    TOL_MODEL_AXIS; each rank's backbone
     input its share; 7 / 7 / 1
-    launches a step on each rank. Per rank: step ms, peak memory beside the
-    one-process run's, the bytes it hands to the collectives a step."""
+    launches a step on each rank (4 / 4 / 1 in volume mode). Per rank: step
+    ms, peak memory beside the one-process run's, the bytes it hands to the
+    collectives a step: the VPS bands gather nothing, the VIS frames gather
+    the merge's per-frame kernels alone, below MODEL_AXIS_VIS_GATHER_SHARE
+    of the pyramid gather (`_vis_pyramid_gather`); both reduce."""
     from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.parallel.model_axis import frame_counts
     from video_knet_tpu_torch.train import vis as tvis
@@ -4447,24 +4489,49 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
                                     seed=MODEL_AXIS_SEED, batches=batches[:1], decisions=True)
         for t in (tag, f"{tag}-live"):
             expected[t], shares[t] = launches, [[x] for x in share]
+    volume = get_config("video_knet_vis_volume_r50_ytvis2019")
+    specs["vis-volume"] = dict(kind="vis", cfg=volume, seed=MODEL_AXIS_SEED, decisions=True,
+                               batches=[tvis.make_synthetic_batch(volume, b, VIS_HW, seed=0,
+                                                                  device="cpu")])
+    expected["vis-volume"], shares["vis-volume"] = VIS_VOLUME_TRAIN_LAUNCHES, shares["vis"]
     out = _model_axis_runs("train-model-axis", device, tmp, specs, expected, shares)
-    # the band split gathers nothing (its heads and losses run on the band,
-    # their sums reduced over the group); the frame split gathers the pyramid
+    # neither split gathers the pyramid: the band split gathers nothing, the
+    # frame split the merge's per-frame kernels (none in volume mode); the
+    # heads and losses run on the band or the frames, their sums reduced
+    pyramid = _vis_pyramid_gather()
     for tag in specs:
         comm = [c for r in out[tag]["comm"] for c in r]
         ok = (all(c["gather"] == 0 and c["reduce"] > 0 and c["halo"] > 0 for c in comm)
-              if tag.startswith("vps") else all(c["gather"] > 0 for c in comm))
+              if tag.startswith("vps") else
+              all(c["gather"] < MODEL_AXIS_VIS_GATHER_SHARE * pyramid and c["reduce"] > 0
+                  for c in comm))
         if not ok:
             raise AssertionError(f"[train-model-axis] {tag}: bytes by kind {comm}")
+        if tag.startswith("vis"):
+            log(f"[train-model-axis] {tag}: gather a step by rank "
+                f"{[max(c['gather'] for c in r) for r in out[tag]['comm']]} bytes, below "
+                f"{100 * MODEL_AXIS_VIS_GATHER_SHARE:g}% of the pyramid gather's {pyramid}")
     paths.launches["train-model-axis"] = {
         k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
     return out
 
 
+def _vis_pyramid_gather() -> int:
+    """The bytes a VIS rank handed a step to the pyramid's gather while the
+    heads ran whole (fp32, R-50 + FPN's 256 channels at VIS_HW): its frames'
+    levels forward (padded to the longest share), the clip's back."""
+    from video_knet_tpu_torch.parallel.model_axis import frame_counts
+
+    h, w = VIS_HW
+    area = sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32))
+    return 4 * 256 * area * (max(frame_counts(VIS_FRAMES, MODEL_AXIS_N)) + VIS_FRAMES)
+
+
 def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
                      shares: dict) -> dict:
     """Each spec's one-process run on the card (recording the first step's
-    ReLU decisions; its memory freed before the ranks start), then all of
+    ReLU decisions and mask-pool binarizations; its memory freed before the
+    ranks start), then all of
     them over MODEL_AXIS_N gloo ranks sharing the card, each rank replaying
     the decisions on its rows, band or frames; every rank held against the
     one-process run as `phase_train_model_axis` says. {tag: its record}."""
@@ -4472,17 +4539,19 @@ def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
     from video_knet_tpu_torch.tools import dp_check
 
     one = {}
-    for tag, spec in specs.items():  # here, before the ranks start, recording the ReLUs
+    for tag, spec in specs.items():  # here, before the ranks start, recording the decisions
         relus: list = []
+        pools: list = []
         one[tag] = _uncounted(lambda: dp_check.train_steps(
-            DataMesh(), device, {**spec, "record_steps": 1}, record=relus))
-        one[tag]["relus"] = relus
+            DataMesh(), device, {**spec, "record_steps": 1}, record=relus, pools=pools))
+        one[tag]["relus"], one[tag]["pools"] = relus, pools
         if device.type == "cuda":  # the ranks share the card
             gc.collect()
             torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = dp_check.run_ranks(
-        MODEL_AXIS_N, [{**spec, "n_model": MODEL_AXIS_N, "relus": one[tag].pop("relus")}
+        MODEL_AXIS_N, [{**spec, "n_model": MODEL_AXIS_N, "relus": one[tag].pop("relus"),
+                        "pools": one[tag].pop("pools")}
                        for tag, spec in specs.items()], os.path.join(tmp, path),
         device=device.type, backend="gloo", threads=_rank_threads(MODEL_AXIS_N))
     out = {"launch_s": time.perf_counter() - t0}
@@ -4495,7 +4564,10 @@ def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
                 mo.SHAPES[k].update(shapes)
         if not all(r["replayed"] == [True] for r in per_rank):
             raise AssertionError(f"[{path}] {tag}: a rank did not replay every ReLU "
-                                 f"decision of the first step")
+                                 f"decision and mask-pool binarization of the first step")
+        log(f"[{path}] {tag}: the first step's replayed decisions that a rank's own would "
+            f"have taken otherwise: ReLU {[r['differ'] for r in per_rank]}, mask-pool pixels "
+            f"{[r['pool_differ'] for r in per_rank]}")
         tol = TOL_MODEL_AXIS_LIVE if tag.endswith("live") else TOL_MODEL_AXIS
         flips = []
         if spec.get("decisions"):  # losses held step by step, beside the decisions
@@ -5102,7 +5174,7 @@ def main() -> int:
         f"host syncs a step {align['train']['syncs']} ({card})")
     log(f"[dcn] {json.dumps(align['dcn'])} ({card})")
     log(f"[models-check] worst card-vs-CPU: {json.dumps(models['models-check'])}")
-    for tag in ("vps", "vis", "vps-live", "vis-live", "swin-b", "mit-b0"):
+    for tag in ("vps", "vis", "vps-live", "vis-live", "vis-volume", "swin-b", "mit-b0"):
         rec = model_axis[tag]
         path = "train-model-axis-swin" if tag in ("swin-b", "mit-b0") else "train-model-axis"
         log(f"[{path}] {tag}: 1x{MODEL_AXIS_N} mesh of gloo ranks sharing the card, "

@@ -439,7 +439,8 @@ def test_the_jax_cases_reach_what_they_check(runs):
     """Data index 1's pair has no positive (its normalizers are zero: a sum
     over the world would count data index 0's twice); each rank's backbone
     took its band of its data index's pair ([ref; key]: 2 images of 64 of
-    the 128 rows) or its frame of its data index's clip."""
+    the 128 rows) or its frame of its data index's clip; the bytes each
+    rank handed to the collectives, by kind."""
     b = runs["vps_batch"]
     for gt in (b.gt, b.ref_gt):
         assert not gt.valid[1].any() and not gt.sem_valid[1].any() and gt.valid[0].any()
@@ -447,9 +448,13 @@ def test_the_jax_cases_reach_what_they_check(runs):
     assert [r["inputs"] for r in vps] == [[(2, VPS_HW[0] // 2, VPS_HW[1], 3)]] * RANKS
     _, _, vis = runs["vis"]
     assert [r["inputs"] for r in vis] == [[(1, *HW, 3)]] * RANKS
-    # the frame split gathers the pyramid; the band split gathers nothing,
-    # its heads and losses running on the band, their sums reduced
-    assert all(r["comm"][0]["gather"] > 0 for r in vis)
+    # neither split gathers the pyramid: the band split gathers nothing, its
+    # heads and losses running on the band; the frame split gathers the
+    # merge's per-frame kernels alone (8 proposals x 256 channels: its frame
+    # forward, the clip's 2 frames' gradient back); both reduce their sums
+    kernels = 4 * 8 * 256
+    assert all(r["comm"][0]["gather"] == kernels * (1 + 2) and r["comm"][0]["reduce"] > 0
+               for r in vis)
     assert all(r["comm"][0]["gather"] == 0 and r["comm"][0]["reduce"] > 0 for r in vps)
     assert all(r["comm"][0]["halo"] > 0 for r in vps)
     assert all(r["comm"][0]["halo"] == 0 for r in vis)

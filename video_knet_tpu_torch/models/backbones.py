@@ -16,8 +16,8 @@ from video_knet_tpu_torch.parallel.mesh import share_rows
 from video_knet_tpu_torch.parallel.model_axis import (
     active_split,
     frame_rows,
-    gather_shares,
-    hold_band,
+    frame_share,
+    hold_share,
     image_band,
     running_share,
 )
@@ -87,12 +87,14 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     b*T + t order.
 
     Under a split of the mesh's `model` axis (`parallel/model_axis.py`)
-    the backbone and the neck run on this rank's share of `img`. The frame
-    split gathers the levels over the `model` group into `img`'s order. The
-    band split (ResNet, Swin and MiT with the FPN, at heights that are
-    whole multiples of 32) returns this rank's band of each level, and the
-    band stays active for the heads and the losses (`model_axis.in_band`);
-    a consumer that needs the whole map gathers it (`model_axis.whole_map`).
+    the backbone and the neck run on this rank's share of `img` and return
+    it, gathered nowhere; the share stays active for the heads and the
+    losses. The frame split returns this rank's frames of each clip, rows
+    `model_axis.frame_rows` of `img` (`model_axis.in_frames`). The band
+    split (ResNet, Swin and MiT with the FPN, at heights that are whole
+    multiples of 32) returns this rank's band of each level
+    (`model_axis.in_band`); a consumer that needs the whole map gathers it
+    (`model_axis.whole_map`).
     """
     split = active_split()
     if split is None:
@@ -105,12 +107,18 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
         band, select = image_band(split, img.shape[1])
         with running_share(band, select):
             share = _pyramid(backbone, neck, select(img), generator)
-        hold_band(band, select)
+        hold_share(band, select)
         return share
     if frames is None:
         raise ValueError("the frame split needs the clip length (`frames`)")
     clips = img.shape[0] // frames
+    mine = frame_share(split, frames)
     rows = frame_rows(clips, frames, split)
-    with running_share(split, lambda t: t[rows.to(t.device)]), share_rows(img.shape[0], rows):
-        share = _pyramid(backbone, neck, img[rows.to(img.device)], generator)
-    return gather_shares(share, split, clips=clips, frames=frames)
+
+    def select(t):
+        return t[rows.to(t.device)]
+
+    with running_share(mine, select), share_rows(img.shape[0], rows):
+        share = _pyramid(backbone, neck, select(img), generator)
+    hold_share(mine, select)
+    return share

@@ -5,7 +5,9 @@ FPN is the Semantic-FPN or, with `fpn_type='upernet_align'`, the SFNet
 aligned head (`models/sfnet.py`). The init-mask contraction runs the CUDA
 kernel K2 (no sigmoid) and the proposal pooling runs K1 on the card.
 
-On a band of the image rows (the band split of the mesh's `model` axis)
+Under the frame split of the mesh's `model` axis the head runs on this
+rank's frames, every op per frame (the temporal positional encoding the
+whole clip's rows of them). On a band of the image rows (the band split)
 the head runs on the band's pyramid: the Semantic-FPN and the 1x1 convs on
 its rows, K2's init masks and the stuff logits on the band, K1's pooled
 features summed over the `model` group (`ops/mask_pool.py`). The aligned
@@ -27,8 +29,8 @@ from video_knet_tpu_torch.models.sfnet import UperNetAlignHead
 from video_knet_tpu_torch.ops.kernels.mask_ops import fused_assemble
 from video_knet_tpu_torch.ops.mask_pool import mask_pool
 from video_knet_tpu_torch.parallel.model_axis import (
-    band_share,
     band_slice,
+    held_share,
     in_band,
     off_band,
     whole_map,
@@ -90,7 +92,7 @@ class ConvKernelHead(nn.Module):
                 out = self(whole, num_frames)
             return out._replace(**{k: band_slice(getattr(out, k), d) for k, d in (
                 ("x_feats", 1), ("mask_preds", 2), ("seg_preds", 1), ("thing_mask_preds", 2))})
-        with band_share():  # a ReLU decision replayed on a band is cut to it
+        with held_share():  # a ReLU decision replayed on a band or frames is cut to it
             loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
             for i in range(cfg.num_loc_convs):
                 loc_feats = getattr(self, f"loc_conv{i}")(loc_feats)

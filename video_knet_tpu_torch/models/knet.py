@@ -26,7 +26,12 @@ the costs and losses sum over the band's pixels and then over the `model`
 group (`ops/hungarian.py`, `ops/losses.py`), and every pixel count of a
 normalizer is summed over the group before the `data` axis (`_pixels`);
 counts of positives and of matched rows are the same on every `model` rank
-and sum over `data` only.
+and sum over `data` only. Under the frame split (the VIS per-frame K-Net,
+its batch this rank's frames of each clip) the losses are per frame: every
+count over the batch's frames (positives, matched rows, pixels) is summed
+over the `model` group before the `data` axis (`model_axis.frame_count`),
+and each loss is this rank's share, its frames' sum over that normalizer
+(`models/vis/knet_vis.py:knet_vis_loss` sums the shares).
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ from video_knet_tpu_torch.ops.targets import (
     pred_of_gt_from,
 )
 from video_knet_tpu_torch.parallel.mesh import global_sum
-from video_knet_tpu_torch.parallel.model_axis import level_height, model_count
+from video_knet_tpu_torch.parallel.model_axis import frame_count, level_height, model_count
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 from video_knet_tpu_torch.utils.tree import tree_stack
 
@@ -175,8 +180,8 @@ def solve_assignments(costs: list[torch.Tensor], valid: torch.Tensor):
 
 def _pixels(count: torch.Tensor) -> torch.Tensor:
     """A count of pixels (no gradient) over the global batch's whole maps:
-    summed over the bands (`model`), then over `data`."""
-    return global_sum(model_count(count))
+    summed over the bands or the frames (`model`), then over `data`."""
+    return global_sum(frame_count(model_count(count)))
 
 
 def _rank_loss_batched(scaled_masks: torch.Tensor, rank_target: torch.Tensor,
@@ -192,8 +197,9 @@ def mask_losses(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor, mask_wei
                 dice_weight: float, names) -> dict[str, torch.Tensor]:
     """Mask BCE and dice of rows pred / tgt [P, H, W] weighted by w [P], each
     averaged over the global batch's weights (BCE's broadcast over a row's
-    elements: the whole map's, on a band)."""
-    rows = global_sum(w.sum())
+    elements: the whole map's, on a band; the rows of every frame, under
+    the frame split)."""
+    rows = global_sum(frame_count(w.sum()))
     pixels = level_height(pred.shape[1]) * pred[0, 0].numel()
     return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight,
                                              avg_factor=rows * pixels),
@@ -257,7 +263,7 @@ def stage_loss(out: StageOutput, gt_of_pred: torch.Tensor, gt: PanopticGT, cfg: 
         out.cls_score.reshape(b * n_tot, c), labels.reshape(b * n_tot),
         label_weights.reshape(b * n_tot, c), num_classes=c, gamma=h.focal_gamma,
         alpha=h.focal_alpha, loss_weight=h.loss_cls_weight,
-        avg_factor=torch.clamp(global_sum(num_pos), min=1.0))}
+        avg_factor=torch.clamp(global_sum(frame_count(num_pos)), min=1.0))}
     p2g = pred_of_gt_from(gt_of_pred[:, :n_prop], gt.masks.shape[1])
     safe = torch.clamp(p2g, min=0)
     mp = out.mask_preds

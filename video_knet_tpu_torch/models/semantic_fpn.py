@@ -7,7 +7,10 @@ heads give the 'thing' and 'stuff' branch features. Called with
 last level's positional encoding gains the temporal term
 (`sine_positional_encoding_3d`); the weights are the same either way.
 
-On a band of the image rows (the band split of the mesh's `model` axis)
+Under the frame split of the mesh's `model` axis the leading axis holds
+this rank's frames of each clip, and the temporal encoding added to them
+is the whole clip's at their frames (`num_frames` stays the clip's
+length). On a band of the image rows (the band split)
 the 3x3 convolutions take halos, the stride-2 one pads at the level's
 global height, the upsamplings take the neighbour rows, the GroupNorms the
 whole map's statistics (`models/layers.py`), and the positional encoding
@@ -26,6 +29,7 @@ from video_knet_tpu_torch.models.layers import (
     sine_positional_encoding_3d,
     upsample2x,
 )
+from video_knet_tpu_torch.parallel.model_axis import frame_slice
 
 
 class SemanticFPN(nn.Module):
@@ -58,8 +62,11 @@ class SemanticFPN(nn.Module):
                 if num_frames is None:
                     x = x + band_positional_encoding(h, w, c // 2, device=x.device)[None]
                 else:
-                    pe = sine_positional_encoding_3d(num_frames, h, w, c // 2, device=x.device)
-                    x = x + pe.repeat(x.shape[0] // num_frames, 1, 1, 1)
+                    # the whole clip's code at this rank's frames (all of
+                    # them outside the frame split)
+                    pe = frame_slice(sine_positional_encoding_3d(
+                        num_frames, h, w, c // 2, device=x.device), 0)
+                    x = x + pe.repeat(x.shape[0] // pe.shape[0], 1, 1, 1)
             if i == 0:
                 for j in range(self.end_level - self.upsample_times):
                     x = getattr(self, f"l0_conv{j}")(x)

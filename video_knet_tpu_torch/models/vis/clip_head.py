@@ -17,10 +17,19 @@ Both contractions run the CUDA kernels on the card, with T folded into the
 batch: the mask pool is K1 over [B*T, N, H, W] (then the mean over T), the
 mask assembly K2 over the kernels expanded to a contiguous [B*T, N, C], so
 K2 writes [B, T, N, H, W] directly.
+
+Under the frame split of the mesh's `model` axis (`parallel/model_axis.py`)
+the head takes this rank's frames of each clip ([B, T_r, ...]): the merge
+gathers every frame's kernels ([B, T, N, C], never the features), the
+clip stages' mean over T is this rank's partial sum, summed over the
+`model` group, over the clip's length, and everything on the N clip
+kernels runs replicated; K1, K2 and the per-frame stages run on this
+rank's frames.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -39,6 +48,7 @@ from video_knet_tpu_torch.models.layers import (
 )
 from video_knet_tpu_torch.ops.kernels.mask_ops import fused_assemble
 from video_knet_tpu_torch.ops.mask_pool import mask_pool
+from video_knet_tpu_torch.parallel.model_axis import frame_mean, gather_frames, held_share
 
 QUERY_MERGES = ("mean", "attention", "attention_pos")
 
@@ -116,7 +126,7 @@ class ClipKernelUpdateHead(nn.Module):
         gather_mask = resize_mask_bilinear(mask_preds, (h, w))
         x_feat = clip_mask_pool(gather_mask, x, cfg.hard_mask_thr)  # [B, T, N, C]
         if not self.per_frame:
-            x_feat = x_feat.mean(dim=1)  # frame fusion (the release config's mean)
+            x_feat = frame_mean(x_feat, 1)  # frame fusion (the release config's mean)
 
         obj_feat = self.kernel_update_conv(x_feat, proposal_feat[..., None, :])[..., 0, :]
         # kernel interaction over the N kernels (frames folded into the batch)
@@ -176,7 +186,9 @@ class ClipKernelHead(nn.Module):
                 self.query_pos.normal_(0.0, 1.0, generator=generator)
 
     def _merge(self, per_frame_kernels: torch.Tensor) -> torch.Tensor:
-        """[B, T, N, C] per-frame kernels -> [B, N, C] clip kernels."""
+        """[B, T, N, C] per-frame kernels -> [B, N, C] clip kernels (every
+        frame's: under the frame split, gathered over the `model` group)."""
+        per_frame_kernels = gather_frames(per_frame_kernels)
         if not self.attention_merge:
             return per_frame_kernels.mean(dim=1)
         b, t, n, c = per_frame_kernels.shape
@@ -194,7 +206,9 @@ class ClipKernelHead(nn.Module):
         """x [B, T, H, W, C]; per_frame_kernels [B, T, N, C]; mask_preds
         [B, T, N, Hm, Wm], the per-frame final masks; direct_kernels [N, C],
         the raw init kernels (direct_tracker); clip_kernels [B, N, C], ready
-        clip kernels (the volume head), which skip the merge."""
+        clip kernels (the volume head), which skip the merge. Under the
+        frame split T is this rank's frames of each clip, in the outputs
+        too."""
         c = self.head_cfg.in_channels
         b, t, n = mask_preds.shape[:3]
         if clip_kernels is not None:
@@ -208,10 +222,14 @@ class ClipKernelHead(nn.Module):
 
         outs: list[ClipStageOutput] = []
         for s in range(self.num_stages):
-            if s >= self.assign_stages and object_feats.dim() == 3:
+            per_frame = s >= self.assign_stages
+            if per_frame and object_feats.dim() == 3:
                 object_feats = object_feats[:, None].expand(b, t, n, c)
-            cls_score, mask_preds, object_feats = getattr(self, f"mask_head_{s}")(
-                x, object_feats, mask_preds)
+            # a ReLU decision replayed on this rank's frames is cut to them
+            # in a per-frame stage; the clip stages run replicated
+            with held_share(frame_axis=1) if per_frame else contextlib.nullcontext():
+                cls_score, mask_preds, object_feats = getattr(self, f"mask_head_{s}")(
+                    x, object_feats, mask_preds)
             scaled = upscale_masks(mask_preds, self.head_cfg.mask_upsample_stride)
             outs.append(ClipStageOutput(cls_score, mask_preds, scaled, object_feats))
         return outs

@@ -23,6 +23,19 @@ every frame (zeros where it is absent).
 Decode (one clip): the top-k (proposal, class) pairs over the clip scores
 of the last clip stage with a cls branch; the masks of the last stage, one
 track id per tube.
+
+Under the frame split of the mesh's `model` axis (`parallel/model_axis.py`,
+the train step's clip parallelism) the forward runs on this rank's frames
+of each clip from the backbone to the last stage (every per-frame output
+holds them; the clip kernels and scores are the whole clip's on every
+rank), and the loss block takes this rank's frames of the GT tubes
+(`gt_frames`): the per-frame costs and the per-frame losses are its
+frames' (each loss this rank's share, its frames' sum over the global
+normalizer, the shares summed over the group in `knet_vis_loss`); the tube
+costs' and the tube losses' sums over T*H*W are summed over the group
+before they are used, over the clip's whole T*H*W; the tube counts (matched
+tubes) are the same on every rank. Each rank solves its per-frame problems
+and the same tube problems in one launch.
 """
 
 from __future__ import annotations
@@ -48,7 +61,6 @@ from video_knet_tpu_torch.models.kernel_iter_head import (
 from video_knet_tpu_torch.models.knet import (
     branch_assignment_costs,
     iter_head_losses,
-    mask_losses,
     rpn_loss,
     solve_lanes,
     top_k,
@@ -72,6 +84,14 @@ from video_knet_tpu_torch.ops.targets import (
     pred_of_gt_from,
 )
 from video_knet_tpu_torch.parallel.mesh import global_sum
+from video_knet_tpu_torch.parallel.model_axis import (
+    clip_frames,
+    frame_count,
+    frame_slice,
+    frame_sum,
+    held_share,
+    local_frames,
+)
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
 
 KERNEL_HEAD_MODES = ("frame", "volume")
@@ -136,7 +156,8 @@ class KNetVIS(nn.Module):
 
     def forward(self, clip: torch.Tensor, generator: torch.Generator | None = None) -> VISOutputs:
         """clip [B, T, H, W, 3]. `generator` draws the backbone's stochastic
-        depth (training); None turns it off."""
+        depth (training); None turns it off. Under the frame split the
+        outputs hold this rank's frames of each clip."""
         cfg = self.cfg
         b, t = clip.shape[:2]
         fpn = backbone_and_neck(self.backbone, self.neck,
@@ -148,9 +169,12 @@ class KNetVIS(nn.Module):
             return VISOutputs(vol, [], clip_outs)
 
         rpn_out = self.rpn_head(fpn, num_frames=t)
-        frame_outs = self.roi_head(rpn_out.x_feats, rpn_out.proposal_feats, rpn_out.mask_preds)
+        with held_share():  # a ReLU decision replayed on frames is cut to them
+            frame_outs = self.roi_head(rpn_out.x_feats, rpn_out.proposal_feats,
+                                       rpn_out.mask_preds)
         last = frame_outs[-1]
         n = cfg.num_proposals
+        t = local_frames(t)
         x_clip = rpn_out.x_feats.reshape(b, t, *rpn_out.x_feats.shape[1:])
         kernels_clip = last.object_feats[:, :n, 0, :].reshape(b, t, n, -1)
         masks_clip = last.mask_preds[:, :n].reshape(b, t, n, *last.mask_preds.shape[-2:])
@@ -158,6 +182,13 @@ class KNetVIS(nn.Module):
             x_clip, kernels_clip, masks_clip,
             direct_kernels=rpn_out.init_kernels if cfg.direct_tracker else None)
         return VISOutputs(rpn_out, frame_outs, clip_outs)
+
+
+def gt_frames(gt: ClipGT) -> ClipGT:
+    """The GT tubes' masks cut to this rank's frames under the frame split
+    of the mesh's `model` axis (where JAX's sharded step constrains them,
+    `P("data", None, "model")`); `gt` itself otherwise."""
+    return gt._replace(masks=frame_slice(gt.masks, 2))
 
 
 def frame_gt_from_clip(gt: ClipGT) -> PanopticGT:
@@ -190,14 +221,17 @@ def tube_cost(scaled_masks: torch.Tensor, cls_score: torch.Tensor | None, gt: Cl
     """[B, N, G] Hungarian costs of detached tubes [B, T, N, H, W] against the
     GT tubes: dice + mask (+ focal cls) over the flattened T*H*W. The mask
     cost divides by N*T*H*W, as the reference's vmapped cost does (it reads
-    the area off its flattened [N, T*H*W] operand)."""
+    the area off its flattened [N, T*H*W] operand). Under the frame split
+    T is this rank's frames: the sums over them are summed over the
+    `model` group, the area is the whole clip's."""
     b, t, n, h, w = scaled_masks.shape
     g = gt.masks.shape[1]
     pred = _tubes(scaled_masks.detach()).reshape(b, n, t * h, w)
     gt_tubes = gt.masks.reshape(b, g, t * h, w)
     a = cfg.assigner
-    cost = (hung.dice_cost(pred, gt_tubes, weight=a.dice_weight)
-            + hung.mask_cost(pred, gt_tubes, weight=a.mask_weight, area=n * t * h * w))
+    cost = (hung.dice_cost(pred, gt_tubes, weight=a.dice_weight, tubes=True)
+            + hung.mask_cost(pred, gt_tubes, weight=a.mask_weight,
+                             area=n * clip_frames(t) * h * w, tubes=True))
     if cls_score is not None:
         cost = cost + hung.focal_cls_cost(cls_score.detach(), gt.labels, weight=a.cls_weight)
     return cost
@@ -230,13 +264,22 @@ def knet_vis_costs(outs: VISOutputs, gt: ClipGT, cfg: VISConfig):
 def _tube_mask_losses(scaled_masks: torch.Tensor, gt_of_pred: torch.Tensor, gt: ClipGT,
                       mask_weight: float, dice_weight: float, names) -> dict:
     """Mask BCE and dice on the GATHERED matched tubes ([B, G, T*H*W], the
-    weighted means of the dense [B, N, ...] form without materializing it)."""
+    weighted means of the dense [B, N, ...] form without materializing it),
+    each averaged over the global batch's matched tubes (BCE's over their
+    T*H*W elements). Under the frame split T is this rank's frames: the
+    BCE's sum and the dice's per-tube sums are summed over the `model`
+    group, the tube count is the same on every rank."""
     b, g = gt.valid.shape
     p2g = pred_of_gt_from(gt_of_pred, g)
     rows = gather_rows(_tubes(scaled_masks), torch.clamp(p2g, min=0))  # [B, G, T, H, W]
     pred, tgt = rows.reshape(b * g, -1), gt.masks.reshape(b * g, -1)
     w = (p2g >= 0).float().reshape(b * g)
-    return mask_losses(pred, tgt, w, mask_weight, dice_weight, names)
+    tubes = global_sum(w.sum())
+    pixels = clip_frames(rows.shape[2]) * rows[0, 0, 0].numel()
+    return {names[0]: frame_sum(L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight,
+                                                       avg_factor=tubes * pixels)),
+            names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight, avg_factor=tubes,
+                                  tubes=True)}
 
 
 def tube_stage_loss(out: ClipStageOutput, gt_of_pred: torch.Tensor, gt: ClipGT,
@@ -265,7 +308,8 @@ def volume_rpn_loss(vol: VolumeRPNOutputs, gt: ClipGT, cfg: VISConfig,
                     gt_of_pred: torch.Tensor) -> dict[str, torch.Tensor]:
     """The volume init head's losses given its tube assignment [B, N]: mask
     and dice on the matched init tubes, and the per-frame sigmoid focal
-    loss of the linearly upsampled seg logits."""
+    loss of the linearly upsampled seg logits (under the frame split this
+    rank's frames' share, summed over the `model` group)."""
     r = cfg.rpn
     c = cfg.num_classes
     losses = _tube_mask_losses(_volume_scaled(vol, cfg), gt_of_pred, gt, r.loss_mask_weight,
@@ -275,16 +319,17 @@ def volume_rpn_loss(vol: VolumeRPNOutputs, gt: ClipGT, cfg: VISConfig,
     seg = resize_bilinear(vol.seg_preds.reshape(b * t, h, w, c), (h * s, w * s))
     seg_t = build_semantic_map(frame_gt_from_clip(gt), num_thing_classes=cfg.num_thing_classes,
                                num_classes=c).reshape(-1)
-    losses["loss_rpn_seg"] = L.sigmoid_focal_loss(
+    losses["loss_rpn_seg"] = frame_sum(L.sigmoid_focal_loss(
         seg.reshape(-1, c), seg_t, num_classes=c, loss_weight=r.loss_seg_weight,
-        avg_factor=torch.clamp(global_sum((seg_t < c).float().sum()), min=1.0))
+        avg_factor=torch.clamp(global_sum(frame_count((seg_t < c).float().sum())), min=1.0)))
     return losses
 
 
 def knet_vis_loss(outs: VISOutputs, gt: ClipGT, cfg: VISConfig) -> dict[str, torch.Tensor]:
     """The per-frame init-head and stage losses (volume mode: the tube init
     losses instead), then every clip stage's tube losses. All assignments of
-    the step come from ONE solve (one kernel launch on the card)."""
+    the step come from ONE solve (one kernel launch on the card). Under the
+    frame split `outs` and `gt` hold this rank's frames (`gt_frames`)."""
     assigns, _ = solve_lanes(*knet_vis_costs(outs, gt, cfg))
     if cfg.kernel_head_mode == "volume":
         losses = volume_rpn_loss(outs.rpn_out, gt, cfg, assigns[0])
@@ -292,9 +337,11 @@ def knet_vis_loss(outs: VISOutputs, gt: ClipGT, cfg: VISConfig) -> dict[str, tor
     else:
         fgt = frame_gt_from_clip(gt)
         a = 1 + min(cfg.assign_stages, len(outs.frame_stage_outs))
-        losses = rpn_loss(outs.rpn_out, fgt, cfg, gt_of_pred=assigns[0])
-        losses.update(iter_head_losses(outs.frame_stage_outs, fgt, cfg,
+        shares = rpn_loss(outs.rpn_out, fgt, cfg, gt_of_pred=assigns[0])
+        shares.update(iter_head_losses(outs.frame_stage_outs, fgt, cfg,
                                        assignments=assigns[1:a])[0])
+        # under the frame split each is this rank's frames' share: one all_reduce
+        losses = dict(zip(shares, frame_sum(*shares.values())))
         tube_assigns = assigns[a:]
     gt_of_pred = None
     for s, out in enumerate(outs.clip_stage_outs):

@@ -7,6 +7,11 @@ whole clip's localization features at once, so one kernel owns one tube
 tube-mask-pooled clip features. On the card the tube masks are K2 over the
 kernels expanded to [B*T, N, C], and the pooling is K1 over B*T at
 threshold 0.5, then the sum over T divided by T.
+
+Under the frame split of the mesh's `model` axis the head runs on this
+rank's frames of each clip (K1 and K2 over B*T_r); the pooled sum over
+them is summed over the `model` group and divided by the clip's length
+(`parallel/model_axis.py:frame_sum`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from video_knet_tpu_torch.config import ConvKernelHeadConfig
 from video_knet_tpu_torch.models.layers import Conv2d, ConvNormAct
 from video_knet_tpu_torch.models.semantic_fpn import SemanticFPN
 from video_knet_tpu_torch.models.vis.clip_head import clip_assemble, clip_mask_pool
+from video_knet_tpu_torch.parallel.model_axis import frame_sum, held_share, local_frames
 
 
 class VolumeRPNOutputs(NamedTuple):
@@ -57,16 +63,19 @@ class ClipVolumeKernelHead(nn.Module):
         self.init_kernels.normal_(0.0, self.cfg.kernel_init_std, generator=generator)
 
     def forward(self, feats: list[torch.Tensor], num_frames: int) -> VolumeRPNOutputs:
-        """feats: FPN levels with leading axis B*T (frames contiguous per video)."""
+        """feats: FPN levels with leading axis B*T (frames contiguous per
+        video; under the frame split this rank's frames of each clip);
+        `num_frames` the clip's length."""
         cfg = self.cfg
-        loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
-        for i in range(cfg.num_loc_convs):
-            loc_feats = getattr(self, f"loc_conv{i}")(loc_feats)
-        for i in range(cfg.num_seg_convs):
-            semantic_feats = getattr(self, f"seg_conv{i}")(semantic_feats)
+        with held_share():  # a ReLU decision replayed on frames is cut to them
+            loc_feats, semantic_feats = self.localization_fpn(feats, num_frames)[:2]
+            for i in range(cfg.num_loc_convs):
+                loc_feats = getattr(self, f"loc_conv{i}")(loc_feats)
+            for i in range(cfg.num_seg_convs):
+                semantic_feats = getattr(self, f"seg_conv{i}")(semantic_feats)
 
         bt, h, w, c = loc_feats.shape
-        t = num_frames
+        t = local_frames(num_frames)
         b = bt // t
         # volume dynamic conv: one kernel -> one tube across all frames
         kernels = self.init_kernels[None].expand(b, -1, -1)
@@ -75,7 +84,7 @@ class ClipVolumeKernelHead(nn.Module):
         x_feats = (semantic_feats + loc_feats).reshape(b, t, h, w, c)
         proposal_feats = kernels
         if cfg.proposal_feats_with_obj:
-            obj = clip_mask_pool(tube_masks, x_feats, 0.5).sum(dim=1) / t
+            obj = frame_sum(clip_mask_pool(tube_masks, x_feats, 0.5).sum(dim=1)) / num_frames
             proposal_feats = proposal_feats + obj
         return VolumeRPNOutputs(
             proposal_feats=proposal_feats,

@@ -16,7 +16,10 @@ assignment) and are masked out afterwards.
 On a band of the image rows (the band split of the mesh's `model` axis)
 the mask costs' sums over pixels are the band's, summed over the `model`
 group before the ratios (`parallel/model_axis.py:model_sum`), so that the
-solve, replicated, sees the whole map's costs.
+solve, replicated, sees the whole map's costs. Under the frame split the
+tube costs (`tubes`: rows over the clip's frames) hold this rank's frames,
+and their sums are summed over the group (`frame_sum`); per-frame costs
+stay local.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from video_knet_tpu_torch.ops.kernels.hungarian import solve as hungarian
-from video_knet_tpu_torch.parallel.model_axis import level_height, model_sum
+from video_knet_tpu_torch.parallel.model_axis import frame_sum, level_height, model_sum
 
 
 def gt_rows(cost: torch.Tensor, col_valid: torch.Tensor) -> torch.Tensor:
@@ -70,25 +73,29 @@ def _flat(m: torch.Tensor) -> torch.Tensor:
 
 
 def dice_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *, weight: float = 4.0,
-              eps: float = 1e-3) -> torch.Tensor:
+              eps: float = 1e-3, tubes: bool = False) -> torch.Tensor:
     """DiceCost(pred_act=True), sigmoid clamped to [0.001, 1]:
-    [..., N, H, W] logits x [..., M, H, W] -> [..., N, M]."""
+    [..., N, H, W] logits x [..., M, H, W] -> [..., N, M]. `tubes`: rows
+    over the clip's frames (summed over them under the frame split)."""
     p = _flat(torch.clamp(torch.sigmoid(mask_logits.float()), 0.001, 1.0))
     t = _flat(gt_masks)
-    a, b, c = model_sum(p @ t.transpose(-1, -2), (p * p).sum(-1), (t * t).sum(-1))
+    a, b, c = (frame_sum if tubes else model_sum)(
+        p @ t.transpose(-1, -2), (p * p).sum(-1), (t * t).sum(-1))
     d = (2.0 * a) / ((b + eps)[..., :, None] + (c + eps)[..., None, :])
     return weight * (-d)
 
 
 def mask_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *,
-              weight: float = 1.0, area: int | None = None) -> torch.Tensor:
+              weight: float = 1.0, area: int | None = None, tubes: bool = False) -> torch.Tensor:
     """MaskCost(pred_act=True), sigmoid clamped to [0.01, 1]:
     -(positive agreement + negative agreement) / area, the area HW (the
-    whole map's, on a band) unless given."""
+    whole map's, on a band) unless given. `tubes`: rows over the clip's
+    frames (summed over them under the frame split)."""
     hw = mask_logits.shape[-1] * level_height(mask_logits.shape[-2]) if area is None else area
     p = _flat(torch.clamp(torch.sigmoid(mask_logits.float()), 0.01, 1.0))
     t = _flat(gt_masks)
-    pos, p_sum, t_sum = model_sum(p @ t.transpose(-1, -2), p.sum(-1), t.sum(-1))
+    pos, p_sum, t_sum = (frame_sum if tubes else model_sum)(
+        p @ t.transpose(-1, -2), p.sum(-1), t.sum(-1))
     neg = hw - p_sum[..., :, None] - t_sum[..., None, :] + pos
     return weight * (-(pos + neg) / hw)
 

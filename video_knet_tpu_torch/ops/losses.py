@@ -14,6 +14,12 @@ semantic sigmoid focal loss with `over_pixels`) sum each band's partial
 sum there over a normalizer of the whole map (`parallel/model_axis.py:
 model_sum`, `model_count`); the default normalizers count the whole map's
 pixels. Every rank of the `model` group then holds the whole loss.
+
+Under the frame split (VIS) a loss over rows of single frames is this
+rank's frames' share (its rows' sum over the caller's global normalizer;
+the caller sums the shares, `models/vis/knet_vis.py:knet_vis_loss`); the
+dice loss of rows that span the clip's frames (`tubes`) sums its per-row
+sums over the `model` group before the ratio (`frame_sum`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from video_knet_tpu_torch.parallel.model_axis import in_band, model_count, model_sum
+from video_knet_tpu_torch.parallel.model_axis import frame_sum, in_band, model_count, model_sum
 
 _EPS = 1e-12
 _NEG = torch.finfo(torch.float32).min
@@ -62,12 +68,14 @@ def _pixel_mean(loss: torch.Tensor, weight: torch.Tensor | None, avg_factor=None
 
 def dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
               weight: torch.Tensor | None = None, *, eps: float = 1e-3,
-              loss_weight: float = 1.0, avg_factor=None) -> torch.Tensor:
+              loss_weight: float = 1.0, avg_factor=None, tubes: bool = False) -> torch.Tensor:
     """pred_logits / target [P, ...spatial]; weight [P]. 1 - 2 sum(p t) /
-    (sum(p^2) + eps + sum(t^2) + eps) on sigmoid probabilities."""
+    (sum(p^2) + eps + sum(t^2) + eps) on sigmoid probabilities. The per-row
+    sums are summed over the bands on a band, or with `tubes` (rows over
+    the clip's frames) over the frames under the frame split."""
     p = torch.sigmoid(pred_logits.float()).reshape(pred_logits.shape[0], -1)
     t = target.float().reshape(target.shape[0], -1)
-    a, b, c = model_sum((p * t).sum(1), (p * p).sum(1), (t * t).sum(1))
+    a, b, c = (frame_sum if tubes else model_sum)((p * t).sum(1), (p * p).sum(1), (t * t).sum(1))
     d = (2.0 * a) / ((b + eps) + (c + eps))
     return loss_weight * _weighted_mean(1.0 - d, weight, avg_factor)
 

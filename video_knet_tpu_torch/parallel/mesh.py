@@ -18,10 +18,10 @@ Inside `data_parallel(mesh)` (the train steps of `train/`), the reductions
 that JAX's sharded step computes over the global batch span the mesh:
 - `global_sum` / `global_mean`: the loss normalizers (counts of positives,
   weight sums, batch means), summed over the `data` axis before their
-  clamps. The `model` ranks of one data index hold the same rows: under
-  the frame split after the backbone's gather, under the band split as
-  counts of kernels and GT slots, while a count of pixels is first summed
-  over the bands (`parallel/model_axis.py:model_count`), so a sum over the
+  clamps. The `model` ranks of one data index hold the same rows as
+  counts of kernels, clips and GT slots, while a count of pixels or of
+  frames is first summed over the bands or the frames
+  (`parallel/model_axis.py:model_count`, `frame_count`), so a sum over the
   world would count each row `n_model` times;
 - `sum_with_grad`: BatchNorm's batch moments (`models/layers.py`), summed
   over every rank (each holds only its band or frames of its rows), whose

@@ -8,21 +8,39 @@ image height (its `constrain`); XLA then splits the work and adds the halo
 exchanges, the gathers and the partial-sum all-reduces. The port does it by
 hand. The train steps open `model_split(mesh, kind)`, and
 `models/backbones.py:backbone_and_neck` runs the backbone and the neck on
-this rank's share of its data index's rows:
-- "frames": contiguous frames of each clip (T=5 over 2 ranks: 3 + 2), for
-  every backbone and neck (frames are independent). `gather_shares` then
-  all-gathers the pyramid over the `model` group, back into the data
-  index's order (its backward sums each share's gradient over the group
-  and keeps this rank's), and the heads run whole on every rank;
+this rank's share of its data index's rows; the share stays active past
+the neck, through the heads and the loss block, until the split closes
+(`in_frames`, `in_band`; `hold_share`), so that nothing gathers the
+pyramid:
+- "frames": contiguous frames of each clip (T=5 over 2 ranks: 3 + 2; the
+  split's `units` are each rank's frames), for every backbone and neck
+  (frames are independent). The per-frame heads (the kernel head, the
+  stage loop, the per-frame clip stages, K1 and K2) run on this rank's
+  frames. What spans the clip's frames: the temporal positional encoding
+  takes the whole clip's rows of this rank's frames (`frame_slice`); the
+  clip kernels' merge takes every frame's kernels (`gather_frames`, a few
+  hundred kB, never the features); the clip stages' mean over T and the
+  volume head's tube pool are this rank's partial sums, summed over the
+  group and divided by the clip's length (`frame_mean`, `frame_sum`).
+  The rule for a sum in the heads and the loss block: a sum within one
+  frame (its pixels: K1, GroupNorm, a frame's dice) stays local; a sum
+  over the clip's T frames (the tube costs and the tube losses over
+  T*H*W, the mean over T) is this rank's partial sum, summed over the
+  group (`frame_sum`) before it is used; a count over the B*T frames (a
+  per-frame loss's normalizer) is summed there too (`frame_count`), and
+  each per-frame loss is this rank's share (its frames' sum over the
+  global normalizer), the shares summed over the group
+  (`models/vis/knet_vis.py:knet_vis_loss`); a count over the clips (the
+  matched tubes) is the same on every rank and is not summed. Each call
+  site names its sum: `model_sum` never sums over frames and `frame_sum`
+  never over bands;
 - "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN.
   The image's H / 32 stride-32 rows split as frames do (`band_units`: the
   first bands one more where the count does not divide; 736 rows over 2:
   12 + 11, bands of 384 and 352 rows), so at every level a band starts on
   a whole row, its rows are the same multiple of its units on every rank
   (`level_bands`), 2x2 patch merging pairs the right rows and the FPN's
-  nearest 2x top-down resize is local. The band stays active (`in_band`)
-  past the neck, through the heads and the loss block, until the split
-  closes: nothing gathers the pyramid. The layers that reach across rows
+  nearest 2x top-down resize is local. The layers that reach across rows
   take the rows they lack from the other bands (`fetch_rows`): each
   convolution and the stem's max-pool a halo (`halo`; zero, or -inf for
   the pool, only past the image's global top and bottom), each bilinear
@@ -40,21 +58,22 @@ this rank's share of its data index's rows:
   too (`model_count`).
 
 The loss share: each rank's loss is its data index's loss over n_model
-(`train/train_state.py`). Under the frame split the heads run replicated;
-under the band split every value that reaches the loss from a band goes
-through a `model_sum`, so every rank of a data index holds the same loss as
-well. `model_sum`'s backward sums the incoming gradients over the group, so
-each band's partial sum takes the whole loss's gradient (n_model ranks each
-handing it 1 / n_model), and the gradient DDP sums over the world counts
-each replicated head once and sums the backbone, the neck and the heads'
-per-pixel layers over their bands.
+(`train/train_state.py`). Every value that reaches the loss from a band or
+from this rank's frames goes through a `model_sum` or a `frame_sum`, and
+the work on the N x C kernels is replicated, so every rank of a data index
+holds the same loss. `_ModelSum`'s backward sums the incoming gradients
+over the group, so each partial sum takes the whole loss's gradient
+(n_model ranks each handing it 1 / n_model), and the gradient DDP sums
+over the world counts each replicated parameter once and sums the
+per-pixel and per-frame layers over their bands or frames; `_Gather`'s
+backward does the same for the gathered kernels.
 
 The collectives are all_gather and all_reduce, which gloo runs on CUDA
 tensors too (ranks sharing a card). `BYTES` counts what this rank hands to
 them, forward and backward: "halo" the rows lent to or returned from other
 bands, "ring" those of them that a shifted Swin window takes across the
-map's bottom edge to its top, "gather" the frame split's pyramid and the
-band split's `whole_map`s, "reduce" the band split's sums over the group.
+map's bottom edge to its top, "gather" the frame split's per-frame kernels
+and the band split's `whole_map`s, "reduce" the sums over the group.
 """
 
 from __future__ import annotations
@@ -86,8 +105,8 @@ def reset_bytes() -> None:
 class Split:
     """The step's split over the `model` axis: `kind` ("rows" or
     "frames"), the `model` group, this rank's index on it and the count;
-    while the backbone runs on a band, `units`: each rank's stride-32 rows
-    of the image."""
+    once the backbone runs on a share, `units`: each rank's stride-32 rows
+    of the image, or its frames of a clip."""
 
     kind: str
     group: Any
@@ -101,7 +120,7 @@ _SPLIT: contextvars.ContextVar[Split | None] = contextvars.ContextVar(
 _BAND: contextvars.ContextVar[Split | None] = contextvars.ContextVar("vknet_band", default=None)
 _SHARE: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
     "vknet_share", default=None)
-# under the band split: [band, select] once the backbone has run on a band
+# under a split: [share, select] once the backbone has run on this rank's share
 _HELD: contextvars.ContextVar[list | None] = contextvars.ContextVar("vknet_held", default=None)
 _OFF: contextvars.ContextVar[bool] = contextvars.ContextVar("vknet_off_band", default=False)
 
@@ -110,14 +129,14 @@ _OFF: contextvars.ContextVar[bool] = contextvars.ContextVar("vknet_off_band", de
 def model_split(mesh: DataMesh | None, kind: str | None):
     """While active, `backbone_and_neck` splits its batch over `mesh`'s
     `model` axis as `kind` says (nothing for no kind, with one rank on the
-    axis or without a process group); under the band split the band it
-    takes stays active until the context closes."""
+    axis or without a process group); the band or the frames it takes
+    stay active until the context closes."""
     if kind not in (None, *KINDS):
         raise ValueError(f"split kind {kind!r}, not one of {KINDS}")
     split = None
     if kind is not None and mesh is not None and mesh.distributed and mesh.n_model > 1:
         split = Split(kind, mesh.model_group, mesh.model_index, mesh.n_model)
-    tokens = (_SPLIT.set(split), _HELD.set([] if kind == "rows" else None))
+    tokens = (_SPLIT.set(split), _HELD.set(None if kind is None else []))
     try:
         yield
     finally:
@@ -141,16 +160,27 @@ def in_band() -> Split | None:
     if band is not None:
         return band
     held = _HELD.get()
-    return held[0] if held else None
+    return held[0] if held and held[0].kind == "rows" else None
 
 
-def hold_band(band: Split, select: Callable) -> None:
-    """Keep `band` active past the backbone and the neck (`in_band`), with
-    `select` the cut of a whole batch to it (`band_share`)."""
+def in_frames() -> Split | None:
+    """The frame split (with its `units`, each rank's frames of a clip)
+    while the model runs on this rank's frames of each clip: from the end
+    of the backbone and the neck until `model_split` closes; else None.
+    Sums over the clip's frames sum over the `model` group then
+    (`frame_sum`)."""
+    held = _HELD.get()
+    return held[0] if held and held[0].kind == "frames" else None
+
+
+def hold_share(share: Split, select: Callable) -> None:
+    """Keep `share` (a band, or this rank's frames) active past the
+    backbone and the neck (`in_band`, `in_frames`), with `select` the cut
+    of a whole batch to it (`held_share`)."""
     held = _HELD.get()
     if held is None:
-        raise RuntimeError("a band is held only inside model_split(mesh, 'rows')")
-    held[:] = [band, select]
+        raise RuntimeError("a share is held only inside model_split(mesh, kind)")
+    held[:] = [share, select]
 
 
 @contextlib.contextmanager
@@ -168,8 +198,9 @@ def off_band():
 def local_share(t: torch.Tensor) -> torch.Tensor:
     """`t`, laid out as the backbone's batch of this rank's data index, cut
     to this rank's share while the backbone and the neck run on a share, or
-    the heads' per-pixel layers on a band (`band_share`); `t` itself
-    elsewhere (a ReLU decision replayed on a rank, `tools/dp_check.py`)."""
+    the heads' per-pixel or per-frame layers on the held one
+    (`held_share`); `t` itself elsewhere (a ReLU decision replayed on a
+    rank, `tools/dp_check.py`)."""
     select = _SHARE.get()
     return t if select is None else select(t)
 
@@ -186,15 +217,22 @@ def running_share(split: Split, select: Callable):
 
 
 @contextlib.contextmanager
-def band_share():
-    """Around the heads' per-pixel layers (the kernel head's convolutions):
-    `local_share` cuts a whole batch to the held band there, as it does in
-    the backbone (nothing outside the band split)."""
+def held_share(frame_axis: int = 0):
+    """Around the heads' per-pixel or per-frame layers (the kernel head's
+    convolutions; under the frame split also the stage loop and the
+    per-frame clip stages): `local_share` cuts a whole batch to the held
+    band or frames there, as it does in the backbone; `frame_axis` 1 for
+    tensors laid out [B, T, ...] (the per-frame clip stages) instead of
+    [B*T, ...]. Nothing outside a split."""
     held = _HELD.get()
     if not held or _OFF.get():
         yield
         return
-    with running_share(*held):
+    share, select = held
+    if share.kind == "frames" and frame_axis == 1:
+        frames = _frame_range(share)
+        select = lambda t: t[:, frames]  # noqa: E731
+    with running_share(share, select):
         yield
 
 
@@ -277,13 +315,59 @@ def frame_counts(t: int, count: int) -> list[int]:
     return _shares(t, count)
 
 
+def frame_share(split: Split, t: int) -> Split:
+    """`split` with its `units`: each rank's frames of a clip of `t`."""
+    return dataclasses.replace(split, units=tuple(frame_counts(t, split.count)))
+
+
+def _frame_range(share: Split) -> slice:
+    t0 = sum(share.units[:share.index])
+    return slice(t0, t0 + share.units[share.index])
+
+
 def frame_rows(clips: int, t: int, split: Split) -> torch.Tensor:
     """The rows (b*t + frame) of this rank's frames of each of `clips`
     clips of `t` frames."""
-    counts = frame_counts(t, split.count)
-    t0 = sum(counts[:split.index])
-    frames = torch.arange(t0, t0 + counts[split.index])
+    mine = _frame_range(frame_share(split, t))
+    frames = torch.arange(mine.start, mine.stop)
     return (torch.arange(clips)[:, None] * t + frames[None]).reshape(-1)
+
+
+def clip_frames(t: int) -> int:
+    """The clip's length where this rank holds `t` of its frames: the held
+    clip's under the frame split, `t` itself otherwise."""
+    share = in_frames()
+    if share is None:
+        return t
+    if t != share.units[share.index]:
+        raise ValueError(f"{t} frames are not this rank's {share.units[share.index]} of the "
+                         f"clip's {sum(share.units)}")
+    return sum(share.units)
+
+
+def local_frames(t: int) -> int:
+    """This rank's frames of a clip of `t` frames under the frame split;
+    `t` itself otherwise."""
+    share = in_frames()
+    if share is None:
+        return t
+    if t != sum(share.units):
+        raise ValueError(f"a clip of {t} frames is not the held clip of {sum(share.units)}")
+    return share.units[share.index]
+
+
+def frame_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """`t`, laid out over a clip's frames along `dim`, cut to this rank's
+    frames under the frame split; `t` itself otherwise (the GT tubes, the
+    temporal positional encoding made for the whole clip)."""
+    share = in_frames()
+    if share is None:
+        return t
+    if t.shape[dim] != sum(share.units):
+        raise ValueError(f"{t.shape[dim]} frames along dim {dim}, not the held clip's "
+                         f"{sum(share.units)}")
+    mine = _frame_range(share)
+    return t.narrow(dim, mine.start, mine.stop - mine.start)
 
 
 # ------------------------------------------------------------ collectives
@@ -452,32 +536,78 @@ class _ModelSum(torch.autograd.Function):
         return None, g
 
 
+def _group_sum(share: Split | None, ts: tuple):
+    if share is not None:
+        dtype = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+        flat = _ModelSum.apply(share.group, torch.cat([t.reshape(-1).to(dtype) for t in ts]))
+        ts = tuple(part.view(t.shape).to(t.dtype) for part, t in
+                   zip(flat.split([t.numel() for t in ts]), ts))
+    return ts[0] if len(ts) == 1 else ts
+
+
+def _group_count(share: Split | None, x: torch.Tensor) -> torch.Tensor:
+    if share is None:
+        return x
+    out = x.detach().clone()
+    torch.distributed.all_reduce(out, group=share.group)
+    BYTES["reduce"] += out.numel() * out.element_size()
+    return out
+
+
 def model_sum(*ts: torch.Tensor):
     """Each of `ts` (a band's partial sums over its pixels) summed over the
     `model` group in one all_reduce, whose backward sums the gradients over
     the group too (as `parallel/mesh.py:sum_with_grad` does over the
     world); the tensor for one, a tuple for several. The identity outside
     a band."""
-    band = in_band()
-    if band is not None:
-        dtype = functools.reduce(torch.promote_types, (t.dtype for t in ts))
-        flat = _ModelSum.apply(band.group, torch.cat([t.reshape(-1).to(dtype) for t in ts]))
-        ts = tuple(part.view(t.shape).to(t.dtype) for part, t in
-                   zip(flat.split([t.numel() for t in ts]), ts))
-    return ts[0] if len(ts) == 1 else ts
+    return _group_sum(in_band(), ts)
 
 
 def model_count(x: torch.Tensor) -> torch.Tensor:
     """A count over a band's pixels (no gradient) summed over the `model`
     group: a loss normalizer's share of the whole map. The identity outside
     a band."""
-    band = in_band()
-    if band is None:
-        return x
-    out = x.detach().clone()
-    torch.distributed.all_reduce(out, group=band.group)
-    BYTES["reduce"] += out.numel() * out.element_size()
-    return out
+    return _group_count(in_band(), x)
+
+
+def frame_sum(*ts: torch.Tensor):
+    """Each of `ts` (this rank's partial sums over its frames of the clip:
+    a tube cost's or a tube loss's sums over T*H*W, a per-frame loss's
+    share) summed over the `model` group in one all_reduce, whose backward
+    sums the gradients over the group too; the tensor for one, a tuple for
+    several. The identity outside the frame split."""
+    return _group_sum(in_frames(), ts)
+
+
+def frame_count(x: torch.Tensor) -> torch.Tensor:
+    """A count over this rank's frames (no gradient: matched rows or
+    pixels of the B*T frames) summed over the `model` group: a per-frame
+    loss normalizer's share of the clips' frames. The identity outside the
+    frame split."""
+    return _group_count(in_frames(), x)
+
+
+def frame_mean(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The mean of `x` over the clip's frames along `dim`: under the frame
+    split this rank's partial sum, summed over the group, over the clip's
+    length; `x.mean(dim)` otherwise."""
+    if in_frames() is None:
+        return x.mean(dim=dim)
+    return frame_sum(x.sum(dim=dim)) / clip_frames(x.shape[dim])
+
+
+def gather_frames(t: torch.Tensor) -> torch.Tensor:
+    """`t` [B, T_r, ...], this rank's frames of each clip, gathered over the
+    `model` group into [B, T, ...] (the backward keeps this rank's frames
+    of the gradient summed over the group); `t` itself outside the frame
+    split. For small per-frame tensors only: the clip kernels' merge takes
+    every frame's kernels."""
+    share = in_frames()
+    if share is None:
+        return t
+    b, rest = t.shape[0], t.shape[2:]
+    whole = gather_shares([t.reshape(-1, *rest)], share, clips=b, frames=sum(share.units))[0]
+    return whole.reshape(b, -1, *rest)
 
 
 def whole_map(t: torch.Tensor) -> torch.Tensor:
@@ -492,10 +622,9 @@ def whole_map(t: torch.Tensor) -> torch.Tensor:
 
 def gather_shares(shares: list[torch.Tensor], split: Split, clips: int | None = None,
                   frames: int | None = None) -> list[torch.Tensor]:
-    """Each level of this rank's pyramid share gathered over the `model`
-    group into the data index's order: bands (`split.units`) stacked along
-    the rows, or (`clips`, `frames`) each clip's frames back in b*T + t
-    order."""
+    """Each of this rank's shares gathered over the `model` group into the
+    data index's order: bands (`split.units`) stacked along the rows, or
+    (`clips`, `frames`) each clip's frames back in b*T + t order."""
     counts = split.units if frames is None else tuple(frame_counts(frames, split.count))
     return list(_Gather.apply(split, clips, counts, *shares))
 

@@ -12,8 +12,10 @@ spec {"kind": "gather", "items"} instead runs
 {"kind": "any_rank", "flags"} `any_rank` on rank r's `flags[r]` (the
 preemption flag's agreement), {"kind": "replicated"} `mesh.replicated`
 on a module filled with rank + 1, and {"kind": "pyramid"} a backbone +
-FPN's `backbone_and_neck` under the band split (`pyramid_share`), and
-{"kind": "band_pieces"} the heads' banded layers and sums (`band_pieces`).
+FPN's `backbone_and_neck` under the band or the frame split
+(`pyramid_share`), {"kind": "band_pieces"} the heads' banded layers and
+sums (`band_pieces`), and {"kind": "frame_pieces"} the VIS heads' and loss
+block's pieces on a rank's frames (`frame_pieces`).
 `launch(world, argv, tmp)` starts any module's command line that way (the
 train CLIs under a file:// init).
 `train_steps(mesh, device, spec)` in one process is the reference;
@@ -39,7 +41,11 @@ recorded by `train_steps(..., record=)`, or the path of a file that
 `write_relus` writes them to later, which each rank replays on its rows,
 band or frames (`rank_rows`, `model_axis.local_share`) so that a ReLU
 input within rounding of zero cannot send the two backwards down
-different sides of its kink)}. A result: the per-step loss dicts, the
+different sides of its kink), "pools" (optional, with "relus": the same
+steps' hard mask-pool binarizations, recorded by `train_steps(...,
+pools=)`, which each rank replays on its rows, band or frames
+(`pool_share`) so that a pixel within rounding of the threshold cannot
+send the two runs' kernels apart)}. A result: the per-step loss dicts, the
 first step's gradients before the clip, the model's final parameters and
 buffers (CPU tensors), each step's milliseconds (host clock, the device
 synchronized around the step), its kernel launches (the wrappers' counts,
@@ -51,7 +57,9 @@ the peak device memory from the model's creation to the last step, above what wa
 allocated before (CUDA; 0 on the CPU), the trainable parameters' names
 and the model's `leaves_parameters_unused`; with "relus", whether each
 replayed step replayed every decision and how many elements its own
-decisions would have sent the other way.
+decisions would have sent the other way (with "pools", every mask pool's
+binarization too, and `pool_differ`, how many pixels its own
+binarizations would have sent the other way).
 
 Run as a worker: `python -m video_knet_tpu_torch.tools.dp_check SPEC OUT_DIR`,
 or as the reference: `... dp_check --reference SPEC OUT`. `... dp_check --cli
@@ -105,12 +113,13 @@ def step_decisions(kind: str, model, batch) -> list[torch.Tensor]:
     gradient; in training mode, as the step runs, with BatchNorm's running
     statistics put back after it): every hard-threshold mask pool's
     binarization (`train_check.vps_decisions` / `vis_decisions`; under the
-    band split gathered into the whole map's rows) and every Hungarian
-    assignment, on the host."""
+    band split gathered into the whole map's rows, under the frame split
+    into the whole clips' frames) and every Hungarian assignment (the
+    per-frame ones gathered likewise), on the host."""
     import math
 
     from video_knet_tpu_torch.models.knet import solve_lanes
-    from video_knet_tpu_torch.models.vis.knet_vis import knet_vis_costs
+    from video_knet_tpu_torch.models.vis.knet_vis import gt_frames, knet_vis_costs
     from video_knet_tpu_torch.tools.train_check import vis_decisions, vps_decisions
 
     buffers = {k: v.clone() for k, v in model.named_buffers()}
@@ -121,10 +130,16 @@ def step_decisions(kind: str, model, batch) -> list[torch.Tensor]:
                 masks, assigned = vps_decisions(model, batch)
                 masks = [_whole_rows(m) for m in masks]
             else:
+                cfg, b = model.cfg, batch.clip.shape[0]
                 outs = model(batch.clip)
-                masks = [x > math.log(thr / (1 - thr)) for x, thr in
-                         vis_decisions(outs, model.cfg).values()]
-                assigned = solve_lanes(*knet_vis_costs(outs, batch.gt, model.cfg))[0]
+                # [B*T, ...] per-frame pools, [B, T, ...] the tubes' and clip stages'
+                masks = [_whole_frames(x > math.log(thr / (1 - thr)), b, not name.startswith(
+                    ("clip", "tubes"))) for name, (x, thr) in vis_decisions(outs, cfg).items()]
+                assigned = solve_lanes(*knet_vis_costs(outs, gt_frames(batch.gt), cfg))[0]
+                per_frame = (0 if cfg.kernel_head_mode == "volume"
+                             else 1 + min(cfg.assign_stages, len(outs.frame_stage_outs)))
+                assigned = [_whole_frames(a, b, True) if i < per_frame else a
+                            for i, a in enumerate(assigned)]
     finally:
         model.eval()
         model.load_state_dict(buffers, strict=False)
@@ -139,12 +154,25 @@ def _whole_rows(t: torch.Tensor) -> torch.Tensor:
     return whole.reshape(b, n, -1, w) > 0.5
 
 
+def _whole_frames(t: torch.Tensor, clips: int, folded: bool) -> torch.Tensor:
+    """Decisions of this rank's frames of each of `clips` clips, laid out
+    [B*T_r, ...] (`folded`) or [B, T_r, ...], gathered into the whole
+    clips' frames (`t` itself outside the frame split)."""
+    if model_axis.in_frames() is None:
+        return t
+    x = t.reshape(clips, -1, *t.shape[1:]) if folded else t
+    whole = model_axis.gather_frames(x.float() if t.dtype == torch.bool else x)
+    whole = whole.reshape(-1, *t.shape[1:]) if folded else whole
+    return whole > 0.5 if t.dtype == torch.bool else whole
+
+
 def rank_rows(decision: torch.Tensor, mesh: DataMesh, batch_size: int, kind: str) -> torch.Tensor:
     """This rank's data index's rows of a tensor of the global batch: VPS's
     backbone, neck and init head see [ref; key], two slices of the global
     batch (`mesh.batch_blocks`); everything else is batch-major. Within the
-    backbone and the neck, `model_axis.local_share` then cuts them to this
-    rank's band or frames."""
+    backbone, the neck and the heads' per-pixel or per-frame layers,
+    `model_axis.local_share` then cuts them to this rank's band or
+    frames."""
     n = decision.shape[0]
     blocks = 2 if kind == "vps" and n == 2 * batch_size else 1
     per = n // blocks
@@ -192,12 +220,25 @@ def _to(batch, device):
     return type(batch)(*(_to(x, device) for x in batch))
 
 
-def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) -> dict:
+def pool_share(decision: torch.Tensor) -> torch.Tensor:
+    """A mask pool's binarization [B*T, N, H, W] (or [B, N, H, W]) of the
+    data index's batch cut to this rank's frames or band, as the pool runs
+    on them; itself outside a split."""
+    share = model_axis.in_frames()
+    if share is None:
+        return model_axis.band_slice(decision, 2)
+    t = sum(share.units)
+    return decision[model_axis.frame_rows(decision.shape[0] // t, t, share)]
+
+
+def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None,
+                pools: list | None = None) -> dict:
     """`len(spec["batches"])` train steps of the spec's model on this rank's
     rows of each global batch (see the module doc). With `record`, each
-    step's ReLU decisions are appended to it (the one-process reference,
-    for the ranks to replay)."""
-    from video_knet_tpu_torch.tools.train_check import relu_pattern
+    step's ReLU decisions are appended to it, and with `pools` its mask
+    pools' binarizations (the one-process reference, for the ranks to
+    replay)."""
+    from video_knet_tpu_torch.tools.train_check import pool_pattern, relu_pattern
     from video_knet_tpu_torch.train.optim import make_optimizer
     from video_knet_tpu_torch.train.train_state import create_train_state
 
@@ -229,6 +270,7 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
     if isinstance(spec.get("relus"), str):  # a file the caller writes while the model builds
         spec = {**spec, "relus": _wait_for(spec["relus"])}
     losses, replayed, differ, ms, launches, comm, inputs, decided = [], [], [], [], [], [], [], []
+    pool_differ = []
     in_first = []  # non-empty while the first step runs
     hook = model.backbone.register_forward_pre_hook(
         lambda _, args: inputs.append(tuple(args[0].shape)) if in_first else None)
@@ -249,17 +291,26 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
         start, t0 = counts(), time.perf_counter()
         if record is not None and i < spec.get("record_steps", len(spec["batches"])):
             record.append([])
-            with relu_pattern(record[-1]):
+            if pools is not None:
+                pools.append([])
+            with relu_pattern(record[-1]), (contextlib.nullcontext() if pools is None
+                                            else pool_pattern(pools[-1])):
                 state, out = step(state, local)
         elif relus is None or i >= len(relus):
             state, out = step(state, local)
         else:
             # mapped as each ReLU runs: inside the backbone, to this rank's share
             pattern = (model_axis.local_share(rank_rows(d, mesh, b, kind)) for d in relus[i])
-            with relu_pattern(pattern, replay=True) as stats:
+            binarized = spec.get("pools")
+            with relu_pattern(pattern, replay=True) as stats, (
+                    contextlib.nullcontext({"calls": 0, "differ": 0}) if binarized is None else
+                    pool_pattern((pool_share(rank_rows(d, mesh, b, kind)) for d in binarized[i]),
+                                 replay=True)) as pool_stats:
                 state, out = step(state, local)
-            replayed.append(stats["calls"] == len(relus[i]))
+            replayed.append(stats["calls"] == len(relus[i]) and (
+                binarized is None or pool_stats["calls"] == len(binarized[i])))
             differ.append(stats["differ"])
+            pool_differ.append(pool_stats["differ"])
         if cuda:
             torch.cuda.synchronize()
         in_first.clear()
@@ -272,7 +323,8 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None) 
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     from video_knet_tpu_torch.ops.kernels import mask_ops
 
-    return dict(losses=losses, grads=first, state=sd, replayed=replayed, differ=differ, ms=ms,
+    return dict(losses=losses, grads=first, state=sd, replayed=replayed, differ=differ,
+                pool_differ=pool_differ, ms=ms,
                 launches=launches, comm=comm, inputs=inputs, decisions=decided,
                 shapes={k: sorted(v) for k, v in mask_ops.SHAPES.items()},
                 peak_bytes=torch.cuda.max_memory_allocated() - base if cuda else 0,
@@ -284,13 +336,15 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     """The backbone `spec["backbone"]` (a `build_backbone` name: ResNet,
     Swin or MiT) with the FPN (`spec["weights"]`: their state dicts, eval
     mode) through `backbone_and_neck` under the band split of `mesh`'s
-    `model` axis, on this rank's data index's rows of `spec["img"]` (one
-    data index), replaying the one-process forward's ReLU decisions
-    `spec["relus"]` if given, and backward from this rank's band of
-    `spec["cotangents"]` (one a level). Returns this rank's band of each
-    level (no gather) and its (first, end) rows, the image's and the
-    parameters' gradients from this rank, the shape the backbone took and
-    the bytes handed to the collectives."""
+    `model` axis, or with `spec["frames"]` (clips of that many frames in
+    `spec["img"]`) the frame split, on this rank's data index's rows of
+    `spec["img"]` (one data index), replaying the one-process forward's
+    ReLU decisions `spec["relus"]` if given, and backward from this rank's
+    share of `spec["cotangents"]` (one a level). Returns this rank's band
+    or frames of each level (no gather) and its (first, end) rows (the
+    levels' rows of a band; the batch rows b*T + t of the frames), the
+    image's and the parameters' gradients from this rank, the shape the
+    backbone took and the bytes handed to the collectives."""
     from video_knet_tpu_torch.models.backbones import (
         backbone_and_neck,
         build_backbone,
@@ -312,17 +366,27 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     relus = spec.get("relus")
     replay = (contextlib.nullcontext() if relus is None else
               relu_pattern((model_axis.local_share(d) for d in relus), replay=True))
-    with data_parallel(mesh), model_axis.model_split(mesh, "rows"), replay:
-        levels = backbone_and_neck(backbone, neck, img)
-        cots = [model_axis.band_slice(shard_batch(mesh, c), 1).to(device)
-                for c in spec["cotangents"]]
-        rows = [model_axis.band_rows(c.shape[1], model_axis.in_band())
-                for c in spec["cotangents"]]
+    frames = spec.get("frames")
+    with data_parallel(mesh), model_axis.model_split(mesh, "rows" if frames is None else
+                                                     "frames"), replay:
+        levels = backbone_and_neck(backbone, neck, img, frames=frames)
+        share = model_axis.in_frames()
+        if frames is None:
+            cots = [model_axis.band_slice(shard_batch(mesh, c), 1).to(device)
+                    for c in spec["cotangents"]]
+            rows = [model_axis.band_rows(c.shape[1], model_axis.in_band())
+                    for c in spec["cotangents"]]
+        else:
+            mine = (torch.arange(img.shape[0]) if share is None else
+                    model_axis.frame_rows(img.shape[0] // frames, frames, share))
+            cots = [shard_batch(mesh, c)[mine].to(device) for c in spec["cotangents"]]
+            rows = [mine.tolist()] * len(cots)
     sum((lv * c).sum() for lv, c in zip(levels, cots)).backward()
     grads = {f"{tag}.{n}": p.grad.detach().cpu() for tag, m in (("backbone", backbone),
                                                                  ("neck", neck))
              for n, p in m.named_parameters()}
-    return dict(levels=[lv.detach().cpu() for lv in levels], rows=[(r.start, r.stop) for r in rows],
+    return dict(levels=[lv.detach().cpu() for lv in levels],
+                rows=[r if isinstance(r, list) else (r.start, r.stop) for r in rows],
                 grad_img=img.grad.detach().cpu(), grads=grads, inputs=inputs,
                 comm=dict(model_axis.BYTES))
 
@@ -426,7 +490,7 @@ def band_pieces(mesh: DataMesh, device, spec: dict) -> dict:
     with data_parallel(mesh), model_axis.model_split(mesh, "rows"):
         split = model_axis.active_split()
         if split is not None:
-            model_axis.hold_band(*model_axis.image_band(split, spec["height"]))
+            model_axis.hold_share(*model_axis.image_band(split, spec["height"]))
         out = _piece_results(spec["inputs"], device)
         cfg, weights = spec["head"]
         head = ConvKernelHead(cfg, in_channels=spec["levels"][0].shape[-1]).to(device).eval()
@@ -440,6 +504,157 @@ def band_pieces(mesh: DataMesh, device, spec: dict) -> dict:
                       ("seg_preds", 1), ("thing_mask_preds", 2)):
         out[f"head.{name}"] = ("same" if dim is None else f"rows:{dim}",
                                getattr(rpn, name).cpu())
+    out["comm"] = dict(model_axis.BYTES)
+    return out
+
+
+def _frames_of(t: torch.Tensor, dim: int, device, grad: bool = False) -> torch.Tensor:
+    """This rank's frames of whole-clip tensor `t` along `dim` (the frames
+    axis; `dim` 0 for rows b*T + t of B clips, laid out [B, T, ...] first
+    by `frame_pieces`), on `device`."""
+    out = model_axis.frame_slice(t, dim).to(device).clone()
+    return out.requires_grad_(True) if grad else out
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, *t.shape[2:])
+
+
+def _frame_piece_results(inp: dict, heads: dict, device) -> dict:
+    """The VIS heads' and loss block's pieces on this rank's frames of
+    `inp`'s whole-clip tensors ([B, T, ...]; in one process: the whole
+    clips), each as (how the ranks' results make the whole clips':
+    "frames:D" this rank's frames along dim D, "rows" its rows b*T_r + t of
+    [B*T_r, ...], "same" equal on every rank; the result). A replicated
+    output's cotangent counts 1 / n_model on each rank, as a step's loss
+    share does. `heads`: the clip head's and the per-frame heads'
+    (config, state dict) pairs."""
+    from video_knet_tpu_torch.models import knet
+    from video_knet_tpu_torch.models.kernel_head import ConvKernelHead, RPNOutputs
+    from video_knet_tpu_torch.models.kernel_iter_head import (
+        KernelIterHead,
+        StageOutput,
+        upscale_masks,
+    )
+    from video_knet_tpu_torch.models.layers import sine_positional_encoding_3d
+    from video_knet_tpu_torch.models.vis import knet_vis as kv
+    from video_knet_tpu_torch.models.vis.clip_head import ClipKernelHead
+    from video_knet_tpu_torch.models.vis.volume_head import VolumeRPNOutputs
+
+    share = model_axis.in_frames()
+    part = 1.0 / (1 if share is None else share.count)
+    cfg = heads["cfg"]
+    b, t = inp["kernels"].shape[:2]
+    out = {}
+
+    def backward(name, value, leaves, cot=None):
+        loss = value * part if cot is None else (value * cot.to(device) * part).sum()
+        loss.backward()
+        for key, (dim, leaf) in leaves.items():
+            out[f"{name}.grad.{key}"] = (dim, leaf.grad.cpu())
+
+    # the temporal positional encoding: the whole clip's rows of these frames
+    tt, h, w, c = inp["pe_thwc"]
+    out["positional_encoding"] = ("frames:0", model_axis.frame_slice(
+        sine_positional_encoding_3d(tt, h, w, c // 2, device=device), 0).cpu())
+    # the clip kernels' merge (the attention merge: every frame's kernels)
+    clip_head = ClipKernelHead(cfg.head, num_stages=cfg.tracker_num_stages,
+                               assign_stages=cfg.tracker_assign_stages,
+                               num_proposals=cfg.num_proposals,
+                               query_merge_method=cfg.query_merge_method).to(device)
+    clip_head.load_state_dict(heads["clip"])
+    kern = _frames_of(inp["kernels"], 1, device, grad=True)
+    merged = clip_head._merge(kern)
+    out["merge"] = ("same", merged.detach().cpu())
+    backward("merge", merged, {"kernels": ("frames:1", kern)}, inp["merge_cot"])
+    # the clip stages' mean over the clip's frames
+    feats = _frames_of(inp["pooled"], 1, device, grad=True)
+    mean = model_axis.frame_mean(feats, 1)
+    out["clip_mean"] = ("same", mean.detach().cpu())
+    backward("clip_mean", mean, {"pooled": ("frames:1", feats)}, inp["merge_cot"])
+    # the tube costs and the tube losses over T*H*W
+    gt = kv.gt_frames(kv.ClipGT(*(x.to(device) for x in inp["gt"])))
+    scaled = _frames_of(inp["scaled"], 1, device, grad=True)
+    cls = inp["cls"].to(device).requires_grad_(True)
+    with torch.no_grad():
+        out["tube_cost"] = ("same", kv.tube_cost(scaled, cls, gt, cfg).cpu())
+    stage = kv.ClipStageOutput(cls, scaled, scaled, None)
+    tube = kv.tube_stage_loss(stage, inp["tube_assign"].to(device), gt, cfg, "tube")
+    out.update({k: ("same", v.detach().cpu()) for k, v in tube.items()})
+    backward("tube", sum(tube.values()), {"scaled": ("frames:1", scaled), "cls": ("sum", cls)})
+    # the volume init head's losses: its tube masks and its per-frame seg
+    tubes = _frames_of(inp["tubes"], 1, device, grad=True)
+    seg = _frames_of(inp["seg"], 1, device, grad=True)
+    vol = VolumeRPNOutputs(None, None, tubes, seg)
+    vcfg = heads["volume_cfg"]
+    volume = kv.volume_rpn_loss(vol, gt, vcfg, inp["tube_assign"].to(device))
+    out.update({f"volume.{k}": ("same", v.detach().cpu()) for k, v in volume.items()})
+    backward("volume", sum(volume.values()), {"tubes": ("frames:1", tubes),
+                                              "seg": ("frames:1", seg)})
+    # the per-frame losses: this rank's shares, summed over the group
+    fgt = kv.frame_gt_from_clip(gt)
+    frame_masks = _frames_of(inp["frame_masks"], 1, device, grad=True)
+    frame_cls = _frames_of(inp["frame_cls"], 1, device, grad=True)
+    frame_seg = _frames_of(inp["frame_seg"], 1, device, grad=True)
+    masks, fcls, fseg = _fold(frame_masks), _fold(frame_cls), _fold(frame_seg)
+    assign = _fold(_frames_of(inp["frame_assign"], 1, device))
+    rpn = RPNOutputs(None, None, masks, fseg, masks, None)
+    scaled_masks = upscale_masks(masks, cfg.head.mask_upsample_stride)
+    shares = knet.rpn_loss(rpn, fgt, cfg, gt_of_pred=assign)
+    shares.update(knet.stage_loss(StageOutput(fcls, masks, scaled_masks, None), assign, fgt,
+                                  cfg, "s0"))
+    frame = dict(zip(shares, model_axis.frame_sum(*shares.values())))
+    out.update({f"frame.{k}": ("same", v.detach().cpu()) for k, v in frame.items()})
+    backward("frame", sum(frame.values()), {"masks": ("frames:1", frame_masks),
+                                            "cls": ("frames:1", frame_cls),
+                                            "seg": ("frames:1", frame_seg)})
+    out["pixels"] = ("same", knet._pixels(fgt.masks.sum()).cpu())
+    # the heads on these frames: the kernel head (the temporal encoding),
+    # the stage loop and the clip head, as the VIS forward runs them
+    levels = [_fold(_frames_of(x, 1, device)) for x in inp["levels"]]
+    kernel_head = ConvKernelHead(cfg.rpn, in_channels=levels[0].shape[-1]).to(device)
+    kernel_head.load_state_dict(heads["rpn"])
+    iter_head = KernelIterHead(cfg.head, num_stages=cfg.num_stages).to(device)
+    iter_head.load_state_dict(heads["roi"])
+    with torch.no_grad():
+        rpn_out = kernel_head(levels, num_frames=t)
+        with model_axis.held_share():
+            stages = iter_head(rpn_out.x_feats, rpn_out.proposal_feats, rpn_out.mask_preds)
+        n = cfg.num_proposals
+        tr = model_axis.local_frames(t)
+        x_clip = rpn_out.x_feats.reshape(b, tr, *rpn_out.x_feats.shape[1:])
+        clip_outs = clip_head(x_clip, stages[-1].object_feats[:, :n, 0].reshape(b, tr, n, -1),
+                              stages[-1].mask_preds[:, :n].reshape(b, tr, n, *x_clip.shape[2:4]))
+    for k in ("x_feats", "mask_preds", "seg_preds", "proposal_feats"):
+        out[f"rpn.{k}"] = ("rows", getattr(rpn_out, k).cpu())
+    for s, st in enumerate(stages):
+        for k in ("cls_score", "mask_preds", "object_feats"):
+            out[f"roi.s{s}.{k}"] = ("rows", getattr(st, k).cpu())
+    for s, st in enumerate(clip_outs):
+        if st.cls_score is not None:
+            out[f"clip.s{s}.cls_score"] = ("same", st.cls_score.cpu())
+        out[f"clip.s{s}.mask_preds"] = ("frames:1", st.mask_preds.cpu())
+        out[f"clip.s{s}.object_feats"] = (
+            "frames:1" if st.object_feats.dim() == 4 else "same", st.object_feats.cpu())
+    return out
+
+
+def frame_pieces(mesh: DataMesh, device, spec: dict) -> dict:
+    """`_frame_piece_results` on this rank's frames of `spec["inputs"]`'
+    clips under the frame split of `mesh`'s `model` axis (one data index;
+    the frames held as after the backbone). In one process: the whole
+    clips."""
+    from video_knet_tpu_torch.parallel.mesh import data_parallel
+
+    model_axis.reset_bytes()
+    inp = spec["inputs"]
+    b, t = inp["kernels"].shape[:2]
+    with data_parallel(mesh), model_axis.model_split(mesh, "frames"):
+        split = model_axis.active_split()
+        if split is not None:
+            rows = model_axis.frame_rows(b, t, split)
+            model_axis.hold_share(model_axis.frame_share(split, t), lambda x: x[rows])
+        out = _frame_piece_results(inp, spec["heads"], device)
     out["comm"] = dict(model_axis.BYTES)
     return out
 
@@ -605,6 +820,9 @@ def _worker(spec_path: str, out_dir: str) -> None:
             elif spec["kind"] == "band_pieces":
                 results.append(band_pieces(distributed.global_mesh(spec["n_model"]), device,
                                            spec))
+            elif spec["kind"] == "frame_pieces":
+                results.append(frame_pieces(distributed.global_mesh(spec["n_model"]), device,
+                                            spec))
             elif spec["kind"] == "replicated":
                 from video_knet_tpu_torch.parallel.mesh import replicated
 

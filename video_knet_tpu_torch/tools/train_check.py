@@ -309,6 +309,44 @@ def relu_pattern(pattern: list, replay: bool = False):
         F.relu = relu
 
 
+@contextlib.contextmanager
+def pool_pattern(pattern, replay: bool = False):
+    """Within the block, every hard-threshold mask pool (`ops/mask_pool.py`:
+    K1 on the card) appends its binarization, sigmoid(logits) > thr on the
+    host, to `pattern`, in call order; with `replay`, each call instead
+    pools the next recorded binarization (logits one unit either side of
+    the threshold's), so that a pixel within rounding of the threshold
+    cannot send two runs' kernels apart. Yields {"calls", "differ"}: the
+    replayed calls and the pixels whose own binarization differs from the
+    recorded one."""
+    from video_knet_tpu_torch.ops import mask_pool as mp
+
+    fused = mp.fused_mask_pool
+    recorded = iter(pattern)
+    stats = {"calls": 0, "differ": 0}
+
+    def patched(logits: torch.Tensor, feats: torch.Tensor, hard_thr: float = 0.5):
+        mine = torch.sigmoid(logits.float()) > hard_thr
+        if not replay:
+            pattern.append(mine.detach().cpu())
+            return fused(logits, feats, hard_thr=hard_thr)
+        decision = next(recorded).to(logits.device)
+        if decision.shape != logits.shape:
+            raise ValueError(f"mask pool call {stats['calls']}: recorded "
+                             f"{tuple(decision.shape)}, got {tuple(logits.shape)}")
+        stats["calls"] += 1
+        stats["differ"] += int((mine != decision).sum())
+        at = math.log(hard_thr / (1 - hard_thr))
+        return fused(torch.where(decision, at + 1.0, at - 1.0).to(logits.dtype).contiguous(),
+                     feats, hard_thr=hard_thr)
+
+    mp.fused_mask_pool = patched
+    try:
+        yield stats
+    finally:
+        mp.fused_mask_pool = fused
+
+
 def swin_check_cfg(tiny):
     """The Swin slice's check configuration: Swin-tiny under `tiny`'s
     64-channel heads and 20 proposals (the trained tiny config,

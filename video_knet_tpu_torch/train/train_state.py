@@ -14,20 +14,27 @@ its share of the global loss, and a comm hook sums the gradients over the
 ranks (DDP would average them), so the per-group clip and AdamW see the
 global gradient on every rank, as optax does. With `n_model` ranks on the
 mesh's `model` axis the step splits the model over them
-(`parallel/model_axis.py`): the VIS step the backbone's frames, its heads
-replicated; the VPS step its image rows, the backbone, the neck, the heads
-and the loss block on each rank's band, every sum over pixels summed over
-the `model` group by `model_sum`, whose backward sums the gradients over
-the group too. Either way every `model` rank of a data index holds that
-index's whole loss L_d, and takes L_d / n_model as its loss. Why each
-parameter then gets its gradient once: a replicated parameter p takes
-(1/n_model) dL_d/dp on each rank, n_model times over the world; a band's
-partial sum s_m, inside a `model_sum` S = sum_m s_m, takes sum over the
-ranks of (1/n_model) dL_d/dS = dL_d/dS on its own rank m, so that the
-world's sum over m of dL_d/dS ds_m/dp is dL_d/dp, for the per-pixel
-parameters and for the kernels a band's pixels use alike
-(`tests/test_torch_port_model_axis_heads.py` holds it). The loss dict is
-the global value on every rank.
+(`parallel/model_axis.py`): the VIS step each clip's frames, the
+backbone, the neck, the per-frame heads and the per-frame losses on each
+rank's frames, every sum over the clip's frames summed over the `model`
+group by `frame_sum`; the VPS step its image rows, the backbone, the
+neck, the heads and the loss block on each rank's band, every sum over
+pixels summed over the group by `model_sum`. Both sums' backward sums the
+gradients over the group too. Either way every `model` rank of a data
+index holds that index's whole loss L_d, and takes L_d / n_model as its
+loss. Why each parameter then gets its gradient once: a replicated
+parameter p (the work on the N x C kernels: the VIS clip merge and clip
+stages, the kernel updates) takes (1/n_model) dL_d/dp on each rank,
+n_model times over the world; a band's or a rank's frames' partial sum
+s_m, inside a sum S = sum_m s_m over the group, takes sum over the ranks
+of (1/n_model) dL_d/dS = dL_d/dS on its own rank m, so that the world's
+sum over m of dL_d/dS ds_m/dp is dL_d/dp, for the per-pixel and per-frame
+parameters and for the kernels a band's pixels or a rank's frames use
+alike; the per-frame kernels gathered for the VIS merge take, on their
+own rank, the gradient summed over the group in the same way
+(`tests/test_torch_port_model_axis_heads.py` and
+`tests/test_torch_port_model_axis_vis.py` hold it). The loss dict is the
+global value on every rank.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ Counterpart of `video_knet_tpu/train/vis.py`: the KNetVIS clip forward,
 `knet_vis_loss`, the backward and the AdamW update; over a mesh it is
 `make_sharded_vis_train_step` (`train/train_state.py`): the clips over
 `data`, and with ranks on the mesh's `model` axis each clip's frames split
-over them for the backbone and the neck (clip parallelism,
-`parallel/model_axis.py`). Scope: fp32, or a bf16 forward with
+over them (clip parallelism, `parallel/model_axis.py`) for the backbone,
+the neck, the per-frame heads and the per-frame losses, with the GT tubes
+cut to the rank's frames (`models/vis/knet_vis.py:gt_frames`). Scope: fp32, or a bf16 forward with
 `bf16_train` (as `train/vps.py`); BatchNorm on its running statistics, or
 live with `norm_eval=False` (fp32; statistics over the B*T frames).
 """
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from video_knet_tpu_torch.config_vis import VISConfig
-from video_knet_tpu_torch.models.vis.knet_vis import ClipGT, KNetVIS, knet_vis_loss
+from video_knet_tpu_torch.models.vis.knet_vis import ClipGT, KNetVIS, gt_frames, knet_vis_loss
 from video_knet_tpu_torch.parallel.model_axis import frame_counts
 from video_knet_tpu_torch.train.train_state import (
     TrainState,
@@ -101,7 +102,7 @@ def make_vis_loss_fn(model: KNetVIS, cfg: VISConfig, apply=None):
 
     def loss_fn(batch: VISBatch, generator: torch.Generator | None = None):
         outs = apply(cfg.bf16_train, batch.clip, generator)
-        losses = knet_vis_loss(outs, batch.gt, cfg)
+        losses = knet_vis_loss(outs, gt_frames(batch.gt), cfg)
         return sum(losses.values()), losses
 
     return loss_fn
@@ -113,7 +114,9 @@ def train_step(state: TrainState, batch: VISBatch, generator: torch.Generator | 
     data index's clips of the global batch and the losses are the global
     batch's; as JAX's step reads clip parallelism from its mesh, the
     mesh's `model` axis splits each clip's frames (contiguous, T=5 over 2
-    ranks: 3 + 2) for the backbone and the neck.
+    ranks: 3 + 2) for the backbone, the neck, the per-frame heads and the
+    losses; the clip kernels' merge gathers every frame's kernels, and
+    the work on the N clip kernels runs replicated on each rank.
 
     With `backbone_drop_path_rate` > 0 (the Swin-B config) the stochastic
     depth draws from `generator`, by default one on the batch's device
