@@ -577,8 +577,15 @@ TOL_CLI_DP_LOSS = (1e-3, 1e-2)
 # train-model-axis: the mesh's `model` axis over gloo ranks sharing the card
 MODEL_AXIS_N = 2  # a 1x2 mesh: 384 rows in 2 bands of 192 (6 x 32); 5 frames as 3 + 2
 MODEL_AXIS_STEPS = 3
-MODEL_AXIS_SWIN_STEPS = 2  # train-model-axis-swin: Swin-B VIP-Seg steps at 736x1280
+MODEL_AXIS_SWIN_STEPS = 1  # train-model-axis-swin: Swin-B VIP-Seg steps at 736x1280
 MODEL_AXIS_SWIN_BANDS = (384, 352)  # 736 rows: 23 at stride 32, split 12 + 11
+# heights that are not a multiple of 32: every band but the last ends on a
+# whole stride-32 row, the last holds the partial one. KITTI-STEP's 375x1242
+# frames at width 1248, their ratio kept (R-50 in train-model-axis, MiT-b0
+# in -swin): 12 stride-32 rows, the last partial, 6 + 6; VIP-Seg's native
+# 720p (Swin-B in -swin): 23, the last half, 12 + 11
+MODEL_AXIS_KITTI_HW, MODEL_AXIS_KITTI_BANDS = (376, 1248), (192, 184)
+MODEL_AXIS_VIPSEG_HW, MODEL_AXIS_VIPSEG_BANDS = (720, 1280), (384, 336)
 MODEL_AXIS_SEED = 0
 # each rank against the one-process step on the card: every step's losses,
 # relative; the presets' first step's gradient (the ranks replaying the
@@ -607,9 +614,14 @@ TOL_MODEL_AXIS_SPLIT_LOSS = 1e-2
 # shares a rank reached on an H100 while the heads ran whole on it behind
 # the pyramid's gather (VPS R-50 81.1-94.5%, Swin-B VIP-Seg 72.7-74.9%,
 # VIS R-50 81.9-90.0% and 80.9-94.2% live; PERF.md); the heads and the
-# loss block on the band or on the rank's frames take them lower
+# loss block on the band or on the rank's frames take them lower; the
+# heights that are not a multiple of 32 had no split before, so their
+# bounds are the highest share a rank read over two H100 runs plus one
+# point (R-50 at 376x1248 68.7% / 68.8%, Swin-B at 720x1280 59.2% / 59.1%,
+# MiT-b0 at 376x1248 58.2% / 58.2%; PERF.md)
 MODEL_AXIS_PEAK_SHARE = {"vps": 0.811, "vps-live": 0.811, "swin-b": 0.727,
-                         "vis": 0.819, "vis-live": 0.809}
+                         "vis": 0.819, "vis-live": 0.809, "vps-376": 0.698,
+                         "swin-b-720": 0.602, "mit-b0-376": 0.592}
 # a VIS rank's gather a step, below this share of the pyramid gather the
 # frame split made while the heads ran whole (156,958,720 bytes a rank a
 # step at 1x5x360x640: its 3 frames' levels forward, the clip's 5 back)
@@ -749,8 +761,8 @@ def phase_kernels(device) -> list[dict]:
                (VIS_CLI_CLIP, 8, 23, 40, 64), (2 * LIVE_BN_B, 100, h, w, 256)]
     # the band split's shapes (train-model-axis, -swin): each rank's band of
     # the stride-8 map, the stages at B=1 and the init head over [ref; key]
-    shapes += [(b, n, rows, ww, 256) for rows, ww in _band_maps()
-               for b, n in ((1, 117 if ww == w else SWIN_VIPSEG_KERNELS), (2, 100))]
+    shapes += [(b, k, rows, ww, 256) for _, rows, ww, n in _band_maps()
+               for b, k in ((1, n), (2, 100))]
     # the frame split's shapes (train-model-axis): each VIS rank's B*T_r
     # frames of the 1x5 clip, 3 and 2, 100 proposals over 45x80
     shapes += [(b, 100, VIS_HW[0] // 8, VIS_HW[1] // 8, 256) for b in _rank_frames()]
@@ -808,11 +820,11 @@ def phase_kernels(device) -> list[dict]:
                                            IMAGE_TRAIN_HW[1] // 8, 256, err_pool, err_asm,
                                            b=IMAGE_TRAIN_B)):
         rec["image_train"] = {k: tr[k] for k in TIMED_KEYS}
-    # the band split's stage shapes: R-50 KITTI-STEP's band of 24 of the 48
-    # stride-8 rows (384x1248 over 2), Swin-B VIP-Seg's 48 and 44 of 92
-    # (736x1280: 12 + 11 stride-32 rows)
-    for (rows, ww), key in zip(_band_maps(), ("band_r50", "band_swin_b_0", "band_swin_b_1")):
-        n = 117 if ww == w else SWIN_VIPSEG_KERNELS
+    # the band split's stage shapes, each distinct band of the stride-8 map:
+    # R-50 KITTI-STEP's 24 of 48 rows (384x1248 over 2) and 24 + 23 of 47
+    # (376x1248), Swin-B VIP-Seg's 48 + 44 of 92 (736x1280) and 48 + 42 of
+    # 90 (720x1280)
+    for key, rows, ww, n in _band_maps():
         for rec, bd in zip(recs, _time_kernels(gen, device, n, rows, ww, 256, err_pool,
                                                err_asm)):
             rec[key] = {k: bd[k] for k in TIMED_KEYS}
@@ -839,16 +851,25 @@ def _rank_frames() -> list[int]:
     return sorted(set(frame_counts(VIS_FRAMES, MODEL_AXIS_N)), reverse=True)
 
 
-def _band_maps() -> list[tuple[int, int]]:
-    """(rows, columns) of each rank's band of the stride-8 map under the
-    band split: R-50 at TRAIN_HW's (one, both ranks alike), then Swin-B
-    VIP-Seg's rank 0 and rank 1."""
-    from video_knet_tpu_torch.parallel.model_axis import band_units
+def _band_maps() -> list[tuple[str, int, int, int]]:
+    """(key, rows, columns, stage kernels N) of each distinct band of the
+    stride-8 map that the band split's train steps give K1 and K2, rank by
+    rank, from the split's own geometry (`model_axis.map_bands`): R-50
+    KITTI-STEP at TRAIN_HW and MODEL_AXIS_KITTI_HW (MiT-b0's bands there
+    are R-50's), Swin-B VIP-Seg at SWIN_VIPSEG_HW and MODEL_AXIS_VIPSEG_HW."""
+    from video_knet_tpu_torch.parallel.model_axis import Split, band_units, map_bands
 
-    r50 = band_units(TRAIN_HW[0], MODEL_AXIS_N)
-    swin = band_units(SWIN_VIPSEG_HW[0], MODEL_AXIS_N)
-    return ([(4 * r50[0], TRAIN_HW[1] // 8)]
-            + [(4 * u, SWIN_VIPSEG_HW[1] // 8) for u in swin])
+    out, seen = [], set()
+    for name, (h, w), n in (("r50", TRAIN_HW, 117), ("r50_376", MODEL_AXIS_KITTI_HW, 117),
+                            ("swin_b", SWIN_VIPSEG_HW, SWIN_VIPSEG_KERNELS),
+                            ("swin_b_720", MODEL_AXIS_VIPSEG_HW, SWIN_VIPSEG_KERNELS)):
+        band = Split("rows", None, 0, MODEL_AXIS_N, tuple(band_units(h, MODEL_AXIS_N)), (h, w))
+        cols = -(-w // 8)
+        for m, (a, b) in enumerate(map_bands(band, cols)):
+            if (b - a, cols, n) not in seen:
+                seen.add((b - a, cols, n))
+                out.append((f"band_{name}_{m}", b - a, cols, n))
+    return out
 
 
 TIMED_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4453,7 +4474,9 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     `video_knet_vis_r50_ytvis2019` on 1x5x360x640 clips, the frames split
     3 + 2 from the backbone to the losses; MODEL_AXIS_STEPS steps of each
     preset, then one step of each with live BatchNorm (`norm_eval=False`),
-    and one step of the VIS volume preset on the same clips. Every step's
+    and one step of the VIS volume preset on the same clips; one step of the
+    VPS preset at MODEL_AXIS_KITTI_HW, 376 rows (not a multiple of 32: bands
+    of 192 + 184). Every step's
     losses (the
     presets' beside the hard decisions the split takes apart, which loosen
     that step's limit), the presets' first step's gradient (the ranks
@@ -4494,6 +4517,12 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
                                batches=[tvis.make_synthetic_batch(volume, b, VIS_HW, seed=0,
                                                                   device="cpu")])
     expected["vis-volume"], shares["vis-volume"] = VIS_VOLUME_TRAIN_LAUNCHES, shares["vis"]
+    specs["vps-376"] = dict(kind="vps", cfg=vps, seed=MODEL_AXIS_SEED, decisions=True,
+                            batches=[tvps.make_synthetic_batch(vps, b, MODEL_AXIS_KITTI_HW,
+                                                               seed=0, device="cpu")])
+    expected["vps-376"] = TRAIN_LAUNCHES
+    shares["vps-376"] = [[(2 * b, rows, MODEL_AXIS_KITTI_HW[1], 3)]
+                         for rows in MODEL_AXIS_KITTI_BANDS]
     out = _model_axis_runs("train-model-axis", device, tmp, specs, expected, shares)
     # neither split gathers the pyramid: the band split gathers nothing, the
     # frame split the merge's per-frame kernels (none in volume mode); the
@@ -4622,9 +4651,11 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
     `phase_train_model_axis` holds it: Swin-B VIP-Seg
     (`video_knet_vipseg_swin_b`) at 736x1280, global B=1, drop path 0.3
     drawn from the step-seeded generator, the image's 23 stride-32 rows in
-    bands of 12 + 11 (384 + 352 rows), MODEL_AXIS_SWIN_STEPS steps; MiT-b0
-    under the default VPS config at 384x1248 in bands of 192 rows, one
-    step. 7 / 7 / 1 launches a step on each rank."""
+    bands of 12 + 11 (384 + 352 rows), MODEL_AXIS_SWIN_STEPS steps, and one
+    step at VIP-Seg's native 720x1280 (bands of 384 + 336: the last holds
+    the half stride-32 row); MiT-b0 under the default VPS config at
+    384x1248 in bands of 192 rows and at 376x1248 (192 + 184), one step
+    each. 7 / 7 / 1 launches a step on each rank."""
     from video_knet_tpu_torch.config import VideoKNetConfig
     from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.train.vps import make_synthetic_batch
@@ -4633,10 +4664,12 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
     if swin.backbone != "swin_base" or swin.backbone_drop_path_rate != 0.3:
         raise AssertionError("[train-model-axis-swin] not the Swin-B preset's drop path")
     specs, shares = {}, {}
+    mit = dataclasses.replace(VideoKNetConfig(), backbone="mit_b0")
     for tag, cfg, hw, steps, bands in (
             ("swin-b", swin, SWIN_VIPSEG_HW, MODEL_AXIS_SWIN_STEPS, MODEL_AXIS_SWIN_BANDS),
-            ("mit-b0", dataclasses.replace(VideoKNetConfig(), backbone="mit_b0"), TRAIN_HW, 1,
-             (TRAIN_HW[0] // MODEL_AXIS_N,) * MODEL_AXIS_N)):
+            ("swin-b-720", swin, MODEL_AXIS_VIPSEG_HW, 1, MODEL_AXIS_VIPSEG_BANDS),
+            ("mit-b0", mit, TRAIN_HW, 1, (TRAIN_HW[0] // MODEL_AXIS_N,) * MODEL_AXIS_N),
+            ("mit-b0-376", mit, MODEL_AXIS_KITTI_HW, 1, MODEL_AXIS_KITTI_BANDS)):
         specs[tag] = dict(kind="vps", cfg=cfg, seed=MODEL_AXIS_SEED, decisions=True, batches=[
             make_synthetic_batch(cfg, 1, hw, seed=i, device="cpu") for i in range(steps)])
         shares[tag] = [[(2, rows, hw[1], 3)] for rows in bands]
@@ -4644,15 +4677,17 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
                            {tag: TRAIN_LAUNCHES for tag in specs}, shares)
     # Swin-B gathers nothing; MiT-b0 gathers its spatially reduced keys
     for tag in specs:
-        if not all(c["halo"] > 0 and c["reduce"] > 0 and (c["gather"] > 0) == (tag == "mit-b0")
+        mit_b0 = tag.startswith("mit-b0")
+        if not all(c["halo"] > 0 and c["reduce"] > 0 and (c["gather"] > 0) == mit_b0
                    for r in out[tag]["comm"] for c in r):
             raise AssertionError(f"[train-model-axis-swin] {tag}: bytes by kind "
                                  f"{out[tag]['comm']}")
-    # stage 3's 46 rows pad to 49: its shifted windows' last one joins row 45
-    # to rows 0-2, across the bands
-    if not all(c["ring"] > 0 for r in out["swin-b"]["comm"] for c in r):
-        raise AssertionError(f"[train-model-axis-swin] swin-b: no ring exchange "
-                             f"{out['swin-b']['comm']}")
+    # stage 3's 46 rows (45 at 720) pad to 49: its shifted windows' last one
+    # joins the map's last rows to rows 0-2, across the bands
+    for tag in ("swin-b", "swin-b-720"):
+        if not all(c["ring"] > 0 for r in out[tag]["comm"] for c in r):
+            raise AssertionError(f"[train-model-axis-swin] {tag}: no ring exchange "
+                                 f"{out[tag]['comm']}")
     paths.launches["train-model-axis-swin"] = {
         k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
     return out
@@ -5174,9 +5209,11 @@ def main() -> int:
         f"host syncs a step {align['train']['syncs']} ({card})")
     log(f"[dcn] {json.dumps(align['dcn'])} ({card})")
     log(f"[models-check] worst card-vs-CPU: {json.dumps(models['models-check'])}")
-    for tag in ("vps", "vis", "vps-live", "vis-live", "vis-volume", "swin-b", "mit-b0"):
+    for tag in ("vps", "vis", "vps-live", "vis-live", "vis-volume", "vps-376", "swin-b",
+                "swin-b-720", "mit-b0", "mit-b0-376"):
         rec = model_axis[tag]
-        path = "train-model-axis-swin" if tag in ("swin-b", "mit-b0") else "train-model-axis"
+        path = ("train-model-axis-swin" if tag.startswith(("swin-b", "mit-b0"))
+                else "train-model-axis")
         log(f"[{path}] {tag}: 1x{MODEL_AXIS_N} mesh of gloo ranks sharing the card, "
             f"step ms {json.dumps(rec['rank_ms'])} (one process {json.dumps(rec['one_ms'])}); "
             f"peak memory a rank {rec['rank_peak']} bytes against {rec['one_peak']} in one "

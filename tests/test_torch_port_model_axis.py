@@ -308,15 +308,20 @@ def _fake_split(kind: str, count: int = 2):
 
 
 def test_band_split_raises_for_a_height_that_does_not_split():
-    """Bands may be uneven (96 rows over 2: 64 + 32), but a height that is
-    not a whole multiple of 32 rows is left to ROADMAP F7d."""
+    """Bands may be uneven (96 rows over 2: 64 + 32) and the last may hold
+    a partial stride-32 row (80 over 2: 64 + 16), but the split refuses a
+    height JAX's whole VPS step refuses (70 rows: not a multiple of 8) and
+    one with fewer stride-32 rows than bands (64 rows over 3)."""
     backbone, neck = _uninitialized_pyramid()
-    token = _fake_split("rows")
-    try:
-        with pytest.raises(NotImplementedError, match="not 80 .*F7d"):
-            backbone_and_neck(backbone, neck, torch.zeros(1, 80, 64, 3))
-    finally:
-        model_axis._SPLIT.reset(token)
+    assert model_axis.band_units(96, 2) == [2, 1] and model_axis.band_units(80, 2) == [2, 1]
+    for count, rows, match in ((2, 70, "refuses 70 image rows"),
+                               (3, 64, "64 image rows .* do not split into 3 bands")):
+        token = _fake_split("rows", count)
+        try:
+            with pytest.raises(ValueError, match=match):
+                backbone_and_neck(backbone, neck, torch.zeros(1, rows, 64, 3))
+        finally:
+            model_axis._SPLIT.reset(token)
 
 
 @pytest.mark.parametrize("backbone,neck", [("resnet50", "msdeform_pixel_decoder"),

@@ -219,16 +219,18 @@ def runs(jax_job):
 
 def test_band_layout_follows_the_stride_32_rows():
     """736 rows over 2: 12 + 11 stride-32 rows, bands of 384 + 352; 224
-    over 4: 2 + 2 + 2 + 1; at every level a band is its units times the
-    level's rows a unit."""
+    over 4: 2 + 2 + 2 + 1; at every level (told by its columns) a band is
+    its units times the level's rows a unit."""
     assert model_axis.band_units(736, 2) == [12, 11]
     assert model_axis.band_units(224, 4) == [2, 2, 2, 1]
-    band = model_axis.Split("rows", None, 1, 2, (12, 11))
-    assert model_axis.band_rows(736, band) == slice(384, 736)
-    assert model_axis.band_rows(23, band) == slice(12, 23)
-    assert model_axis.level_bands(88, band) == [(0, 96), (96, 184)]
-    with pytest.raises(ValueError, match="does not split into the bands"):
-        model_axis.band_rows(50, band)
+    band = model_axis.Split("rows", None, 1, 2, (12, 11), image=(736, 1280))
+    assert model_axis.band_rows(736, 1280, band) == slice(384, 736)
+    assert model_axis.band_rows(23, 40, band) == slice(12, 23)
+    assert model_axis.level_bands(88, 320, band) == ((0, 96), (96, 184))
+    with pytest.raises(ValueError, match="leaves the last of the bands"):
+        model_axis.band_rows(20, 80, band)
+    with pytest.raises(ValueError, match="not one of the model's maps"):
+        model_axis.band_rows(50, 77, band)
 
 
 def _fake_split(count: int = 2):
@@ -253,11 +255,16 @@ def test_band_split_raises_for_other_backbones_and_necks_naming_f7d(backbone, ne
 
 @pytest.mark.parametrize("name", BACKBONES)
 def test_band_split_raises_for_a_height_not_a_multiple_of_32(name):
+    """A height that is not a multiple of 32 splits where JAX's whole VPS
+    step runs (176 rows over 2: 96 + 80, the last band's stride-32 row
+    partial) and raises where it does not (180 rows: not a multiple of 8),
+    before anything runs."""
+    assert model_axis.band_units(176, 2) == [3, 3]
     bb = build_backbone(name)
     token = _fake_split()
     try:
-        with pytest.raises(NotImplementedError, match="not 176 .*F7d"):
-            backbone_and_neck(bb, build_neck("fpn", bb), torch.zeros(1, 176, 64, 3))
+        with pytest.raises(ValueError, match="refuses 180 image rows"):
+            backbone_and_neck(bb, build_neck("fpn", bb), torch.zeros(1, 180, 64, 3))
     finally:
         model_axis._SPLIT.reset(token)
 

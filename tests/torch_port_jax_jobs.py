@@ -32,6 +32,9 @@ Jobs:
 - `sharded_vis`: `make_sharded_vis_train_step` alike (with a `model` axis,
   the clip's frames sharded over it).
 - `vis_live_bn`: the VIS loss with live BatchNorm and its new statistics.
+- `whole_step_heights`: at which of the given image heights the VPS loss
+  of a config traces (`jax.eval_shape`, nothing compiled): {height: None,
+  or the error's first line}.
 """
 
 from __future__ import annotations
@@ -336,6 +339,32 @@ def sharded_vis(cfg, variables, batches, n_model: int = 1) -> dict:
         _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model, wrap)
 
 
+def whole_step_heights(cfg, heights, width: int) -> dict:
+    """Each height's VPS loss traced on a synthetic batch of `heights[i]` x
+    `width` (parameter shapes from the first height's init, which no image
+    size changes): None where it traces, else the error's first line."""
+    import jax
+
+    import video_knet_tpu.train.vps as jtvps
+    from video_knet_tpu.models.video.knet_vps import VideoKNet
+
+    model = VideoKNet(cfg, train=True)
+    loss = jtvps.make_vps_loss_fn(model, cfg)
+    first = jtvps.make_synthetic_batch(cfg, 1, (heights[0], width))
+    variables = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), first.img,
+                                                  first.ref_img))
+    out = {}
+    for h in heights:
+        batch = jtvps.make_synthetic_batch(cfg, 1, (h, width))
+        try:
+            jax.eval_shape(lambda v, b: loss(v["params"], v.get("batch_stats", {}), b),
+                           variables, batch)
+            out[h] = None
+        except ValueError as e:
+            out[h] = str(e).splitlines()[0]
+    return out
+
+
 def vis_live_bn(cfg, variables, clip, gt) -> dict:
     """JAX's VIS loss (`make_vis_loss_fn`, live BatchNorm) on one clip batch:
     the losses and the new batch statistics."""
@@ -373,7 +402,8 @@ if __name__ == "__main__":
         spec = pickle.load(f)
     result = {"cli": cli, "direct_vps": direct_vps, "direct_vis": direct_vis,
               "live_bn_resnet": live_bn_resnet, "sharded_vps": sharded_vps,
-              "sharded_vis": sharded_vis, "vis_live_bn": vis_live_bn}[spec.pop("job")](**spec)
+              "sharded_vis": sharded_vis, "vis_live_bn": vis_live_bn,
+              "whole_step_heights": whole_step_heights}[spec.pop("job")](**spec)
     with open(out_path + ".tmp", "wb") as f:
         pickle.dump(result, f)
     os.replace(out_path + ".tmp", out_path)

@@ -91,10 +91,14 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     it, gathered nowhere; the share stays active for the heads and the
     losses. The frame split returns this rank's frames of each clip, rows
     `model_axis.frame_rows` of `img` (`model_axis.in_frames`). The band
-    split (ResNet, Swin and MiT with the FPN, at heights that are whole
-    multiples of 32) returns this rank's band of each level
-    (`model_axis.in_band`); a consumer that needs the whole map gathers it
-    (`model_axis.whole_map`).
+    split (ResNet, Swin and MiT with the FPN) takes every height at which
+    JAX's whole VPS step runs, the multiples of 8 rows, with at least as
+    many stride-32 rows (the last one partial) as bands: every band but
+    the last ends on a whole stride-32 row, the last holds the rest (376
+    rows over 2: 192 + 184). It returns this rank's band of each level
+    (`model_axis.in_band`), its rows of the whole level at any height
+    (`model_axis.level_bands`); a consumer that needs the whole map gathers
+    it (`model_axis.whole_map`). ValueError for a height it does not take.
     """
     split = active_split()
     if split is None:
@@ -104,7 +108,7 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
             raise NotImplementedError(
                 f"the band split of the mesh's `model` axis runs ResNet, Swin and MiT with the "
                 f"FPN, not {type(backbone).__name__} + {type(neck).__name__} (ROADMAP F7d)")
-        band, select = image_band(split, img.shape[1])
+        band, select = image_band(split, img.shape[1], img.shape[2])
         with running_share(band, select):
             share = _pyramid(backbone, neck, select(img), generator)
         hold_share(band, select)

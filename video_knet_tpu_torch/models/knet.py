@@ -200,7 +200,7 @@ def mask_losses(pred: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor, mask_wei
     elements: the whole map's, on a band; the rows of every frame, under
     the frame split)."""
     rows = global_sum(frame_count(w.sum()))
-    pixels = level_height(pred.shape[1]) * pred[0, 0].numel()
+    pixels = level_height(*pred.shape[1:3]) * pred[0, 0].numel()
     return {names[0]: L.binary_cross_entropy(pred, tgt, w, loss_weight=mask_weight,
                                              avg_factor=rows * pixels),
             names[1]: L.dice_loss(pred, tgt, w, loss_weight=dice_weight, avg_factor=rows)}

@@ -13,9 +13,13 @@ defaults differ:
 
 On a band of the image rows (the band split of the mesh's `model` axis,
 `parallel/model_axis.py`) the layers that reach across rows compute what
-the whole map's do on the band's rows: convolutions and pools take halos,
-bilinear upsampling the neighbour rows, GroupNorm the whole map's
-statistics.
+the whole map's do on the band's rows, from the whole map's geometry:
+convolutions and pools take the rows their windows read at the whole
+map's padding, a bilinear upsampling by a whole factor the neighbour rows,
+any other resize the source rows its output rows read, GroupNorm the whole
+map's statistics. Each takes `bands`, every rank's rows of its input map,
+where that map is not a level of the backbone (the Semantic-FPN's
+upsampled maps); else it tells the level by its columns.
 
 Submodules carry the flax module names (`Dense_0`, `LayerNorm_0`, ...), so
 `utils/convert.py` maps a flax variables tree onto `state_dict` keys by path.
@@ -32,11 +36,14 @@ from torch import nn
 from video_knet_tpu_torch.parallel.mesh import active_mesh, sum_with_grad
 from video_knet_tpu_torch.parallel.model_axis import (
     band_slice,
-    halo,
+    fetch_rows,
     in_band,
+    level_bands,
     level_height,
     model_sum,
     neighbour_rows,
+    scaled_bands,
+    window_rows,
 )
 
 # ---------------------------------------------------------------- XLA helpers
@@ -49,17 +56,40 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _nearest_index(m: int, n: int, device=None) -> torch.Tensor:
+    """The source index of each of `n` outputs of `m` inputs:
+    floor((i + 0.5) * m / n), computed in float32 as JAX computes it."""
+    return ((torch.arange(n, dtype=torch.float32, device=device) + 0.5) * m / n).floor().long()
+
+
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int], dims=(-2, -1)) -> torch.Tensor:
     """Nearest resize of the two `dims` of `x`, as `jax.image.resize(..., "nearest")`.
 
-    Works on any dtype (labels included) by an index gather."""
+    Works on any dtype (labels included) by an index gather. On a band of
+    NHWC features (`dims` (1, 2), the FPN's top-down resize) `out_hw` is
+    the band of the output level, and each of its rows takes its source
+    row of the whole input level, from the band that owns it."""
+    band = in_band()
+    if band is not None and tuple(dims) == (1, 2):
+        x = _banded_nearest(x, out_hw, band)
+        dims, out_hw = (2,), out_hw[1:]
     for d, n in zip(dims, out_hw):
         m = x.shape[d]
         if m == n:
             continue
-        idx = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n)
-        x = x.index_select(d, idx.floor().long())
+        x = x.index_select(d, _nearest_index(m, n, x.device))
     return x
+
+
+def _banded_nearest(x: torch.Tensor, out_hw: tuple[int, int], band) -> torch.Tensor:
+    """The rows of NHWC band `x` (a level) that the whole level's nearest
+    resize gives the band `out_hw` of the output level (its columns left
+    as they are)."""
+    src, out = (level_bands(*hw, band) for hw in (x.shape[1:3], out_hw))
+    if src[-1][1] == out[-1][1]:
+        return x
+    idx = _nearest_index(src[-1][1], out[-1][1]).tolist()
+    return fetch_rows(x, tuple(tuple(idx[a:b]) for a, b in out), band, bands=src)
 
 
 def _interp_bilinear(x_nchw: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -73,36 +103,61 @@ def _interp_bilinear(x_nchw: torch.Tensor, out_hw: tuple[int, int]) -> torch.Ten
     return y.to(x_nchw.dtype)
 
 
-def _banded_rows(x: torch.Tensor, out_hw: tuple[int, int], band) -> torch.Tensor:
-    """The bilinear resize of NHWC band `x` as the whole map's resize gives
-    this band's rows: an upsampling by a whole factor r of the rows (not
-    shrinking the columns), run on the band with its neighbour rows, whose
-    output rows are then cut to r times the band's. Each kept output row
-    takes the whole map's source rows and weights (clamped only at the
-    global top and bottom), so the result is the whole map's, bit for bit."""
-    h, w = x.shape[1:3]
-    if out_hw[0] % h or out_hw[1] < w:
-        raise NotImplementedError(
-            f"on a band of the image rows a bilinear resize upsamples by a whole factor, not "
-            f"{h}x{w} -> {tuple(out_hw)}")
-    r = out_hw[0] // h
-    if r == 1:
-        return _resize_nhwc(x, out_hw)
-    y, top = neighbour_rows(x, band)
-    return _resize_nhwc(y, (r * y.shape[1], out_hw[1]))[:, r * top:r * (top + h)]
+def _banded_resize(x: torch.Tensor, out_hw: tuple[int, int], band, src: tuple | None,
+                   out: tuple | None = None) -> torch.Tensor:
+    """The rows the whole map's bilinear resize gives this band, from NHWC
+    band `x` of a map whose rows are `src` (default: a level's) to the map
+    whose band here is `out_hw` (its rows `out`; default: a level's).
+    - By a whole factor r of the rows (every rank's output rows r times its
+      input rows), not shrinking the columns: the band with its neighbour
+      rows, resized r times, its own output rows kept. Each kept row takes
+      the whole map's source rows and weights (clamped only at the global
+      top and bottom).
+    - Any other resize (the Semantic-FPN's antialiased shrink of an
+      upsampled level to the fused level, 48 -> 47 rows at 376): the source
+      rows its output rows read (a superset of PyTorch's window, bilinear or
+      antialiased), set at their global rows of a map of the whole input
+      height (zero elsewhere), resized whole, its own output rows kept.
+    Either way PyTorch's kernel runs the whole map's arithmetic on every
+    kept row: the result is the whole map's, bit for bit."""
+    src = level_bands(x.shape[1], x.shape[2], band) if src is None else src
+    out = level_bands(*out_hw, band) if out is None else out
+    h_in, h_out = src[-1][1], out[-1][1]
+    if h_in == h_out and x.shape[2] == out_hw[1]:
+        return x
+    r = h_out // h_in
+    if r * h_in == h_out and out == scaled_bands(src, r) and out_hw[1] >= x.shape[2]:
+        y, top = neighbour_rows(x, band, src)
+        h = x.shape[1]
+        return _resize_nhwc(y, (r * y.shape[1], out_hw[1]))[:, r * top:r * (top + h)]
+    scale = h_in / h_out
+
+    def reads(o0: int, o1: int) -> tuple[int, int]:
+        return (max(math.floor(scale * (o0 - 0.5)) - 1, 0),
+                min(math.ceil(scale * (o1 + 0.5)) + 2, h_in))
+
+    windows = [reads(*o) for o in out]
+    y = fetch_rows(x, tuple(tuple(range(*w)) for w in windows), band, bands=src)
+    first, end = windows[band.index]
+    whole = F.pad(y, (0, 0, 0, 0, first, h_in - end))
+    o0, o1 = out[band.index]
+    return _resize_nhwc(whole, (h_out, out_hw[1]))[:, o0:o1]
 
 
 def _resize_nhwc(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     return _interp_bilinear(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of NHWC features (align_corners=False)."""
-    if tuple(x.shape[1:3]) == tuple(out_hw):
-        return x
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
+                    bands: tuple | None = None) -> torch.Tensor:
+    """Bilinear resize of NHWC features (align_corners=False). On a band,
+    `out_hw` is the band of a level, and `bands` (if given) every rank's
+    rows of `x`'s map (`_banded_resize`)."""
+    if tuple(x.shape[1:3]) == tuple(out_hw) and bands is None:
+        return x  # on a band too: a level's band of the same shape is the same level's
     band = in_band()
     if band is not None:
-        return _banded_rows(x, out_hw, band)
+        return _banded_resize(x, out_hw, band, bands)
     return _resize_nhwc(x, out_hw)
 
 
@@ -120,12 +175,19 @@ def resize_mask_bilinear(m: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tens
     n = x.shape[-1]
     x = F.pad(x, (0, max(4 - n, 0))).contiguous()
     band = in_band()
-    y = _resize_nhwc(x, out_hw) if band is None else _banded_rows(x, out_hw, band)
+    y = _resize_nhwc(x, out_hw) if band is None else _banded_resize(x, out_hw, band, None)
     return y[0, ..., :n].permute(2, 0, 1).reshape(*lead, *out_hw)
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2))
+def upsample2x(x: torch.Tensor, bands: tuple | None = None) -> torch.Tensor:
+    """`x` upsampled twice; on a band, every rank's rows twice its rows of
+    `x`'s map (`bands`, default a level's: `model_axis.scaled_bands`)."""
+    hw = (x.shape[1] * 2, x.shape[2] * 2)
+    band = in_band()
+    if band is None:
+        return resize_bilinear(x, hw)
+    src = level_bands(x.shape[1], x.shape[2], band) if bands is None else bands
+    return _banded_resize(x, hw, band, src, scaled_bands(src, 2))
 
 
 # ------------------------------------------------------------------- modules
@@ -162,13 +224,15 @@ class Conv2d(nn.Module):
         self.padding = padding
         self.groups = groups
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: tuple | None = None) -> torch.Tensor:
+        """`bands`: on a band, every rank's rows of `x`'s map where it is
+        not a level of the backbone."""
         k = self.weight.shape[-1]
         if k == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, self.weight[:, :, 0, 0], self.bias)
         band = in_band()
         if band is not None:
-            return self._banded(x, band)
+            return self._banded(x, band, bands)
         y = x.permute(0, 3, 1, 2)
         if self.padding == "SAME":
             (t, b), (l, r) = (same_padding(s, k, self.stride) for s in y.shape[-2:])
@@ -183,18 +247,20 @@ class Conv2d(nn.Module):
                      groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
-    def _banded(self, x: torch.Tensor, band) -> torch.Tensor:
-        """The rows of the whole level's output that this band of `x` owns:
-        the top `lo` and the bottom k - stride - lo halo rows (lo: the
-        whole level's top padding) from the other bands, the columns padded
-        as usual."""
+    def _banded(self, x: torch.Tensor, band, bands: tuple | None) -> torch.Tensor:
+        """The rows of the whole map's output that this band of `x` owns:
+        the rows its windows read at the whole map's top and bottom padding
+        (`model_axis.window_rows`: from the other bands, zero past the
+        map's global top and bottom), the columns padded as usual."""
         k, s = self.weight.shape[-1], self.stride
+        if bands is None:
+            bands = level_bands(x.shape[1], x.shape[2], band)
         if self.padding == "SAME":
-            lo = same_padding(level_height(x.shape[1]), k, s)[0]
+            lo, hi = same_padding(bands[-1][1], k, s)
             left, right = same_padding(x.shape[2], k, s)
         else:
-            lo = left = right = self.padding
-        y = halo(x, lo, max(k - s - lo, 0), 0.0, band).permute(0, 3, 1, 2)
+            lo = hi = left = right = self.padding
+        y = window_rows(x, bands, k, s, lo, hi, 0.0, band).permute(0, 3, 1, 2)
         if left != right:
             y, left = F.pad(y, (left, right, 0, 0)), 0
         y = F.conv2d(y, self.weight, self.bias, stride=s, padding=(0, left), groups=self.groups)
@@ -203,12 +269,13 @@ class Conv2d(nn.Module):
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """ResNet's stem pool on NHWC: 3x3, stride 2, padding 1 (-inf); on a
-    band of the image's rows the row above the band comes from the band
-    above."""
+    band of the image's rows the rows its windows read past the band come
+    from the other bands (-inf past the level's global top and bottom)."""
     band = in_band()
     if band is None:
         return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
-    y = halo(x, 1, 0, float("-inf"), band).permute(0, 3, 1, 2)
+    bands = level_bands(x.shape[1], x.shape[2], band)
+    y = window_rows(x, bands, 3, 2, 1, 1, float("-inf"), band).permute(0, 3, 1, 2)
     return F.max_pool2d(y, 3, stride=2, padding=(0, 1)).permute(0, 2, 3, 1)
 
 
@@ -227,7 +294,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bands: tuple | None = None) -> torch.Tensor:
+        """`bands`: as for `Conv2d`."""
         b, c = x.shape[0], x.shape[-1]
         g = _fp32(x).reshape(b, -1, self.num_groups, c // self.num_groups)
         if in_band() is None:
@@ -235,7 +303,8 @@ class GroupNorm(nn.Module):
             d = g - mean
             var = (d * d).mean(dim=(1, 3), keepdim=True)
         else:
-            count = level_height(x.shape[1]) * x.shape[2] * g.shape[3]
+            rows = level_height(*x.shape[1:3]) if bands is None else bands[-1][1]
+            count = rows * x.shape[2] * g.shape[3]
             mean = model_sum(g.sum(dim=(1, 3), keepdim=True)) / count
             d = g - mean
             var = model_sum((d * d).sum(dim=(1, 3), keepdim=True)) / count
@@ -319,8 +388,11 @@ class ConvNormAct(nn.Module):
         self.Conv_0 = Conv2d(in_ch, out_ch, kernel_size, stride, bias=False)
         self.GroupNorm_0 = GroupNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.GroupNorm_0(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, bands: tuple | None = None) -> torch.Tensor:
+        """`bands`: as for `Conv2d` (the output has the input's rows: the
+        stride-1 maps of the Semantic-FPN that take them)."""
+        y = self.Conv_0(x, bands)
+        return F.relu(self.GroupNorm_0(y, bands if self.Conv_0.stride == 1 else None))
 
 
 class MLP(nn.Module):
@@ -402,7 +474,7 @@ def band_positional_encoding(h: int, w: int, num_feats: int = 128,
     """`sine_positional_encoding` of a level whose band (or whole map,
     outside the band split) has `h` rows: the whole level's code, at the
     band's global rows."""
-    pe = sine_positional_encoding(level_height(h), w, num_feats, device=device)
+    pe = sine_positional_encoding(level_height(h, w), w, num_feats, device=device)
     return band_slice(pe, 0)
 
 

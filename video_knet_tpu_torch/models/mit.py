@@ -12,9 +12,10 @@ H or W is not a multiple of r is padded, not cropped. Attention is plain
 fp32 einsum + softmax, as in the reference.
 
 On a band of the image rows (the band split of the mesh's `model` axis,
-`parallel/model_axis.py`) the patch embeds and the Mix-FFN's depthwise conv
-take their halos through `Conv2d`, and each block all-gathers its reduced
-keys' and values' input over the `model` group in row order.
+`parallel/model_axis.py`) the patch embeds, the spatial reduction and the
+Mix-FFN's depthwise conv take the rows their windows read through `Conv2d`
+(at the whole level's "SAME" padding), and each block all-gathers its
+reduced keys' and values' input over the `model` group in row order.
 """
 
 from __future__ import annotations
@@ -57,9 +58,12 @@ class EfficientAttention(nn.Module):
         h, w = hw
         nh = self.num_heads
         q = self.q(x).reshape(b, n, nh, c // nh)
-        # on a band of the rows each rank reduces its own rows (a band starts
-        # on a whole stride-32 row, so no r x r window straddles its edge),
-        # then the keys and values come from the whole reduced map
+        # on a band of the rows each rank reduces the windows of its own
+        # output rows (a band starts on a whole stride-32 row; where the
+        # level's height is not a multiple of r, "SAME" pads it on top too
+        # and a window straddles the band edge: the 94 rows of stride 4 at
+        # 376 pad 1 + 1, and `Conv2d` fetches the rows it reads), then the
+        # keys and values come from the whole reduced map
         kv_in = x.reshape(b, h, w, c)
         if self.sr_ratio > 1:
             kv_in = self.sr(kv_in)

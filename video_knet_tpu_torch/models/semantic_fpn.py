@@ -10,11 +10,15 @@ last level's positional encoding gains the temporal term
 Under the frame split of the mesh's `model` axis the leading axis holds
 this rank's frames of each clip, and the temporal encoding added to them
 is the whole clip's at their frames (`num_frames` stays the clip's
-length). On a band of the image rows (the band split)
-the 3x3 convolutions take halos, the stride-2 one pads at the level's
-global height, the upsamplings take the neighbour rows, the GroupNorms the
-whole map's statistics (`models/layers.py`), and the positional encoding
-is the whole level's at the band's rows.
+length). On a band of the image rows (the band split) the 3x3
+convolutions take the rows their windows read, the stride-2 one pads at
+the level's global height, the upsamplings take the neighbour rows, the
+resizes to the fused level the source rows their output rows read, the
+GroupNorms the whole map's statistics (`models/layers.py`), and the
+positional encoding is the whole level's at the band's rows. Where the
+height is not a multiple of 32 an upsampled level is not the next level
+(at 720 rows: stride 32's 23 rows upsampled give 46, stride 16 has 45), so
+the layers take its rows explicitly (`model_axis.scaled_bands`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from video_knet_tpu_torch.models.layers import (
     sine_positional_encoding_3d,
     upsample2x,
 )
-from video_knet_tpu_torch.parallel.model_axis import frame_slice
+from video_knet_tpu_torch.parallel.model_axis import frame_slice, map_rows, scaled_bands
 
 
 class SemanticFPN(nn.Module):
@@ -67,21 +71,24 @@ class SemanticFPN(nn.Module):
                     pe = frame_slice(sine_positional_encoding_3d(
                         num_frames, h, w, c // 2, device=x.device), 0)
                     x = x + pe.repeat(x.shape[0] // pe.shape[0], 1, 1, 1)
+            bands = map_rows(x)  # every rank's rows of x's map, on a band
             if i == 0:
                 for j in range(self.end_level - self.upsample_times):
                     x = getattr(self, f"l0_conv{j}")(x)
+                bands = None
             else:
                 n_up = self.upsample_times - (self.end_level - i)
                 for j in range(i):
-                    x = getattr(self, f"l{i}_conv{j}")(x)
+                    x = getattr(self, f"l{i}_conv{j}")(x, bands)
                     if j < n_up:
-                        x = upsample2x(x)
-            mlvl.append(x)
+                        x = upsample2x(x, bands)
+                        bands = scaled_bands(bands, 2)
+            mlvl.append((x, bands))
         # inputs whose H/W aren't divisible by 32 give off-by-one level sizes
-        target_hw = tuple(mlvl[0].shape[1:3])
-        fused = mlvl[0]
-        for m in mlvl[1:]:
-            fused = fused + resize_bilinear(m, target_hw)
+        target_hw = tuple(mlvl[0][0].shape[1:3])
+        fused = mlvl[0][0]
+        for m, bands in mlvl[1:]:
+            fused = fused + resize_bilinear(m, target_hw, bands)
         outs = [self.conv_pred(fused)]
         for k in range(self.num_aux_convs):
             outs.append(getattr(self, f"aux_conv{k}")(fused))

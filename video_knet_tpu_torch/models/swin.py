@@ -25,8 +25,10 @@ Stochastic depth (training) draws one keep mask per sample from the
 
 On a band of the image rows (the band split of the mesh's `model` axis,
 `parallel/model_axis.py`) every block follows the whole map's global
-coordinates: the padding to a window multiple, whether a stage shifts and
-its -100 mask come from the whole map's size; a block takes the rows of
+coordinates: the padding to a window multiple (all of it below the last
+band), whether a stage shifts and its -100 mask come from the whole map's
+size (the level's global height, `model_axis.level_bands`, not the band's
+rows); a block takes the rows of
 every window that meets its band from the other bands (`window_plan`,
 `fetch_rows`: up to ws - 1 rows above and below, past the neighbouring
 band where bands are shorter than a window, and for the shifted windows
@@ -227,12 +229,12 @@ class SwinBlock(nn.Module):
         rows kept."""
         w = y.shape[2]
         ws = self.window_size
-        bands = tuple(level_bands(y.shape[1], band))
+        bands = level_bands(y.shape[1], w, band)
         hp = -(-bands[-1][1] // ws) * ws
         pad_w = (ws - w % ws) % ws
         shift = ws // 2 if mask is not None else 0
         need, ring, wins, own = window_plan(bands, hp, ws, shift)
-        y = fetch_rows(F.pad(y, (0, 0, 0, pad_w)), need, band, ring=ring)
+        y = fetch_rows(F.pad(y, (0, 0, 0, pad_w)), need, band, ring=ring, bands=bands)
         if shift:
             y = torch.roll(y, -shift, dims=2)
         mine = wins[band.index]
@@ -264,9 +266,11 @@ class PatchMerging(nn.Module):
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # on a band of the rows every band but the last has an even height
-        # (it starts and ends on a whole stride-32 row), so only the last
-        # pads an odd map's bottom row, as the whole map does
+        # on a band of the rows every band but the last starts and ends on a
+        # whole stride-32 row, so below stride 32 its height is even and its
+        # pairs are the whole map's; only the last band, which ends at the
+        # level's global bottom, pads an odd map's bottom row, as the whole
+        # map does (at 720 rows: stride 16's 45 rows, bands of 24 + 21)
         h, w = x.shape[1:3]
         x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
@@ -326,16 +330,16 @@ class SwinTransformer(nn.Module):
         band = in_band()
         x = self.patch_norm(self.patch_embed(x))
         if self.ape:  # resized to the whole map, then cut to the band
-            h = level_height(x.shape[1])
+            h = level_height(*x.shape[1:3])
             with off_band():  # the embedding is the whole map's
                 pos = resize_bilinear(self.absolute_pos_embed, (h, x.shape[2]))
-            x = x + (pos if band is None else pos[:, band_rows(h, band)])
+            x = x + (pos if band is None else pos[:, band_rows(h, x.shape[2], band)])
         if self.frozen_stages >= 0:
             x = x.detach()
         outs = []
         for s in range(len(self.depths)):
             # the whole map's padded size, on a band too
-            hp, wp = (-(-n // ws) * ws for n in (level_height(x.shape[1]), x.shape[2]))
+            hp, wp = (-(-n // ws) * ws for n in (level_height(*x.shape[1:3]), x.shape[2]))
             # one mask a stage, shared by its shifted blocks
             mask = shift_attn_mask(hp, wp, ws, ws // 2, x.device) if min(hp, wp) > ws else None
             for pair in getattr(self, f"stage{s}_pairs"):

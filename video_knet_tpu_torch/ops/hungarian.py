@@ -91,7 +91,7 @@ def mask_cost(mask_logits: torch.Tensor, gt_masks: torch.Tensor, *,
     -(positive agreement + negative agreement) / area, the area HW (the
     whole map's, on a band) unless given. `tubes`: rows over the clip's
     frames (summed over them under the frame split)."""
-    hw = mask_logits.shape[-1] * level_height(mask_logits.shape[-2]) if area is None else area
+    hw = mask_logits.shape[-1] * level_height(*mask_logits.shape[-2:]) if area is None else area
     p = _flat(torch.clamp(torch.sigmoid(mask_logits.float()), 0.01, 1.0))
     t = _flat(gt_masks)
     pos, p_sum, t_sum = (frame_sum if tubes else model_sum)(

@@ -34,23 +34,39 @@ pyramid:
   matched tubes) is the same on every rank and is not summed. Each call
   site names its sum: `model_sum` never sums over frames and `frame_sum`
   never over bands;
-- "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN.
-  The image's H / 32 stride-32 rows split as frames do (`band_units`: the
-  first bands one more where the count does not divide; 736 rows over 2:
-  12 + 11, bands of 384 and 352 rows), so at every level a band starts on
-  a whole row, its rows are the same multiple of its units on every rank
-  (`level_bands`), 2x2 patch merging pairs the right rows and the FPN's
-  nearest 2x top-down resize is local. The layers that reach across rows
-  take the rows they lack from the other bands (`fetch_rows`): each
-  convolution and the stem's max-pool a halo (`halo`; zero, or -inf for
-  the pool, only past the image's global top and bottom), each bilinear
-  upsampling one neighbour row on either side (none past the global edges,
-  where the resize clamps as on the whole map), each Swin block the rows of
-  every window that meets its band (`models/swin.py`: a halo, and for the
-  shifted windows the ring that joins the map's last rows to its first),
-  each MiT block the whole spatially reduced keys and values
-  (`whole_map`), and the aligned head and the RoI track head, whose warps
-  and boxes reach anywhere, the whole pyramid and the whole fused map.
+- "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN,
+  at every height at which JAX's whole VPS step runs: a multiple of 8 rows
+  (`ROWS_MULTIPLE`; at other heights the step's stride-8 mask logits,
+  upscaled, miss the GT's rows). The image's ceil(H / 32) stride-32 rows
+  split as frames do (`band_units`: the first bands one more where the
+  count does not divide); every band but the last ends on a whole
+  stride-32 row and the last holds the partial one (376 rows over 2: 6 + 6
+  units, bands of 192 + 184 rows; 720 over 2: 12 + 11, 384 + 336). A map
+  of the model is told by its columns, which every rank holds whole: at
+  stride s (its columns ceil(W / s)) rank i owns rows [a_i / s, a_{i+1} /
+  s) of it, a_i its band's first image row, and the last rank the rows
+  from its start to the map's global end, ceil(H / s) at a level of the
+  backbone (`level_bands`; the Semantic-FPN's upsampled maps, whose end is
+  twice their source's, pass their rows explicitly: `scaled_bands`). So a
+  band's rows are its global rows' share of the whole map, never guessed
+  from their count (72 rows over 2: 64 + 8, the last band holds one row at
+  strides 8, 16 and 32 alike), and every rank builds the same exchange.
+  Interior bands have even heights below stride 32, so 2x2 patch merging
+  pairs the right rows, and all padding of the whole map falls at its
+  global bottom, in the last band. The layers that reach across rows take
+  the rows they lack from the other bands (`fetch_rows`): each
+  convolution and the stem's max-pool the rows its window reads for the
+  output rows it owns, at the whole level's "SAME" padding
+  (`window_rows`; zero, or -inf for the pool, only past the level's
+  global top and bottom), each bilinear upsampling by a whole factor one
+  neighbour row on either side, any other resize (the FPN's nearest
+  top-down resize, the Semantic-FPN's antialiased shrink) the source rows
+  its own output rows read, each Swin block the rows of every window that
+  meets its band (`models/swin.py`: a halo, and for the shifted windows the
+  ring that joins the map's last rows to its first), each MiT block the
+  whole spatially reduced keys and values (`whole_map`), and the aligned
+  head and the RoI track head, whose warps and boxes reach anywhere, the
+  whole pyramid and the whole fused map.
   Every sum over pixels is a band's partial sum, summed over the `model`
   group before it is used (`model_sum`: GroupNorm's statistics, K1's
   pooled features, the Hungarian costs' and the dice loss's sums, the
@@ -90,7 +106,14 @@ import torch.nn.functional as F
 
 from video_knet_tpu_torch.parallel.mesh import DataMesh
 
-STRIDE = 32  # the backbones' total stride: a band is a whole number of its rows
+STRIDE = 32  # the backbones' total stride: interior bands end on a whole row of it
+# JAX's whole VPS step runs at heights that are multiples of 8 (its stride-8
+# mask logits, upscaled, match the GT's floor(H / 2) or floor(H / 4) rows
+# only there); the band split takes those heights
+ROWS_MULTIPLE = 8
+# the strides of the model's maps on a band: a map of ceil(W / s) columns is
+# at stride s (an upsampled map: its source's stride over the factor)
+STRIDES = (1, 2, 4, 8, 16, 32)
 KINDS = ("rows", "frames")
 
 BYTES = {"halo": 0, "ring": 0, "gather": 0, "reduce": 0}
@@ -106,13 +129,16 @@ class Split:
     """The step's split over the `model` axis: `kind` ("rows" or
     "frames"), the `model` group, this rank's index on it and the count;
     once the backbone runs on a share, `units`: each rank's stride-32 rows
-    of the image, or its frames of a clip."""
+    of the image (the last one's partial row counted whole), or its frames
+    of a clip, and under the band split `image`: the image's (rows,
+    columns)."""
 
     kind: str
     group: Any
     index: int
     count: int
     units: tuple[int, ...] = ()
+    image: tuple[int, int] = (0, 0)
 
 
 _SPLIT: contextvars.ContextVar[Split | None] = contextvars.ContextVar(
@@ -243,7 +269,7 @@ def band_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
     band = in_band()
     if band is None:
         return t
-    rows = band_rows(t.shape[dim], band)
+    rows = band_rows(t.shape[dim], t.shape[dim + 1 if dim >= 0 else dim + t.dim() + 1], band)
     return t.narrow(dim, rows.start, rows.stop - rows.start)
 
 
@@ -255,56 +281,101 @@ def _shares(n: int, count: int) -> list[int]:
 
 def band_units(h: int, count: int) -> list[int]:
     """Each band's stride-32 rows of an image of `h` rows over `count`
-    ranks (736 over 2: 12 + 11). Raises for a height that is not a whole
-    multiple of 32 rows and for fewer stride-32 rows than bands."""
-    if h % STRIDE:
-        raise NotImplementedError(
-            f"the band split takes heights that are whole multiples of {STRIDE} rows (the "
-            f"backbones' total stride), not {h} (ROADMAP F7d)")
-    if h // STRIDE < count:
-        raise ValueError(f"{h} image rows ({h // STRIDE} at stride {STRIDE}) do not split "
+    ranks, the last band's partial row counted whole (736 over 2: 12 + 11;
+    376 over 2: 6 + 6, bands of 192 + 184 rows). Raises ValueError for a
+    height JAX's whole VPS step refuses (not a multiple of
+    `ROWS_MULTIPLE`) and for fewer stride-32 rows than bands."""
+    if h % ROWS_MULTIPLE:
+        raise ValueError(
+            f"JAX's whole VPS step refuses {h} image rows (its stride-8 mask logits, upscaled, "
+            f"miss the GT's rows): the band split takes multiples of {ROWS_MULTIPLE}")
+    units = -(-h // STRIDE)
+    if units < count:
+        raise ValueError(f"{h} image rows ({units} at stride {STRIDE}) do not split "
                          f"into {count} bands")
-    return _shares(h // STRIDE, count)
+    return _shares(units, count)
 
 
-def image_band(split: Split, h: int) -> tuple[Split, Callable]:
-    """This rank's band of an image of `h` rows under the band split
-    `split` (with its `units`), and the cut of a batch laid out over the
-    rows of any level to it."""
-    band = dataclasses.replace(split, units=tuple(band_units(h, split.count)))
-    return band, lambda t: t[:, band_rows(t.shape[1], band)]
+def image_band(split: Split, h: int, w: int) -> tuple[Split, Callable]:
+    """This rank's band of an image of `h` x `w` under the band split
+    `split` (with its `units` and `image`), and the cut of a batch laid out
+    over the rows of any of the model's maps, [B, rows, columns, ...], to
+    it. Raises ValueError where `band_units` does, and for an image too
+    narrow for its maps' columns to tell their strides apart."""
+    band = dataclasses.replace(split, units=tuple(band_units(h, split.count)), image=(h, w))
+    if len({-(-w // s) for s in STRIDES}) < len(STRIDES):
+        raise ValueError(f"an image {w} columns wide is too narrow for the band split: its "
+                         f"maps' columns {[-(-w // s) for s in STRIDES]} repeat")
+    return band, lambda t: t[:, band_rows(t.shape[1], t.shape[2], band)]
 
 
-def _edges(units: tuple[int, ...], per_unit: int) -> list[tuple[int, int]]:
-    ends = [per_unit * sum(units[:i + 1]) for i in range(len(units))]
-    return list(zip([0, *ends[:-1]], ends))
+def _stride_of(band: Split, cols: int) -> int:
+    """The stride of a map `cols` columns wide: ceil(W / s) columns at
+    stride s, or f * ceil(W / s) for a map upsampled f times from stride s
+    (stride s / f). The same on every rank: each holds the map's columns
+    whole."""
+    w = band.image[1]
+    found = {s // f for s in STRIDES for f in STRIDES if f <= s and f * -(-w // s) == cols}
+    if len(found) != 1:
+        raise ValueError(f"a map {cols} columns wide is not one of the model's maps of an "
+                         f"image {w} wide on a band")
+    return found.pop()
 
 
-def band_rows(h: int, band: Split) -> slice:
-    """This rank's band of a level of `h` rows in all (the image, or a
-    level inside the backbone)."""
-    total = sum(band.units)
-    if h % total:
-        raise ValueError(f"a level of {h} rows does not split into the bands {band.units}")
-    start, stop = _edges(band.units, h // total)[band.index]
+def map_bands(band: Split, cols: int, end: int | None = None) -> tuple[tuple[int, int], ...]:
+    """Every rank's (first, end) global rows of the map `cols` columns wide
+    at `band`'s split: at stride s, rank i starts at its band's first image
+    row over s, and the last rank ends at the map's global end `end`
+    (default: ceil(H / s), a level of the backbone)."""
+    s = _stride_of(band, cols)
+    per = STRIDE // s
+    starts = [per * sum(band.units[:i]) for i in range(band.count)]
+    end = -(-band.image[0] // s) if end is None else end
+    if end <= starts[-1]:
+        raise ValueError(f"a map of {end} rows at stride {s} leaves the last of the bands "
+                         f"{band.units} no row")
+    return tuple(zip(starts, [*starts[1:], end]))
+
+
+def scaled_bands(bands: tuple | None, factor: int) -> tuple | None:
+    """The rows of a map `bands` (None outside a band) upsampled `factor`
+    times: every rank's rows times the factor."""
+    return None if bands is None else tuple((factor * a, factor * b) for a, b in bands)
+
+
+def band_rows(h: int, cols: int, band: Split) -> slice:
+    """This rank's rows of a map of `h` rows and `cols` columns in all (the
+    image, a level inside the backbone, an upsampled map)."""
+    start, stop = map_bands(band, cols, h)[band.index]
     return slice(start, stop)
 
 
-def level_bands(rows: int, band: Split) -> list[tuple[int, int]]:
-    """Every rank's (first, end) rows, in the level's global rows, at the
-    level where this rank's band has `rows` rows; the level's height is
-    the last end."""
-    mine = band.units[band.index]
-    if rows % mine:
-        raise ValueError(f"a band of {rows} rows is not a level of the bands {band.units}")
-    return _edges(band.units, rows // mine)
+def level_bands(rows: int, cols: int, band: Split) -> tuple[tuple[int, int], ...]:
+    """Every rank's (first, end) global rows of the level of the backbone
+    (or a map of the heads at its stride) whose band, on this rank, is
+    `rows` x `cols`: told by its columns (`map_bands`), checked by its rows.
+    An upsampled map whose end is not its stride's level's passes its rows
+    (`scaled_bands`) to the layers instead."""
+    bands = map_bands(band, cols)
+    a, b = bands[band.index]
+    if b - a != rows:
+        raise ValueError(f"a band of {rows} x {cols} is not this rank's rows {(a, b)} of a level "
+                         f"of the bands {band.units} of {band.image}")
+    return bands
 
 
-def level_height(rows: int) -> int:
-    """The global height of the level where this rank's band has `rows`
-    rows; `rows` itself outside a band."""
+def map_rows(x: torch.Tensor) -> tuple | None:
+    """The bands of NHWC `x`, a level's band (`level_bands`); None outside
+    a band."""
     band = in_band()
-    return rows if band is None else level_bands(rows, band)[-1][1]
+    return None if band is None else level_bands(x.shape[1], x.shape[2], band)
+
+
+def level_height(rows: int, cols: int) -> int:
+    """The global height of the level whose band on this rank is `rows` x
+    `cols`; `rows` itself outside a band."""
+    band = in_band()
+    return rows if band is None else level_bands(rows, cols, band)[-1][1]
 
 
 def frame_counts(t: int, count: int) -> list[int]:
@@ -441,14 +512,17 @@ def _plan(need: tuple, ring: tuple, bands: tuple, me: int) -> _Plan:
 
 
 def fetch_rows(x: torch.Tensor, need: tuple, split: Split, fill: float = 0.0,
-               ring: tuple | None = None) -> torch.Tensor:
-    """The rows `need[split.index]` (global rows of the level of NHWC band
-    `x`; rows past the level's top or bottom are `fill`) of the whole
-    level, in that order. `need` holds every rank's rows (all ranks call
-    this together with the same `need`); `ring[j]`, if given, the rows rank
-    j takes through a ring (counted apart in `BYTES`). The backward adds
-    each borrowed row's gradient to the rank that owns the row."""
-    bands = tuple(level_bands(x.shape[1], split))
+               ring: tuple | None = None, bands: tuple | None = None) -> torch.Tensor:
+    """The rows `need[split.index]` (global rows of the map of NHWC band
+    `x`; rows past the map's top or bottom are `fill`) of the whole map, in
+    that order. `need` holds every rank's rows (all ranks call this
+    together with the same `need`); `ring[j]`, if given, the rows rank j
+    takes through a ring (counted apart in `BYTES`); `bands`: every rank's
+    rows of the map (default: `x` a level's band, `level_bands`). The
+    backward adds each borrowed row's gradient to the rank that owns the
+    row."""
+    if bands is None:
+        bands = level_bands(x.shape[1], x.shape[2], split)
     ring = tuple(frozenset() for _ in need) if ring is None else ring
     return _Fetch.apply(x, _plan(tuple(need), tuple(ring), bands, split.index), fill, split)
 
@@ -499,24 +573,41 @@ class _Fetch(torch.autograd.Function):
         return gx, None, None, None
 
 
-def halo(x: torch.Tensor, top: int, bottom: int, fill: float, split: Split) -> torch.Tensor:
-    """NHWC band `x` with `top` rows above it and `bottom` below it: the
-    other bands' rows, or `fill` past the level's global top and bottom."""
-    if top == 0 and bottom == 0:
+def window_rows(x: torch.Tensor, bands: tuple, k: int, s: int, lo: int, hi: int,
+                fill: float, split: Split) -> torch.Tensor:
+    """The rows of the whole map (NHWC band `x` of it, every rank's rows
+    `bands`) that a `k`-row window at stride `s` reads, over the map padded
+    by `lo` rows on top and `hi` below (`fill` there), for the output rows
+    this rank owns, from the other bands where they lie there. A rank owns
+    the output rows from its first row over `s` (interior bands start on a
+    multiple of it) to the next rank's, the last to the output's end; run
+    on the rows with no row padding, the window gives exactly them."""
+    end = (bands[-1][1] + lo + hi - k) // s + 1
+    starts = []
+    for a, _ in bands:
+        if a % s:
+            raise ValueError(f"a band starting at row {a} of its map does not start a "
+                             f"stride-{s} window")
+        starts.append(a // s)
+    need = tuple(tuple(range(o0 * s - lo, (o1 - 1) * s - lo + k))
+                 for o0, o1 in zip(starts, [*starts[1:], end]))
+    if need == tuple(tuple(range(a, b)) for a, b in bands):
         return x
-    need = tuple(tuple(range(a - top, b + bottom)) for a, b in level_bands(x.shape[1], split))
-    return fetch_rows(x, need, split, fill)
+    return fetch_rows(x, need, split, fill, bands=bands)
 
 
-def neighbour_rows(x: torch.Tensor, band: Split) -> tuple[torch.Tensor, int]:
+def neighbour_rows(x: torch.Tensor, band: Split,
+                   bands: tuple | None = None) -> tuple[torch.Tensor, int]:
     """NHWC band `x` with the row above it and the row below it from the
-    neighbouring bands, none past the level's global top or bottom: (the
-    rows, the rows added on top). What a bilinear resize of the band needs
-    to give each output row the whole map's arithmetic."""
-    bands = level_bands(x.shape[1], band)
+    neighbouring bands, none past the map's global top or bottom: (the
+    rows, the rows added on top). What a bilinear resize of the band by a
+    whole factor needs to give each output row the whole map's arithmetic.
+    `bands`: as for `fetch_rows`."""
+    if bands is None:
+        bands = level_bands(x.shape[1], x.shape[2], band)
     h = bands[-1][1]
     need = tuple(tuple(range(max(a - 1, 0), min(b + 1, h))) for a, b in bands)
-    return fetch_rows(x, need, band), int(bands[band.index][0] > 0)
+    return fetch_rows(x, need, band, bands=bands), int(bands[band.index][0] > 0)
 
 
 class _ModelSum(torch.autograd.Function):
@@ -625,8 +716,12 @@ def gather_shares(shares: list[torch.Tensor], split: Split, clips: int | None = 
     """Each of this rank's shares gathered over the `model` group into the
     data index's order: bands (`split.units`) stacked along the rows, or
     (`clips`, `frames`) each clip's frames back in b*T + t order."""
-    counts = split.units if frames is None else tuple(frame_counts(frames, split.count))
-    return list(_Gather.apply(split, clips, counts, *shares))
+    if frames is None:  # each level's rows of every band
+        sizes = tuple(tuple(b - a for a, b in level_bands(s.shape[1], s.shape[2], split))
+                      for s in shares)
+    else:  # each rank's frames of a clip
+        sizes = (tuple(frame_counts(frames, split.count)),) * len(shares)
+    return list(_Gather.apply(split, clips, sizes, *shares))
 
 
 def _layout(s: torch.Tensor, clips: int | None) -> tuple[int, int, tuple]:
@@ -638,17 +733,19 @@ def _layout(s: torch.Tensor, clips: int | None) -> tuple[int, int, tuple]:
 
 
 class _Gather(torch.autograd.Function):
-    """Each rank's share of each level is `counts[rank]` times the level's
-    unit (rows per stride-32 row, or 1 frame) along its second axis; the
-    shares are padded to the longest for the all_gather."""
+    """Each rank's share of level l is `sizes[l][rank]` rows, or frames of
+    each clip, along its second axis; the shares are padded to the longest
+    for the all_gather."""
 
     @staticmethod
-    def forward(ctx, split, clips, counts, *shares):
+    def forward(ctx, split, clips, sizes, *shares):
         levels = []
-        for s in shares:
+        for s, n in zip(shares, sizes):
             lead, along, rest = _layout(s, clips)
-            unit = along // counts[split.index]
-            levels.append((lead, [c * unit for c in counts], rest))
+            if along != n[split.index]:
+                raise ValueError(f"a share of {along} along its rows or frames, not this "
+                                 f"rank's {n[split.index]}")
+            levels.append((lead, list(n), rest))
         size = [sum(lead * n[j] * math.prod(rest) for lead, n, rest in levels)
                 for j in range(split.count)]
         flat = torch.cat([s.reshape(-1) for s in shares])

@@ -14,7 +14,8 @@ preemption flag's agreement), {"kind": "replicated"} `mesh.replicated`
 on a module filled with rank + 1, and {"kind": "pyramid"} a backbone +
 FPN's `backbone_and_neck` under the band or the frame split
 (`pyramid_share`), {"kind": "band_pieces"} the heads' banded layers and
-sums (`band_pieces`), and {"kind": "frame_pieces"} the VIS heads' and loss
+sums (`band_pieces`), {"kind": "resize_pieces"} the banded resizes whose
+factor is not whole (`resize_pieces`), and {"kind": "frame_pieces"} the VIS heads' and loss
 block's pieces on a rank's frames (`frame_pieces`).
 `launch(world, argv, tmp)` starts any module's command line that way (the
 train CLIs under a file:// init).
@@ -374,7 +375,7 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
         if frames is None:
             cots = [model_axis.band_slice(shard_batch(mesh, c), 1).to(device)
                     for c in spec["cotangents"]]
-            rows = [model_axis.band_rows(c.shape[1], model_axis.in_band())
+            rows = [model_axis.band_rows(c.shape[1], c.shape[2], model_axis.in_band())
                     for c in spec["cotangents"]]
         else:
             mine = (torch.arange(img.shape[0]) if share is None else
@@ -440,7 +441,7 @@ def _piece_results(inp: dict, device) -> dict:
     banded("upscale_masks", lambda m: upscale_masks(m, 4), inp["masks"], inp["masks_cot"], 2,
            rows_dim=2)
     h, w, c = inp["pe_hwc"]
-    rows = slice(0, h) if band is None else model_axis.band_rows(h, band)
+    rows = slice(0, h) if band is None else model_axis.band_rows(h, w, band)
     out["positional_encoding"] = ("rows:0", band_positional_encoding(
         rows.stop - rows.start, w, c // 2, device=device).cpu())
     # K1's partial sums over the band, summed over the `model` group
@@ -479,10 +480,12 @@ def _piece_results(inp: dict, device) -> dict:
 
 def band_pieces(mesh: DataMesh, device, spec: dict) -> dict:
     """`_piece_results` on this rank's band of an image of `spec["height"]`
-    rows under the band split of `mesh`'s `model` axis (one data index; the
-    band held as after the backbone), and the Semantic-FPN and the kernel
-    head (`spec["head"]`: its config and state dict, eval mode) on the band
-    of `spec["levels"]`, the pyramid. In one process: the whole map."""
+    rows (and `spec["width"]` columns; by default four times the first
+    level's) under the band split of `mesh`'s `model` axis (one data index;
+    the band held as after the backbone), and the Semantic-FPN and the
+    kernel head (`spec["head"]`: its config and state dict, eval mode) on
+    the band of `spec["levels"]`, the pyramid. In one process: the whole
+    map."""
     from video_knet_tpu_torch.models.kernel_head import ConvKernelHead
     from video_knet_tpu_torch.parallel.mesh import data_parallel
 
@@ -490,7 +493,8 @@ def band_pieces(mesh: DataMesh, device, spec: dict) -> dict:
     with data_parallel(mesh), model_axis.model_split(mesh, "rows"):
         split = model_axis.active_split()
         if split is not None:
-            model_axis.hold_share(*model_axis.image_band(split, spec["height"]))
+            model_axis.hold_share(*model_axis.image_band(
+                split, spec["height"], spec.get("width", 4 * spec["levels"][0].shape[2])))
         out = _piece_results(spec["inputs"], device)
         cfg, weights = spec["head"]
         head = ConvKernelHead(cfg, in_channels=spec["levels"][0].shape[-1]).to(device).eval()
@@ -504,6 +508,54 @@ def band_pieces(mesh: DataMesh, device, spec: dict) -> dict:
                       ("seg_preds", 1), ("thing_mask_preds", 2)):
         out[f"head.{name}"] = ("same" if dim is None else f"rows:{dim}",
                                getattr(rpn, name).cpu())
+    out["comm"] = dict(model_axis.BYTES)
+    return out
+
+
+def resize_pieces(mesh: DataMesh, device, spec: dict) -> dict:
+    """The resizes of the band split whose factor is not whole, on this
+    rank's band of an image of `spec["hw"]` under the band split of `mesh`'s
+    `model` axis (one data index, the band held as after the backbone), to
+    the stride-8 level, each as `band_pieces` gives its pieces ("rows:1",
+    its output band and its input's gradient, from the cotangent
+    `spec["cot"]`): "nearest", the FPN's top-down resize of the stride-16
+    level `spec["x16"]`; "shrink", the Semantic-FPN's antialiased resize of
+    `spec["up"]`, the stride-16 level upsampled twice (its rows
+    `model_axis.scaled_bands`); "upsample", the Semantic-FPN's chain on the
+    stride-32 level `spec["x32"]`: upsampled twice over, then resized. In
+    one process: the whole map."""
+    from video_knet_tpu_torch.models.layers import resize_bilinear, resize_nearest, upsample2x
+    from video_knet_tpu_torch.parallel.mesh import data_parallel
+
+    h8, w8 = spec["cot"].shape[1:3]
+    out = {}
+    model_axis.reset_bytes()
+    with data_parallel(mesh), model_axis.model_split(mesh, "rows"):
+        split = model_axis.active_split()
+        if split is not None:
+            model_axis.hold_share(*model_axis.image_band(split, *spec["hw"]))
+        band = model_axis.in_band()
+        rows8 = h8 if band is None else len(range(h8)[model_axis.band_rows(h8, w8, band)])
+        src16 = None if band is None else model_axis.map_bands(band, spec["x16"].shape[2])
+
+        def banded(name, fn, x):
+            xb = _band_of(x, 1, device, grad=True)
+            y = fn(xb)
+            (y * _band_of(spec["cot"], 1, device)).sum().backward()
+            out[name] = ("rows:1", y.detach().cpu())
+            out[f"{name}.grad"] = ("rows:1", xb.grad.cpu())
+
+        def chain(x):
+            bands = model_axis.map_rows(x)
+            y = upsample2x(x)
+            bands = model_axis.scaled_bands(bands, 2)
+            y = upsample2x(y, bands)
+            return resize_bilinear(y, (rows8, w8), model_axis.scaled_bands(bands, 2))
+
+        banded("nearest", lambda x: resize_nearest(x, (rows8, w8), dims=(1, 2)), spec["x16"])
+        banded("shrink", lambda x: resize_bilinear(x, (rows8, w8),
+                                                   model_axis.scaled_bands(src16, 2)), spec["up"])
+        banded("upsample", chain, spec["x32"])
     out["comm"] = dict(model_axis.BYTES)
     return out
 
@@ -820,6 +872,9 @@ def _worker(spec_path: str, out_dir: str) -> None:
             elif spec["kind"] == "band_pieces":
                 results.append(band_pieces(distributed.global_mesh(spec["n_model"]), device,
                                            spec))
+            elif spec["kind"] == "resize_pieces":
+                results.append(resize_pieces(distributed.global_mesh(spec["n_model"]), device,
+                                             spec))
             elif spec["kind"] == "frame_pieces":
                 results.append(frame_pieces(distributed.global_mesh(spec["n_model"]), device,
                                             spec))

@@ -130,9 +130,10 @@ def train_step(state: TrainState, batch: VPSBatch, generator: torch.Generator | 
     `total_loss`, as device tensors). Over a mesh `batch` is this rank's
     data index's rows of the global batch (`parallel/mesh.py:shard_batch`)
     and the losses are the global batch's; the `model` axis splits the
-    model and its losses into bands of the image rows, whose height must
-    be a whole multiple of 32 rows, at least 32 a rank (the bands' stride-32
-    rows differ by at most one).
+    model and its losses into bands of the image rows at any height JAX's
+    whole step takes (a multiple of 8 rows) with at least one stride-32 row
+    a rank: every band but the last ends on a whole stride-32 row, the last
+    holds the partial one (`parallel/model_axis.py:band_units`).
 
     With `backbone_drop_path_rate` > 0 (the Swin configs) the stochastic
     depth draws from `generator`, by default one on the batch's device
