@@ -340,10 +340,10 @@ Phases, each raising on failure (the process then exits non-zero):
                gathered); 3 steps of each, then a live-BN step of each, and
                one step of `video_knet_vis_volume_r50_ytvis2019` on the
                same clips: every step's losses within 1e-4 (1e-2 at a step
-               whose hard decisions the split takes apart, printed), the
-               presets' first step's gradient within 1e-3 (ReLU decisions
-               and mask-pool binarizations replayed on each rank's share;
-               the live step's printed), the
+               whose hard decisions the split takes apart, printed; every
+               step's ReLU decisions and mask-pool binarizations replayed on
+               each rank's share), the presets' first step's gradient
+               within 1e-3 (the live step's printed), the
                live statistics within 1e-5, each rank's
                backbone input its share, 7 / 7 / 1 launches a step on each
                rank (4 / 4 / 1 in volume mode); per rank: step ms, peak
@@ -351,7 +351,11 @@ Phases, each raising on failure (the process then exits non-zero):
                below `MODEL_AXIS_PEAK_SHARE`), the bytes a step it hands to
                the collectives (the VIS ranks' gather below 1% of the
                pyramid gather the frame split made before its heads ran on
-               frames) (ranks on one card: not a scaling figure)
+               frames) (ranks on one card: not a scaling figure); also
+               R-50 KITTI-STEP with the MSDeformAttn decoder at 376x1248
+               (vps-deform-376: each encoder layer gathers the whole value
+               maps, bytes as `dp_check.decoder_gather_bytes` reckons) and
+               the deformable VIS preset (vis-deform), a step each
  55. train-model-axis-swin  the band split of Swin and MiT on the same
                mesh, held as phase 54 holds its presets: Swin-B VIP-Seg
                (`video_knet_vipseg_swin_b`) at 736x1280, B=1, drop path 0.3,
@@ -585,14 +589,22 @@ MODEL_AXIS_SWIN_BANDS = (384, 352)  # 736 rows: 23 at stride 32, split 12 + 11
 # in -swin): 12 stride-32 rows, the last partial, 6 + 6; VIP-Seg's native
 # 720p (Swin-B in -swin): 23, the last half, 12 + 11
 MODEL_AXIS_KITTI_HW, MODEL_AXIS_KITTI_BANDS = (376, 1248), (192, 184)
+# the MSDeformAttn decoder on the bands (vps-deform-376) and on each VIS
+# rank's frames (vis-deform): its sampling offsets drawn to spread this many
+# pixels (at their init every query samples its own pixel and no band would
+# read another's rows)
+MODEL_AXIS_DEFORM_REACH = 2.0
 MODEL_AXIS_VIPSEG_HW, MODEL_AXIS_VIPSEG_BANDS = (720, 1280), (384, 336)
 MODEL_AXIS_SEED = 0
 # each rank against the one-process step on the card: every step's losses,
-# relative; the presets' first step's gradient (the ranks replaying the
-# one-process run's ReLU decisions and K1 binarizations on their band or
-# frames: an H100 took 9 pixels of a VIS step's pools apart under the
-# frame split, and one moved a clip stage's gradient by 1.3e-3 of its
-# scale), each parameter against `_grad_scale`; the live-BN step's
+# relative; the presets' first step's gradient, each parameter against
+# `_grad_scale`. At every step the ranks replay the one-process run's ReLU
+# decisions and K1 binarizations on their band or frames: an H100 took 9
+# pixels of a VIS step's pools apart under the frame split, and one moved
+# a clip stage's gradient by 1.3e-3 of its scale; with the first step alone
+# replayed, an H100 read the VPS preset's loss_track 2.3e-2 apart at its
+# second step (its GT slots' embeddings follow the Hungarian assignment,
+# which a cascade like the one below can move). The live-BN step's
 # statistics, each leaf against
 # its largest magnitude. The live-BN step's gradient is printed, not held:
 # its one-pass variance, E[x^2] - mean^2 summed band by band, moves the
@@ -618,10 +630,13 @@ TOL_MODEL_AXIS_SPLIT_LOSS = 1e-2
 # heights that are not a multiple of 32 had no split before, so their
 # bounds are the highest share a rank read over two H100 runs plus one
 # point (R-50 at 376x1248 68.7% / 68.8%, Swin-B at 720x1280 59.2% / 59.1%,
-# MiT-b0 at 376x1248 58.2% / 58.2%; PERF.md)
+# MiT-b0 at 376x1248 58.2% / 58.2%; PERF.md), and so are the decoder's
+# (R-50 + the MSDeformAttn decoder at 376x1248 56.3% / 56.3%, the deformable
+# VIS preset 65.7% / 65.7%)
 MODEL_AXIS_PEAK_SHARE = {"vps": 0.811, "vps-live": 0.811, "swin-b": 0.727,
                          "vis": 0.819, "vis-live": 0.809, "vps-376": 0.698,
-                         "swin-b-720": 0.602, "mit-b0-376": 0.592}
+                         "swin-b-720": 0.602, "mit-b0-376": 0.592,
+                         "vps-deform-376": 0.573, "vis-deform": 0.667}
 # a VIS rank's gather a step, below this share of the pyramid gather the
 # frame split made while the heads ran whole (156,958,720 bytes a rank a
 # step at 1x5x360x640: its 3 frames' levels forward, the clip's 5 back)
@@ -4476,21 +4491,26 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     preset, then one step of each with live BatchNorm (`norm_eval=False`),
     and one step of the VIS volume preset on the same clips; one step of the
     VPS preset at MODEL_AXIS_KITTI_HW, 376 rows (not a multiple of 32: bands
-    of 192 + 184). Every step's
+    of 192 + 184), and at that size with the MSDeformAttn pixel decoder
+    (`vps-deform-376`: six encoder layers over strides 8-32, each gathering
+    the whole value maps); one step of the deformable VIS preset
+    (`vis-deform`, the decoder per frame). Every step's
     losses (the
     presets' beside the hard decisions the split takes apart, which loosen
-    that step's limit), the presets' first step's gradient (the ranks
-    replaying the one-process run's ReLU decisions and mask-pool
-    binarizations on their band or frames) and the live statistics within
+    that step's limit; at every step the ranks replay the one-process
+    run's ReLU decisions and mask-pool binarizations on their band or
+    frames), the presets' first step's gradient and the live statistics within
     TOL_MODEL_AXIS; each rank's backbone
     input its share; 7 / 7 / 1
     launches a step on each rank (4 / 4 / 1 in volume mode). Per rank: step
     ms, peak memory beside the one-process run's, the bytes it hands to the
-    collectives a step: the VPS bands gather nothing, the VIS frames gather
+    collectives a step: the VPS bands gather nothing but the decoder's value
+    maps (`dp_check.decoder_gather_bytes`, exactly), the VIS frames gather
     the merge's per-frame kernels alone, below MODEL_AXIS_VIS_GATHER_SHARE
     of the pyramid gather (`_vis_pyramid_gather`); both reduce."""
     from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.parallel.model_axis import frame_counts
+    from video_knet_tpu_torch.tools.dp_check import decoder_gather_bytes
     from video_knet_tpu_torch.train import vis as tvis
     from video_knet_tpu_torch.train import vps as tvps
 
@@ -4523,19 +4543,40 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     expected["vps-376"] = TRAIN_LAUNCHES
     shares["vps-376"] = [[(2 * b, rows, MODEL_AXIS_KITTI_HW[1], 3)]
                          for rows in MODEL_AXIS_KITTI_BANDS]
+    deform = dataclasses.replace(vps, neck_type="msdeform_pixel_decoder")
+    specs["vps-deform-376"] = {**specs["vps-376"], "cfg": deform,
+                               "spread_offsets": MODEL_AXIS_DEFORM_REACH}
+    expected["vps-deform-376"], shares["vps-deform-376"] = TRAIN_LAUNCHES, shares["vps-376"]
+    vis_deform = get_config("video_knet_vis_r50_deformable_ytvis2019")
+    if vis_deform.neck_type != "msdeform_pixel_decoder":
+        raise AssertionError("[train-model-axis] not the deformable VIS preset")
+    specs["vis-deform"] = dict(kind="vis", cfg=vis_deform, seed=MODEL_AXIS_SEED,
+                               decisions=True, spread_offsets=MODEL_AXIS_DEFORM_REACH,
+                               batches=[tvis.make_synthetic_batch(vis_deform, b, VIS_HW,
+                                                                  seed=0, device="cpu")])
+    expected["vis-deform"], shares["vis-deform"] = VIS_TRAIN_LAUNCHES, shares["vis"]
     out = _model_axis_runs("train-model-axis", device, tmp, specs, expected, shares)
-    # neither split gathers the pyramid: the band split gathers nothing, the
-    # frame split the merge's per-frame kernels (none in volume mode); the
-    # heads and losses run on the band or the frames, their sums reduced
+    # neither split gathers the pyramid: the band split gathers nothing but
+    # the decoder's value maps, the frame split the merge's per-frame kernels
+    # (none in volume mode); the heads and losses run on the band or the
+    # frames, their sums reduced
     pyramid = _vis_pyramid_gather()
+    # the decoder's six encoder layers on [ref; key]
+    values = decoder_gather_bytes(MODEL_AXIS_KITTI_HW, MODEL_AXIS_N, 2 * b, layers=6)
     for tag in specs:
         comm = [c for r in out[tag]["comm"] for c in r]
-        ok = (all(c["gather"] == 0 and c["reduce"] > 0 and c["halo"] > 0 for c in comm)
+        ok = (all(c["gather"] == (values if tag == "vps-deform-376" else 0)
+                  and c["reduce"] > 0 and c["halo"] > 0 for c in comm)
               if tag.startswith("vps") else
               all(c["gather"] < MODEL_AXIS_VIS_GATHER_SHARE * pyramid and c["reduce"] > 0
                   for c in comm))
         if not ok:
             raise AssertionError(f"[train-model-axis] {tag}: bytes by kind {comm}")
+        if tag == "vps-deform-376":
+            log(f"[train-model-axis] {tag}: the decoder's value-map gather a step on each "
+                f"rank {[max(c['gather'] for c in r) for r in out[tag]['comm']]} bytes, as "
+                f"reckoned ({values}: {2 * b} images, [ref; key]; {values // (2 * b)} an "
+                f"image)")
         if tag.startswith("vis"):
             log(f"[train-model-axis] {tag}: gather a step by rank "
                 f"{[max(c['gather'] for c in r) for r in out[tag]['comm']]} bytes, below "
@@ -4558,11 +4599,11 @@ def _vis_pyramid_gather() -> int:
 
 def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
                      shares: dict) -> dict:
-    """Each spec's one-process run on the card (recording the first step's
+    """Each spec's one-process run on the card (recording every step's
     ReLU decisions and mask-pool binarizations; its memory freed before the
     ranks start), then all of
     them over MODEL_AXIS_N gloo ranks sharing the card, each rank replaying
-    the decisions on its rows, band or frames; every rank held against the
+    the decisions on its rows, band or frames at every step; every rank held against the
     one-process run as `phase_train_model_axis` says. {tag: its record}."""
     from video_knet_tpu_torch.parallel.mesh import DataMesh
     from video_knet_tpu_torch.tools import dp_check
@@ -4572,7 +4613,7 @@ def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
         relus: list = []
         pools: list = []
         one[tag] = _uncounted(lambda: dp_check.train_steps(
-            DataMesh(), device, {**spec, "record_steps": 1}, record=relus, pools=pools))
+            DataMesh(), device, spec, record=relus, pools=pools))
         one[tag]["relus"], one[tag]["pools"] = relus, pools
         if device.type == "cuda":  # the ranks share the card
             gc.collect()
@@ -4591,10 +4632,10 @@ def _model_axis_runs(path: str, device, tmp: str, specs: dict, expected: dict,
         for r in per_rank:  # the ranks' launch shapes, for kernel-shapes to hold
             for k, shapes in r["shapes"].items():
                 mo.SHAPES[k].update(shapes)
-        if not all(r["replayed"] == [True] for r in per_rank):
+        if not all(r["replayed"] == [True] * len(spec["batches"]) for r in per_rank):
             raise AssertionError(f"[{path}] {tag}: a rank did not replay every ReLU "
-                                 f"decision and mask-pool binarization of the first step")
-        log(f"[{path}] {tag}: the first step's replayed decisions that a rank's own would "
+                                 f"decision and mask-pool binarization of every step")
+        log(f"[{path}] {tag}: each step's replayed decisions that a rank's own would "
             f"have taken otherwise: ReLU {[r['differ'] for r in per_rank]}, mask-pool pixels "
             f"{[r['pool_differ'] for r in per_rank]}")
         tol = TOL_MODEL_AXIS_LIVE if tag.endswith("live") else TOL_MODEL_AXIS

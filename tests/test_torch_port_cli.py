@@ -50,7 +50,7 @@ import video_knet_tpu.data.datasets  # noqa: F401
 import video_knet_tpu.data.panoptic_png  # noqa: F401
 import video_knet_tpu.data.transforms  # noqa: F401
 import video_knet_tpu.data.tta  # noqa: F401
-import video_knet_tpu.data.ytvis  # noqa: F401
+import video_knet_tpu.data.ytvis as jytvis
 import video_knet_tpu.eval.coco_instance  # noqa: F401
 import video_knet_tpu.eval.miou  # noqa: F401
 import video_knet_tpu.models.video.inference  # noqa: F401
@@ -59,6 +59,7 @@ import video_knet_tpu.train.eval_hook  # noqa: F401
 import video_knet_tpu_torch.config as tconfig
 import video_knet_tpu_torch.config_vis as tconfig_vis
 import video_knet_tpu_torch.configs as tconfigs
+import video_knet_tpu_torch.data.ytvis as tytvis
 from video_knet_tpu.models.knet import KNet as JKNet
 from video_knet_tpu.models.vis.knet_vis import KNetVIS as JKNetVIS
 from video_knet_tpu.models.video.knet_vps import VideoKNet as JVideoKNet
@@ -70,7 +71,7 @@ from video_knet_tpu_torch.models.video.inference import VPSInferencePipeline
 from video_knet_tpu_torch.models.video.knet_vps import VideoKNet
 from video_knet_tpu_torch.models.vis.knet_vis import KNetVIS
 from video_knet_tpu_torch.tools import trained_golden as tg
-from video_knet_tpu_torch.tools.train_check import vis_check_cfg, vis_margin_seed
+from video_knet_tpu_torch.tools.train_check import VIS_MASK_TOL, vis_check_cfg, vis_margin_seed
 from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
 
 SIZE = ["--size", "64", "128"]  # keep-ratio: 64x96 content, padded on the right
@@ -169,6 +170,28 @@ def _vis_cfgs():
     return pair, vis_margin_seed(pair[0], VIS_HW)[0]
 
 
+def _replaying(jax_masks: dict, record: dict):
+    """The port's `tracks_from_prediction` with JAX's mask decisions
+    replayed: a pixel whose decoded mask logit lies on the other side of
+    the CLI's threshold (0) than JAX's takes JAX's logit, so that a logit
+    within the two packages' rounding of 0 cannot flip a pixel of the RLEs.
+    `record[video_id]` gets the pixels replayed, the largest |port - JAX|
+    logit, the video's largest |JAX logit| and the largest |JAX logit| of a
+    replayed pixel."""
+    tracks = tytvis.tracks_from_prediction
+
+    def replaying(video_id, masks, *args, **kwargs):
+        want = jax_masks[video_id]
+        assert masks.shape == want.shape and masks.min() < 0 and want.min() < 0
+        flip = (masks > 0) != (want > 0)
+        record[video_id] = dict(replayed=int(flip.sum()), err=float(np.abs(masks - want).max()),
+                                scale=float(np.abs(want).max()),
+                                at=float(np.abs(want[flip]).max(initial=0.0)))
+        return tracks(video_id, np.where(flip, want, masks), *args, **kwargs)
+
+    return replaying
+
+
 @pytest.fixture(scope="module")
 def serving(tmp_path_factory):
     """Every serving CLI of both packages over the same trees and weights.
@@ -179,7 +202,10 @@ def serving(tmp_path_factory):
     classes, score gates at zero), `test_image` (the tiny image config) and
     `test_coco_instance`. The JAX runs go in threads (XLA compiles outside
     the GIL), each CLI module instance with its own argv and output; the JAX
-    `test_step`'s TTA function is kept (`jax_tta`) for the direct checks."""
+    `test_step`'s TTA function is kept (`jax_tta`) for the direct checks,
+    and JAX's `test_whole_video` decoded mask logits, which a second run of
+    the port's (`vis_replay`, out dir `port_replay`) replays at the
+    threshold (`_replaying`)."""
     import video_knet_tpu.data.tta as jtta
     from test_dvps_e2e import _write_fake_semkitti
 
@@ -220,8 +246,13 @@ def serving(tmp_path_factory):
         "vis": ("test_whole_video", ["--ann-file", vis_ann, "--img-root", vis_imgs, *VIS_CLIP,
                                      "--size", *map(str, VIS_HW)], "vis", True),
     }
-    made = []
+    made, jax_masks, replayed = [], {}, {}
     make = jtta.make_tta_semantic_fn
+    jax_tracks = jytvis.tracks_from_prediction
+
+    def jax_recorded(video_id, masks, *args, **kwargs):
+        jax_masks[video_id] = np.array(masks)
+        return jax_tracks(video_id, masks, *args, **kwargs)
 
     def recorded(*args, **kwargs):
         made.append(make(*args, **kwargs))
@@ -239,6 +270,7 @@ def serving(tmp_path_factory):
                 (jconfig_vis, "youtube_vis_2019_config", lambda: vis_j),
                 (tconfig_vis, "youtube_vis_2019_config", lambda: vis_t),
                 (jtta, "make_tta_semantic_fn", recorded),
+                (jytvis, "tracks_from_prediction", jax_recorded),
                 (jconfig, "kitti_step_video_config", jtg.tiny_cfg),
                 (tconfig, "kitti_step_video_config", tg.tiny_cfg),
                 (jconfig, "semkitti_video_config", lambda: cfgs["dvps"][1]),
@@ -253,14 +285,18 @@ def serving(tmp_path_factory):
                        for tag in runs}
             port = {tag: run_port(runs[tag][0], argv_of(tag, "port")) for tag in runs}
             jax_out = {tag: f.result() for tag, f in futures.items()}
+        mp.setattr(tytvis, "tracks_from_prediction", _replaying(jax_masks, replayed))
+        port["vis_replay"] = run_port(runs["vis"][0], [
+            *runs["vis"][1], "--out", os.path.join(root, "port_replay_vis"),
+            "--checkpoint", ckpts["vis"]["port"]])
     assert len(made) == 1
     return dict(root=root, kitti=kitti, semkitti=semkitti, ckpt=ckpts["kitti"],
                 vis=dict(ann=vis_ann, img_root=vis_imgs, ckpt=ckpts["vis"]["port"], cfg=vis_t,
-                         seed=vis_seed),
+                         seed=vis_seed, replayed=replayed),
                 base=[*step, *SIZE], jax=jax_out, port=port, jax_tta=made[0],
                 model=tg.tiny_model("cpu"),
-                out={tag: {pkg: os.path.join(root, f"{pkg}_{tag}") for pkg in ("jax", "port")}
-                     for tag in runs})
+                out={tag: {pkg: os.path.join(root, f"{pkg}_{tag}")
+                           for pkg in ("jax", "port", "port_replay")} for tag in runs})
 
 
 def _port_test_step(argv, device=("--device", "cpu")) -> str:
@@ -436,21 +472,34 @@ def test_test_whole_video_matches_jax(serving):
     """The tiny VIS config over a two-video YT-VIS tree (5 and 4 frames) in
     clips of 3 at 64x96, so each video's last clip is padded: results.json
     equal entry for entry (video ids, categories and RLEs exactly, scores
-    within 1e-5), the zip's member equal to it, the printed lines equal."""
+    within 1e-5), the zip's member equal to it, the printed lines equal.
+    The port's run here replays JAX's decision at the mask threshold
+    (`_replaying`): its decoded mask logits lie within VIS_MASK_TOL of
+    JAX's scale, and a pixel is replayed only where JAX's logit lies within
+    twice that difference of 0 (a near-tie that fp32 rounding decides; the
+    port's plain run equals the replayed one where none is)."""
     import zipfile
 
     from video_knet_tpu_torch.data.rle import decode_mask
 
     out = serving["out"]["vis"]
     res = {}
-    for pkg in ("port", "jax"):
+    for pkg, run in (("port", "vis"), ("port_replay", "vis_replay"), ("jax", "vis")):
         with open(os.path.join(out[pkg], "results.json")) as f:
             res[pkg] = json.load(f)
         with zipfile.ZipFile(os.path.join(out[pkg], "submission_file.zip")) as z:
             assert json.loads(z.read("results.json")) == res[pkg]
-        text = serving[pkg]["vis"].replace(out[pkg], "<out>")
+        text = serving["jax" if pkg == "jax" else "port"][run].replace(out[pkg], "<out>")
         assert text == "wrote <out>/results.json\n", text
-    got, want = res["port"], res["jax"]
+    replayed = serving["vis"]["replayed"]
+    assert sorted(replayed) == sorted({r["video_id"] for r in res["jax"]})
+    for vid, r in replayed.items():
+        print(f"video {vid}: {r}")
+        assert r["err"] <= VIS_MASK_TOL * r["scale"], (vid, r)
+        assert r["at"] <= 2 * r["err"], (vid, r)
+    if not sum(r["replayed"] for r in replayed.values()):
+        assert res["port"] == res["port_replay"]
+    got, want = res["port_replay"], res["jax"]
     k = serving["vis"]["cfg"].test.max_per_img
     assert len(got) == len(want) == 2 * k
     for a, b in zip(got, want):

@@ -76,7 +76,11 @@ from video_knet_tpu_torch.parallel import mesh as tmesh
 from video_knet_tpu_torch.parallel import model_axis
 from video_knet_tpu_torch.parallel.mesh import DataMesh
 from video_knet_tpu_torch.tools import dp_check
-from video_knet_tpu_torch.tools.train_check import relu_pattern, vis_check_cfg
+from video_knet_tpu_torch.tools.train_check import (
+    relu_pattern,
+    spread_sampling_offsets,
+    vis_check_cfg,
+)
 from video_knet_tpu_torch.train import image as timage
 from video_knet_tpu_torch.train import vis as tvis
 from video_knet_tpu_torch.train import vps as tvps
@@ -141,12 +145,17 @@ def _uninitialized_pyramid():
     return ResNet(50), FPN((256, 512, 1024, 2048))
 
 
-def _pyramid(seed: int = 0):
-    """A seeded ResNet-50 + FPN in eval mode, statistics off their init."""
+def _pyramid(seed: int = 0, neck_type: str = "fpn"):
+    """A seeded ResNet-50 + FPN (or `neck_type`) in eval mode, statistics
+    off their init (the decoder's sampling offsets reaching a few
+    pixels)."""
     gen = torch.Generator().manual_seed(seed)
-    backbone, neck = ResNet(50), FPN((256, 512, 1024, 2048))
+    backbone = ResNet(50)
+    neck = build_neck(neck_type, backbone)
     init_parameters(backbone, gen)
     init_parameters(neck, gen)
+    if neck_type == "msdeform_pixel_decoder":
+        spread_sampling_offsets(neck, gen)
     with torch.no_grad():
         for name, buf in backbone.named_buffers():
             if name.endswith("running_var"):
@@ -173,16 +182,17 @@ def _whole_pyramid(backbone, neck, img, cot) -> dict:
                 relus=relus)
 
 
-def _halo_case(n_model: int, hw) -> tuple[dict, dict]:
+def _halo_case(n_model: int, hw, neck_type: str = "fpn") -> tuple[dict, dict]:
     """(the band split's spec, the whole forward and backward here)."""
-    backbone, neck = _pyramid()
+    backbone, neck = _pyramid(neck_type=neck_type)
     rng = np.random.RandomState(n_model)
     img = torch.from_numpy(rng.randn(1, *hw, 3).astype(np.float32))
     cot = [torch.from_numpy(rng.randn(1, hw[0] // s, hw[1] // s, 256).astype(np.float32))
            for s in (4, 8, 16, 32)]
     whole = _whole_pyramid(backbone, neck, img, cot)
-    spec = dict(kind="pyramid", n_model=n_model, backbone="resnet50", img=img, cotangents=cot,
-                weights=(backbone.state_dict(), neck.state_dict()), relus=whole["relus"])
+    spec = dict(kind="pyramid", n_model=n_model, backbone="resnet50", neck=neck_type, img=img,
+                cotangents=cot, weights=(backbone.state_dict(), neck.state_dict()),
+                relus=whole["relus"])
     return spec, whole
 
 
@@ -243,27 +253,30 @@ def runs(jax_jobs):
                 spec["n_model"], [spec], os.path.join(root, name), nice=NICE)]
 
         halo = {name: _halo_case(*case) for name, case in BANDS.items()}
+        halo["decoder"] = _halo_case(*BANDS["2_bands_64x96"], "msdeform_pixel_decoder")
         futures = {"swin": pool.submit(swin),
-                   **{name: pool.submit(bands, name) for name in BANDS}}
+                   **{name: pool.submit(bands, name) for name in [*BANDS, "decoder"]}}
 
         def jax_then_ranks(tag, model, cfg, variables, batch, run):
             """The port's 4 ranks, started at once (they build the model
             while JAX compiles), replaying JAX's job's ReLU decisions in the
             port's call order, which they wait for."""
             got, tmp = {}, os.path.join(root, tag)
-            relus = os.path.join(tmp, "relus.pkl")
+            relus, pools = os.path.join(tmp, "relus.pkl"), os.path.join(tmp, "pools.pkl")
 
             def decisions():
                 with torch.no_grad():  # while JAX compiles
                     order = relu_call_order(model, lambda: run(model, batch))
                 got["want"] = want = _collect(*jobs.pop(tag))
+                if "pools" in want:
+                    dp_check.write_relus(pools, [[torch.from_numpy(d) for d in want["pools"][0]]])
                 dp_check.write_relus(relus, [jax_relu_decisions(want["relus"][0], model, None,
                                                                 order)])
 
             weights = {k: v.clone() for k, v in load_flax_variables(
                 model, variables).state_dict().items()}
             spec = dict(kind=tag, cfg=cfg, seed=0, n_model=2, batches=[batch], relus=relus,
-                        weights=weights)
+                        weights=weights, **({"pools": pools} if tag == "vps" else {}))
             ranks = dp_check.run_ranks(RANKS, [spec], tmp, threads=2, nice=NICE,
                                        while_running=decisions)
             return got["want"], model, [r[0] for r in ranks]
@@ -326,9 +339,26 @@ def test_band_split_raises_for_a_height_that_does_not_split():
 
 @pytest.mark.parametrize("backbone,neck", [("resnet50", "msdeform_pixel_decoder"),
                                            ("detectors_r50", "fpn")])
-def test_band_split_raises_for_other_backbones_naming_f7c(backbone, neck):
+def test_band_split_raises_for_other_backbones_naming_f7c(backbone, neck, request):
     """What F7c left of the band split (Swin and MiT run on bands since:
-    `tests/test_torch_port_model_axis_swin.py`) now stands in ROADMAP F7d."""
+    `tests/test_torch_port_model_axis_swin.py`) stood in ROADMAP F7d. Its
+    part 3 put the MSDeformAttn decoder on the bands: ResNet-50 + decoder
+    over 2 bands of 64x96 returns each rank's band of each level, the whole
+    forward's rows within LEVEL_REL, having gathered only the encoder's
+    value maps. The RFP backbones still raise, naming F7d."""
+    if neck == "msdeform_pixel_decoder":
+        whole, ranks = request.getfixturevalue("runs")["decoder"]
+        for i, want in enumerate(whole["levels"]):
+            scale = float(want.abs().max())
+            assert [r["rows"][i] for r in ranks] == [(0, want.shape[1] // 2),
+                                                     (want.shape[1] // 2, want.shape[1])]
+            for r in ranks:
+                a, b = r["rows"][i]
+                assert float((r["levels"][i] - want[:, a:b]).abs().max()) <= LEVEL_REL * scale
+        assert [r["inputs"] for r in ranks] == [[(1, 32, 96, 3)]] * 2
+        assert all(r["comm"]["gather"] == dp_check.decoder_gather_bytes((64, 96), 2, 1, 6)
+                   for r in ranks)
+        return
     bb = build_backbone(backbone)
     nk = build_neck(neck, bb)
     token = _fake_split("rows")

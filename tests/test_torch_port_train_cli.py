@@ -82,10 +82,15 @@ BF16_REL = 0.05  # the JAX package's band for bf16 against fp32 (tests/test_trai
 # The port's bf16 loss against JAX's at the same weights. Readings on the
 # direct checks' inputs (PERF.md section 6): |port bf16 - JAX bf16| is
 # 6.4e-4 (VPS) and 1.1e-3 (VIS) of JAX's bf16 loss; |port fp32 - JAX bf16|
-# 1.6e-4 and 3.0e-3. The two bf16 forwards round in different places (XLA
-# fuses elementwise chains and rounds at a fusion's end, PyTorch after every
-# op), so the VPS band cannot tell bf16 from fp32: `layer_dtypes` does.
+# 1.6e-4 and 3.0e-3. On an AVX-512 host with bf16 instructions XLA's bf16
+# rounds otherwise: 5.3e-4 and 3.6e-4; 6.3e-4 and 1.7e-3. The two bf16
+# forwards round in different places (XLA fuses elementwise chains and
+# rounds at a fusion's end, PyTorch after every op), so the VPS band cannot
+# tell bf16 from fp32: `layer_dtypes` does.
 BF16_VS_JAX_REL = 2e-3
+# the port's bf16 loss lies apart from its fp32 loss by more than this many
+# times its fp32 loss's distance from JAX's (fp32 rounding)
+BF16_APART = 100
 # FlopCounterMode against XLA's cost_analysis for the one-stage MiT-b0 VPS
 # config at 64x96 (measured 2.18 / 2.07 GFLOPs = 1.053; R-50 at 64x96 4.16 /
 # 3.97 = 1.048; at 384x1248 the port counts 3.2% less, PERF.md section 6)
@@ -546,9 +551,12 @@ def test_bf16_losses_match_jax(runs):
     """VPS and VIS with `bf16_train`: every convolution and dense layer of
     the backbone and neck computes in bf16 (fp32 without it); the port's
     loss within 5% of its fp32 loss and within BF16_VS_JAX_REL of JAX's bf16
-    loss at the same weights, where the VIS band also rejects the fp32
-    loss; the gradients fp32, the masters untouched by the forward.
-    `pytest -s` prints the readings."""
+    loss at the same weights; on VIS the bf16 loss also lies nearer JAX's
+    bf16 loss than the fp32 loss does, and BF16_APART times farther from the
+    fp32 loss than the fp32 rounding of the two packages (a bf16 run that
+    computed fp32 fails both, whatever the host's bf16 arithmetic); the
+    gradients fp32, the masters untouched by the forward. `pytest -s`
+    prints the readings."""
     cases = (("vps", runs["direct"]["vps"], ttvps.make_vps_loss_fn,
               ttvps.make_synthetic_batch(runs["direct"]["vps"].cfg, 1, HW, device="cpu")),
              ("vis", runs["direct"]["vis"], ttvis.make_vis_loss_fn, runs["vis_batch"]))
@@ -571,7 +579,9 @@ def test_bf16_losses_match_jax(runs):
         assert abs(t16 - t32) <= BF16_REL * t32, (what, t16, t32)
         assert abs(t16 - jd["t16"]) <= BF16_VS_JAX_REL * jd["t16"], (what, t16, jd["t16"])
         if what == "vis":
-            assert abs(t32 - jd["t16"]) > BF16_VS_JAX_REL * jd["t16"], (what, t32, jd["t16"])
+            assert abs(t16 - jd["t16"]) < abs(t32 - jd["t16"]), (what, t16, t32, jd["t16"])
+            assert abs(t16 - t32) > BF16_APART * abs(t32 - jd["t32"]), (what, t16, t32,
+                                                                          jd["t32"])
         loss16.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         assert grads and all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())

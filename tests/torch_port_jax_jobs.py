@@ -28,7 +28,9 @@ Jobs:
 - `sharded_vps`: `make_sharded_train_step` on an `n_data` (2 by default)
   x `n_model` mesh of virtual CPU devices (`n_model` 1: the `data` axis
   alone; 2: the image height sharded over `model` too), a few steps:
-  losses, ReLU decisions, the first step's gradient, final state.
+  losses, ReLU decisions, mask-pool binarizations, the first step's
+  gradient, final state; optionally with the deformable encoder cut to one
+  layer.
 - `sharded_vis`: `make_sharded_vis_train_step` alike (with a `model` axis,
   the clip's frames sharded over it).
 - `vis_live_bn`: the VIS loss with live BatchNorm and its new statistics.
@@ -39,6 +41,7 @@ Jobs:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import importlib
@@ -46,6 +49,7 @@ import os
 import pickle
 import sys
 import tempfile
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -254,6 +258,47 @@ def _capturing(model, relus: list):
     return Capturing()
 
 
+@contextlib.contextmanager
+def _capturing_pools(pools: list):
+    """While active, every hard-threshold mask pool that JAX's VPS models
+    trace (the init head's, `kernel_head.py:96`, and each stage's
+    `mask_pool`) hands its binarization, sigmoid(logits) > thr, to the host
+    through `jax.debug.callback` into `pools`, as (its place in the trace,
+    the decision): the port's train step pools in the same order."""
+    import itertools
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import video_knet_tpu.models.kernel_head as jkh
+    import video_knet_tpu.models.kernel_update_head as jkuh
+
+    traced = itertools.count()
+
+    def emit(decision):
+        i = next(traced)
+        jax.debug.callback(lambda d: pools.append((i, np.asarray(d))), decision)
+
+    pool = jkuh.mask_pool
+
+    def stage_pool(logits, feats, *, hard_thr=0.5, binary=True):
+        emit(jax.nn.sigmoid(logits.astype(jnp.float32)) > hard_thr)
+        return pool(logits, feats, hard_thr=hard_thr, binary=binary)
+
+    def init_sigmoid(x):  # the init head's one sigmoid: its pool's, at 0.5
+        s = jax.nn.sigmoid(x)
+        emit(s > 0.5)
+        return s
+
+    init_jax = types.SimpleNamespace(nn=types.SimpleNamespace(sigmoid=init_sigmoid))
+    jkuh.mask_pool, jkh.jax = stage_pool, init_jax
+    try:
+        yield
+    finally:
+        jkuh.mask_pool, jkh.jax = pool, jax
+
+
 def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap,
                  n_data: int = 2) -> dict:
     """`make_step(model, cfg, tx, mesh)` of the given model on an `n_data` x
@@ -299,9 +344,15 @@ def _sharded_run(make_step, cfg, variables, batches, n_model: int, wrap,
                 batch_stats=_flat({"batch_stats": state.batch_stats}))
 
 
-def sharded_vps(cfg, variables, batches, n_model: int = 1, n_data: int = 2) -> dict:
+def sharded_vps(cfg, variables, batches, n_model: int = 1, n_data: int = 2,
+                shallow: bool = False) -> dict:
     """JAX's `make_sharded_train_step` (`_sharded_run`) on global batches
-    given as numpy fields of `VPSBatch`, on an `n_data` x `n_model` mesh."""
+    given as numpy fields of `VPSBatch`, on an `n_data` x `n_model` mesh;
+    also each step's mask-pool binarizations in the port's call order
+    (`pools`, `_capturing_pools`). `shallow`: the MSDeformAttn decoder cut
+    to `train_check.NECK_LAYERS` encoder layers (`jax_shallow_neck`)."""
+    from torch_port_common import jax_shallow_neck
+
     import jax.numpy as jnp
 
     import video_knet_tpu.train.vps as jtvps
@@ -316,9 +367,15 @@ def sharded_vps(cfg, variables, batches, n_model: int = 1, n_data: int = 2) -> d
                                PanopticGT(*map(jnp.asarray, gt)),
                                PanopticGT(*map(jnp.asarray, ref_gt))),)
 
-    return _sharded_run(lambda relus, tx, mesh: jtvps.make_sharded_train_step(
-        _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model, wrap,
-        n_data)
+    pools: list = []
+    with _capturing_pools(pools), jax_shallow_neck() if shallow else contextlib.nullcontext():
+        out = _sharded_run(lambda relus, tx, mesh: jtvps.make_sharded_train_step(
+            _capturing(model, relus), cfg, tx, mesh), cfg, variables, batches, n_model,
+            wrap, n_data)
+    per_step = len(pools) // len(batches)  # the steps run one after another
+    out["pools"] = [[d for _, d in sorted(pools[i:i + per_step], key=lambda p: p[0])]
+                    for i in range(0, len(pools), per_step)]
+    return out
 
 
 def sharded_vis(cfg, variables, batches, n_model: int = 1) -> dict:

@@ -28,8 +28,9 @@ PYRAMID_BACKBONES = ("detectors_r50", "detectors_r101", "swin_b_rfp",
                      "swin_base_rfp", "swin_t_rfp", "swin_tiny_rfp")
 
 
-# backbones whose layers run on a band of the image rows (the band split)
+# backbones and necks whose layers run on a band of the image rows (the band split)
 BANDED_BACKBONES = (ResNet, SwinTransformer, MixVisionTransformer)
+BANDED_NECKS = (FPN, MSDeformAttnPixelDecoder)
 
 
 def backbone_is_pyramid(name: str) -> bool:
@@ -95,7 +96,9 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     JAX's whole VPS step runs, the multiples of 8 rows, with at least as
     many stride-32 rows (the last one partial) as bands: every band but
     the last ends on a whole stride-32 row, the last holds the rest (376
-    rows over 2: 192 + 184). It returns this rank's band of each level
+    rows over 2: 192 + 184). It runs ResNet, Swin and MiT with the FPN or
+    the MSDeformAttn pixel decoder (`BANDED_NECKS`; the RFP backbones
+    raise NotImplementedError). It returns this rank's band of each level
     (`model_axis.in_band`), its rows of the whole level at any height
     (`model_axis.level_bands`); a consumer that needs the whole map gathers
     it (`model_axis.whole_map`). ValueError for a height it does not take.
@@ -104,10 +107,11 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     if split is None:
         return _pyramid(backbone, neck, img, generator)
     if split.kind == "rows":
-        if type(backbone) not in BANDED_BACKBONES or type(neck) is not FPN:
+        if type(backbone) not in BANDED_BACKBONES or type(neck) not in BANDED_NECKS:
             raise NotImplementedError(
                 f"the band split of the mesh's `model` axis runs ResNet, Swin and MiT with the "
-                f"FPN, not {type(backbone).__name__} + {type(neck).__name__} (ROADMAP F7d)")
+                f"FPN or the MSDeformAttn pixel decoder, not {type(backbone).__name__} + "
+                f"{type(neck).__name__} (ROADMAP F7d)")
         band, select = image_band(split, img.shape[1], img.shape[2])
         with running_share(band, select):
             share = _pyramid(backbone, neck, select(img), generator)

@@ -15,6 +15,15 @@ The encoder's LayerNorms are flax's `nn.LayerNorm` (one-pass variance);
 the port runs torch's two-pass `nn.LayerNorm`, as its heads do (ROADMAP
 3.3): equal within fp32 rounding while |mean| stays within a few standard
 deviations of the tokens.
+
+Under the band split of the mesh's `model` axis (`parallel/model_axis.py`)
+the decoder runs on this rank's band of each level: the queries are the
+band's tokens, with the whole level's positional code and reference points
+at the band's global rows; every query may sample anywhere, so each
+encoder layer projects the band's value maps and gathers them whole, the
+three levels in one call (`model_axis.whole_maps`; its backward keeps this
+rank's rows of the summed gradient). The top-down fusion's convolutions,
+resize and GroupNorm take the band as they do in the FPN.
 """
 
 from __future__ import annotations
@@ -28,10 +37,11 @@ from torch import nn
 from video_knet_tpu_torch.models.layers import (
     Conv2d,
     ConvNormAct,
+    band_positional_encoding,
     resize_nearest,
-    sine_positional_encoding,
 )
 from video_knet_tpu_torch.ops.sampling import ms_deform_attn_core
+from video_knet_tpu_torch.parallel.model_axis import level_rows, token_share, whole_maps
 
 
 class MSDeformAttention(nn.Module):
@@ -61,21 +71,24 @@ class MSDeformAttention(nn.Module):
         """What `ms_deform_attn_core` takes: the per-head values of each
         level, the sampling locations (the reference points moved by the
         offsets over each level's (w, h)) and the attention weights,
-        softmaxed over L*P."""
+        softmaxed over L*P. On a band, `value_levels` are the band's maps:
+        their projections are gathered whole."""
         b, q, c = query.shape
         m, l, p = self.num_heads, len(value_levels), self.num_points
-        values = [getattr(self, f"value_proj{i}")(v).reshape(b, *v.shape[1:3], m, c // m)
-                  for i, v in enumerate(value_levels)]
+        values = whole_maps([getattr(self, f"value_proj{i}")(v)
+                             for i, v in enumerate(value_levels)])
+        values = [v.reshape(b, *v.shape[1:3], m, c // m) for v in values]
         offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2)
         attn = torch.softmax(self.attention_weights(query).reshape(b, q, m, l * p), dim=-1)
-        wh = _level_sizes(tuple((v.shape[2], v.shape[1]) for v in value_levels), query.device)
+        wh = _level_sizes(tuple((v.shape[2], v.shape[1]) for v in values), query.device)
         locs = ref_points[:, :, None, :, None, :] + offsets / wh[None, None, None, :, None, :]
         return values, locs, attn.reshape(b, q, m, l, p)
 
     def forward(self, query: torch.Tensor, ref_points: torch.Tensor,
                 value_levels: list[torch.Tensor]) -> torch.Tensor:
         """query [B, Q, C]; ref_points [B, Q, L, 2] normalized (x, y);
-        value_levels L tensors [B, H_l, W_l, C] -> [B, Q, C]."""
+        value_levels L tensors [B, H_l, W_l, C] (on a band: the band's) ->
+        [B, Q, C]."""
         return self.output_proj(ms_deform_attn_core(
             *self.sampling_inputs(query, ref_points, value_levels)))
 
@@ -116,10 +129,13 @@ def _unflatten(flat: torch.Tensor, shapes: list[tuple[int, int]]) -> list[torch.
 
 
 def _reference_points(shapes: list[tuple[int, int]], device=None) -> torch.Tensor:
-    """Every level's pixel centres, normalized (x, y) -> [sum HW, 2]."""
+    """Every level's pixel centres, normalized (x, y) -> [sum HW, 2]. On a
+    band, `shapes` are the band's levels: their rows' centres over the
+    whole level's height (`model_axis.level_rows`)."""
     pts = []
     for h, w in shapes:
-        ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+        first, end, height = level_rows(h, w)
+        ys = (torch.arange(first, end, dtype=torch.float32, device=device) + 0.5) / height
         xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
         gy, gx = torch.meshgrid(ys, xs, indexing="ij")
         pts.append(torch.stack([gx, gy], -1).reshape(-1, 2))
@@ -156,22 +172,24 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
     def forward(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
         """feats: the backbone's levels (strides 4, 8, 16, 32), NHWC ->
-        refreshed levels, each `embed_dim` wide."""
+        refreshed levels, each `embed_dim` wide; on a band, the band's of
+        each."""
         enc_feats = feats[-self.num_encoder_levels:]
         shapes = [(f.shape[1], f.shape[2]) for f in enc_feats]
         b, c = feats[0].shape[0], self.out_channels
         tokens = []
         for i, f in enumerate(enc_feats):
             x = getattr(self, f"input_proj{i}")(f)
-            pe = sine_positional_encoding(x.shape[1], x.shape[2], c // 2, device=x.device)
+            pe = band_positional_encoding(x.shape[1], x.shape[2], c // 2, device=x.device)
             lvl = getattr(self, f"level_embed{i}")
             tokens.append((x + pe[None] + lvl[None, None, None]).reshape(b, -1, c))
         query = torch.cat(tokens, dim=1)
 
         ref = _reference_points(shapes, device=query.device)
         ref = ref[None, :, None, :].expand(b, ref.shape[0], len(shapes), 2)
-        for i in range(self.num_layers):
-            query = getattr(self, f"layer{i}")(query, ref, shapes)
+        with token_share(shapes):
+            for i in range(self.num_layers):
+                query = getattr(self, f"layer{i}")(query, ref, shapes)
 
         outs = _unflatten(query, shapes)
         prev = outs[0]

@@ -34,7 +34,8 @@ pyramid:
   matched tubes) is the same on every rank and is not summed. Each call
   site names its sum: `model_sum` never sums over frames and `frame_sum`
   never over bands;
-- "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN,
+- "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN
+  or the MSDeformAttn pixel decoder,
   at every height at which JAX's whole VPS step runs: a multiple of 8 rows
   (`ROWS_MULTIPLE`; at other heights the step's stride-8 mask logits,
   upscaled, miss the GT's rows). The image's ceil(H / 32) stride-32 rows
@@ -64,7 +65,9 @@ pyramid:
   its own output rows read, each Swin block the rows of every window that
   meets its band (`models/swin.py`: a halo, and for the shifted windows the
   ring that joins the map's last rows to its first), each MiT block the
-  whole spatially reduced keys and values (`whole_map`), and the aligned
+  whole spatially reduced keys and values (`whole_map`), each layer of the
+  deformable encoder the whole value maps of its three levels
+  (`whole_maps`: its sampling points reach anywhere), and the aligned
   head and the RoI track head, whose warps and boxes reach anywhere, the
   whole pyramid and the whole fused map.
   Every sum over pixels is a band's partial sum, summed over the `model`
@@ -89,7 +92,8 @@ tensors too (ranks sharing a card). `BYTES` counts what this rank hands to
 them, forward and backward: "halo" the rows lent to or returned from other
 bands, "ring" those of them that a shifted Swin window takes across the
 map's bottom edge to its top, "gather" the frame split's per-frame kernels
-and the band split's `whole_map`s, "reduce" the sums over the group.
+and the band split's `whole_map`s (the deformable encoder's value maps
+among them), "reduce" the sums over the group.
 """
 
 from __future__ import annotations
@@ -376,6 +380,42 @@ def level_height(rows: int, cols: int) -> int:
     `cols`; `rows` itself outside a band."""
     band = in_band()
     return rows if band is None else level_bands(rows, cols, band)[-1][1]
+
+
+def level_rows(rows: int, cols: int) -> tuple[int, int, int]:
+    """(first, end, height): this rank's global rows of the level whose band
+    here is `rows` x `cols`, and the level's height; (0, rows, rows)
+    outside a band."""
+    band = in_band()
+    if band is None:
+        return 0, rows, rows
+    bands = level_bands(rows, cols, band)
+    return (*bands[band.index], bands[-1][1])
+
+
+@contextlib.contextmanager
+def token_share(shapes: list[tuple[int, int]]):
+    """Around layers on this rank's tokens of a band's levels, flattened
+    level by level ([B, sum_l rows_l * cols_l, ...], each level's band
+    `shapes[l]`: the deformable encoder): `local_share` cuts a whole batch's
+    tokens (every level's whole rows) to this rank's there. Nothing outside
+    a band."""
+    band = in_band()
+    if band is None:
+        yield
+        return
+    index, start = [], 0
+    for h, w in shapes:
+        bands = level_bands(h, w, band)
+        a, b = bands[band.index]
+        index.append(torch.arange(start + a * w, start + b * w))
+        start += bands[-1][1] * w
+    index = torch.cat(index)
+    token = _SHARE.set(lambda t: t.index_select(1, index.to(t.device)))
+    try:
+        yield
+    finally:
+        _SHARE.reset(token)
 
 
 def frame_counts(t: int, count: int) -> list[int]:
@@ -707,8 +747,14 @@ def whole_map(t: torch.Tensor) -> torch.Tensor:
     over the group); `t` itself outside a band. For a consumer whose reach
     is the whole map: MiT's reduced keys, the aligned head's warps, the
     RoI head's boxes."""
+    return whole_maps([t])[0]
+
+
+def whole_maps(ts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """`whole_map` of each of `ts` in one all_gather (the deformable
+    encoder's value maps, every level's in each layer)."""
     band = in_band()
-    return t if band is None else gather_shares([t], band)[0]
+    return list(ts) if band is None else gather_shares(list(ts), band)
 
 
 def gather_shares(shares: list[torch.Tensor], split: Split, clips: int | None = None,

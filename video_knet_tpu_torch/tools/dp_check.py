@@ -26,7 +26,11 @@ to replay.
 
 A spec: {"kind": "vps" | "vis" | "image", "cfg", "seed" (the weights'
 init), "n_model" (optional: ranks on the mesh's `model` axis, 1 by
-default), "weights" (optional: a state dict loaded over it),
+default), "neck_layers" (optional: the MSDeformAttn decoder cut to that
+many encoder layers, `train_check.shallow_neck`), "spread_offsets"
+(optional: its sampling offsets drawn to spread that many pixels from the
+spec's seed, `train_check.spread_sampling_offsets`), "weights" (optional:
+a state dict loaded over it),
 "batches" (global batches of CPU tensors, one a step), "opt" (keyword
 arguments of `make_optimizer`), "ddp" (optional, one rank only: "plain"
 runs the one-process step in the rank's process, "none" the step over the
@@ -44,7 +48,8 @@ band or frames (`rank_rows`, `model_axis.local_share`) so that a ReLU
 input within rounding of zero cannot send the two backwards down
 different sides of its kink), "pools" (optional, with "relus": the same
 steps' hard mask-pool binarizations, recorded by `train_steps(...,
-pools=)`, which each rank replays on its rows, band or frames
+pools=)`, or the path of a file that `write_relus` writes them to later,
+which each rank replays on its rows, band or frames
 (`pool_share`) so that a pixel within rounding of the threshold cannot
 send the two runs' kernels apart)}. A result: the per-step loss dicts, the
 first step's gradients before the clip, the model's final parameters and
@@ -255,6 +260,15 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None,
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
     model, step = _model_and_step(kind, spec["cfg"], spec["seed"], device)
+    if spec.get("neck_layers"):
+        from video_knet_tpu_torch.tools.train_check import shallow_neck
+
+        shallow_neck(model, spec["neck_layers"])
+    if spec.get("spread_offsets"):
+        from video_knet_tpu_torch.tools.train_check import spread_sampling_offsets
+
+        spread_sampling_offsets(model.neck, torch.Generator().manual_seed(spec["seed"]),
+                                spec["spread_offsets"])
     if "weights" in spec:
         model.load_state_dict(spec["weights"], strict=True)
     state = create_train_state(model, make_optimizer(model, 1000, **spec.get("opt", {})), mesh)
@@ -268,8 +282,9 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None,
         optimizer_step()
 
     state.optimizer.step = keep_first_grads
-    if isinstance(spec.get("relus"), str):  # a file the caller writes while the model builds
-        spec = {**spec, "relus": _wait_for(spec["relus"])}
+    for key in ("relus", "pools"):
+        if isinstance(spec.get(key), str):  # a file the caller writes while the model builds
+            spec = {**spec, key: _wait_for(spec[key])}
     losses, replayed, differ, ms, launches, comm, inputs, decided = [], [], [], [], [], [], [], []
     pool_differ = []
     in_first = []  # non-empty while the first step runs
@@ -335,8 +350,9 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None,
 
 def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     """The backbone `spec["backbone"]` (a `build_backbone` name: ResNet,
-    Swin or MiT) with the FPN (`spec["weights"]`: their state dicts, eval
-    mode) through `backbone_and_neck` under the band split of `mesh`'s
+    Swin or MiT) with the neck `spec["neck"]` (a `build_neck` type, the FPN
+    by default; `spec["weights"]`: their state dicts, eval mode) through
+    `backbone_and_neck` under the band split of `mesh`'s
     `model` axis, or with `spec["frames"]` (clips of that many frames in
     `spec["img"]`) the frame split, on this rank's data index's rows of
     `spec["img"]` (one data index), replaying the one-process forward's
@@ -357,7 +373,7 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
 
     set_fp32_numerics()
     backbone = build_backbone(spec["backbone"]).to(device).eval()
-    neck = build_neck("fpn", backbone).to(device).eval()
+    neck = build_neck(spec.get("neck", "fpn"), backbone).to(device).eval()
     backbone.load_state_dict(spec["weights"][0])
     neck.load_state_dict(spec["weights"][1])
     img = shard_batch(mesh, spec["img"]).to(device).requires_grad_(True)
@@ -390,6 +406,23 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
                 rows=[r if isinstance(r, list) else (r.start, r.stop) for r in rows],
                 grad_img=img.grad.detach().cpu(), grads=grads, inputs=inputs,
                 comm=dict(model_axis.BYTES))
+
+
+def decoder_gather_bytes(hw: tuple[int, int], n_model: int, images: int, layers: int,
+                         width: int = 256, strides=(8, 16, 32)) -> int:
+    """The bytes a rank hands to the `model` axis's gathers in one step of
+    the MSDeformAttn decoder on the bands of `images` images of `hw` (fp32):
+    each encoder layer's forward gathers every rank's value maps padded to
+    the largest band's tokens, its backward all-reduces the whole maps'
+    gradient."""
+    split = model_axis.Split("rows", None, 0, n_model, tuple(model_axis.band_units(hw[0],
+                                                                                   n_model)), hw)
+    cols = [-(-hw[1] // s) for s in strides]
+    bands = [model_axis.map_bands(split, c) for c in cols]
+    share = max(sum((b[j][1] - b[j][0]) * c for b, c in zip(bands, cols))
+                for j in range(n_model))
+    whole = sum(b[-1][1] * c for b, c in zip(bands, cols))
+    return (share + whole) * images * width * 4 * layers
 
 
 def _band_of(t: torch.Tensor, dim: int, device, grad: bool = False) -> torch.Tensor:
@@ -793,7 +826,8 @@ def run_ranks(world: int, specs: list[dict], tmp: str, timeout: float = 600.0,
 
 
 def write_relus(path: str, relus: list) -> None:
-    """ReLU decisions for a spec's "relus" path, written whole at once."""
+    """ReLU decisions for a spec's "relus" path (or mask-pool binarizations
+    for its "pools" path), written whole at once."""
     with open(path + ".tmp", "wb") as f:
         pickle.dump(relus, f)
     os.replace(path + ".tmp", path)

@@ -282,8 +282,11 @@ def draw_zero_init_leaves(model: torch.nn.Module, generator: torch.Generator) ->
 def relu_pattern(pattern: list, replay: bool = False):
     """Within the block, every `torch.nn.functional.relu` call appends its
     decision (input > 0, on the host) to `pattern`, in call order; with
-    `replay`, each call instead applies the next recorded decision, x *
-    decision, so that its gradient follows the recorded device's. Yields
+    `replay`, each call instead applies the next recorded decision, x
+    where it is set and 0 elsewhere, so that its gradient follows the
+    recorded device's (the backward keeps the boolean decision alone, a
+    byte an element, so that a replaying rank's peak memory stays near a
+    plain step's). Yields
     {"calls", "differ"}: the replayed calls and the elements whose own
     decision differs from the recorded one."""
     relu = F.relu
@@ -300,7 +303,7 @@ def relu_pattern(pattern: list, replay: bool = False):
                              f"got {tuple(x.shape)}")
         stats["calls"] += 1
         stats["differ"] += int(((x > 0) != decision).sum())
-        return x * decision.to(x.dtype)
+        return torch.where(decision, x, x.new_zeros(()))
 
     F.relu = patched
     try:
@@ -345,6 +348,23 @@ def pool_pattern(pattern, replay: bool = False):
         yield stats
     finally:
         mp.fused_mask_pool = fused
+
+
+@torch.no_grad()
+def spread_sampling_offsets(neck: torch.nn.Module, generator: torch.Generator,
+                            pixels: float = 2.0) -> None:
+    """Draw every encoder layer's sampling-offset biases of an MSDeformAttn
+    pixel decoder from N(0, pixels^2), in pixels of each level: at their
+    init (zero) every query samples its own pixel, and a band of the
+    `model` axis would read no other band's rows. The weights are left as
+    they are: at their init (zero) each (head, level, point) samples at the
+    same offset from every query's reference point, the same on every rank,
+    so the queries' rounding, which a split changes, moves no sampling point
+    across a pixel's edge (where the bilinear weights' gradient jumps). `generator` lives on the CPU; the
+    draws are copied to the parameters' device."""
+    for i in range(neck.num_layers):
+        bias = getattr(neck, f"layer{i}").self_attn.sampling_offsets.bias
+        bias.copy_(pixels * torch.randn(bias.shape, generator=generator))
 
 
 def swin_check_cfg(tiny):
