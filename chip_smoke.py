@@ -354,8 +354,11 @@ Phases, each raising on failure (the process then exits non-zero):
                frames) (ranks on one card: not a scaling figure); also
                R-50 KITTI-STEP with the MSDeformAttn decoder at 376x1248
                (vps-deform-376: each encoder layer gathers the whole value
-               maps, bytes as `dp_check.decoder_gather_bytes` reckons) and
-               the deformable VIS preset (vis-deform), a step each
+               maps, bytes as `dp_check.decoder_gather_bytes` reckons),
+               the deformable VIS preset (vis-deform) and R-50 KITTI-STEP
+               with the DetectoRS R-50 backbone at 376x1248 (vps-rfp-376:
+               no gather; its SACs' global-context all-reduces printed), a
+               step each
  55. train-model-axis-swin  the band split of Swin and MiT on the same
                mesh, held as phase 54 holds its presets: Swin-B VIP-Seg
                (`video_knet_vipseg_swin_b`) at 736x1280, B=1, drop path 0.3,
@@ -364,8 +367,10 @@ Phases, each raising on failure (the process then exits non-zero):
                windows' ring across the map's bottom edge), 2 steps; MiT-b0
                under the default VPS config at 384x1248 in bands of 192
                rows (the reduced keys and values all-gathered each block),
-               1 step; per rank: step ms, peak memory beside the one-process
-               run's, the halo, ring and gather bytes a step
+               1 step; the KITTI-STEP R-50 preset with the Swin-B RFP
+               backbone at 376x1248 (swin-b-rfp-376), 1 step; per rank: step
+               ms, peak memory beside the one-process run's, the halo, ring
+               and gather bytes a step
  56. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
@@ -632,11 +637,13 @@ TOL_MODEL_AXIS_SPLIT_LOSS = 1e-2
 # point (R-50 at 376x1248 68.7% / 68.8%, Swin-B at 720x1280 59.2% / 59.1%,
 # MiT-b0 at 376x1248 58.2% / 58.2%; PERF.md), and so are the decoder's
 # (R-50 + the MSDeformAttn decoder at 376x1248 56.3% / 56.3%, the deformable
-# VIS preset 65.7% / 65.7%)
+# VIS preset 65.7% / 65.7%) and the RFP backbones' (DetectoRS R-50 at
+# 376x1248 64.6% / 65.0%, Swin-B RFP 57.9% / 57.9%)
 MODEL_AXIS_PEAK_SHARE = {"vps": 0.811, "vps-live": 0.811, "swin-b": 0.727,
                          "vis": 0.819, "vis-live": 0.809, "vps-376": 0.698,
                          "swin-b-720": 0.602, "mit-b0-376": 0.592,
-                         "vps-deform-376": 0.573, "vis-deform": 0.667}
+                         "vps-deform-376": 0.573, "vis-deform": 0.667,
+                         "vps-rfp-376": 0.660, "swin-b-rfp-376": 0.589}
 # a VIS rank's gather a step, below this share of the pyramid gather the
 # frame split made while the heads ran whole (156,958,720 bytes a rank a
 # step at 1x5x360x640: its 3 frames' levels forward, the clip's 5 back)
@@ -4493,8 +4500,10 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     VPS preset at MODEL_AXIS_KITTI_HW, 376 rows (not a multiple of 32: bands
     of 192 + 184), and at that size with the MSDeformAttn pixel decoder
     (`vps-deform-376`: six encoder layers over strides 8-32, each gathering
-    the whole value maps); one step of the deformable VIS preset
-    (`vis-deform`, the decoder per frame). Every step's
+    the whole value maps), and with the DetectoRS R-50 backbone
+    (`vps-rfp-376`: the recursive feature pyramid, no neck; its SACs' global
+    contexts summed over the group, `_log_sac_reduces`); one step of the
+    deformable VIS preset (`vis-deform`, the decoder per frame). Every step's
     losses (the
     presets' beside the hard decisions the split takes apart, which loosen
     that step's limit; at every step the ranks replay the one-process
@@ -4555,7 +4564,11 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
                                batches=[tvis.make_synthetic_batch(vis_deform, b, VIS_HW,
                                                                   seed=0, device="cpu")])
     expected["vis-deform"], shares["vis-deform"] = VIS_TRAIN_LAUNCHES, shares["vis"]
+    specs["vps-rfp-376"] = {**specs["vps-376"],
+                            "cfg": dataclasses.replace(vps, backbone="detectors_r50")}
+    expected["vps-rfp-376"], shares["vps-rfp-376"] = TRAIN_LAUNCHES, shares["vps-376"]
     out = _model_axis_runs("train-model-axis", device, tmp, specs, expected, shares)
+    _log_sac_reduces("train-model-axis", "vps-rfp-376", "detectors_r50", 2 * b, out)
     # neither split gathers the pyramid: the band split gathers nothing but
     # the decoder's value maps, the frame split the merge's per-frame kernels
     # (none in volume mode); the heads and losses run on the band or the
@@ -4584,6 +4597,23 @@ def phase_train_model_axis(device, paths: Paths, tmp: str) -> dict:
     paths.launches["train-model-axis"] = {
         k: sum(c[k] for tag in specs for c in out[tag]["launches"]) for k in TRAIN_LAUNCHES}
     return out
+
+
+def _log_sac_reduces(path: str, tag: str, backbone: str, images: int, out: dict) -> None:
+    """Print the all-reduces of an RFP case's SAC global contexts a rank a
+    step (`dp_check.sac_reduces`, reckoned from the backbone) beside the
+    bytes each rank reduced; the reckoning must lie within them."""
+    from video_knet_tpu_torch.models.backbones import build_backbone
+    from video_knet_tpu_torch.tools.dp_check import sac_reduces
+
+    count, nbytes = sac_reduces(build_backbone(backbone), images)
+    reduced = [c["reduce"] for r in out[tag]["comm"] for c in r]
+    log(f"[{path}] {tag}: SAC global-context all-reduces a rank a step {count} ({count // 2} "
+        f"forward, {count // 2} backward), {nbytes} bytes, of the {reduced} bytes each rank "
+        f"reduced")
+    if not all(r >= nbytes for r in reduced):
+        raise AssertionError(f"[{path}] {tag}: reduced {reduced} bytes, below the SACs' "
+                             f"{nbytes}")
 
 
 def _vis_pyramid_gather() -> int:
@@ -4696,7 +4726,9 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
     step at VIP-Seg's native 720x1280 (bands of 384 + 336: the last holds
     the half stride-32 row); MiT-b0 under the default VPS config at
     384x1248 in bands of 192 rows and at 376x1248 (192 + 184), one step
-    each. 7 / 7 / 1 launches a step on each rank."""
+    each; the KITTI-STEP R-50 preset with the Swin-B RFP backbone
+    (`swin-b-rfp-376`) at 376x1248, one step. 7 / 7 / 1 launches a step on
+    each rank."""
     from video_knet_tpu_torch.config import VideoKNetConfig
     from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.train.vps import make_synthetic_batch
@@ -4706,17 +4738,20 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
         raise AssertionError("[train-model-axis-swin] not the Swin-B preset's drop path")
     specs, shares = {}, {}
     mit = dataclasses.replace(VideoKNetConfig(), backbone="mit_b0")
+    swin_rfp = dataclasses.replace(get_config("video_knet_kitti_step_r50"), backbone="swin_b_rfp")
     for tag, cfg, hw, steps, bands in (
             ("swin-b", swin, SWIN_VIPSEG_HW, MODEL_AXIS_SWIN_STEPS, MODEL_AXIS_SWIN_BANDS),
             ("swin-b-720", swin, MODEL_AXIS_VIPSEG_HW, 1, MODEL_AXIS_VIPSEG_BANDS),
             ("mit-b0", mit, TRAIN_HW, 1, (TRAIN_HW[0] // MODEL_AXIS_N,) * MODEL_AXIS_N),
-            ("mit-b0-376", mit, MODEL_AXIS_KITTI_HW, 1, MODEL_AXIS_KITTI_BANDS)):
+            ("mit-b0-376", mit, MODEL_AXIS_KITTI_HW, 1, MODEL_AXIS_KITTI_BANDS),
+            ("swin-b-rfp-376", swin_rfp, MODEL_AXIS_KITTI_HW, 1, MODEL_AXIS_KITTI_BANDS)):
         specs[tag] = dict(kind="vps", cfg=cfg, seed=MODEL_AXIS_SEED, decisions=True, batches=[
             make_synthetic_batch(cfg, 1, hw, seed=i, device="cpu") for i in range(steps)])
         shares[tag] = [[(2, rows, hw[1], 3)] for rows in bands]
     out = _model_axis_runs("train-model-axis-swin", device, tmp, specs,
                            {tag: TRAIN_LAUNCHES for tag in specs}, shares)
-    # Swin-B gathers nothing; MiT-b0 gathers its spatially reduced keys
+    _log_sac_reduces("train-model-axis-swin", "swin-b-rfp-376", "swin_b_rfp", 2, out)
+    # Swin-B and its RFP gather nothing; MiT-b0 gathers its spatially reduced keys
     for tag in specs:
         mit_b0 = tag.startswith("mit-b0")
         if not all(c["halo"] > 0 and c["reduce"] > 0 and (c["gather"] > 0) == mit_b0

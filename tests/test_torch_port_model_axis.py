@@ -34,7 +34,8 @@ The band split alone: ResNet-50 + FPN over 2 bands at 64x96 and 4 bands at
 process: each rank's band of each level (nothing gathered) within 1e-5 of
 the whole level's largest magnitude, the image's and the parameters'
 gradients (summed over the ranks) within 1e-4; each rank's backbone took
-its band, H / n_model rows. Also: the mesh's layout
+its band, H / n_model rows; ResNet-50 + the MSDeformAttn decoder and
+DetectoRS R-50 over 2 bands at 64x96 likewise. Also: the mesh's layout
 and shards against JAX's `make_mesh` at 1x2, 2x2 and 4x2, and what raises.
 """
 
@@ -53,11 +54,14 @@ from torch_port_common import (
     _collect,
     _send_spec,
     _spawn,
+    assert_rfp_bands,
     jax_relu_decisions,
     no_positives,
     perturbed_variables,
     rel_err,
     relu_call_order,
+    rfp_pyramid_case,
+    seeded_rfp,
     weight_of,
 )
 
@@ -254,8 +258,11 @@ def runs(jax_jobs):
 
         halo = {name: _halo_case(*case) for name, case in BANDS.items()}
         halo["decoder"] = _halo_case(*BANDS["2_bands_64x96"], "msdeform_pixel_decoder")
+        halo["detectors_r50"] = rfp_pyramid_case(seeded_rfp("detectors_r50"), "detectors_r50",
+                                                 *BANDS["2_bands_64x96"])
         futures = {"swin": pool.submit(swin),
-                   **{name: pool.submit(bands, name) for name in [*BANDS, "decoder"]}}
+                   **{name: pool.submit(bands, name)
+                      for name in [*BANDS, "decoder", "detectors_r50"]}}
 
         def jax_then_ranks(tag, model, cfg, variables, batch, run):
             """The port's 4 ranks, started at once (they build the model
@@ -345,9 +352,17 @@ def test_band_split_raises_for_other_backbones_naming_f7c(backbone, neck, reques
     part 3 put the MSDeformAttn decoder on the bands: ResNet-50 + decoder
     over 2 bands of 64x96 returns each rank's band of each level, the whole
     forward's rows within LEVEL_REL, having gathered only the encoder's
-    value maps. The RFP backbones still raise, naming F7d."""
+    value maps. Its part 4 put the RFP backbones on the bands, and nothing
+    raises now: DetectoRS R-50 (no neck: `build_neck` gives None for it,
+    whatever `neck` says) over 2 bands of 64x96 in fp64
+    (`torch_port_common.RFP_DTYPES`) returns each rank's band of each level
+    within LEVEL_REL, the parameters' gradients summed over the ranks within
+    HALO_GRAD_REL, no image gradient on either side (its stem is cut from
+    the graph), nothing gathered (`tests/test_torch_port_model_axis_rfp.py`
+    holds it further)."""
+    runs = request.getfixturevalue("runs")
     if neck == "msdeform_pixel_decoder":
-        whole, ranks = request.getfixturevalue("runs")["decoder"]
+        whole, ranks = runs["decoder"]
         for i, want in enumerate(whole["levels"]):
             scale = float(want.abs().max())
             assert [r["rows"][i] for r in ranks] == [(0, want.shape[1] // 2),
@@ -359,14 +374,11 @@ def test_band_split_raises_for_other_backbones_naming_f7c(backbone, neck, reques
         assert all(r["comm"]["gather"] == dp_check.decoder_gather_bytes((64, 96), 2, 1, 6)
                    for r in ranks)
         return
-    bb = build_backbone(backbone)
-    nk = build_neck(neck, bb)
-    token = _fake_split("rows")
-    try:
-        with pytest.raises(NotImplementedError, match="F7d"):
-            backbone_and_neck(bb, nk, torch.zeros(1, 64, 64, 3))
-    finally:
-        model_axis._SPLIT.reset(token)
+    assert build_neck(neck, build_backbone(backbone)) is None
+    whole, ranks = runs[backbone]
+    assert whole["grad_img"] is None
+    assert_rfp_bands(whole, ranks, LEVEL_REL, HALO_GRAD_REL)
+    assert [r["inputs"] for r in ranks] == [[(1, 32, 96, 3)]] * 2
 
 
 def test_frame_split_needs_the_clip_length():

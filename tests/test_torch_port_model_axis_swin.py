@@ -36,8 +36,10 @@ processes of their own, at nice 19 beside the JAX compile):
   and the parameters' gradients summed over the ranks within 1e-4;
 - one Swin-tiny VPS step with drop path 0.3 over 2 band ranks at 160x96
   against one process: losses within 1e-4, the gradient within 1e-3.
-Also what still raises (naming ROADMAP F7d), the band layout, the window
-plan's ring and the drop-path draws.
+Also the cases ROADMAP F7d named, which the split now runs (the
+MSDeformAttn decoder over Swin-tiny and MiT-b0, DetectoRS R-50 and the RFP
+Swin-tiny, on 2 bands of 64x96), the band layout, the window plan's ring
+and the drop-path draws.
 """
 
 import concurrent.futures
@@ -53,10 +55,13 @@ from torch_port_common import (
     _collect,
     _send_spec,
     _spawn,
+    assert_rfp_bands,
     jax_relu_decisions,
     perturbed_variables,
     rel_err,
     relu_call_order,
+    rfp_pyramid_case,
+    seeded_rfp,
     weight_of,
 )
 
@@ -88,6 +93,7 @@ LEVEL_REL, HALO_GRAD_REL = 1e-5, 1e-4
 BANDS = {"2_bands_64x96": (2, (64, 96)), "4_bands_128x192": (4, (128, 192)),
          "160_rows_over_2": (2, (160, 96)), "224_rows_over_4": (4, (224, 64))}
 BACKBONES = ("swin_tiny", "mit_b0")
+RFP_BACKBONES = ("detectors_r50", "swin_tiny_rfp")
 DECODER_CASE = "2_bands_64x96"  # each backbone with the MSDeformAttn decoder too
 NICE = 19  # the port's processes yield the cores to the JAX job while it compiles
 
@@ -194,6 +200,9 @@ def runs(jax_job):
             models[f"{name}.weights"] = tuple(m.state_dict() for m in models[name])
         cases = {(name, case): _band_case(models, name, *BANDS[case])
                  for case in BANDS for name in BACKBONES}
+        for name in RFP_BACKBONES:  # no neck, 2 bands of 64x96
+            cases[(name, DECODER_CASE)] = rfp_pyramid_case(seeded_rfp(name), name,
+                                                           *BANDS[DECODER_CASE])
         for name in BACKBONES:  # with the MSDeformAttn decoder, 2 bands of 64x96
             key = f"{name}+decoder"
             models[key] = _pyramid(name, neck_type="msdeform_pixel_decoder")
@@ -280,11 +289,18 @@ def _fake_split(count: int = 2):
                                            ("swin_tiny", "msdeform_pixel_decoder"),
                                            ("mit_b0", "msdeform_pixel_decoder")])
 def test_band_split_raises_for_other_backbones_and_necks_naming_f7d(backbone, neck, request):
-    """The RFP backbones raise, naming ROADMAP F7d. Swin and MiT with the
-    MSDeformAttn decoder raised too until F7d's part 3 put the decoder on
-    the bands: over 2 bands of 64x96 each rank now gets its band of each
-    level, the whole forward's rows within LEVEL_REL, having gathered only
-    the encoder's value maps (and MiT its reduced keys)."""
+    """What ROADMAP F7d named, the band split runs now. Swin and MiT with
+    the MSDeformAttn decoder (F7d part 3): over 2 bands of 64x96 each rank
+    gets its band of each level, the whole forward's rows within LEVEL_REL,
+    having gathered only the encoder's value maps (and MiT its reduced
+    keys). The RFP backbones (part 4; no neck: `build_neck` gives None for
+    them, whatever `neck` says): over 2 bands of 64x96 each rank gets its
+    band of each level within LEVEL_REL, the parameters' gradients summed
+    over the ranks within HALO_GRAD_REL (DetectoRS in fp64,
+    `torch_port_common.RFP_DTYPES`; it takes no image gradient, its stem
+    cut from the graph; the RFP Swin's within HALO_GRAD_REL), nothing
+    gathered (`tests/test_torch_port_model_axis_rfp.py` holds them
+    further)."""
     if neck == "msdeform_pixel_decoder":
         whole, ranks = request.getfixturevalue("runs")["bands"][(f"{backbone}+decoder",
                                                                  DECODER_CASE)]
@@ -300,14 +316,11 @@ def test_band_split_raises_for_other_backbones_and_necks_naming_f7d(backbone, ne
         assert all(r["comm"]["gather"] == decoder if backbone == "swin_tiny" else
                    r["comm"]["gather"] > decoder for r in ranks)
         return
-    bb = build_backbone(backbone)
-    nk = build_neck(neck, bb)
-    token = _fake_split()
-    try:
-        with pytest.raises(NotImplementedError, match="F7d"):
-            backbone_and_neck(bb, nk, torch.zeros(1, 64, 64, 3))
-    finally:
-        model_axis._SPLIT.reset(token)
+    assert build_neck(neck, build_backbone(backbone)) is None
+    whole, ranks = request.getfixturevalue("runs")["bands"][(backbone, DECODER_CASE)]
+    assert (whole["grad_img"] is None) == backbone.startswith("detectors")
+    assert_rfp_bands(whole, ranks, LEVEL_REL, HALO_GRAD_REL)
+    assert [r["inputs"] for r in ranks] == [[(1, 32, 96, 3)]] * 2
 
 
 @pytest.mark.parametrize("name", BACKBONES)

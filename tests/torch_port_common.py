@@ -36,11 +36,13 @@ from video_knet_tpu.models.knet import branch_assignment_costs
 from video_knet_tpu.models.swin import SwinTransformer as JSwin
 from video_knet_tpu.utils import checkpoint as jck
 from video_knet_tpu_torch.tools.data_check import write_ytvis_cocovid
+from video_knet_tpu_torch.models.backbones import backbone_and_neck, build_backbone
 from video_knet_tpu_torch.models.layers import init_parameters
 from video_knet_tpu_torch.tools.train_check import (
     NECK_LAYERS,
     draw_zero_init_leaves,
     image_check_cfg,
+    relu_pattern,
 )
 from video_knet_tpu_torch.utils.checkpoint import save_checkpoint
 from video_knet_tpu_torch.utils.convert import load_flax_variables, state_dict_to_flax
@@ -256,6 +258,80 @@ def jax_shallow_neck():
     """While active, JAX's `build_neck` builds `_ShallowDecoder` (it imports
     the decoder class when called); trace the JAX function inside it."""
     return mock.patch.object(jdec, "MSDeformAttnPixelDecoder", _ShallowDecoder)
+
+
+# ------------------------------------------------- the RFP backbones on bands
+
+# DetectoRS in fp64: its random levels reach ~1e4 over the two RFP passes,
+# and fp32 sums over a band and over the whole map round apart by ~1e-4 of
+# a parameter's gradient where they cancel (a SAC switch's bias: a scalar
+# summed over every pixel); the RFP Swin's levels are normed, fp32 holds
+RFP_DTYPES = {"detectors_r50": torch.float64, "swin_tiny_rfp": torch.float32}
+
+
+def seeded_rfp(name: str, seed: int = 0) -> torch.nn.Module:
+    """A seeded RFP backbone in eval mode, in its case's dtype: the
+    zero-initialized leaves drawn nonzero, DetectoRS's statistics off their
+    init."""
+    gen = torch.Generator().manual_seed(seed)
+    backbone = build_backbone(name)
+    init_parameters(backbone, gen)
+    draw_zero_init_leaves(backbone, gen)
+    with torch.no_grad():
+        for key, buf in backbone.named_buffers():
+            if key.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=gen)
+            elif key.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=gen)
+    return backbone.to(RFP_DTYPES[name]).eval()
+
+
+def rfp_pyramid_case(backbone, name: str, n_model: int, hw) -> tuple[dict, dict]:
+    """The band split's spec of RFP `backbone` (`name`, from `seeded_rfp`)
+    over `n_model` ranks on a seeded image of `hw` (`dp_check.pyramid_share`),
+    and the whole forward and backward here, whose ReLU decisions the bands
+    replay: (spec, {"levels", "grad_img" (None for DetectoRS: its stem is
+    cut from the graph), "grads"})."""
+    rng = np.random.RandomState(n_model + hw[0])
+    img = torch.from_numpy(rng.randn(1, *hw, 3)).to(RFP_DTYPES[name])
+    x = img.clone().requires_grad_(True)
+    relus: list = []
+    with relu_pattern(relus):
+        levels = backbone_and_neck(backbone, None, x)
+    cot = [torch.from_numpy(rng.randn(*lv.shape)).to(lv.dtype) for lv in levels]
+    sum((lv * c).sum() for lv, c in zip(levels, cot)).backward()
+    grads = {f"backbone.{n}": p.grad.clone() for n, p in backbone.named_parameters()
+             if p.grad is not None}
+    backbone.zero_grad(set_to_none=True)
+    whole = dict(levels=[lv.detach() for lv in levels], grad_img=x.grad, grads=grads)
+    spec = dict(kind="pyramid", n_model=n_model, backbone=name, img=img, cotangents=cot,
+                weights=(backbone.state_dict(), None), relus=relus or None)
+    return spec, whole
+
+
+def assert_rfp_bands(whole: dict, ranks: list, level_rel: float, grad_rel: float) -> None:
+    """`rfp_pyramid_case`'s whole forward against its ranks' results: each
+    rank's band of each level within `level_rel` of the level's largest
+    magnitude, the bands covering the level; the parameters' gradients
+    summed over the ranks within `grad_rel` of each one's largest
+    magnitude; the image's absent on every side (DetectoRS) or, summed,
+    within `grad_rel`; nothing gathered."""
+    for i, want in enumerate(whole["levels"]):
+        scale = float(want.abs().max())
+        for r in ranks:  # each rank's band of the level, no gather of the pyramid
+            a, b = r["rows"][i]
+            assert float((r["levels"][i] - want[:, a:b]).abs().max()) <= level_rel * scale, i
+        assert ranks[0]["rows"][i][0] == 0 and ranks[-1]["rows"][i][1] == want.shape[1]
+    if whole["grad_img"] is None:
+        assert all(r["grad_img"] is None for r in ranks)
+    else:
+        grad = sum(r["grad_img"] for r in ranks)
+        assert rel_err(grad.numpy(), whole["grad_img"].numpy()) <= grad_rel
+    assert set(whole["grads"]) == set().union(*(r["grads"] for r in ranks))
+    for k, g in whole["grads"].items():
+        got = sum(r["grads"][k] for r in ranks if k in r["grads"])
+        assert float((got - g).abs().max()) <= grad_rel * float(g.abs().max()), k
+    assert all(r["comm"]["gather"] == 0 and r["comm"]["halo"] > 0 for r in ranks)
 
 
 # ------------------------------------------------- CLIs in process (both packages)

@@ -28,11 +28,6 @@ PYRAMID_BACKBONES = ("detectors_r50", "detectors_r101", "swin_b_rfp",
                      "swin_base_rfp", "swin_t_rfp", "swin_tiny_rfp")
 
 
-# backbones and necks whose layers run on a band of the image rows (the band split)
-BANDED_BACKBONES = (ResNet, SwinTransformer, MixVisionTransformer)
-BANDED_NECKS = (FPN, MSDeformAttnPixelDecoder)
-
-
 def backbone_is_pyramid(name: str) -> bool:
     return name in PYRAMID_BACKBONES
 
@@ -92,13 +87,14 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     it, gathered nowhere; the share stays active for the heads and the
     losses. The frame split returns this rank's frames of each clip, rows
     `model_axis.frame_rows` of `img` (`model_axis.in_frames`). The band
-    split (ResNet, Swin and MiT with the FPN) takes every height at which
-    JAX's whole VPS step runs, the multiples of 8 rows, with at least as
-    many stride-32 rows (the last one partial) as bands: every band but
-    the last ends on a whole stride-32 row, the last holds the rest (376
-    rows over 2: 192 + 184). It runs ResNet, Swin and MiT with the FPN or
-    the MSDeformAttn pixel decoder (`BANDED_NECKS`; the RFP backbones
-    raise NotImplementedError). It returns this rank's band of each level
+    split takes every height at which JAX's whole VPS step runs, the
+    multiples of 8 rows, with at least as many stride-32 rows (the last one
+    partial) as bands: every band but the last ends on a whole stride-32
+    row, the last holds the rest (376 rows over 2: 192 + 184). It runs
+    every backbone and neck `build_backbone` and `build_neck` make: ResNet,
+    Swin and MiT with the FPN or the MSDeformAttn pixel decoder, and the
+    RFP backbones (DetectoRS and the RFP Swin), which have no neck. It
+    returns this rank's band of each level
     (`model_axis.in_band`), its rows of the whole level at any height
     (`model_axis.level_bands`); a consumer that needs the whole map gathers
     it (`model_axis.whole_map`). ValueError for a height it does not take.
@@ -107,11 +103,6 @@ def backbone_and_neck(backbone: nn.Module, neck: nn.Module | None, img, generato
     if split is None:
         return _pyramid(backbone, neck, img, generator)
     if split.kind == "rows":
-        if type(backbone) not in BANDED_BACKBONES or type(neck) not in BANDED_NECKS:
-            raise NotImplementedError(
-                f"the band split of the mesh's `model` axis runs ResNet, Swin and MiT with the "
-                f"FPN or the MSDeformAttn pixel decoder, not {type(backbone).__name__} + "
-                f"{type(neck).__name__} (ROADMAP F7d)")
         band, select = image_band(split, img.shape[1], img.shape[2])
         with running_share(band, select):
             share = _pyramid(backbone, neck, select(img), generator)

@@ -20,7 +20,20 @@ Counterpart of `video_knet_tpu/models/rfp.py`:
 Numerics follow the reference: the DetectoRS stem pads (3, 3) and its max
 pool (1, 1) with -inf, symmetric; SAC's convolutions pad (d, d)
 symmetrically even at stride 2, while the plain conv2 pads as XLA's "SAME";
-SAC's average pool counts the padded zeros. `RFP` builds its backbones with
+SAC's average pool counts the padded zeros.
+
+On a band of the image rows (the band split of the mesh's `model` axis,
+`parallel/model_axis.py`) every layer gives the whole map's rows of this
+band: SAC's two global means are the band's sums, summed over the `model`
+group, over the whole map's pixels; its 5x5 pool and its dilated convs
+read the rows their windows reach past the band (2 rows for the pool, d
+for the conv at dilation d) from the other bands at the whole map's
+padding (`model_axis.window_rows`), the stride-2 SACs' bands all starting
+on an even row; the stem's max pool is ResNet's banded one; the Swin pads
+and shifts its windows by the whole map's height; the 1x1 convs, the
+frozen BatchNorm, the FPN, the feedback of FPN level s into stage s + 1
+(the same stride, so the band's own rows) and the fusion are band-local
+or banded already. `RFP` builds its backbones with
 the reference's defaults whatever the model config says: the DetectoRS
 ResNet with `frozen_stages=1` (the activations leaving the stem and layer1
 are cut from the graph; their parameters stay trainable, as the
@@ -37,9 +50,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_knet_tpu_torch.models.layers import BatchNorm, Conv2d, FastVarianceLayerNorm
+from video_knet_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    FastVarianceLayerNorm,
+    max_pool_3x3_s2,
+)
 from video_knet_tpu_torch.models.resnet import FPN, RESNET_STAGE_BLOCKS
 from video_knet_tpu_torch.models.swin import SWIN_PRESETS, PatchMerging, SwinBlock, shift_attn_mask
+from video_knet_tpu_torch.parallel.model_axis import (
+    in_band,
+    level_bands,
+    level_height,
+    model_sum,
+    window_rows,
+)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -71,18 +96,43 @@ class SAConv(nn.Module):
         self.weight_diff.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.pre_context(x.mean(dim=(1, 2), keepdim=True))
+        band = in_band()
+        x = x + self.pre_context(_global_mean(x, band))
         # a contiguous NCHW input: the CUDA backward of avg_pool2d on a
         # channels-last view is wrong in PyTorch 2.11 (PERF.md section 6)
-        pooled = _nhwc(F.avg_pool2d(_nchw(x).contiguous(), 5, stride=1, padding=2,
+        pooled = _nhwc(F.avg_pool2d(_nchw(_rows_read(x, band, 5, 1, 2)).contiguous(), 5,
+                                    stride=1, padding=(2 if band is None else 0, 2),
                                     count_include_pad=True))
         switch = torch.sigmoid(self.switch(pooled))
-        xc = _nchw(x)
-        s = self.stride
-        near = _nhwc(F.conv2d(xc, self.weight, stride=s, padding=1, dilation=1))
-        far = _nhwc(F.conv2d(xc, self.weight + self.weight_diff, stride=s, padding=3, dilation=3))
+        near = self._dilated(x, self.weight, 1, band)
+        far = self._dilated(x, self.weight + self.weight_diff, 3, band)
         out = switch * near + (1.0 - switch) * far
-        return out + self.post_context(out.mean(dim=(1, 2), keepdim=True))
+        return out + self.post_context(_global_mean(out, band))
+
+    def _dilated(self, x: torch.Tensor, weight: torch.Tensor, d: int, band) -> torch.Tensor:
+        """The 3x3 conv at dilation `d`, padded (d, d); on a band, run on
+        the rows its windows read (2d + 1 a window) with no row padding."""
+        y = _nchw(_rows_read(x, band, 2 * d + 1, self.stride, d))
+        return _nhwc(F.conv2d(y, weight, stride=self.stride, padding=(d if band is None else 0, d),
+                              dilation=d))
+
+
+def _global_mean(x: torch.Tensor, band) -> torch.Tensor:
+    """NHWC `x`'s mean over the map's pixels, [B, 1, 1, C]; on a band the
+    band's sum summed over the `model` group over the whole map's pixels."""
+    if band is None:
+        return x.mean(dim=(1, 2), keepdim=True)
+    rows, cols = x.shape[1:3]
+    return model_sum(x.sum(dim=(1, 2), keepdim=True)) / (level_height(rows, cols) * cols)
+
+
+def _rows_read(x: torch.Tensor, band, k: int, s: int, pad: int) -> torch.Tensor:
+    """`x` itself off a band; on one, the rows of the whole map that a
+    `k`-row window at stride `s` over the map padded by `pad` zero rows on
+    either side reads for this band's output rows (`model_axis.window_rows`)."""
+    if band is None:
+        return x
+    return window_rows(x, level_bands(*x.shape[1:3], band), k, s, pad, pad, 0.0, band)
 
 
 class DetectoRSBottleneck(nn.Module):
@@ -149,8 +199,7 @@ class DetectoRSResNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rfp_feats: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = _nhwc(F.max_pool2d(_nchw(y), 3, stride=2, padding=1))
+        y = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         if self.frozen_stages >= 0:
             y = y.detach()
         outs = []
@@ -198,7 +247,8 @@ class SwinTransformerRFP(nn.Module):
         x = self.patch_norm(self.patch_embed(x))
         outs = []
         for s, depth in enumerate(self.depths):
-            hp, wp = (-(-n // ws) * ws for n in x.shape[1:3])
+            # the whole map's padded size, on a band too
+            hp, wp = (-(-n // ws) * ws for n in (level_height(*x.shape[1:3]), x.shape[2]))
             # the shifted (odd) blocks shift only when the padded map exceeds the window
             mask = shift_attn_mask(hp, wp, ws, ws // 2, x.device) if min(hp, wp) > ws else None
             for b in range(depth):

@@ -35,10 +35,10 @@ pyramid:
   site names its sum: `model_sum` never sums over frames and `frame_sum`
   never over bands;
 - "rows": a band of the image rows, for ResNet, Swin and MiT with the FPN
-  or the MSDeformAttn pixel decoder,
-  at every height at which JAX's whole VPS step runs: a multiple of 8 rows
-  (`ROWS_MULTIPLE`; at other heights the step's stride-8 mask logits,
-  upscaled, miss the GT's rows). The image's ceil(H / 32) stride-32 rows
+  or the MSDeformAttn pixel decoder and for the RFP backbones (DetectoRS,
+  the RFP Swin; no neck), at every height at which JAX's whole VPS step
+  runs: a multiple of 8 rows (`ROWS_MULTIPLE`; at other heights the step's
+  stride-8 mask logits, upscaled, miss the GT's rows). The image's ceil(H / 32) stride-32 rows
   split as frames do (`band_units`: the first bands one more where the
   count does not divide); every band but the last ends on a whole
   stride-32 row and the last holds the partial one (376 rows over 2: 6 + 6
@@ -67,9 +67,13 @@ pyramid:
   ring that joins the map's last rows to its first), each MiT block the
   whole spatially reduced keys and values (`whole_map`), each layer of the
   deformable encoder the whole value maps of its three levels
-  (`whole_maps`: its sampling points reach anywhere), and the aligned
+  (`whole_maps`: its sampling points reach anywhere), SAC's 5x5 pool and
+  its dilated 3x3 convs a halo of 2 and of d rows at dilation d (3 at
+  most; on bands of one row the halo reaches past the neighbouring band,
+  and `fetch_rows` serves it from the band that owns it), and the aligned
   head and the RoI track head, whose warps and boxes reach anywhere, the
-  whole pyramid and the whole fused map.
+  whole pyramid and the whole fused map. SAC's global context is a band's
+  partial sum, summed over `model`, over the whole map's pixels.
   Every sum over pixels is a band's partial sum, summed over the `model`
   group before it is used (`model_sum`: GroupNorm's statistics, K1's
   pooled features, the Hungarian costs' and the dice loss's sums, the

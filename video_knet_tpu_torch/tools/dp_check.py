@@ -12,9 +12,10 @@ spec {"kind": "gather", "items"} instead runs
 {"kind": "any_rank", "flags"} `any_rank` on rank r's `flags[r]` (the
 preemption flag's agreement), {"kind": "replicated"} `mesh.replicated`
 on a module filled with rank + 1, and {"kind": "pyramid"} a backbone +
-FPN's `backbone_and_neck` under the band or the frame split
-(`pyramid_share`), {"kind": "band_pieces"} the heads' banded layers and
-sums (`band_pieces`), {"kind": "resize_pieces"} the banded resizes whose
+FPN's (or an RFP backbone's) `backbone_and_neck` under the band or the
+frame split (`pyramid_share`), {"kind": "rfp_pieces"} the RFP's SAC and
+bottleneck on a band (`rfp_pieces`), {"kind": "band_pieces"} the heads'
+banded layers and sums (`band_pieces`), {"kind": "resize_pieces"} the banded resizes whose
 factor is not whole (`resize_pieces`), and {"kind": "frame_pieces"} the VIS heads' and loss
 block's pieces on a rank's frames (`frame_pieces`).
 `launch(world, argv, tmp)` starts any module's command line that way (the
@@ -350,18 +351,23 @@ def train_steps(mesh: DataMesh, device, spec: dict, record: list | None = None,
 
 def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     """The backbone `spec["backbone"]` (a `build_backbone` name: ResNet,
-    Swin or MiT) with the neck `spec["neck"]` (a `build_neck` type, the FPN
-    by default; `spec["weights"]`: their state dicts, eval mode) through
+    Swin, MiT or an RFP backbone) with the neck `spec["neck"]` (a
+    `build_neck` type, the FPN by default; None over an RFP backbone, whose
+    output is the pyramid; `spec["weights"]`: their state dicts, the RFP's
+    neck's None; eval mode) through
     `backbone_and_neck` under the band split of `mesh`'s
     `model` axis, or with `spec["frames"]` (clips of that many frames in
     `spec["img"]`) the frame split, on this rank's data index's rows of
     `spec["img"]` (one data index), replaying the one-process forward's
     ReLU decisions `spec["relus"]` if given, and backward from this rank's
-    share of `spec["cotangents"]` (one a level). Returns this rank's band
+    share of `spec["cotangents"]` (one a level), all in `spec["img"]`'s
+    dtype. Returns this rank's band
     or frames of each level (no gather) and its (first, end) rows (the
     levels' rows of a band; the batch rows b*T + t of the frames), the
-    image's and the parameters' gradients from this rank, the shape the
-    backbone took and the bytes handed to the collectives."""
+    image's gradient (None where the backbone cuts the image from the
+    graph: DetectoRS's frozen stem) and the parameters' that reach the
+    levels from this rank, the shape the backbone took and the bytes handed
+    to the collectives."""
     from video_knet_tpu_torch.models.backbones import (
         backbone_and_neck,
         build_backbone,
@@ -372,10 +378,13 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     from video_knet_tpu_torch.utils.device import set_fp32_numerics
 
     set_fp32_numerics()
-    backbone = build_backbone(spec["backbone"]).to(device).eval()
-    neck = build_neck(spec.get("neck", "fpn"), backbone).to(device).eval()
+    dtype = spec["img"].dtype
+    backbone = build_backbone(spec["backbone"]).to(device, dtype).eval()
     backbone.load_state_dict(spec["weights"][0])
-    neck.load_state_dict(spec["weights"][1])
+    neck = build_neck(spec.get("neck", "fpn"), backbone)
+    if neck is not None:
+        neck = neck.to(device, dtype).eval()
+        neck.load_state_dict(spec["weights"][1])
     img = shard_batch(mesh, spec["img"]).to(device).requires_grad_(True)
     inputs = []
     backbone.register_forward_pre_hook(lambda _, args: inputs.append(tuple(args[0].shape)))
@@ -401,11 +410,70 @@ def pyramid_share(mesh: DataMesh, device, spec: dict) -> dict:
     sum((lv * c).sum() for lv, c in zip(levels, cots)).backward()
     grads = {f"{tag}.{n}": p.grad.detach().cpu() for tag, m in (("backbone", backbone),
                                                                  ("neck", neck))
-             for n, p in m.named_parameters()}
+             if m is not None for n, p in m.named_parameters() if p.grad is not None}
     return dict(levels=[lv.detach().cpu() for lv in levels],
                 rows=[r if isinstance(r, list) else (r.start, r.stop) for r in rows],
-                grad_img=img.grad.detach().cpu(), grads=grads, inputs=inputs,
-                comm=dict(model_axis.BYTES))
+                grad_img=None if img.grad is None else img.grad.detach().cpu(), grads=grads,
+                inputs=inputs, comm=dict(model_axis.BYTES))
+
+
+def rfp_pieces(mesh: DataMesh, device, spec: dict) -> list[dict]:
+    """The RFP's modules (`models/rfp.py`: SAC, the DetectoRS bottleneck)
+    on this rank's band of an image of `spec["hw"]` under the band split of
+    `mesh`'s `model` axis (one data index). Each of `spec["cases"]`:
+    {"module": (a class of `models/rfp.py`, its args, its kwargs),
+    "weights": its state dict (eval mode), "inputs": NHWC whole maps of
+    strides of the image, "cot": the output's cotangent, "relus": the whole
+    maps' ReLU decisions, replayed on the band}; it runs on the band of each
+    input, backward from the band of `cot`. Returns, a case, the output's
+    band and its (first, end) rows, each input's gradient (its band), the
+    parameters' gradients from this rank, whether every ReLU decision was
+    replayed, and the bytes handed to the collectives. In one process: the
+    whole maps."""
+    from video_knet_tpu_torch.models import rfp
+    from video_knet_tpu_torch.parallel.mesh import data_parallel
+    from video_knet_tpu_torch.tools.train_check import relu_pattern
+
+    out = []
+    with data_parallel(mesh), model_axis.model_split(mesh, "rows"):
+        split = model_axis.active_split()
+        for case in spec["cases"]:
+            name, args, kwargs = case["module"]
+            module = getattr(rfp, name)(*args, **kwargs).to(device).eval()
+            module.load_state_dict(case["weights"])
+            model_axis.reset_bytes()
+            with (contextlib.nullcontext() if split is None else
+                  model_axis.running_share(*model_axis.image_band(split, *spec["hw"]))):
+                xs = [_band_of(x, 1, device, grad=True) for x in case["inputs"]]
+                relus = case["relus"]
+                with relu_pattern((model_axis.local_share(d) for d in relus),
+                                  replay=True) as stats:
+                    y = module(*xs)
+                cot = case["cot"]
+                (y * _band_of(cot, 1, device)).sum().backward()
+                band = model_axis.in_band()
+                rows = (slice(0, cot.shape[1]) if band is None else
+                        model_axis.band_rows(cot.shape[1], cot.shape[2], band))
+            out.append(dict(out=y.detach().cpu(), rows=(rows.start, rows.stop),
+                            grad_inputs=[x.grad.cpu() for x in xs],
+                            grads={n: p.grad.cpu() for n, p in module.named_parameters()},
+                            replayed=stats["calls"] == len(relus),
+                            comm=dict(model_axis.BYTES)))
+    return out
+
+
+def sac_reduces(backbone: torch.nn.Module, images: int) -> tuple[int, int]:
+    """The all-reduces a rank hands the `model` group for the SAC global
+    contexts of `backbone` (an RFP's or its DetectoRS ResNet) in one train
+    step on the bands of `images` images, and their bytes (fp32): two a SAC
+    a pass (the pre- and post-context sums, [images, 1, 1, C] each),
+    forward and again backward; (0, 0) without SAC."""
+    from video_knet_tpu_torch.models.rfp import SAConv
+
+    sacs = [m for m in backbone.modules() if isinstance(m, SAConv)]
+    passes = getattr(backbone, "rfp_steps", 1)
+    widths = sum(m.pre_context.weight.shape[0] + m.post_context.weight.shape[0] for m in sacs)
+    return 2 * 2 * passes * len(sacs), 2 * passes * widths * images * 4
 
 
 def decoder_gather_bytes(hw: tuple[int, int], n_model: int, images: int, layers: int,
@@ -903,6 +971,9 @@ def _worker(spec_path: str, out_dir: str) -> None:
             elif spec["kind"] == "pyramid":
                 results.append(pyramid_share(distributed.global_mesh(spec["n_model"]), device,
                                              spec))
+            elif spec["kind"] == "rfp_pieces":
+                results.append(rfp_pieces(distributed.global_mesh(spec["n_model"]), device,
+                                          spec))
             elif spec["kind"] == "band_pieces":
                 results.append(band_pieces(distributed.global_mesh(spec["n_model"]), device,
                                            spec))
