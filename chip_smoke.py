@@ -371,7 +371,19 @@ Phases, each raising on failure (the process then exits non-zero):
                backbone at 376x1248 (swin-b-rfp-376), 1 step; per rank: step
                ms, peak memory beside the one-process run's, the halo, ring
                and gather bytes a step
- 56. kernel-shapes  K1 and K2 against their plain versions at every shape a
+ 56. profile-train  `tools/profile_train.py:profile` at its default
+               configuration (R-50, KITTI-STEP heads, max_insts 8), 384x1248,
+               B=1, fp32 then bf16: the step's time split into full, forward,
+               backbone + neck, loss block and the heads' estimate (median and
+               spread of PROFILE_ITERS calls a part), each part's FLOPs, bytes
+               and ideal times; every time finite and positive, a full step
+               7 / 7 / 1 launches; both reports printed
+ 57. kitti-prepare  a raw KITTI-STEP tree (train sequences 0 and 1, val
+               sequence 2, 2 frames of 376x1248 each) through
+               `tools/kitti_step_prepare`, then 2 `tools/train_vps` steps of
+               B=2 on the prepared tree (R-50, 384x1248): 7 / 7 / 1 launches a
+               step, finite losses
+ 58. kernel-shapes  K1 and K2 against their plain versions at every shape a
                path launched them (`mask_ops.SHAPES`) that phase 3 did not
                hold
 Every VPS serving phase resets the launch counts just before it drives its
@@ -665,6 +677,11 @@ ALIGN_TRAIN_STEPS = 3
 ALIGN_SEED = 0
 DCN_SHAPE = (1, 48, 156, 256)  # the aligned head's stride-8 map at 384x1248
 TRACE_KERNELS = ("mask_pool_binarize_kernel", "mask_pool_partial_kernel", "assemble_kernel")
+PROFILE_ITERS = 10  # tools/profile_train.py's timed calls a part (its default)
+KITTI_RAW_HW = (376, 1248)
+KITTI_RAW_SEQS = (0, 1, 2)  # STEP's train sequences 0 and 1, val sequence 2
+KITTI_RAW_FRAMES = 2  # a frame's one reference: 4 train pairs
+KITTI_PREPARE_B = 2  # 2 train_vps steps over the 4 pairs
 
 
 def log(msg: str) -> None:
@@ -4769,6 +4786,101 @@ def phase_train_model_axis_swin(device, paths: Paths, tmp: str) -> dict:
     return out
 
 
+def phase_profile_train(device, paths: Paths) -> dict:
+    """`tools/profile_train.py:profile` at its default configuration (R-50,
+    KITTI-STEP heads, max_insts 8), 384x1248, B=1, in fp32 and in bf16:
+    every part's time finite and positive, the heads' estimate full -
+    backbone - loss block, one `full` step launching 7 / 7 / 1, and each
+    run's launches (the counts set to 0 just before it) those its parts'
+    calls make (a count pass, the warm-up and the timed calls; one forward
+    for the loss block's outputs and one step more, the one whose launches
+    the report reads). Both
+    reports are printed, each on a line of its own."""
+    from video_knet_tpu_torch.config import VideoKNetConfig
+    from video_knet_tpu_torch.tools import profile_train
+
+    calls = 1 + profile_train.WARMUP + PROFILE_ITERS
+    # `fwd` and `full` launch a step's kernels a call, the loss block its one
+    # solve; one forward makes the loss block's outputs, one more step the
+    # report's launches
+    expected = {k: (2 * calls + 1) * v + (calls * v if k == "hungarian" else v)
+                for k, v in TRAIN_LAUNCHES.items()}
+    out = {}
+    for tag, bf16 in (("fp32", False), ("bf16", True)):
+        path = f"profile-train-{tag}"
+        cfg = VideoKNetConfig(max_insts=8, bf16_train=bf16)
+        t0 = time.perf_counter()
+        _reset_counts()
+        rep = profile_train.profile(cfg, TRAIN_HW, 1, iters=PROFILE_ITERS, device=device)
+        paths.launches[path] = _counts()
+        secs = time.perf_counter() - t0
+        log(f"[{path}] {json.dumps(rep)}")
+        times = [rep[k] for k in profile_train.MS_KEYS.values()]
+        times += [t for k in profile_train.MS_KEYS.values() for t in rep[f"{k}_spread"]]
+        if not all(np.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"[{path}] times {times}")
+        est = rep["full_ms"] - rep["backbone_fwd_bwd_ms"] - rep["loss_block_fwd_bwd_ms"]
+        if rep["heads_fwd_bwd_ms_est"] != est or rep["bf16"] != bf16:
+            raise AssertionError(f"[{path}] heads {rep['heads_fwd_bwd_ms_est']} against {est}")
+        if rep["launches"] != TRAIN_LAUNCHES or paths.launches[path] != expected:
+            raise AssertionError(f"[{path}] launches in a full step {rep['launches']} (expected "
+                                 f"{TRAIN_LAUNCHES}), in the run {paths.launches[path]} "
+                                 f"(expected {expected})")
+        out[tag] = dict(report=rep, seconds=secs)
+    log(f"[profile-train] fp32 {out['fp32']['seconds']:.1f} s, bf16 {out['bf16']['seconds']:.1f}"
+        f" s; full / fwd / backbone / loss block / heads est ms: " + "; ".join(
+            f"{tag} " + " / ".join(f"{out[tag]['report'][k]:.2f}" for k in (
+                "full_ms", "fwd_ms", "backbone_fwd_bwd_ms", "loss_block_fwd_bwd_ms",
+                "heads_fwd_bwd_ms_est")) for tag in out))
+    return out
+
+
+def phase_kitti_prepare(device, paths: Paths, tmp: str) -> dict:
+    """A raw KITTI-STEP tree (`data_check.write_kitti_step_raw`: train
+    sequences 0 and 1, val sequence 2, KITTI_RAW_FRAMES frames of 376x1248
+    each) through the port's `tools/kitti_step_prepare`, then
+    `tools/train_vps` in process on the prepared tree: the R-50 default
+    config at 384x1248, B=2, one epoch of 2 steps (7 / 7 / 1 launches a
+    step, finite losses, 0 host syncs after the first step)."""
+    import video_knet_tpu_torch.train.vps as tvps
+    from video_knet_tpu_torch.data.datasets import KittiStepDVPS
+    from video_knet_tpu_torch.tools.data_check import write_kitti_step_raw
+
+    t0 = time.perf_counter()
+    images, panoptic = write_kitti_step_raw(os.path.join(tmp, "kitti_raw"), seqs=KITTI_RAW_SEQS,
+                                            n_frames=KITTI_RAW_FRAMES, hw=KITTI_RAW_HW,
+                                            n_things=DATA_THINGS, seed=DATA_SEED)
+    root = os.path.join(tmp, "kitti_prepared")
+    t1 = time.perf_counter()
+    text = _run_cli("kitti_step_prepare",
+                    ["--raw-images", images, "--raw-panoptic", panoptic, "--out", root])
+    prepare_s = time.perf_counter() - t1
+    done = [line for line in text.splitlines() if not line.startswith("skip missing ")]
+    want = [f"{split}: done -> {os.path.join(root, 'video_sequence', split)}"
+            for split in ("train", "val")]
+    if done != want:
+        raise AssertionError(f"[kitti-prepare] printed {done}")
+    for split, seqs in (("train", KITTI_RAW_SEQS[:2]), ("val", KITTI_RAW_SEQS[2:])):
+        ds = KittiStepDVPS(root, split)
+        frames = [(s, f) for s in seqs for f in range(KITTI_RAW_FRAMES)]
+        if sorted(ds.frames) != frames or any(x.ann is None for x in ds.frames.values()):
+            raise AssertionError(f"[kitti-prepare] {split}: frames {sorted(ds.frames)}")
+    steps = len(KITTI_RAW_SEQS[:2]) * KITTI_RAW_FRAMES // KITTI_PREPARE_B
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    rec = _cli_run(paths, "kitti-prepare-train", "train_vps",
+                   ["--data-root", root, "--crop", *map(str, TRAIN_HW), "--epochs", "1",
+                    "--batch-size", str(KITTI_PREPARE_B), "--log-interval", "1",
+                    "--work-dir", os.path.join(tmp, "kitti_prepare_train"), *dev],
+                   tvps, TRAIN_LAUNCHES, steps)
+    _finite_records("kitti-prepare-train", rec["records"], steps)
+    out = dict(prepare_s=prepare_s, seconds=time.perf_counter() - t0,
+               step_ms=rec["step_ms"], total=[r["total_loss"] for r in rec["records"]])
+    log(f"[kitti-prepare] raw {KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]} tree prepared in "
+        f"{prepare_s:.2f} s; train_vps {steps} steps of B={KITTI_PREPARE_B}, total_loss "
+        f"{out['total']}; the phase {out['seconds']:.1f} s")
+    return out
+
+
 @torch.no_grad()
 def _unsaturate_fusion(rfp, img) -> list[float]:
     """Scale each RFP fusion conv so that its output has unit spread on the
@@ -5173,6 +5285,13 @@ def main() -> int:
         t1 = time.perf_counter()
         model_axis.update(phase_train_model_axis_swin(device, paths, tmp))
         phase_s["train-model-axis-swin"] = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        phase_profile_train(device, paths)
+        phase_s["profile-train"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        phase_kitti_prepare(device, paths, tmp)
+        phase_s["kitti-prepare"] = time.perf_counter() - t1
     hrec["vis_data"] = vis_data["hungarian"]
     phase_kernel_shapes(device, kernels, held)
     for rec in kernels:
@@ -5183,7 +5302,7 @@ def main() -> int:
                               "data-train", "eval-hook", "cli-", "tta", "train-cli",
                               "train-vis-cli", "train-image-cli", "train-live-bn",
                               "train-dp", "rfp-", "upernet-align", "models-check",
-                              "train-model-axis"))
+                              "train-model-axis", "profile-train", "kitti-prepare"))
              and rec["name"] in c})
     log(f"[train] median step {train['median_ms']:.2f} ms, peak memory "
         f"{train['peak_bytes']} bytes, host syncs a step {train['syncs']} ({card})")
@@ -5297,8 +5416,8 @@ def main() -> int:
             f"{json.dumps(rec['comm'])}; worst vs one process {json.dumps(rec['worst'])}; hard "
             f"decisions the split takes apart a step {rec['apart']} ({card})")
     log(f"[phase-seconds] {json.dumps(phase_s)}: the VIS data, train CLI, data-parallel, "
-        f"last model modules' and model-axis phases, {sum(phase_s.values()):.1f} s together "
-        f"({card})")
+        f"last model modules', model-axis, profile-train and kitti-prepare phases, "
+        f"{sum(phase_s.values()):.1f} s together ({card})")
     medians = {p: statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
                for p, ms in paths.frame_ms.items()}
     log(f"[paths] median ms a frame (a round for streams) {json.dumps(medians)}; "

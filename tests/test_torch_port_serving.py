@@ -234,7 +234,8 @@ TRAIN_SLICE_MODULES = ("ops.losses", "ops.targets", "ops.hungarian", "ops.kernel
                        "tools.train_image", "tools.get_flops", "utils.preemption",
                        "utils.profiling", "utils.visualizer", "utils.precision", "parallel",
                        "parallel.mesh", "parallel.distributed", "tools.dp_check",
-                       "models.rfp", "models.sfnet", "models.deform_conv")
+                       "models.rfp", "models.sfnet", "models.deform_conv",
+                       "tools.profile_train", "tools.kitti_step_prepare")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -19,11 +19,13 @@ import numpy as np
 import torch
 
 LAUNCHES = {"hungarian": 0}
+BYTES = {"hungarian": 0}  # a launch's costs read once and assignments written once
 INF = np.float32(1e9)  # the reference's _INF: minv's start and a used column's key
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["hungarian"] = 0
+    BYTES["hungarian"] = 0
 
 
 def _solve_one(cost: np.ndarray, rounds: list) -> np.ndarray:
@@ -127,4 +129,5 @@ def solve(cost: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"vk_hungarian: CUDA launch failed with error {rc}")
     LAUNCHES["hungarian"] += 1
+    BYTES["hungarian"] += 4 * (lanes * r * c + lanes * r)
     return out

@@ -19,7 +19,10 @@ of every launch, so that a caller can hold each kernel against its plain
 version at every shape it was given, and `FLOPS` adds 2*B*N*H*W*C a launch
 (two per multiply-add of the contraction), what `torch.utils.flop_counter`
 counts for the plain versions' einsums on the CPU, so that
-`tools/get_flops.py` counts the same work on both devices.
+`tools/get_flops.py` counts the same work on both devices. `BYTES` adds
+the bytes a launch must move, each input read once and the output written
+once (`tools/profile_train.py` counts them: a dispatch mode cannot see
+inside a launch).
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ import torch
 LAUNCHES = {"mask_pool": 0, "assemble": 0}
 SHAPES: dict[str, set[tuple[int, ...]]] = {"mask_pool": set(), "assemble": set()}
 FLOPS = {"mask_pool": 0, "assemble": 0}
+BYTES = {"mask_pool": 0, "assemble": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         FLOPS[k] = 0
+        BYTES[k] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -200,6 +205,7 @@ class _MaskPool(torch.autograd.Function):
         LAUNCHES["mask_pool"] += 1
         SHAPES["mask_pool"].add((b, n, h, w, c))
         FLOPS["mask_pool"] += 2 * b * n * h * w * c
+        BYTES["mask_pool"] += 4 * (b * n * h * w + b * h * w * c + b * n * c)
         ctx.save_for_backward(bits)
         return out
 
@@ -269,6 +275,7 @@ class _Assemble(torch.autograd.Function):
         LAUNCHES["assemble"] += 1
         SHAPES["assemble"].add((b, n, h, w, shape_c))
         FLOPS["assemble"] += 2 * b * n * h * w * shape_c
+        BYTES["assemble"] += 4 * (b * n * shape_c + b * h * w * shape_c + b * n * h * w)
         return out
 
     @staticmethod

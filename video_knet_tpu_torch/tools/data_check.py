@@ -13,6 +13,9 @@ so G is used). Frames are the bands' colours with the boxes' over them and
 seeded noise, which compresses about as a camera frame does.
 `write_cityscapes_step_tree` writes the same scene as a Cityscapes-STEP
 image tree (`leftImg8bit/` + `panoptic/`, a directory a city).
+`write_kitti_step_raw` writes it in raw KITTI-STEP's layout
+(`images/{seq:04d}/{frame:06d}.png` and `panoptic/...`), what
+`tools/kitti_step_prepare.py` turns into the tree above.
 
 `write_semkitti_tree` writes the same scene in SemKITTI-DVPS's layout
 (`_gtFine_class.png` + `_gtFine_instance.png` and a uint16 `_depth.png` in
@@ -91,6 +94,29 @@ def write_kitti_step_tree(root: str, *, n_seqs: int = 2, n_frames: int = 6,
                 save_png(stem + "panoptic.png", pan)
                 written[stem + "panoptic.png"] = pan
     return written
+
+
+def write_kitti_step_raw(root: str, *, seqs: tuple = (0, 1, 2), n_frames: int = 6,
+                         hw: tuple[int, int] = (375, 1242), n_things: int = 15,
+                         seed: int = 0, no_ann: tuple = ()) -> tuple[str, str]:
+    """Raw KITTI-STEP under `root`, `write_kitti_step_tree`'s frames and
+    kitti_rgb GT: `images/{seq:04d}/{frame:06d}.png` and
+    `panoptic/{seq:04d}/{frame:06d}.png` for each sequence number in `seqs`
+    (its STEP split follows from the number); (seq, frame) pairs in `no_ann`
+    get no GT file. Returns (the images directory, the panoptic directory)."""
+    from video_knet_tpu_torch.data.panoptic_png import save_png
+
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(0, 256, (256, 3))
+    dirs = tuple(os.path.join(root, kind) for kind in ("images", "panoptic"))
+    for s in seqs:
+        for d in dirs:
+            os.makedirs(os.path.join(d, f"{s:04d}"), exist_ok=True)
+        for f, img, pan in _sequence(rng, palette, hw, n_things, n_frames):
+            save_png(os.path.join(dirs[0], f"{s:04d}", f"{f:06d}.png"), img)
+            if (s, f) not in no_ann:
+                save_png(os.path.join(dirs[1], f"{s:04d}", f"{f:06d}.png"), pan)
+    return dirs
 
 
 def write_cityscapes_step_tree(root: str, *, cities: tuple = ("aachen", "bremen"),
