@@ -52,6 +52,7 @@ from video_knet_tpu_torch.models.video.tracker_variants import OverlapTracker, S
 from video_knet_tpu_torch.models.video.unitrack import MaskAssociationTracker, mask_pool_embeddings
 from video_knet_tpu_torch.ops.panoptic import PanopticResult, segments_to_host
 from video_knet_tpu_torch.utils.device import resolve_device, set_fp32_numerics
+from video_knet_tpu_torch.utils.profiling import span
 from video_knet_tpu_torch.utils.tree import HostCopy, to_host, tree_index, tree_stack
 
 # KITTI-STEP: the 2 thing classes sit at indices 11 (person) and 13 (car) of
@@ -98,11 +99,27 @@ def make_device_tracker_frame_step(model: VideoKNet, cfg: VideoKNetConfig, out_h
                                thing_ids_in_orig), device=device)
     kth = cfg.test.max_per_img
 
-    def one_stream(pred, emb, semth, st, isf):
+    def decoded(res):
+        """One stream's payload but its track LUT: casts and the class LUT."""
+        ktot = res.seg_ids.shape[0]
+        cls_of = cls_table[res.labels.long()]
+        lut_s = torch.zeros(ktot + 1, dtype=torch.int32, device=res.seg_ids.device)
+        lut_s[torch.where(res.keep, res.seg_ids, 0).long()] = torch.where(res.keep, cls_of, 0)
+        pan_dtype = torch.uint8 if ktot <= 255 else torch.int16
+        return dict(
+            pan=res.panoptic_seg.to(pan_dtype),
+            lut_sem=lut_s.to(torch.int16),
+            keep=res.keep, seg_ids=res.seg_ids.to(torch.int16),
+            labels=res.labels.to(torch.int16), scores=res.scores,
+            isthing=res.isthing, areas=res.areas,
+            instance_idx=res.instance_idx.to(torch.int16),
+        )
+
+    def tracked(pred, emb, semth, st, isf):
+        """One stream's association -> (track LUT, new state)."""
         res = pred.result
         pan = res.panoptic_seg
         valid = res.keep[:kth] & res.isthing[:kth]
-        ktot = res.seg_ids.shape[0]
         sy = out_hw[0] / pan.shape[0]
         sx = out_hw[1] / pan.shape[1]
         boxes5 = dt.thing_detections_from_decode(
@@ -114,38 +131,33 @@ def make_device_tracker_frame_step(model: VideoKNet, cfg: VideoKNetConfig, out_h
         # host id convention: +1, suppressed/unassigned -> 0
         tid = torch.clamp(ids + 1, min=0) * survived.to(torch.int32)
         # every write to row 0 carries 0, so duplicate indices agree
-        lut_t = torch.zeros(ktot + 1, dtype=torch.int32, device=pan.device)
+        lut_t = torch.zeros(res.seg_ids.shape[0] + 1, dtype=torch.int32, device=pan.device)
         lut_t[torch.where(tid > 0, res.seg_ids[:kth], 0).long()] = tid
-        cls_of = cls_table[res.labels.long()]
-        lut_s = torch.zeros(ktot + 1, dtype=torch.int32, device=pan.device)
-        lut_s[torch.where(res.keep, res.seg_ids, 0).long()] = torch.where(res.keep, cls_of, 0)
-        pan_dtype = torch.uint8 if ktot <= 255 else torch.int16
-        payload = dict(
-            pan=pan.to(pan_dtype),
-            lut_track=lut_t,
-            lut_sem=lut_s.to(torch.int16),
-            keep=res.keep, seg_ids=res.seg_ids.to(torch.int16),
-            labels=res.labels.to(torch.int16), scores=res.scores,
-            isthing=res.isthing, areas=res.areas,
-            instance_idx=res.instance_idx.to(torch.int16),
-        )
-        return payload, st
+        return lut_t, st
 
     @torch.inference_mode()
     def step(img, prev_obj_feats, track_state, is_first):
         isf = _flags_tensor(is_first, img.device) if batched else bool(is_first)
         out = model.test_step(img, prev_obj_feats, isf)
-        pred = vps_decode(out["rpn_out"], out["stage_outs"], out["track_obj_feats"], cfg, None,
-                          batched=batched)
-        semth = _semantic_thing(out, pred.result.panoptic_seg.shape[-2:], cfg, batched)
-        if batched:
-            per = [one_stream(tree_index(pred, i), out["track_embeds"][i], semth[i],
-                              tree_index(track_state, i), bool(f))
-                   for i, f in enumerate(is_first)]
-            payload = tree_stack([p for p, _ in per])
-            st = tree_stack([s for _, s in per])
-        else:
-            payload, st = one_stream(pred, out["track_embeds"][0], semth, track_state, isf)
+        with span("vk.serve.decode"):
+            pred = vps_decode(out["rpn_out"], out["stage_outs"], out["track_obj_feats"], cfg,
+                              None, batched=batched)
+            semth = _semantic_thing(out, pred.result.panoptic_seg.shape[-2:], cfg, batched)
+            if batched:
+                preds = [tree_index(pred, i) for i in range(len(is_first))]
+                payload = tree_stack([decoded(p.result) for p in preds])
+            else:
+                payload = decoded(pred.result)
+        with span("vk.serve.track"):
+            if batched:
+                per = [tracked(preds[i], out["track_embeds"][i], semth[i],
+                               tree_index(track_state, i), bool(f))
+                       for i, f in enumerate(is_first)]
+                lut_t = torch.stack([lut for lut, _ in per])
+                st = tree_stack([s for _, s in per])
+            else:
+                lut_t, st = tracked(pred, out["track_embeds"][0], semth, track_state, isf)
+        payload["lut_track"] = lut_t
         payload["new_obj_feats"] = out["new_obj_feats"]
         payload["track_state"] = st
         return payload
@@ -168,28 +180,30 @@ def make_frame_step(model: VideoKNet, cfg: VideoKNetConfig, out_hw, batched: boo
     def step(img, prev_obj_feats, is_first):
         isf = _flags_tensor(is_first, img.device) if batched else bool(is_first)
         out = model.test_step(img, prev_obj_feats, isf)
-        decode_hw = None if compact_host else out_hw
-        pred = vps_decode(out["rpn_out"], out["stage_outs"], out["track_obj_feats"], cfg,
-                          decode_hw, batched=batched)
-        semantic_thing = _semantic_thing(out, pred.result.panoptic_seg.shape[-2:], cfg, batched)
-        emb = out["track_embeds"] if batched else out["track_embeds"][0]
-        if compact_host:
-            res = pred.result
-            return dict(
-                pan=res.panoptic_seg.to(torch.int16),  # ids < 2^15 always
-                keep=res.keep, seg_ids=res.seg_ids.to(torch.int16),
-                labels=res.labels.to(torch.int16), scores=res.scores,
-                isthing=res.isthing, areas=res.areas,
-                instance_idx=res.instance_idx.to(torch.int16),
-                thing_mask_idx=pred.thing_mask_idx.to(torch.int16),
-                # bf16 on the wire (round to nearest even, as XLA's cast);
-                # the host re-floats
-                embeds=emb.to(torch.bfloat16),
-                semantic_thing=semantic_thing,
-                new_obj_feats=out["new_obj_feats"],
-            )
-        return dict(pred=pred, embeds=emb, semantic_thing=semantic_thing,
-                    new_obj_feats=out["new_obj_feats"])
+        with span("vk.serve.decode"):
+            decode_hw = None if compact_host else out_hw
+            pred = vps_decode(out["rpn_out"], out["stage_outs"], out["track_obj_feats"], cfg,
+                              decode_hw, batched=batched)
+            semantic_thing = _semantic_thing(out, pred.result.panoptic_seg.shape[-2:], cfg,
+                                             batched)
+            emb = out["track_embeds"] if batched else out["track_embeds"][0]
+            if compact_host:
+                res = pred.result
+                return dict(
+                    pan=res.panoptic_seg.to(torch.int16),  # ids < 2^15 always
+                    keep=res.keep, seg_ids=res.seg_ids.to(torch.int16),
+                    labels=res.labels.to(torch.int16), scores=res.scores,
+                    isthing=res.isthing, areas=res.areas,
+                    instance_idx=res.instance_idx.to(torch.int16),
+                    thing_mask_idx=pred.thing_mask_idx.to(torch.int16),
+                    # bf16 on the wire (round to nearest even, as XLA's cast);
+                    # the host re-floats
+                    embeds=emb.to(torch.bfloat16),
+                    semantic_thing=semantic_thing,
+                    new_obj_feats=out["new_obj_feats"],
+                )
+            return dict(pred=pred, embeds=emb, semantic_thing=semantic_thing,
+                        new_obj_feats=out["new_obj_feats"])
 
     return step
 
@@ -206,42 +220,57 @@ def _pipelined(steps, finish, *, window: int, depth: int, workers: int,
     into one buffer whose copy to pinned host memory is enqueued, from this
     thread, behind the window's steps; a worker thread waits on that copy's
     event only, then finishes the items. At most `depth` windows stay in
-    flight."""
+    flight.
+
+    Spans (`utils/profiling.py`), all on this thread and none open across a
+    `yield`: pulling the next item from `steps`, each `run()`, each window's
+    pack and copy, and each wait on a drain."""
     pending: collections.deque = collections.deque()  # of Futures
     buf: list = []
+    steps = iter(steps)
 
     def drain(copy, metas):
-        t0 = time.perf_counter()
         host = copy.result()
-        t1 = time.perf_counter()
+        t0 = time.perf_counter()
         out = [finish(tree_index(host, i), m) for i, m in enumerate(metas)]
         if stats is not None:
-            stats.append({"fetch_s": t1 - t0, "host_s": time.perf_counter() - t1,
+            stats.append({"host_s": time.perf_counter() - t0,
                           "frames": len(out) * frames_per_item})
         return out
 
     def flush():
-        copy = HostCopy(tree_stack([p for p, _ in buf]))
-        pending.append(pool.submit(drain, copy, [m for _, m in buf]))
-        buf.clear()
+        with span("vk.serve.pack"):
+            copy = HostCopy(tree_stack([p for p, _ in buf]))
+            pending.append(pool.submit(drain, copy, [m for _, m in buf]))
+            buf.clear()
+
+    def drained():
+        with span("vk.serve.wait_result"):
+            return pending.popleft().result()
 
     pool = ThreadPoolExecutor(max_workers=workers)
     try:
-        for barrier, run in steps:
+        while True:
+            with span("vk.serve.wait_input"):
+                item = next(steps, None)
+            if item is None:
+                break
+            barrier, run = item
             if barrier:
                 if buf:
                     flush()
                 while pending:
-                    yield from pending.popleft().result()
-            buf.append(run())
+                    yield from drained()
+            with span("vk.serve.round"):
+                buf.append(run())
             if len(buf) >= max(window, 1):
                 flush()
                 while len(pending) > max(depth, 1):
-                    yield from pending.popleft().result()
+                    yield from drained()
         if buf:
             flush()
         while pending:
-            yield from pending.popleft().result()
+            yield from drained()
     finally:
         pool.shutdown(wait=True)
 
@@ -361,7 +390,8 @@ class VPSInferencePipeline:
                 device=self._zero_obj.device)
 
     def _to_device(self, img) -> torch.Tensor:
-        return torch.as_tensor(img, dtype=torch.float32).to(self._zero_obj.device)
+        with span("vk.serve.h2d"):
+            return torch.as_tensor(img, dtype=torch.float32).to(self._zero_obj.device)
 
     def _step(self, img: torch.Tensor, is_first: bool) -> dict:
         """One device step (either tracker path); updates the carried state."""
@@ -397,8 +427,9 @@ class VPSInferencePipeline:
         finish is pure formatting), one with the host tracker (it is
         stateful and must see frames in order). A sequence boundary
         (`is_first` after the first frame) drains everything in flight, then
-        resets. stats: optional list, appended one {'fetch_s', 'host_s',
-        'frames'} dict per drained window."""
+        resets. stats: optional list, appended one {'host_s', 'frames'}
+        dict per drained window (host_s: the finish's seconds, after the
+        copy)."""
         def steps():
             for i, img in enumerate(frames):
                 is_first = (i == 0) if is_first_flags is None else bool(is_first_flags[i])
@@ -574,7 +605,8 @@ class MultiStreamVPSPipeline:
         return [self.streams[i]._finish_frame(tree_index(host, i)) for i in range(self.n)]
 
     def _step(self, imgs, flags) -> dict:
-        imgs = torch.as_tensor(imgs, dtype=torch.float32).to(self.device)
+        with span("vk.serve.h2d"):
+            imgs = torch.as_tensor(imgs, dtype=torch.float32).to(self.device)
         if self.device_tracker:
             out = self.step(imgs, self.prev_obj, self.track_state, flags)
             self.track_state = out.pop("track_state")
@@ -598,8 +630,9 @@ class MultiStreamVPSPipeline:
         and each drain (copy + every stream's finish) runs on a worker
         thread (two with the device tracker, one with the stateful host
         tracker). flags_per_round: [T][B] bools, default every stream starts
-        at round 0. stats: optional list, appended one {'fetch_s', 'host_s',
-        'frames'} dict per drained window."""
+        at round 0. stats: optional list, appended one {'host_s', 'frames'}
+        dict per drained window (host_s: the finish's seconds, after the
+        copy)."""
         def steps():
             for t, imgs in enumerate(rounds):
                 flags = (np.full((self.n,), t == 0, bool) if flags_per_round is None

@@ -72,6 +72,7 @@ from video_knet_tpu_torch.ops.targets import PanopticGT, gather_rows
 from video_knet_tpu_torch.parallel.mesh import batch_blocks, global_mean
 from video_knet_tpu_torch.parallel.model_axis import off_band, whole_map
 from video_knet_tpu_torch.utils.device import resolve_device
+from video_knet_tpu_torch.utils.profiling import span
 
 
 class BranchOutput(NamedTuple):
@@ -174,7 +175,8 @@ class VideoKNet(nn.Module):
                      generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """`generator` draws the backbone's stochastic depth (training); None
         turns it off. Backbones without one ignore it."""
-        return backbone_and_neck(self.backbone, self.neck, img, generator)
+        with span("vk.model.backbone_neck"):
+            return backbone_and_neck(self.backbone, self.neck, img, generator)
 
     def _stages(self, rpn_out: RPNOutputs, previous_obj_feats: torch.Tensor | None):
         outs = []
@@ -183,9 +185,10 @@ class VideoKNet(nn.Module):
         obj_track = None
         for s, head in enumerate(self.heads):
             prev = previous_obj_feats if s == self.num_stages - 1 else None
-            cls_score, mask_preds, object_feats, track = head(
-                rpn_out.x_feats, object_feats, mask_preds, previous_obj_feats=prev)
-            scaled = upscale_masks(mask_preds, self.cfg.head.mask_upsample_stride)
+            with span("vk.model.stage"):
+                cls_score, mask_preds, object_feats, track = head(
+                    rpn_out.x_feats, object_feats, mask_preds, previous_obj_feats=prev)
+                scaled = upscale_masks(mask_preds, self.cfg.head.mask_upsample_stride)
             outs.append(StageOutput(cls_score, mask_preds, scaled, object_feats))
             if track is not None:
                 obj_track = track
@@ -194,7 +197,9 @@ class VideoKNet(nn.Module):
     def run_branch(self, img: torch.Tensor,
                    previous_obj_feats: torch.Tensor | None = None) -> BranchOutput:
         """Full K-Net on one frame; linking at the last stage when previous given."""
-        rpn_out = self.rpn_head(self.extract_feat(img))
+        feats = self.extract_feat(img)
+        with span("vk.model.init_head"):
+            rpn_out = self.rpn_head(feats)
         outs, obj_track = self._stages(rpn_out, previous_obj_feats)
         return BranchOutput(rpn_out, outs, obj_track)
 
@@ -214,7 +219,9 @@ class VideoKNet(nn.Module):
         [B, G, h, w] are required then."""
         b = img.shape[0]
         with batch_blocks(2):  # [ref; key]: two slices of the global batch
-            both = self.rpn_head(self.extract_feat(torch.cat([ref_img, img]), generator))
+            feats = self.extract_feat(torch.cat([ref_img, img]), generator)
+            with span("vk.model.init_head"):
+                both = self.rpn_head(feats)
 
         def half(sl: slice) -> RPNOutputs:
             return RPNOutputs(*(x[sl] for x in both[:-1]), init_kernels=both.init_kernels)
@@ -364,7 +371,8 @@ def video_knet_loss(model_out: tuple[BranchOutput, BranchOutput],
     (suffixes `_ref_rpn`, `_ref`), and the tracking losses."""
     key, ref = model_out
     # all problems of the step in ONE solve (one kernel launch on the card)
-    g2p, p2g = solve_lanes(*video_knet_costs(key, ref, gt, ref_gt, cfg))
+    with span("vk.train.assign"):
+        g2p, p2g = solve_lanes(*video_knet_costs(key, ref, gt, ref_gt, cfg))
     nk = len(g2p) // 2 - 1
     key_assigns, key_p2g = g2p[:nk], p2g[nk]
     ref_assigns, ref_p2g = g2p[nk + 1:2 * nk + 1], p2g[2 * nk + 1]

@@ -19,11 +19,10 @@ and reports for each:
   - from a torch.profiler trace: device busy ms a frame (union of kernel
     intervals), the device's idle share, kernel launches a frame, the top
     kernels by device time, the device ms a frame of the port's two CUDA
-    kernels (K1 mask pool, K2 assemble), and the host<->device
-    synchronisations;
-  - for `device` and `swin`, host ms per layer with a synchronize at each layer
-    boundary (a second, separate pass; the boundaries serialize the frame,
-    so the layer sum is a little above the frame time).
+    kernels (K1 mask pool, K2 assemble), the host<->device
+    synchronisations, and the device ms a frame of the work launched inside
+    each of the program's spans (`utils/profiling.py:SPANS`), from the same
+    pass.
 With --out, also writes the full report as JSON to DIR/profile_serving.json.
 """
 
@@ -67,11 +66,10 @@ def smoke_model(cfg, device):
 
 
 PATHS = ("device", "host", "full", "streams", "mit", "swin")
-LAYER_PATHS = ("device", "swin")
 
 
 def _serving_path(path: str):
-    """(model, pipeline or None, serve(img, is_first), frames a call, frame size)."""
+    """(serve(img, is_first), frames a call, frame size)."""
     from video_knet_tpu_torch.configs import get_config
     from video_knet_tpu_torch.models.video.inference import (
         MultiStreamVPSPipeline,
@@ -83,7 +81,7 @@ def _serving_path(path: str):
         model = smoke_model(cfg, "cuda")
         pipe = VPSInferencePipeline(model, cfg, SWIN_HW, thing_ids_in_orig=None,
                                     device="cuda")
-        return model, pipe, lambda img, first: pipe.run_frame(img, is_first=first), 1, SWIN_HW
+        return lambda img, first: pipe.run_frame(img, is_first=first), 1, SWIN_HW
     cfg = smoke_config()
     if path == "mit":
         cfg = dataclasses.replace(cfg, backbone="mit_b0")
@@ -92,10 +90,10 @@ def _serving_path(path: str):
     model = smoke_model(cfg, "cuda")
     if path == "streams":
         ms = MultiStreamVPSPipeline(model, cfg, HW, 2, device="cuda")
-        return model, None, lambda img, first: ms.run_frames(img, [first, first]), 2, HW
+        return lambda img, first: ms.run_frames(img, [first, first]), 2, HW
     tracker = "quasi_dense_host" if path == "host" else "quasi_dense"
     pipe = VPSInferencePipeline(model, cfg, HW, tracker_type=tracker, device="cuda")
-    return model, pipe, lambda img, first: pipe.run_frame(img, is_first=first), 1, HW
+    return lambda img, first: pipe.run_frame(img, is_first=first), 1, HW
 
 
 def _busy_ms(events) -> float:
@@ -120,7 +118,7 @@ def profile(frames: int, path: str = "device") -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    model, pipe, serve, per_call, hw = _serving_path(path)
+    serve, per_call, hw = _serving_path(path)
     rng = np.random.RandomState(0)
     imgs = [torch.from_numpy(rng.randn(per_call, *hw, 3).astype(np.float32)).cuda()
             for _ in range(frames + 2)]
@@ -135,7 +133,10 @@ def profile(frames: int, path: str = "device") -> dict:
             serve(img, False)
             wall.append((time.perf_counter() - t0) * 1e3)
     events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    # a span's device-side annotation carries the span's name and is no work
+    names = {e.name for e in host}
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in names]
     launches = [e for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                                 "cuLaunchKernel", "cuLaunchKernelEx")]
     syncs = [e for e in events if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -154,7 +155,6 @@ def profile(frames: int, path: str = "device") -> dict:
         port[name] = dict(device_ms_per_frame=_busy_ms(evs) / frames,
                           kernel_launches_per_frame=len(evs) / frames)
 
-    layers = _layer_times(model, pipe, imgs[2:]) if path in LAYER_PATHS else None
     wall_frame = statistics.median(wall)
     return dict(
         path=path, hw=list(hw), frames=frames, frames_per_call=per_call,
@@ -166,52 +166,28 @@ def profile(frames: int, path: str = "device") -> dict:
         memcpy_calls_per_frame=len(copies) / frames,
         top_kernels_ms_per_frame=[(k[:90], v / frames) for k, v in top],
         port_kernels=port,
-        layer_ms_per_frame=layers,
+        span_ms_per_frame=_span_ms(host, dev, frames),
     )
 
 
-def _layer_times(model, pipe, imgs) -> dict:
-    """Host ms per layer with a synchronize at each boundary."""
-    from video_knet_tpu_torch.models.video import device_tracker as dt
-    from video_knet_tpu_torch.models.video import inference
+def _span_ms(host, dev, frames: int) -> dict:
+    """{span: device ms a frame of the kernels and copies whose runtime call
+    was made inside it, on the thread that opened it} for each program span
+    in the trace; a call is tied to its device work by the correlation id."""
+    from video_knet_tpu_torch.utils.profiling import SPANS
 
-    acc: dict = {}
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-        return wrapper
-
-    patched = []
-    for name in ("backbone", "neck", "rpn_head", "track_embed",
-                 *[f"mask_head_{s}" for s in range(model.num_stages)]):
-        m = getattr(model, name)
-        patched.append((m, "forward", m.forward))
-        m.forward = timed(name, m.forward)
-    for mod, attr, label in ((inference, "vps_decode", "decode"),
-                             (dt, "thing_detections_from_decode", "boxes"),
-                             (dt, "tracker_match", "tracker"),
-                             (pipe, "_finish_frame", "host_finish")):
-        patched.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, timed(label, getattr(mod, attr)))
-    try:
-        t0 = time.perf_counter()
-        for img in imgs:
-            pipe.run_frame(img, is_first=False)
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
-        for obj, attr, orig in patched:
-            if attr == "forward":
-                del obj.forward  # back to the class method
-            else:
-                setattr(obj, attr, orig)
-    out = {k: v / len(imgs) for k, v in acc.items()}
-    out["frame_total"] = total / len(imgs)
+    work: dict = {}
+    for e in dev:
+        work[e.id] = work.get(e.id, 0.0) + e.time_range.elapsed_us() / 1e3
+    calls = [e for e in host if e.id in work and e.name.startswith("cu")]
+    out = {}
+    for name in SPANS:
+        opened = [(e.thread, e.time_range.start, e.time_range.end) for e in host
+                  if e.name == name]
+        if opened:
+            out[name] = sum(work[c.id] for c in calls if any(
+                th == c.thread and s <= c.time_range.start <= end
+                for th, s, end in opened)) / frames
     return out
 
 

@@ -50,6 +50,7 @@ from video_knet_tpu_torch.parallel.mesh import DataMesh, data_parallel
 from video_knet_tpu_torch.parallel.model_axis import model_split
 from video_knet_tpu_torch.train.optim import Optimizer
 from video_knet_tpu_torch.utils.device import set_fp32_numerics
+from video_knet_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -153,21 +154,24 @@ def make_train_step(make_loss_fn: Callable[..., Callable], split: str | None = N
         n_model = mesh.n_model if mesh is not None and mesh.distributed else 1
         if n_model > 1 and split is None:
             raise ValueError(f"this step has no `model` axis; the mesh has {n_model} ranks on it")
-        state.optimizer.zero_grad()
-        model.train()
-        try:
-            with data_parallel(mesh), model_split(mesh, split):
-                total, losses = make_loss_fn(state)(batch, *args)
-                if n_model > 1:  # each model rank holds its data index's whole loss
-                    total = total / n_model
-                    losses = {k: v / n_model for k, v in losses.items()}
-                total.backward()
-        finally:
-            model.eval()
-        state.optimizer.step()
-        state.step += 1
-        out = {k: v.detach() for k, v in losses.items()}
-        out["total_loss"] = total.detach()
-        return state, global_losses(mesh, out)
+        with span("vk.train.step"):
+            state.optimizer.zero_grad()
+            model.train()
+            try:
+                with data_parallel(mesh), model_split(mesh, split):
+                    total, losses = make_loss_fn(state)(batch, *args)
+                    if n_model > 1:  # each model rank holds its data index's whole loss
+                        total = total / n_model
+                        losses = {k: v / n_model for k, v in losses.items()}
+                    with span("vk.train.backward"):
+                        total.backward()
+            finally:
+                model.eval()
+            with span("vk.train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            out = {k: v.detach() for k, v in losses.items()}
+            out["total_loss"] = total.detach()
+            return state, global_losses(mesh, out)
 
     return train_step

@@ -35,6 +35,7 @@ from video_knet_tpu_torch.train.train_state import (
 )
 from video_knet_tpu_torch.utils.device import resolve_device
 from video_knet_tpu_torch.utils.precision import bf16_forward
+from video_knet_tpu_torch.utils.profiling import span
 
 
 class VPSBatch(NamedTuple):
@@ -115,12 +116,14 @@ def make_vps_loss_fn(model: VideoKNet, cfg: VideoKNetConfig, apply=None):
         # the RoI / GT-box head embeds at the GT masks' boxes
         gt_masks = ((batch.gt.masks, batch.ref_gt.masks)
                     if cfg.track_head_type == "roi_gt_box" else ())
-        key, ref, key_emb, ref_emb = apply(cfg.bf16_train, batch.img, batch.ref_img,
-                                           generator, *gt_masks)
-        # under the band split the forward ran on a band: the GT's band too
-        losses = video_knet_loss((key, ref), (key_emb, ref_emb), gt_band(batch.gt),
-                                 gt_band(batch.ref_gt), cfg)
-        return sum(losses.values()), losses
+        with span("vk.train.forward"):
+            key, ref, key_emb, ref_emb = apply(cfg.bf16_train, batch.img, batch.ref_img,
+                                               generator, *gt_masks)
+        with span("vk.train.loss"):
+            # under the band split the forward ran on a band: the GT's band too
+            losses = video_knet_loss((key, ref), (key_emb, ref_emb), gt_band(batch.gt),
+                                     gt_band(batch.ref_gt), cfg)
+            return sum(losses.values()), losses
 
     return loss_fn
 

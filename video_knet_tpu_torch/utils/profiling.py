@@ -4,6 +4,9 @@ Counterpart of `video_knet_tpu/utils/profiling.py`:
 - `trace(logdir)`: a `torch.profiler` capture of the host and the card,
   written into `logdir` as a Chrome trace (`trace.json`, which Perfetto
   and chrome://tracing open);
+- `span(name)`: the program's own spans (`SPANS`), `record_function`
+  events on the profiler's clock while a profiler records this thread, a
+  shared null context otherwise;
 - `benchmark(fn, *args)`: the first call's seconds apart (the port has no
   compile step; the first call builds the kernels and warms the caches),
   then steady-state seconds a call, each call waited for on the devices of
@@ -21,6 +24,39 @@ from dataclasses import dataclass
 import torch
 
 TRACE_FILE = "trace.json"
+
+# every span the program opens, by layer: the model, the serving pipeline
+# (all on the thread that drives it), the train step
+SPANS = (
+    "vk.model.backbone_neck",  # VideoKNet.extract_feat
+    "vk.model.init_head",  # the init (RPN) head
+    "vk.model.stage",  # one kernel-update stage
+    "vk.serve.h2d",  # a frame or round's host-to-device copy
+    "vk.serve.decode",  # panoptic decode, semantic filter, payload casts
+    "vk.serve.track",  # the device tracker: detections, reset, association
+    "vk.serve.round",  # one round's enqueue in the serving loop
+    "vk.serve.pack",  # stack, pack and the enqueued device-to-host copy
+    "vk.serve.wait_input",  # the serving loop pulling its next round
+    "vk.serve.wait_result",  # the serving loop blocked on a drain
+    "vk.train.step",
+    "vk.train.forward",
+    "vk.train.loss",  # the loss block, `assign` inside it
+    "vk.train.assign",  # the assignment costs and the one Hungarian solve
+    "vk.train.backward",  # its kernels launch on autograd's device thread
+    "vk.train.optimizer",  # zero fills, per-group clip, AdamW, schedule
+)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span(name):` records a `name` span while a profiler records
+    this thread, and costs one check otherwise (`record_function` itself
+    costs about ten times that with no profiler on). No span stays open
+    across a `yield`, and none opens on a worker thread: a profiler
+    records neither."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
